@@ -5,13 +5,27 @@
 Phases, any failure exits non-zero without a result line:
   1. card, power limit and versions; TF32 off for the reference comparisons;
   2. build the hand-written kernels from ``dexbotic_tpu_torch/csrc``;
-  3. K1 (flash-attention forward) against its plain version at the slice's
-     prefill shapes;
+  3. K1 (flash-attention forward) against its plain version at the served
+     prompt's shape, the training step's shape and three more;
   4. K2 (fused DiT sampler) against its plain version at DiT-B width;
-  5. the slice: CogACT-7B (LLaMA-2-7B + CLIP-L/336 + DiT-B, seeded random
-     weights, bf16) served over HTTP by the port's CogActServer, with both
-     kernels' launch counts read around the served requests, then the same
-     frame through the plain path (kernels off) for a cosine check.
+  5. the serving slice: CogACT-7B (LLaMA-2-7B + CLIP-L/336 + DiT-B, seeded
+     random weights, bf16) served over HTTP by the port's CogActServer, with
+     both kernels' launch counts read around the served requests, then the
+     same frame through the plain path (kernels off) for a cosine check;
+  6. K3 (flash-attention backward) against its plain version, gradients of
+     sum(out * dO) through FlashAttention at K1's shapes, the training step's
+     (B=8, S=2048, 32 heads of 128) first; the plain version gets K3's own
+     inputs, the out and lse K1 saved;
+  7. the training slice, CogACT-7B on the LIBERO recipe with a frozen LLM
+     (rows padded to the recipe's 2048 tokens), on a synthetic Dexdata suite
+     of 480x640 frames written to a temp dir:
+     (a) one optimizer step (micro-batch 2) through the kernel path and the
+     plain path (attn_impl="xla") on the same weights, batch and injected
+     diffusion draws, compared on loss, grad_norm and the cosine of the
+     projector's and the DiT's gradients; (b) three steps (micro-batch 8,
+     accumulation 2) through CogActExp.train(), with K1/K3 launch counts read
+     around them, a finite loss at each step and checkpoint-3 holding
+     norm_stats.json; prints the step time, samples/s and peak memory.
 
 Error rule for a kernel: its max error against the plain version run in
 fp32 on the same bf16 inputs must not exceed 2x the plain bf16 version's
@@ -21,13 +35,18 @@ kernels' JSON summary and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import gc
 import io
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 
@@ -35,6 +54,21 @@ import numpy as np
 import torch
 
 REPS = 20
+
+# The recipe keeps TokenizerConfig's model_max_length, 2048, and the collator
+# pads every training row to it.  A sample of the synthetic suite is 576 image
+# tokens plus the chat template, the prompt and the 112-value action answer in
+# byte-level tokens: up to TRAIN_TOKENS.
+TRAIN_SEQ_LEN, TRAIN_TOKENS = 2048, 1304
+
+# The attention cases of phases 3 and 6: (B, S, Hq, Hkv, D, right-padded tail,
+# segments + a row that sees no key).  TRAIN_CASE is the shape training gives
+# K1 and K3 (phase 7b); SERVE_CASE the served prompt's bucket (phase 5); the
+# last two are the JAX multi-block path with GQA and a narrow GQA model.
+TRAIN_CASE = (8, TRAIN_SEQ_LEN, 32, 32, 128, TRAIN_SEQ_LEN - TRAIN_TOKENS, False)
+SERVE_CASE = (1, 832, 32, 32, 128, 59, False)
+OTHER_CASES = [(8, 832, 32, 32, 128, 59, False), (1, 1408, 32, 8, 128, 59, True),
+               (2, 832, 14, 2, 64, 59, True)]
 
 
 def card_line() -> str:
@@ -67,28 +101,33 @@ def check_bound(name: str, err: float, plain_err: float, failures: list) -> None
         failures.append(f"{name}: err {err} > bound {bound}")
 
 
+def attn_inputs(case, gen):
+    """(name, q, k, v, (q_grp, kv_grp, kv_valid), seg) of one attention case, bf16 on the card."""
+    B, S, Hq, Hkv, D, pad, packed = case
+    dev = torch.device("cuda")
+    q = torch.randn(B, S, Hq, D, generator=gen, device=dev).bfloat16()
+    k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).bfloat16()
+    v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).bfloat16()
+    valid = torch.ones(B, S, dtype=torch.int32, device=dev)
+    valid[:, S - pad:] = 0  # right padding, as the server's buckets and the collator give
+    grp = torch.cumsum(valid, 1, dtype=torch.int32)
+    q_grp = grp.clone()
+    seg = None
+    if packed:
+        seg = (torch.arange(S, device=dev) >= S // 3).int()[None].expand(B, S).contiguous()
+        q_grp[:, 5] = 0  # sees no key
+    name = f"B={B} S={S} H={Hq}/{Hkv} D={D}{' segments+masked row' if packed else ''}"
+    return name, q, k, v, (q_grp, grp, valid), seg
+
+
 def phase_flash(failures: list) -> dict:
     from dexbotic_tpu_torch.ops.attention import flash_attention_fwd, flash_attention_ref
 
     print("phase 3: K1 flash_fwd vs plain")
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1)
-    # (B, S, Hq, Hkv, D, segments + a fully masked row)
-    cases = [(1, 832, 32, 32, 128, False), (8, 832, 32, 32, 128, False),
-             (1, 1408, 32, 8, 128, True), (2, 832, 14, 2, 64, True)]
-    worst, main = 0.0, None
-    for B, S, Hq, Hkv, D, packed in cases:
-        q = torch.randn(B, S, Hq, D, generator=g, device=dev).bfloat16()
-        k = torch.randn(B, S, Hkv, D, generator=g, device=dev).bfloat16()
-        v = torch.randn(B, S, Hkv, D, generator=g, device=dev).bfloat16()
-        valid = torch.ones(B, S, dtype=torch.int32, device=dev)
-        valid[:, S - 59:] = 0  # right padding, as the server's length buckets give
-        grp = torch.cumsum(valid, 1, dtype=torch.int32)
-        q_grp = grp.clone()
-        seg = None
-        if packed:
-            seg = (torch.arange(S, device=dev) >= S // 3).int()[None].expand(B, S).contiguous()
-            q_grp[:, 5] = 0  # sees no key
+    g = torch.Generator(device="cuda").manual_seed(1)
+    worst, times = 0.0, []
+    for case in [SERVE_CASE, TRAIN_CASE, *OTHER_CASES]:
+        name, q, k, v, (q_grp, grp, valid), seg = attn_inputs(case, g)
         args = (grp, valid, None, seg, seg)
         out, lse = flash_attention_fwd(q, k, v, q_grp, *args)
         torch.cuda.synchronize()
@@ -100,18 +139,69 @@ def phase_flash(failures: list) -> dict:
         lse_err = (lse - ref_lse)[live].abs().max().item()
         ms = median_ms(lambda: flash_attention_fwd(q, k, v, q_grp, *args))
         plain_ms = median_ms(lambda: flash_attention_ref(q, k, v, q_grp, *args))
-        name = f"B={B} S={S} H={Hq}/{Hkv} D={D}{' segments+masked row' if packed else ''}"
         check_bound(name, err, plain_err, failures)
         print(f"    lse err {lse_err:.3g}  kernel {ms:.4f} ms  plain bf16 {plain_ms:.4f} ms")
         worst = max(worst, err)
+        times.append((ms, plain_ms))
+        del q, k, v, out, lse, ref, ref_lse, plain
+        free_memory()
+    # serving's shape, then training's
+    return {"max_abs_err": worst, "ms": times[0][0], "plain_ms": times[0][1],
+            "train_ms": times[1][0], "train_plain_ms": times[1][1]}
+
+
+def phase_flash_bwd(failures: list) -> dict:
+    from dexbotic_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_ref,
+        flash_attention_fwd,
+    )
+
+    print("phase 6: K3 flash_bwd vs plain (gradients of sum(out * dO) through FlashAttention)")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst, main = 0.0, None
+    # K1's cases, training's shape first: the one K3 serves on the main path
+    for case in [TRAIN_CASE, SERVE_CASE, *OTHER_CASES]:
+        name, q, k, v, ints, seg = attn_inputs(case, g)
+        q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+        dout = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
+        out = flash_attention(q, k, v, *ints, q_seg=seg, kv_seg=seg)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        got = (q.grad, k.grad, v.grad)
+        with torch.no_grad():
+            # K3's inputs: q, k, v, dO and the out and lse K1 saved for it (K1 is
+            # deterministic, so running it again gives them back)
+            out_k, lse_k = flash_attention_fwd(q, k, v, *ints, None, seg, seg)
+            if not torch.equal(out_k, out):
+                failures.append(f"{name}: K1 gave another output on the same inputs")
+            qf, kf, vf = q.float(), k.float(), v.float()
+            ref = flash_attention_bwd_ref(qf, kf, vf, *ints, out_k.float(), lse_k, dout.float(),
+                                          None, seg, seg)
+            plain = flash_attention_bwd_ref(q, k, v, *ints, out_k, lse_k, dout, None, seg, seg)
+            for label, a, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
+                err = (a.float() - r).abs().max().item()
+                check_bound(f"{name} {label}", err, (p.float() - r).abs().max().item(), failures)
+                worst = max(worst, err)
+                if not torch.isfinite(a).all():
+                    failures.append(f"{name} {label}: non-finite gradient")
+            if seg is not None and not (q.grad[:, 5] == 0).all():
+                failures.append(f"{name}: a row that sees no key got a gradient")
+            bwd_args = (q, k, v, *ints, out_k, lse_k, dout, None, seg, seg)
+            ms = median_ms(lambda: flash_attention_bwd(*bwd_args))
+            plain_ms = median_ms(lambda: flash_attention_bwd_ref(*bwd_args), reps=5)
+        print(f"    kernel {ms:.4f} ms  plain bf16 {plain_ms:.4f} ms")
         if main is None:
             main = (ms, plain_ms)
+        del q, k, v, dout, out, got, ref, plain, out_k, lse_k, bwd_args
+        free_memory()
     return {"max_abs_err": worst, "ms": main[0], "plain_ms": main[1]}
 
 
 def phase_dit(failures: list) -> dict:
     from dexbotic_tpu_torch.models.dit import DiT, DiTConfig, init_dit_
-    from dexbotic_tpu_torch.models.cogact import cast_matrices_
+    from dexbotic_tpu_torch.nn.core import cast_matrices_
     from dexbotic_tpu_torch.ops.diffusion import DiffusionSchedule
     from dexbotic_tpu_torch.ops.dit_fused import dit_sample_ref, fused_dit_sample
 
@@ -258,6 +348,185 @@ def phase_slice(failures: list) -> dict:
     return launches
 
 
+LIBERO_PROMPT = "put the black bowl in the bottom drawer of the cabinet and close it"
+
+
+def write_suite(root: str) -> str:
+    """A synthetic Dexdata suite of 480x640 PNG frames and 7-dof states (3
+    episodes of 24 frames); returns its name."""
+    from PIL import Image
+
+    from dexbotic_tpu.data.registry import register_dataset
+
+    episodes, frames = 3, 24
+    rng = np.random.default_rng(6)
+    os.makedirs(root, exist_ok=True)
+    yy, xx = np.mgrid[0:480, 0:640]
+    for e in range(episodes):
+        lines = []
+        for t in range(frames):
+            img = np.stack([(xx + 9 * t) % 256, (yy + 40 * e) % 256, (xx + yy) // 5 % 256], -1)
+            img = (img + rng.integers(0, 16, img.shape)).clip(0, 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(root, f"e{e}f{t}.png"))
+            state = np.sin(np.arange(7) * 0.7 + t * 0.2 + e) + 0.01 * rng.standard_normal(7)
+            lines.append(json.dumps({"images_1": {"type": "image", "url": f"e{e}f{t}.png"},
+                                     "state": state.tolist(), "prompt": LIBERO_PROMPT,
+                                     "is_robot": True}))
+        with open(os.path.join(root, f"e{e}.jsonl"), "w") as f:
+            f.write("\n".join(lines))
+    register_dataset({"train": {"data_path_prefix": root, "annotations": root, "frequency": 1}},
+                     prefix="smoke", meta_data={"non_delta_mask": [6], "periodic_mask": None,
+                                                "periodic_range": None})
+    return "smoke_train"
+
+
+def train_exp(dataset: str, out: str, micro: int, accum: int, steps: int):
+    """CogACT-7B on the LIBERO recipe
+    (playground/benchmarks/libero/libero_cogact.py) with one change, a frozen
+    LLM; rows of the recipe's TRAIN_SEQ_LEN tokens."""
+    from dexbotic_tpu_torch.exp import base_exp
+    from dexbotic_tpu_torch.exp.cogact_exp import CogActExp, CogActModelConfig
+    from dexbotic_tpu_torch.exp.optim import OptimizerConfig
+    from dexbotic_tpu_torch.exp.trainer import TrainerConfig
+
+    return CogActExp(
+        model=CogActModelConfig(),
+        data=base_exp.DataConfig(dataset_name=dataset, image_processor="clip_336",
+                                 aug_policy="v1"),
+        trainer=TrainerConfig(output_dir=out, max_steps=steps, per_device_batch_size=micro,
+                              gradient_accumulation_steps=accum, logging_steps=1,
+                              save_steps=steps, bf16=True, gradient_checkpointing=True,
+                              resume=False),
+        optimizer=OptimizerConfig(learning_rate=2e-5, max_grad_norm=1.0, warmup_ratio=0.03,
+                                  lr_scheduler_type="cosine", freeze_llm=True,
+                                  freeze_mm_vision=True),
+        device="cuda",
+    )
+
+
+@contextlib.contextmanager
+def working_dir(path: str):
+    prev = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(prev)
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+
+
+def phase_train_compare(failures: list, dataset: str) -> None:
+    from dexbotic_tpu.data.collator import Collator
+    from dexbotic_tpu_torch.exp.trainer import Trainer
+    from dexbotic_tpu_torch.models.cogact import cogact_loss
+    from dexbotic_tpu_torch.ops.attention import flash_attention_bwd
+
+    print("phase 7a: one training step, kernel path vs plain path (micro-batch 2)")
+    exp = train_exp(dataset, "out_compare", 2, 1, 1)
+    exp._auto_compute_norm_stats()
+    tok = exp.tokenizer.build_tokenizer()
+    cfg, model, _ = exp.build_model(tok)
+    redraw_final_(model.action_head, torch.Generator(device="cuda").manual_seed(8))
+    ds = exp.data.build_data(exp.build_tokenization(tok), exp.action.build_action_process_func())
+    n_tok, seq_len = max(len(ds[i]["input_ids"]) for i in range(len(ds))), exp.tokenizer.model_max_length
+    samples = [ds[i] for i in (0, 5)]
+    batch = Collator(pad_token_id=tok.pad_token_id, max_length=seq_len)(samples)
+    print(f"  samples of up to {n_tok} tokens, padded to {seq_len}")
+    if (n_tok, seq_len) != (TRAIN_TOKENS, TRAIN_SEQ_LEN):
+        failures.append(f"samples of {n_tok} tokens padded to {seq_len}: phases 3 and 6 check "
+                        f"K1 and K3 at {TRAIN_TOKENS} of {TRAIN_SEQ_LEN}")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    rows = cfg.repeated_diffusion_steps * 2
+    t = torch.randint(0, cfg.diffusion_steps, (rows,), generator=g, device="cuda")
+    noise = torch.randn((rows, cfg.chunk_size, cfg.action_dim), generator=g, device="cuda")
+    llm_plain = dataclasses.replace(cfg.vlm.llm, attn_impl="xla")
+    cfg_plain = dataclasses.replace(cfg, vlm=dataclasses.replace(cfg.vlm, llm=llm_plain))
+    watched = {"projector": "vlm.projector.", "dit": "action_head."}
+    results = {}
+    for label, c in (("plain", cfg_plain), ("kernel", cfg)):
+        def loss_fn(m, b, gen, c=c):
+            return cogact_loss(m, c, b, gen, remat=True, diffusion_t=t, diffusion_noise=noise)
+
+        trainer = Trainer(loss_fn, model, exp.trainer, exp.optimizer)
+        start = {n: trainer.params[n].detach().clone() for n in trainer.optimizer.mu}
+        flash_attention_bwd.launches = 0
+        loss, metrics = trainer.accumulate_grads(batch)
+        grads = {k: torch.cat([p.grad.float().flatten() for n, p in trainer.params.items()
+                               if n.startswith(prefix) and p.grad is not None])
+                 for k, prefix in watched.items()}
+        norm = trainer.apply_gradients()
+        with torch.no_grad():
+            for n, value in start.items():
+                trainer.params[n].copy_(value)
+        results[label] = (float(loss), float(norm), grads, flash_attention_bwd.launches)
+        del trainer, start
+    (lp, np_, gp, kp), (lk, nk, gk, kk) = results["plain"], results["kernel"]
+    rel_loss, rel_norm = abs(lk - lp) / abs(lp), abs(nk - np_) / abs(np_)
+    cos = {k: _cosine(gk[k], gp[k]) for k in watched}
+    print(f"  loss kernel {lk:.6g} plain {lp:.6g} (rel {rel_loss:.3g}); grad_norm kernel {nk:.6g} "
+          f"plain {np_:.6g} (rel {rel_norm:.3g}); gradient cosine {cos}; K3 launches "
+          f"kernel path {kk}, plain path {kp}")
+    checks = [(math.isfinite(lk) and rel_loss <= 1e-2, f"loss rel diff {rel_loss} > 1e-2"),
+              (math.isfinite(nk) and rel_norm <= 2e-2, f"grad_norm rel diff {rel_norm} > 2e-2"),
+              (min(cos.values()) >= 0.99, f"gradient cosine {cos} < 0.99"),
+              (kk >= cfg.vlm.llm.num_layers and kp == 0, f"K3 launches {kk} / plain {kp}")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    del model, results, gp, gk
+    free_memory()
+
+
+def phase_train_steps(failures: list, dataset: str) -> dict:
+    from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+
+    micro, accum, steps = 8, 2, 3
+    print(f"phase 7b: {steps} training steps through CogActExp.train() "
+          f"(micro-batch {micro}, accumulation {accum})")
+    exp = train_exp(dataset, "out_train", micro, accum, steps)
+    n_layers = exp.model.build_config().vlm.llm.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    log = exp.train()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": flash_attention.launches, "flash_bwd": flash_attention_bwd.launches}
+    with open(os.path.join("out_train", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    for r in rows:
+        print(f"  step {r['step']}: loss {r['loss']:.6g} action_loss {r['action_loss']:.6g} "
+              f"grad_norm {r['grad_norm']:.6g} step time {1 / r['steps_per_sec']:.4f} s")
+    step_s = statistics.median(1 / r["steps_per_sec"] for r in rows[1:])
+    rate = micro * accum / step_s
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  train() wall {wall:.1f} s; step time (median of steps 2-{steps}) {step_s:.4f} s, "
+          f"{rate:.3f} samples/s; peak memory allocated {peak:.2f} GiB; launches {launches}")
+    ckpt = os.path.join("out_train", f"checkpoint-{steps}")
+    checks = [(log.get("step") == steps and len(rows) == steps, f"ran {len(rows)} of {steps} steps"),
+              (all(math.isfinite(r["loss"]) for r in rows), "non-finite loss"),
+              (os.path.exists(os.path.join(ckpt, "norm_stats.json")), f"{ckpt} lacks norm_stats"),
+              (launches["flash_bwd"] >= n_layers * accum * steps,
+               f"K3 launched {launches['flash_bwd']} < {n_layers * accum * steps} times")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    return {"launches": launches, "step_s": step_s, "samples_per_s": rate, "peak_gib": peak}
+
+
+def phase_train(failures: list) -> dict:
+    """Phase 7 in a temp dir (suite, norm stats, checkpoints), removed after."""
+    with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
+        dataset = write_suite(os.path.join(tmp, "suite"))
+        phase_train_compare(failures, dataset)
+        return phase_train_steps(failures, dataset)
+
+
+def free_memory() -> None:
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -276,6 +545,9 @@ def main() -> int:
     k1 = phase_flash(failures)
     k2 = phase_dit(failures)
     launches = phase_slice(failures)
+    free_memory()  # the serving model
+    k3 = phase_flash_bwd(failures)
+    train = phase_train(failures)
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
@@ -283,10 +555,16 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "dexbotic_tpu/ops/attention.py:86",
          "also_replaces": "dexbotic_tpu/ops/attention.py:165",
-         "launches": launches["flash_fwd"], **k1},
+         "launches": launches["flash_fwd"], "train_launches": train["launches"]["flash_fwd"],
+         **k1},
         {"name": "dit_sample", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/dit_sampler.cu",
          "replaces": "dexbotic_tpu/ops/dit_fused.py:58",
          "launches": launches["dit_sample"], **k2},
+        {"name": "flash_bwd", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "dexbotic_tpu/ops/attention.py:565",
+         "also_replaces": ["dexbotic_tpu/ops/attention.py:498", "dexbotic_tpu/ops/attention.py:400",
+                           "dexbotic_tpu/ops/attention.py:446"],
+         "launches": train["launches"]["flash_bwd"], **k3},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

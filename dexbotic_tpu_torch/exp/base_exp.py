@@ -1,25 +1,44 @@
-"""Experiment layer, serving part (port of dexbotic_tpu/exp/base_exp.py).
+"""Experiment layer (port of dexbotic_tpu/exp/base_exp.py).
 
 Layered dataclass configs that users subclass and override, and
-``python -m <exp module> --task {inference,inference_single}`` dispatch.
-Only the fields serving reads are declared; training, norm-statistics
-computation, checkpoint loading and int8 serving are not ported yet.
+``python -m <exp module> --task {train,inference,inference_single,
+compute_norm_stats}`` dispatch (``train`` by default).  The data pipeline,
+tokenization and norm statistics are the JAX package's own shared modules,
+which import no JAX.  Not ported: host decode workers (``num_workers > 0``:
+``data/loader.py`` imports JAX), multi-process norm statistics, int8 serving.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
 import os
+import random
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
 
-from dexbotic_tpu.data.image_processing import ImageProcessorConfig
+from dexbotic_tpu.data import normalize
+from dexbotic_tpu.data import transforms as T
+from dexbotic_tpu.data.collator import Collator
+from dexbotic_tpu.data.dexdata import DexDataset
+from dexbotic_tpu.data.image_processing import (
+    DummyRGBProcessor,
+    ImageProcessorConfig,
+    PixelAug,
+    PreprocessRGB,
+)
+from dexbotic_tpu.data.multimodal import LoadMultiModal
 from dexbotic_tpu.data.transforms import DEFAULT_PROMPT_TEMPLATE
-from dexbotic_tpu.tokenization.tokenize import SimpleTokenizer
-from dexbotic_tpu_torch.models.cogact import cast_matrices_
+from dexbotic_tpu.tokenization.tokenize import DummyTokenization, LLMTokenization, SimpleTokenizer
+from dexbotic_tpu_torch.exp.optim import OptimizerConfig
+from dexbotic_tpu_torch.exp.trainer import Trainer, TrainerConfig
+from dexbotic_tpu_torch.nn.core import cast_matrices_
 
 
 @dataclass
@@ -72,12 +91,108 @@ class TokenizerConfig(Config):
 
 @dataclass
 class ActionConfig(Config):
+    statistic_mapping: Optional[str] = None  # path to norm_stats.json
+    replace_with_default_answer: str = " "
+    trajectory_length: int = 16
+    delta: bool = True
+    trajectory_padding_mode: str = "zero"
+    padding_action: bool = False
+    vocab_size: int = 255
+    string_format: str = " {value}"
     prompt_template: Union[str, Callable] = DEFAULT_PROMPT_TEMPLATE
+    load_multimodal_masks: bool = False
+
+    def _read_norm_stats(self, path):
+        if not (path and os.path.exists(path)):
+            raise FileNotFoundError(f"norm stats not found: {path}")
+        with open(path) as f:
+            return T.ToNumpy()(json.load(f)["norm_stats"])
+
+    def build_action_process_func(self) -> T.Pipeline:
+        stats = self._read_norm_stats(self.statistic_mapping)
+        return T.Pipeline([
+            T.ToDict(),
+            T.ToNumpy(),
+            T.AddAction(predict_length=1),
+            T.DeltaAction(enable=self.delta),
+            T.AddTrajectory(trajectory_length=self.trajectory_length,
+                            padding_mode=self.trajectory_padding_mode,
+                            padding_action=self.padding_action),
+            T.ActionNormAnd2String(statistic_mapping=stats, vocab_size=self.vocab_size,
+                                   string_format=self.string_format),
+            LoadMultiModal(return_masks=self.load_multimodal_masks),
+            T.AddPromptTemplate(prompt_template=self.prompt_template),
+            T.ReplaceAnswer(default_answer=self.replace_with_default_answer),
+            T.ToList(),
+        ])
+
+
+@dataclass
+class ComputeNormActionConfig(ActionConfig):
+    norm_method: str = "default"  # 'default' (q01/q99) | 'minmax'
+    norm_save_path: str = field(default_factory=lambda: os.path.join(
+        "norm_assets", time.strftime("%m%d-%H%M") + "-default"))
+    max_batches: int = 500
+    batch_size: int = 128
+
+    def build_action_process_func(self) -> T.Pipeline:
+        return T.Pipeline([T.ToDict(), T.ToNumpy(), T.AddAction(predict_length=1),
+                           T.DeltaAction(enable=self.delta), T.ToList()])
+
+    def compute_norm_stats(self, dataset_name: str) -> str:
+        """Stream samples through RunningStats; write the merged q01/q99
+        envelope norm_stats.json; returns its path."""
+        fn = self.build_action_process_func()
+        norm_files = {}
+        for name in dataset_name.split("+"):
+            if name.startswith("general"):
+                continue
+            ds = DexDataset(dataset_name=name, tokenization_func=DummyTokenization(),
+                            action_process_func=fn, image_process_func=DummyRGBProcessor(),
+                            data_keys=["action"])
+            stats = normalize.RunningStats()
+            n = min(len(ds), self.max_batches * self.batch_size)
+            buf = []
+            for i in random.Random(0).sample(range(len(ds)), n):
+                buf.append(np.asarray(ds[i]["action"], np.float64).reshape(-1))
+                if len(buf) == self.batch_size:
+                    stats.update(np.stack(buf))
+                    buf = []
+            if buf:
+                stats.update(np.stack(buf))
+            save_dir = os.path.join(self.norm_save_path, name)
+            normalize.save(save_dir, {"action": stats.get_statistics()})
+            norm_files[name] = os.path.join(save_dir, "norm_stats.json")
+
+        lo_list, hi_list = [], []
+        for f in norm_files.values():
+            with open(f) as fh:
+                st = json.load(fh)["norm_stats"]["action"]
+            lo, hi = ("q01", "q99") if self.norm_method == "default" else ("min", "max")
+            lo_list.append(st[lo])
+            hi_list.append(st[hi])
+        merged = {"default": {"min": np.array(lo_list).min(0).tolist(),
+                              "max": np.array(hi_list).max(0).tolist()}}
+        out = os.path.join(self.norm_save_path, "norm_stats.json")
+        os.makedirs(self.norm_save_path, exist_ok=True)
+        with open(out, "w") as fh:
+            json.dump({"norm_stats": merged}, fh, indent=2)
+        return out
 
 
 @dataclass
 class DataConfig(Config):
+    dataset_name: Optional[str] = None
+    num_images: int = 1
+    aug_policy: Union[str, list, None] = "identity"
+    image_aspect_ratio: Optional[str] = "pad"
+    image_pad_mode: str = "mean"
     image_processor: str = "siglip_224"  # key into _PROCESSORS or size int
+    data_keys: list = field(default_factory=lambda: ["input_ids", "labels", "action", "image"])
+    images_keys: Optional[list] = None
+    shuffle: bool = True  # the order is seeded by TrainerConfig.seed, as in JAX
+    # host decode workers: not ported (data/loader.py imports JAX); 0 fetches in line
+    num_workers: int = 0
 
     _PROCESSORS = {
         "clip_336": ImageProcessorConfig.clip_336(),
@@ -92,12 +207,40 @@ class DataConfig(Config):
             return self._PROCESSORS[self.image_processor]
         return ImageProcessorConfig(size=int(self.image_processor))
 
+    def build_data(self, tokenization_func, action_process_func) -> DexDataset:
+        proc = self.build_image_processor()
+        policies = (self.aug_policy if isinstance(self.aug_policy, list)
+                    else [self.aug_policy] * self.num_images)
+        img_fns = [PreprocessRGB(proc, image_aspect_ratio=self.image_aspect_ratio,
+                                 augmentations=PixelAug(p) if p else None,
+                                 image_pad_mode=self.image_pad_mode) for p in policies]
+        return DexDataset(dataset_name=self.dataset_name, tokenization_func=tokenization_func,
+                          action_process_func=action_process_func, image_process_func=img_fns,
+                          num_images=self.num_images, data_keys=self.data_keys,
+                          images_keys=self.images_keys)
+
+
+def data_iterator(dataset, collator, batch_size: int, seed: int = 42, epochs: int = 10 ** 6,
+                  shuffle: bool = True):
+    """Epoch iterator yielding collated numpy batches of ``batch_size``, each
+    epoch in a fresh seeded order (``shuffle``) or in the dataset's order."""
+    n = len(dataset)
+    rng = random.Random(seed)
+    for _ in range(epochs):
+        order = list(range(n))
+        if shuffle:
+            rng.shuffle(order)
+        for i in range(0, n - batch_size + 1, batch_size):
+            yield collator([dataset[j] for j in order[i: i + batch_size]])
+
 
 @dataclass
 class BaseExp:
     """Compose the config blocks; subclass + override per policy."""
 
     exp_name: str = "base_exp"
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    trainer: TrainerConfig = field(default_factory=TrainerConfig)
     tokenizer: TokenizerConfig = field(default_factory=TokenizerConfig)
     action: ActionConfig = field(default_factory=ActionConfig)
     data: DataConfig = field(default_factory=DataConfig)
@@ -116,6 +259,61 @@ class BaseExp:
                 f"inference_quantize={self.inference_quantize!r} is not ported yet")
         return cast_matrices_(model, torch.bfloat16)
 
+    # ---- hooks each policy exp implements --------------------------------
+
+    def build_model(self, tokenizer):  # -> (config, model, loss_fn)
+        raise NotImplementedError
+
+    def build_tokenization(self, tokenizer):
+        return LLMTokenization(tokenizer, chat_template=self.tokenizer.chat_template,
+                               num_image_tokens=self.num_image_tokens())
+
+    def num_image_tokens(self) -> int:
+        return 1
+
+    # ---- norm stats ------------------------------------------------------
+
+    def _auto_compute_norm_stats(self) -> None:
+        """Compute (or reuse the cached) norm stats keyed by the dataset name's md5."""
+        if self.action.statistic_mapping and os.path.exists(self.action.statistic_mapping):
+            return
+        key = hashlib.md5(self.data.dataset_name.encode()).hexdigest()[:16]
+        cache_dir = os.path.join("norm_assets", f"auto-{key}")
+        out = os.path.join(cache_dir, "norm_stats.json")
+        if not os.path.exists(out):
+            ComputeNormActionConfig(delta=self.action.delta, norm_save_path=cache_dir
+                                    ).compute_norm_stats(self.data.dataset_name)
+        self.action.statistic_mapping = out
+
+    # ---- tasks -----------------------------------------------------------
+
+    def train(self) -> dict:
+        if self.data.num_workers > 0:
+            raise NotImplementedError("host decode workers are not ported (data/loader.py "
+                                      "imports JAX); use num_workers=0")
+        self._auto_compute_norm_stats()
+        tokenizer = self.tokenizer.build_tokenizer()
+        _, model, loss_fn = self.build_model(tokenizer)
+        dataset = self.data.build_data(self.build_tokenization(tokenizer),
+                                       self.action.build_action_process_func())
+        collator = Collator(pad_token_id=tokenizer.pad_token_id,
+                            max_length=self.tokenizer.model_max_length)
+        with open(self.action.statistic_mapping) as f:
+            norm_stats_json = f.read()
+        trainer = Trainer(loss_fn, model, self.trainer, self.optimizer,
+                          norm_stats_json=norm_stats_json)
+        # per-step batch = micro-batch x accumulation (one device)
+        batch_size = self.trainer.per_device_batch_size * self.trainer.gradient_accumulation_steps
+        try:
+            return trainer.train(data_iterator(dataset, collator, batch_size,
+                                               seed=self.trainer.seed, shuffle=self.data.shuffle))
+        finally:
+            trainer.close()
+
+    def compute_norm_stats(self) -> str:
+        return ComputeNormActionConfig(delta=self.action.delta).compute_norm_stats(
+            self.data.dataset_name)
+
     def inference(self):
         raise NotImplementedError("policy exp must implement inference()")
 
@@ -125,8 +323,9 @@ class BaseExp:
     @classmethod
     def main(cls, **overrides):
         parser = argparse.ArgumentParser()
-        parser.add_argument("--task", default="inference",
-                            choices=["inference", "inference_single"])
+        parser.add_argument("--task", default="train",
+                            choices=["train", "inference", "inference_single",
+                                     "compute_norm_stats"])
         args, _ = parser.parse_known_args()
         exp = cls(**overrides)
         return getattr(exp, args.task)()

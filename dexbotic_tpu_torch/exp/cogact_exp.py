@@ -1,24 +1,31 @@
-"""CogACT experiment, serving part (port of dexbotic_tpu/exp/cogact_exp.py).
+"""CogACT experiment (port of dexbotic_tpu/exp/cogact_exp.py).
 
 Defaults mirror the JAX package: DiT-B head, action_dim 7, chunk 16,
-CLIP-L-336 tower + mlp2x_gelu projector on LLaMA-2-7B.  With no checkpoint
-the model is built from ``seed`` directly on ``device`` in the serving dtype
-(checkpoint loading is not ported yet).
+CLIP-L-336 tower + mlp2x_gelu projector on LLaMA-2-7B.  The model is laid
+out and initialised from ``seed`` directly on ``device`` (in the serving dtype
+for inference, fp32 for training, where the Trainer casts it), then filled
+from ``model_name_or_path`` (a port ``checkpoint-{step}`` directory) if set.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 import torch
 
 from dexbotic_tpu_torch.exp import base_exp
+from dexbotic_tpu_torch.exp.trainer import load_checkpoint_params
 from dexbotic_tpu_torch.models import presets
 from dexbotic_tpu_torch.models.cogact import (
     CogActConfig,
     build_cogact,
     cogact_inference_action,
+    cogact_loss,
     denorm_actions,
 )
 from dexbotic_tpu_torch.models.vlm import VLMConfig
@@ -26,12 +33,19 @@ from dexbotic_tpu_torch.models.vlm import VLMConfig
 
 @dataclass
 class CogActModelConfig(base_exp.Config):
+    model_name_or_path: Optional[str] = None  # checkpoint-{step} dir to load
     llm_preset: str = "llama2_7b"
     vit_preset: str = "clip_vit_l_336"
     mm_projector_type: str = "mlp2x_gelu"
     action_model_type: str = "DiT-B"
     action_dim: int = 7
     chunk_size: int = 16
+    # as in the JAX package, freeze_llm is not passed on to the optimizer
+    # (set OptimizerConfig.freeze_llm); freeze_mm_projector sets a 0.0
+    # projector lr, which the optimizer's `or` turns back into learning_rate
+    freeze_llm: bool = False
+    freeze_mm_projector: bool = False
+    freeze_mm_vision: bool = True
     seed: int = 0
     sampler: str = "ddim"  # 'dpm' = DPM-Solver++(2M); pair with ddim_steps=5
     ddim_steps: int = 10
@@ -52,20 +66,57 @@ class CogActModelConfig(base_exp.Config):
             fused_sampler=self.fused_sampler,
         )
 
+    @torch.no_grad()
     def build_params(self, cfg: CogActConfig, device, prepare=None):
-        return build_cogact(cfg, device, seed=self.seed, prepare=prepare)
+        model = build_cogact(cfg, device, seed=self.seed, prepare=prepare)
+        if self.model_name_or_path:
+            saved = load_checkpoint_params(self.model_name_or_path)
+            params = dict(model.named_parameters())
+            missing = sorted(set(params) - set(saved))
+            if missing:
+                raise KeyError(f"{self.model_name_or_path} lacks parameters {missing[:5]}")
+            for name, p in params.items():
+                p.copy_(saved[name].to(p.dtype))
+        return model
 
 
 @dataclass
 class CogActExp(base_exp.BaseExp):
     exp_name: str = "cogact"
     model: CogActModelConfig = field(default_factory=CogActModelConfig)
+    action: base_exp.ActionConfig = field(
+        default_factory=lambda: base_exp.ActionConfig(trajectory_length=16))
+
+    def num_image_tokens(self) -> int:
+        return self.model.build_config().vlm.num_image_tokens
+
+    def build_model(self, tokenizer):
+        """(config, fp32 model on ``device``, loss_fn(model, batch, generator))."""
+        cfg = self.model.build_config()
+        model = self.model.build_params(cfg, self.device)
+        # freeze flags -> zero-lr groups, as the JAX exp maps them
+        if self.model.freeze_mm_vision and self.optimizer.mm_vision_lr is None:
+            self.optimizer = dataclasses.replace(self.optimizer, mm_vision_lr=0.0)
+        if self.model.freeze_mm_projector:
+            self.optimizer = dataclasses.replace(self.optimizer, mm_projector_lr=0.0)
+        remat = self.trainer.gradient_checkpointing
+
+        def loss_fn(model, batch, generator):
+            return cogact_loss(model, cfg, batch, generator, remat=remat)
+
+        return cfg, model, loss_fn
 
     def load_for_inference(self):
         """(config, model in the serving dtype on ``device``, norm stats or None)."""
         cfg = self.model.build_config()
         model = self.model.build_params(cfg, self.device, prepare=self.prepare_inference_params)
-        return cfg, model, None
+        norms = None
+        if self.model.model_name_or_path:
+            path = os.path.join(self.model.model_name_or_path, "norm_stats.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    norms = json.load(f)["norm_stats"]["default"]
+        return cfg, model, norms
 
     def make_infer_fn(self, cfg, model):
         """(ids, valid, images, generator) -> normalised chunk [B, chunk, dim]."""

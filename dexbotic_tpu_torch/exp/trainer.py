@@ -1,0 +1,271 @@
+"""Trainer on one device: grad accumulation, clipping, checkpoints, resume.
+
+Port of dexbotic_tpu/exp/trainer.py for one GPU (the JAX trainer's data and
+model meshes belong to the parallel layer, which is not ported: a mesh
+larger than one device raises).  The dtype rules are the JAX trainer's:
+``bf16`` casts every fp32 parameter with ndim >= 2 to bf16 with no fp32
+master copy, gradients come back in the parameters' dtype (summed there over
+micro-batches) and are cast to fp32 for the update, and the moments are fp32
+(``exp/optim.py``).  A frozen vision tower (``freeze_mm_vision``) takes no
+gradient at all; any other frozen parameter keeps ``requires_grad`` so that
+its gradient counts in the clip norm, as in the JAX package, and is dropped
+after it.
+
+Each step draws its randomness from a ``torch.Generator`` seeded from
+(seed, step, micro-batch), so step N draws the same numbers whether or not
+training was resumed before it.  Checkpoints are ``checkpoint-{step}/``
+directories holding ``trainer_state.json``, ``norm_stats.json`` and, in
+torch's format, ``params.pt`` and ``opt_state.pt`` (or ``adapter.pt`` alone
+under ``adapter_save``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import re
+import shutil
+import time
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from dexbotic_tpu_torch.exp.optim import Optimizer, OptimizerConfig, stopgrad_subtrees
+from dexbotic_tpu_torch.nn.core import cast_matrices_
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    output_dir: str = "./output"
+    max_steps: int = 1000
+    per_device_batch_size: int = 8
+    gradient_accumulation_steps: int = 1
+    logging_steps: int = 10
+    save_steps: int = 500
+    save_total_limit: Optional[int] = None
+    seed: int = 42
+    bf16: bool = True
+    gradient_checkpointing: bool = False
+    mesh_data: Optional[int] = None  # one device: None or 1
+    mesh_model: int = 1
+    resume: bool = True
+    save_optimizer: bool = True  # persist moments for an exact resume
+    # adapter-only checkpoints: just the projector (+ norm stats)
+    adapter_save: bool = False
+
+
+def step_generator(seed: int, step: int, micro: int, device) -> torch.Generator:
+    """The generator of one micro-batch: a function of (seed, step, micro) only."""
+    state = np.random.SeedSequence([seed, step, micro]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state) & (2 ** 63 - 1))
+
+
+def extract_adapter(model: nn.Module) -> dict:
+    """{name: tensor on the host} of the projector's parameters (the adapter)."""
+    return {n: p.detach().cpu() for n, p in model.named_parameters()
+            if "projector" in n.split(".")}
+
+
+@torch.no_grad()
+def apply_adapter(model: nn.Module, adapter: dict) -> nn.Module:
+    """Copy an adapter into ``model``'s parameters of the same names."""
+    params = dict(model.named_parameters())
+    missing = sorted(set(adapter) - set(params))
+    if missing:
+        raise KeyError(f"adapter keys not found in the model: {missing[:5]}")
+    for name, value in adapter.items():
+        params[name].copy_(value.to(params[name].dtype))
+    return model
+
+
+def load_checkpoint_params(path: str, base_params: Optional[dict] = None) -> dict:
+    """{name: tensor} from a ``checkpoint-{step}`` directory.  An adapter-only
+    checkpoint needs ``base_params`` to merge into."""
+    adapter = os.path.join(path, "adapter.pt")
+    if os.path.exists(adapter):
+        if base_params is None:
+            raise ValueError(f"{path} is an adapter-only checkpoint; pass base_params")
+        merged = dict(base_params)
+        merged.update(torch.load(adapter, map_location="cpu", weights_only=True))
+        return merged
+    return torch.load(os.path.join(path, "params.pt"), map_location="cpu", weights_only=True)
+
+
+class Trainer:
+    """Training loop around ``loss_fn(model, batch, generator) -> (loss, metrics)``."""
+
+    def __init__(self, loss_fn: Callable, model: nn.Module, trainer_config: TrainerConfig,
+                 optimizer_config: OptimizerConfig, norm_stats_json: Optional[str] = None):
+        if trainer_config.mesh_data not in (None, 1) or trainer_config.mesh_model != 1:
+            raise NotImplementedError("the port's Trainer runs on one device; "
+                                      "data/model meshes are not ported yet")
+        self.cfg = trainer_config
+        self.opt_cfg = optimizer_config
+        self.loss_fn = loss_fn
+        self.model = model
+        self.norm_stats_json = norm_stats_json
+        model.requires_grad_(True)
+        if optimizer_config.freeze_mm_vision:
+            stopgrad_subtrees(model.named_parameters(), ("vit", "mm_vision"))
+        if trainer_config.bf16:
+            cast_matrices_(model, torch.bfloat16)
+        self.params = dict(model.named_parameters())
+        self.device = next(iter(self.params.values())).device
+        self.optimizer = Optimizer(optimizer_config, self.params.items(), trainer_config.max_steps)
+        self.step = 0
+        self._metrics_file = None
+
+    # ------------------------------------------------------------------
+
+    def accumulate_grads(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Forward and backward over the micro-batches of one global batch
+        (numpy arrays or tensors whose leading dim is accumulation x
+        micro-batch).  Leaves each parameter's gradient, summed and averaged
+        in its own dtype, in ``.grad``; returns (mean loss, the last
+        micro-batch's metrics)."""
+        accum = self.cfg.gradient_accumulation_steps
+        batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
+                 if isinstance(v, (np.ndarray, torch.Tensor))}
+        for p in self.params.values():
+            p.grad = None
+        loss_sum = 0.0
+        for m in range(accum):
+            if accum == 1:
+                mb = batch
+            else:
+                mb = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])[m]
+                      for k, v in batch.items()}
+            gen = step_generator(self.cfg.seed, self.step, m, self.device)
+            loss, metrics = self.loss_fn(self.model, mb, gen)
+            loss.backward()
+            loss_sum = loss_sum + loss.detach()
+        if accum > 1:
+            for p in self.params.values():
+                if p.grad is not None:
+                    p.grad.div_(accum)
+        return loss_sum / accum, metrics
+
+    def apply_gradients(self) -> torch.Tensor:
+        """Clip and apply the gradients in ``.grad``, then drop them; returns
+        the global norm of every gradient, frozen parameters' included."""
+        grads = {n: p.grad for n, p in self.params.items() if p.requires_grad}
+        grad_norm = self.optimizer.step_(self.params, grads)
+        for p in self.params.values():
+            p.grad = None
+        return grad_norm
+
+    def train_step(self, batch: dict) -> dict:
+        """One optimizer step on a global batch; returns float metrics."""
+        loss, metrics = self.accumulate_grads(batch)
+        out = {k: float(v.detach()) for k, v in metrics.items()}
+        out["grad_norm"] = float(self.apply_gradients())
+        out["loss"] = float(loss)
+        return out
+
+    def train(self, data_iter: Iterable[dict], max_steps: Optional[int] = None) -> dict:
+        """Run the loop over collated numpy batches; returns the last log."""
+        max_steps = max_steps or self.cfg.max_steps
+        if self.cfg.resume:
+            self.maybe_resume()
+        t0 = time.time()
+        log = {}
+        for batch in data_iter:
+            if self.step >= max_steps:
+                break
+            metrics = self.train_step(batch)
+            self.step += 1
+            if self.step % self.cfg.logging_steps == 0 or self.step == max_steps:
+                log = dict(metrics, step=self.step)
+                log["steps_per_sec"] = self.cfg.logging_steps / max(1e-9, time.time() - t0)
+                t0 = time.time()
+                print(json.dumps(log))
+                self._log_metrics(log)
+            if self.step % self.cfg.save_steps == 0 or self.step == max_steps:
+                self.save_checkpoint()
+        return log
+
+    # ------------------------------------------------------------------
+
+    def _log_metrics(self, log: dict) -> None:
+        if self._metrics_file is None:
+            os.makedirs(self.cfg.output_dir, exist_ok=True)
+            self._metrics_file = open(os.path.join(self.cfg.output_dir, "metrics.jsonl"), "a")
+        self._metrics_file.write(json.dumps(log) + "\n")
+        self._metrics_file.flush()
+
+    def close(self) -> None:
+        if self._metrics_file is not None:
+            self._metrics_file.close()
+            self._metrics_file = None
+
+    def _ckpt_dir(self, step: int) -> str:
+        return os.path.join(self.cfg.output_dir, f"checkpoint-{step}")
+
+    def save_checkpoint(self) -> str:
+        path = os.path.abspath(self._ckpt_dir(self.step))
+        os.makedirs(path, exist_ok=True)
+        state = {"step": self.step}
+        if self.cfg.adapter_save:
+            adapter = extract_adapter(self.model)
+            if not adapter:
+                raise ValueError("adapter_save: the model has no projector parameters")
+            torch.save(adapter, os.path.join(path, "adapter.pt"))
+            state["adapter_only"] = True
+        else:
+            torch.save({n: p.detach().cpu() for n, p in self.params.items()},
+                       os.path.join(path, "params.pt"))
+            if self.cfg.save_optimizer:
+                opt = self.optimizer.state_dict()
+                torch.save({"count": opt["count"],
+                            "mu": {n: t.cpu() for n, t in opt["mu"].items()},
+                            "nu": {n: t.cpu() for n, t in opt["nu"].items()}},
+                           os.path.join(path, "opt_state.pt"))
+        with open(os.path.join(path, "trainer_state.json"), "w") as f:
+            json.dump(state, f)
+        if self.norm_stats_json is not None:
+            with open(os.path.join(path, "norm_stats.json"), "w") as f:
+                f.write(self.norm_stats_json)
+        self._prune_checkpoints()
+        return path
+
+    def _checkpoint_steps(self) -> list[int]:
+        if not os.path.isdir(self.cfg.output_dir):
+            return []
+        return sorted(int(m.group(1)) for d in os.listdir(self.cfg.output_dir)
+                      if (m := re.match(r"checkpoint-(\d+)$", d)))
+
+    def _prune_checkpoints(self) -> None:
+        if not self.cfg.save_total_limit:
+            return
+        for step in self._checkpoint_steps()[: -self.cfg.save_total_limit]:
+            shutil.rmtree(self._ckpt_dir(step), ignore_errors=True)
+
+    def latest_checkpoint(self) -> Optional[str]:
+        steps = self._checkpoint_steps()
+        return self._ckpt_dir(steps[-1]) if steps else None
+
+    @torch.no_grad()
+    def maybe_resume(self) -> bool:
+        path = self.latest_checkpoint()
+        if path is None:
+            return False
+        with open(os.path.join(path, "trainer_state.json")) as f:
+            self.step = json.load(f)["step"]
+        adapter = os.path.join(path, "adapter.pt")
+        if os.path.exists(adapter):
+            apply_adapter(self.model, torch.load(adapter, map_location="cpu", weights_only=True))
+            print(f"resumed adapter-only checkpoint from {path} at step {self.step}")
+            return True
+        saved = torch.load(os.path.join(path, "params.pt"), map_location="cpu", weights_only=True)
+        for name, p in self.params.items():
+            p.copy_(saved[name].to(p.dtype))
+        opt_path = os.path.join(path, "opt_state.pt")
+        if os.path.exists(opt_path):
+            if not self.optimizer.load_state_dict(
+                    torch.load(opt_path, map_location="cpu", weights_only=True)):
+                print("opt_state checkpoint does not match the trainable set; fresh moments")
+        print(f"resumed from {path} at step {self.step}")
+        return True

@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels (``csrc/*.cu``).
 
-``nvcc`` compiles every ``.cu`` file of ``dexbotic_tpu_torch/csrc`` into one
-shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds rather than minutes).  The library's name
+``nvcc`` compiles every ``.cu`` file of ``dexbotic_tpu_torch/csrc`` to an
+object, one process per source, all started together, and links the objects
+into one shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds rather than minutes).  The library's name
 carries a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is loaded from ``dexbotic_tpu_torch/_build/``.  Nothing here
 runs at import time: the first kernel launch builds.
@@ -27,8 +28,9 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +45,9 @@ _SIGNATURES = {
     # w1, b1, out, h, hn, qkv, attn, m, x, xp, part,
     # B, T, A, H, heads, M, depth, N, RP, cfg_pair, cfg_scale, sampler, stream
     "dbx_dit_sample": [_I] + [_P] * 25 + [_I] * 10 + [_F, _I, _P],
+    # q~ (pre-scaled), k, v, dout, lse, delta, q_grp, kv_grp, kv_valid, q_seg,
+    # kv_seg, dq, dk, dv, B, Sq, Skv, Hq, Hkv, D, scale, stream
+    "dbx_flash_bwd": [_P] * 14 + [_I] * 6 + [_F, _P],
 }
 
 
@@ -58,7 +63,7 @@ class _Library:
                       + glob.glob(os.path.join(SRC_DIR, "*.cuh")))
 
     def _digest(self) -> str:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
         for path in self._sources():
             h.update(os.path.basename(path).encode())
             with open(path, "rb") as f:
@@ -84,16 +89,30 @@ class _Library:
         so = os.path.join(BUILD_DIR, f"libdexbotic_kernels_{self._digest()}.so")
         if not os.path.exists(so):
             t0 = time.perf_counter()
-            tmp = f"{so}.{os.getpid()}.tmp"
+            tag = f"{os.getpid()}.tmp"
             srcs = [s for s in self._sources() if s.endswith(".cu")]
-            r = subprocess.run([self._nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                               capture_output=True, text=True)
-            self.build_log = r.stdout + r.stderr
+            objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in srcs]
+            nvcc = self._nvcc()
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s], text=True,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                     for s, o in zip(srcs, objs)]
+            logs = [p.communicate()[0] for p in procs]
+            failed = [s for s, p in zip(srcs, procs) if p.returncode != 0]
+            if not failed:
+                r = subprocess.run([nvcc, *LINK_FLAGS, "-o", f"{so}.{tag}", *objs],
+                                   capture_output=True, text=True)
+                logs.append(r.stdout + r.stderr)
+                if r.returncode != 0:
+                    failed = ["link"]
+            for o in objs:
+                if os.path.exists(o):
+                    os.remove(o)
+            self.build_log = "\n".join(logs)
             with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
                 f.write(self.build_log)
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed (rc={r.returncode}):\n{self.build_log}")
-            os.replace(tmp, so)
+            if failed:
+                raise RuntimeError(f"nvcc failed for {failed}:\n{self.build_log}")
+            os.replace(f"{so}.{tag}", so)
             self.build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(so)
         for name, argtypes in _SIGNATURES.items():

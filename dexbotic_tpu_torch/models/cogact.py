@@ -1,10 +1,12 @@
 """CogACT policy: VLM -> cognition feature -> DiT diffusion head.
 
-Port of the serving path of dexbotic_tpu/models/cogact.py.  The cognition
-feature is the last valid token's hidden state; the action chunk is sampled
-by DDIM (or DPM-Solver++(2M)) with classifier-free guidance through the
-learned uncondition embedding.  At serving batch on a CUDA device the whole
-sampling loop runs as kernel K2 (``ops/dit_fused.py``).
+Port of dexbotic_tpu/models/cogact.py.  The cognition feature is the last
+valid token's hidden state.  Training (:func:`cogact_loss`) is a 4x-repeated
+diffusion MSE in fp32, plus the causal-LM loss under ``with_text_loss``;
+inference samples the action chunk by DDIM (or DPM-Solver++(2M)) with
+classifier-free guidance through the learned uncondition embedding.  At
+serving batch on a CUDA device the whole sampling loop runs as kernel K2
+(``ops/dit_fused.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ import torch
 from torch import nn
 
 from dexbotic_tpu_torch.models import dit as dit_mod
+from dexbotic_tpu_torch.models.losses import causal_lm_loss
 from dexbotic_tpu_torch.models.vlm import VLM, VLMConfig, gather_last_hidden, init_vlm_, vlm_forward
+from dexbotic_tpu_torch.nn.transformer import lm_logits
 from dexbotic_tpu_torch.ops.diffusion import DiffusionSchedule
 from dexbotic_tpu_torch.ops.dit_fused import dit_sample_ref, fused_dit_sample
 
@@ -54,14 +58,6 @@ class CogAct(nn.Module):
         self.action_head = dit_mod.DiT(cfg.dit)
 
 
-def cast_matrices_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Serving dtype policy: fp32 parameters with ndim >= 2 -> ``dtype``; 1-D stay fp32."""
-    for p in module.parameters():
-        if p.dtype == torch.float32 and p.ndim >= 2:
-            p.data = p.data.to(dtype)
-    return module
-
-
 @torch.no_grad()
 def init_cogact_(model: CogAct, gen: torch.Generator) -> None:
     init_vlm_(model.vlm, gen)
@@ -90,9 +86,64 @@ def schedule(cfg: CogActConfig) -> DiffusionSchedule:
     return DiffusionSchedule.create(cfg.diffusion_steps)
 
 
-def cognition_feature(model: CogAct, cfg: CogActConfig, input_ids, valid, images):
-    hidden = vlm_forward(model.vlm, cfg.vlm, input_ids, valid, images=images)
+def cognition_feature(model: CogAct, cfg: CogActConfig, input_ids, valid, images, remat=False):
+    hidden = vlm_forward(model.vlm, cfg.vlm, input_ids, valid, images=images, remat=remat)
     return gather_last_hidden(hidden, valid), hidden
+
+
+def cogact_loss(
+    model: CogAct,
+    cfg: CogActConfig,
+    batch: dict,
+    generator: Optional[torch.Generator] = None,
+    remat=False,
+    with_text_loss: bool = False,
+    diffusion_t: Optional[torch.Tensor] = None,  # [B*rep] injectable (parity)
+    diffusion_noise: Optional[torch.Tensor] = None,  # [B*rep, chunk, dim]
+) -> tuple[torch.Tensor, dict]:
+    """Training loss.  batch: input_ids, attention_mask, images, actions
+    [B, >=chunk, action_dim] (+ labels / has_text / has_action for hybrid
+    co-training).  Timesteps, noise and the condition dropout are drawn from
+    ``generator`` unless injected; injected noise turns the dropout off."""
+    cog, hidden = cognition_feature(model, cfg, batch["input_ids"], batch["attention_mask"],
+                                    batch["images"], remat=remat)
+    actions = batch["actions"].reshape(cog.shape[0], -1, cfg.action_dim)
+    actions = actions[:, : cfg.chunk_size].float()
+
+    rep = cfg.repeated_diffusion_steps
+    actions_rep = actions.repeat(rep, 1, 1)
+    cog_rep = cog[:, None, :].repeat(rep, 1, 1).float()
+    sched = schedule(cfg)
+    drop_gen = None if diffusion_noise is not None else generator
+
+    def eps_fn(x_t, t):
+        return dit_mod.dit_forward(model.action_head, cfg.dit, x_t, t, cog_rep, drop_gen=drop_gen)
+
+    has_action = batch.get("has_action") if with_text_loss else None
+    if has_action is not None:
+        # hybrid gating: per-sample MSE, mean over has_action rows (+1e-6)
+        per_sample = sched.training_loss(eps_fn, actions_rep, generator, t=diffusion_t,
+                                         noise=diffusion_noise, reduction="none")
+        ha = has_action.reshape(-1).float().repeat(rep)
+        action_loss = (per_sample * ha).sum() / (ha.sum() + 1e-6)
+    else:
+        action_loss = sched.training_loss(eps_fn, actions_rep, generator, t=diffusion_t,
+                                          noise=diffusion_noise)
+    metrics = {"action_loss": action_loss}
+    loss = action_loss
+
+    if with_text_loss:
+        logits = lm_logits(model.vlm.llm, cfg.vlm.llm, hidden)
+        text_loss = causal_lm_loss(logits, batch["labels"])
+        has_text = batch.get("has_text")
+        if has_text is not None:
+            # as the reference: when any row has text, every row's labels count
+            # and the term is scaled by has_text.any()
+            text_loss = text_loss * has_text.reshape(-1).bool().any().float()
+        metrics["text_loss"] = text_loss
+        loss = loss + text_loss
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 @torch.no_grad()

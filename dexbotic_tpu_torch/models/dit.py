@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -116,12 +117,18 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
-def dit_forward(head: DiT, cfg: DiTConfig, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+def dit_forward(head: DiT, cfg: DiTConfig, x: torch.Tensor, t: torch.Tensor, z: torch.Tensor,
+                drop_gen: Optional[torch.Generator] = None) -> torch.Tensor:
     """eps for noisy actions x [B, T, A] at timesteps t [B] under condition z [B, 1, token].
 
-    Computes in the weights' dtype (bf16 when served) with fp32 norms;
-    returns fp32 [B, T, A]."""
+    ``drop_gen`` turns on the train-time CFG condition dropout: a row whose
+    uniform draw is below ``class_dropout_prob`` is conditioned on the learned
+    uncondition embedding instead.  Computes in the weights' dtype (bf16 when
+    served) with fp32 norms; returns fp32 [B, T, A]."""
     B = x.shape[0]
+    if drop_gen is not None and cfg.class_dropout_prob > 0:
+        drop = torch.rand((B,), generator=drop_gen, device=x.device) < cfg.class_dropout_prob
+        z = torch.where(drop[:, None, None], head.uncondition.to(z.dtype)[None, None, :], z)
     cdtype = head.x_embed.weight.dtype
     x, z = x.to(cdtype), z.to(cdtype)
     xe = head.x_embed(x)

@@ -54,12 +54,12 @@ def init_vlm_(vlm: VLM, gen: torch.Generator) -> None:
     init_projector_(vlm.projector, gen)
 
 
-def encode_images(vlm: VLM, cfg: VLMConfig, images: torch.Tensor) -> torch.Tensor:
+def encode_images(vlm: VLM, cfg: VLMConfig, images: torch.Tensor, remat=False) -> torch.Tensor:
     """[B, n, H, W, 3] or [B, H, W, 3] -> [B, n*T, llm_hidden]."""
     if images.ndim == 4:
         images = images[:, None]
     B, n = images.shape[:2]
-    feats = vit_forward(vlm.vit, cfg.vit, images.reshape((B * n,) + images.shape[2:]))
+    feats = vit_forward(vlm.vit, cfg.vit, images.reshape((B * n,) + images.shape[2:]), remat=remat)
     feats = apply_projector(vlm.projector, feats, cfg.projector_type)
     return feats.reshape(B, -1, feats.shape[-1])
 
@@ -79,11 +79,13 @@ def vlm_forward(vlm: VLM, cfg: VLMConfig, input_ids: torch.Tensor, valid: torch.
                 images: Optional[torch.Tensor] = None,
                 inputs_embeds: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None,
-                grp: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal VLM prefill; returns the final-normed last hidden states [B, S, H]."""
+                grp: Optional[torch.Tensor] = None, remat=False) -> torch.Tensor:
+    """Causal VLM prefill; returns the final-normed last hidden states [B, S, H].
+
+    ``remat`` (False | True | "dots") checkpoints every ViT and decoder layer."""
     if inputs_embeds is None:
         if images is not None:
-            feats = encode_images(vlm, cfg, images)
+            feats = encode_images(vlm, cfg, images, remat=remat)
             inputs_embeds = splice_image_embeds(vlm, cfg, input_ids, feats)
         else:
             inputs_embeds = embed_tokens(vlm.llm, cfg.llm, input_ids)
@@ -92,7 +94,8 @@ def vlm_forward(vlm: VLM, cfg: VLMConfig, input_ids: torch.Tensor, valid: torch.
         grp = torch.cumsum(valid, dim=1, dtype=torch.int32)
     if positions is None:
         positions = torch.cumsum(valid, dim=1, dtype=torch.int32) - 1
-    return transformer_forward(cfg.llm, vlm.llm, inputs_embeds, positions, grp, valid)
+    return transformer_forward(cfg.llm, vlm.llm, inputs_embeds, positions, grp, valid,
+                               remat=remat)
 
 
 def last_valid_index(valid: torch.Tensor) -> torch.Tensor:

@@ -8,11 +8,13 @@ bf16 serving weights under an fp32 input run in fp32.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from dexbotic_tpu_torch.ops import norms
 
@@ -36,6 +38,40 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), b)
+
+
+def cast_matrices_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """The JAX dtype rule for served and trained weights: fp32 parameters
+    with ndim >= 2 -> ``dtype``; 1-D parameters stay fp32."""
+    for p in module.parameters():
+        if p.dtype == torch.float32 and p.ndim >= 2:
+            p.data = p.data.to(dtype)
+    return module
+
+
+# the matmul outputs a "dots" remat keeps (jax.checkpoint_policies.dots_saveable)
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                      torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOT_OPS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(fn, remat, *args):
+    """``fn(*args)`` under the JAX ``remat`` flag of one layer.
+
+    False runs it plainly; True recomputes the layer in the backward pass
+    (``jax.checkpoint``: non-reentrant ``torch.utils.checkpoint``); "dots"
+    keeps every matmul output and recomputes only the elementwise chain."""
+    if remat == "dots":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    if remat:
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def embed(mod: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:

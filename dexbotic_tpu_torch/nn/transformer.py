@@ -119,16 +119,19 @@ def lm_logits(llm: Transformer, cfg: TransformerConfig, hidden: torch.Tensor) ->
 
 def transformer_forward(cfg: TransformerConfig, llm: Transformer, embeds: torch.Tensor,
                         positions: torch.Tensor, grp: torch.Tensor, valid: torch.Tensor,
-                        q_seg: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence decoder forward; returns the final-normed hidden states."""
+                        q_seg: Optional[torch.Tensor] = None, remat=False) -> torch.Tensor:
+    """Full-sequence decoder forward; returns the final-normed hidden states.
+
+    ``remat`` (False | True | "dots") is the JAX flag, applied per layer
+    (``core.remat_call``)."""
     B, S, _ = embeds.shape
     scale = cfg.attn_scale if cfg.attn_scale is not None else cfg.head_dim ** -0.5
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     grp, valid = grp.to(torch.int32), valid.to(torch.int32)
     q_shape = (B, S, cfg.num_heads, cfg.head_dim)
     kv_shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
-    x = embeds
-    for lp in llm.layers:
+
+    def layer(lp, x):
         h = lp.ln1(x)
         q = lp.attn.q(h).reshape(q_shape)
         k = lp.attn.k(h).reshape(kv_shape)
@@ -139,5 +142,9 @@ def transformer_forward(cfg: TransformerConfig, llm: Transformer, embeds: torch.
         a = attention(q, k, v, grp, grp, valid, scale=scale, impl=cfg.attn_impl,
                       q_seg=q_seg, kv_seg=q_seg)
         x = x + lp.attn.o(a.reshape(B, S, -1))
-        x = x + lp.mlp(lp.ln2(x), cfg.act)
+        return x + lp.mlp(lp.ln2(x), cfg.act)
+
+    x = embeds
+    for lp in llm.layers:
+        x = core.remat_call(layer, remat, lp, x)
     return llm.norm(x)

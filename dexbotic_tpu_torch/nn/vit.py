@@ -121,8 +121,10 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(B, h * w, patch * patch * C)
 
 
-def vit_forward(vit: ViT, cfg: ViTConfig, images: torch.Tensor) -> torch.Tensor:
-    """Encode normalised images [B, H, W, 3] -> [B, N, hidden]."""
+def vit_forward(vit: ViT, cfg: ViTConfig, images: torch.Tensor, remat=False) -> torch.Tensor:
+    """Encode normalised images [B, H, W, 3] -> [B, N, hidden].
+
+    ``remat`` (False | True | "dots") is the JAX flag, applied per layer."""
     B = images.shape[0]
     x = vit.patch_embed(patchify(images, cfg.patch_size))
     if cfg.use_cls:
@@ -140,12 +142,16 @@ def vit_forward(vit: ViT, cfg: ViTConfig, images: torch.Tensor) -> torch.Tensor:
     grp = torch.zeros((B, S), dtype=torch.int32, device=x.device)
     valid = torch.ones((B, S), dtype=torch.int32, device=x.device)
     shape = (B, S, cfg.num_heads, cfg.head_dim)
-    for lp in vit.layers[:n_layers]:
+
+    def layer(lp, x):
         h = lp.ln1(x)
         q, k, v = (lin(h).reshape(shape) for lin in (lp.attn.q, lp.attn.k, lp.attn.v))
         a = attention(q, k, v, grp, grp, valid, impl=cfg.attn_impl)
         x = x + lp.attn.o(a.reshape(B, S, -1))
-        x = x + lp.mlp.fc2(core.ACTIVATIONS[cfg.act](lp.mlp.fc1(lp.ln2(x))))
+        return x + lp.mlp.fc2(core.ACTIVATIONS[cfg.act](lp.mlp.fc1(lp.ln2(x))))
+
+    for lp in vit.layers[:n_layers]:
+        x = core.remat_call(layer, remat, lp, x)
     if cfg.select_layer is None:
         x = vit.post_ln(x)
     if cfg.use_cls and cfg.drop_cls:

@@ -7,12 +7,15 @@ k/v [B, Skv, Hkv, D] with Hq % Hkv == 0 (GQA); int32 [B, S] mask vectors.
 
 * :func:`attention_xla` is the plain version of the JAX ``attention_xla``
   (a fully masked row averages V uniformly, as there).
-* :func:`flash_attention` is the wrapper of kernel K1 (``csrc/flash_fwd.cu``).
-  On a CPU tensor it runs :func:`flash_attention_ref`, its plain version
-  (a fully masked row gives 0); on a CUDA tensor it launches the kernel or
-  raises.
+* :func:`flash_attention` is :class:`FlashAttention`, the counterpart of the
+  JAX ``custom_vjp``: its forward is kernel K1 (``csrc/flash_fwd.cu``, wrapper
+  :func:`flash_attention_fwd`), which saves the log-sum-exp, and its backward
+  is kernel K3 (``csrc/flash_bwd.cu``, wrapper :func:`flash_attention_bwd`).
+  On CPU tensors each runs its plain version (:func:`flash_attention_ref`,
+  where a fully masked row gives 0, and :func:`flash_attention_bwd_ref`); on
+  CUDA tensors each launches its kernel or raises.
 * :func:`attention` dispatches: ``impl="auto"`` sends CUDA tensors to the
-  kernel and CPU tensors to ``attention_xla``.
+  kernels and CPU tensors to ``attention_xla``.
 """
 
 from __future__ import annotations
@@ -90,8 +93,6 @@ def _flash_cuda(q, k, v, q_grp, kv_grp, kv_valid, scale, q_seg, kv_seg):
         raise ValueError(f"flash kernel serves 0 < Skv <= 16384 and Sq > 0, got Sq={Sq} Skv={Skv}")
     if Hq % Hkv or k.shape != v.shape or k.shape[0] != B:
         raise ValueError(f"bad GQA shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError("the flash backward (K3) is not ported yet")
     if (q_seg is None) != (kv_seg is None):
         raise ValueError("pass both q_seg and kv_seg or neither")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -123,8 +124,119 @@ def flash_attention_fwd(q, k, v, q_grp, kv_grp, kv_valid, scale=None, q_seg=None
     raise RuntimeError(f"flash attention has no kernel for device {q.device}")
 
 
+def flash_attention_bwd_ref(q, k, v, q_grp, kv_grp, kv_valid, out, lse, g, scale=None,
+                            q_seg=None, kv_seg=None):
+    """Plain version of kernel K3: (dq, dk, dv) in the inputs' dtypes.
+
+    The FA2 backward from the saved LSE, as ``_flash_bwd_impl`` computes it:
+    q pre-scaled and rounded to its dtype, delta = rowsum(dO * O) with O in
+    fp32, P = exp(S - lse) where allowed (so rows that see no key get no
+    gradient), dq rescaled by ``scale``, dK/dV per query head then summed per
+    GQA group."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    group = Hq // Hkv
+    scale = D ** -0.5 if scale is None else scale
+    qs = (q.float() * scale).to(q.dtype).float()
+    kf = _gqa_expand(k.float(), group)
+    vf = _gqa_expand(v.float(), group)
+    do = g.to(q.dtype).float()
+    delta = (do * out.float()).sum(-1).transpose(1, 2)[..., None]  # [B, Hq, Sq, 1]
+    allowed = _allowed(q_grp, kv_grp, kv_valid, q_seg, kv_seg)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
+    p = torch.where(allowed, torch.exp(s - lse[..., None]), 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, vf) - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+    dk = dk.reshape(B, Skv, Hkv, group, D).sum(3)
+    dv = dv.reshape(B, Skv, Hkv, group, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_bwd_cuda(q, k, v, q_grp, kv_grp, kv_valid, out, lse, g, scale, q_seg, kv_seg):
+    from dexbotic_tpu_torch.kernels import build
+
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
+        raise TypeError(f"flash backward takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if D not in (64, 128):
+        raise ValueError(f"flash backward serves head_dim 64 and 128, got {D}")
+    if not (0 < Skv <= 16384 and 0 < Sq <= 16384):
+        raise ValueError(f"flash backward serves 0 < Sq, Skv <= 16384, got Sq={Sq} Skv={Skv}")
+    if Hq % Hkv or k.shape != v.shape or k.shape[0] != B:
+        raise ValueError(f"bad GQA shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
+    if out.shape != q.shape or g.shape != q.shape or lse.shape != (B, Hq, Sq):
+        raise ValueError(f"bad saved shapes out={tuple(out.shape)} dO={tuple(g.shape)} "
+                         f"lse={tuple(lse.shape)}")
+    if (q_seg is None) != (kv_seg is None):
+        raise ValueError("pass both q_seg and kv_seg or neither")
+    qs = (q.float() * scale).to(torch.bfloat16).contiguous()  # the q~ K1 multiplied
+    do = g.to(torch.bfloat16).contiguous()  # arrives strided from the o-projection's backward
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    k, v, lse = k.contiguous(), v.contiguous(), lse.float().contiguous()
+    for t in (qs, k, v, do):
+        if t.data_ptr() % 16:
+            raise ValueError("flash backward needs 16-byte aligned q/k/v/dO")
+    ints = [_i32(t) for t in (q_grp, kv_grp, kv_valid, q_seg, kv_seg)]
+    for t, n in zip(ints, (Sq, Skv, Skv, Sq, Skv)):
+        if t is not None and (t.shape != (B, n) or t.device != q.device):
+            raise ValueError(f"mask vector of shape {tuple(t.shape)} on {t.device}, want ({B}, {n})")
+    dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
+    ptr = [None if t is None else t.data_ptr() for t in ints]
+    code = build.load().dbx_flash_bwd(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), *ptr, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, Sq, Skv, Hq, Hkv, D, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(code, "dbx_flash_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, q_grp, kv_grp, kv_valid, out, lse, g, scale=None,
+                        q_seg=None, kv_seg=None):
+    """K3 backward: (dq, dk, dv) from the forward's (out, lse) and dO = ``g``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if q.device.type == "cuda":
+        return _flash_bwd_cuda(q, k, v, q_grp, kv_grp, kv_valid, out, lse, g, scale, q_seg, kv_seg)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, q_grp, kv_grp, kv_valid, out, lse, g, scale,
+                                       q_seg, kv_seg)
+    raise RuntimeError(f"flash attention backward has no kernel for device {q.device}")
+
+
+flash_attention_bwd.launches = 0  # K3 launches in this process
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: K1 forward saving (out, lse), K3 backward.
+
+    The port of the JAX ``_flash_vjp`` custom VJP; the mask vectors take no
+    gradient.  Under non-reentrant checkpointing the forward runs again in
+    the backward pass, so K1 is counted twice per layer there."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_grp, kv_grp, kv_valid, scale, q_seg, kv_seg):
+        ints = [_i32(t) for t in (q_grp, kv_grp, kv_valid, q_seg, kv_seg)]
+        out, lse = flash_attention_fwd(q, k, v, *ints[:3], scale, *ints[3:])
+        ctx.save_for_backward(q, k, v, out, lse, *ints)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, q_grp, kv_grp, kv_valid, q_seg, kv_seg = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, q_grp, kv_grp, kv_valid, out, lse, g,
+                                         ctx.scale, q_seg, kv_seg)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def flash_attention(q, k, v, q_grp, kv_grp, kv_valid, scale=None, q_seg=None, kv_seg=None):
-    return flash_attention_fwd(q, k, v, q_grp, kv_grp, kv_valid, scale, q_seg, kv_seg)[0]
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return FlashAttention.apply(q, k, v, q_grp, kv_grp, kv_valid, scale, q_seg, kv_seg)
 
 
 flash_attention.launches = 0  # K1 launches in this process

@@ -3,7 +3,9 @@
 The coefficient math stays on the host in float64 numpy; the sampling loop
 is a Python loop over steps in the JAX scan's order (i = N-1 ... 0 for
 DDIM).  These loops over ``dit_forward`` are the plain version of kernel K2
-(``ops/dit_fused.py``).
+(``ops/dit_fused.py``).  ``training_loss`` draws its timesteps and noise from
+a ``torch.Generator``; both are injectable, since torch cannot reproduce the
+JAX streams.
 """
 
 from __future__ import annotations
@@ -67,6 +69,30 @@ class DiffusionSchedule:
     def create(cls, num_steps: int = 100) -> "DiffusionSchedule":
         betas = cosine_betas(num_steps)
         return cls(num_steps=num_steps, alphas_cumprod=np.cumprod(1.0 - betas))
+
+    def q_sample(self, x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """x_t = sqrt(ab_t) x0 + sqrt(1 - ab_t) eps;  t int[B]."""
+        ab = torch.as_tensor(self.alphas_cumprod, dtype=torch.float32, device=x0.device)[t.long()]
+        ab = ab.reshape((-1,) + (1,) * (x0.ndim - 1))
+        return torch.sqrt(ab) * x0 + torch.sqrt(1.0 - ab) * noise
+
+    def training_loss(self, eps_fn, x0: torch.Tensor, generator: torch.Generator | None = None,
+                      t: torch.Tensor | None = None, noise: torch.Tensor | None = None,
+                      reduction: str = "mean") -> torch.Tensor:
+        """Epsilon-prediction MSE at uniformly drawn t (fp32).
+
+        ``reduction="none"`` returns the per-sample mean [B]."""
+        B = x0.shape[0]
+        if t is None:
+            t = torch.randint(0, self.num_steps, (B,), generator=generator, device=x0.device)
+        if noise is None:
+            noise = torch.randn(x0.shape, generator=generator, dtype=torch.float32,
+                                device=x0.device)
+        x_t = self.q_sample(x0.float(), t, noise)
+        se = torch.square(eps_fn(x_t, t).float() - noise)
+        if reduction == "none":
+            return se.reshape(B, -1).mean(dim=1)
+        return se.mean()
 
     def ddim_sample(self, eps_fn, noise: torch.Tensor, ddim_steps: int = 10) -> torch.Tensor:
         """Deterministic DDIM (eta=0, clip_denoised=False).

@@ -45,6 +45,14 @@ def _port_leaves(path: tuple, arr: np.ndarray) -> Iterator[tuple[str, np.ndarray
         yield ".".join(parts[:-1] + (_RENAME.get(leaf, leaf),)), val
 
 
+def port_arrays(tree) -> Iterator[tuple[str, np.ndarray, tuple]]:
+    """(port parameter name, value in the port's layout, JAX path) for every
+    leaf of a JAX tree (of parameters, or of their gradients)."""
+    for path, arr in _flatten(tree):
+        for name, val in _port_leaves(path, arr):
+            yield name, val, path
+
+
 @torch.no_grad()
 def load_jax_params(module: nn.Module, tree) -> dict[str, str]:
     """Fill ``module`` from a JAX parameter tree of numpy arrays.
@@ -54,17 +62,16 @@ def load_jax_params(module: nn.Module, tree) -> dict[str, str]:
     Returns {port parameter name: "/"-joined JAX path}."""
     params = dict(module.named_parameters())
     filled: dict[str, str] = {}
-    for path, arr in _flatten(tree):
-        for name, val in _port_leaves(path, arr):
-            if name not in params:
-                raise KeyError(f"JAX leaf {'/'.join(path)} has no port parameter {name}")
-            if name in filled:
-                raise KeyError(f"port parameter {name} filled twice")
-            p = params[name]
-            if tuple(p.shape) != val.shape:
-                raise ValueError(f"{name}: port shape {tuple(p.shape)} != JAX {val.shape}")
-            p.copy_(torch.from_numpy(np.array(val)))
-            filled[name] = "/".join(path)
+    for name, val, path in port_arrays(tree):
+        if name not in params:
+            raise KeyError(f"JAX leaf {'/'.join(path)} has no port parameter {name}")
+        if name in filled:
+            raise KeyError(f"port parameter {name} filled twice")
+        p = params[name]
+        if tuple(p.shape) != val.shape:
+            raise ValueError(f"{name}: port shape {tuple(p.shape)} != JAX {val.shape}")
+        p.copy_(torch.from_numpy(np.array(val)))
+        filled[name] = "/".join(path)
     missing = sorted(set(params) - set(filled))
     if missing:
         raise KeyError(f"port parameters with no JAX leaf: {missing[:8]}")

@@ -5,7 +5,8 @@ an NVIDIA Hopper GPU and no JAX, run them with
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
 Tolerances are the bf16 rule of chip_smoke.py: the kernel's max error
 against the plain version run in fp32 on the same inputs may be at most
-twice the plain bf16 version's error plus 1e-3; the fp32 instance of K2 at 1e-4.
+twice the plain bf16 version's error plus 1e-3 (for K3 on each of dq, dk and
+dv); the fp32 instance of K2 at 1e-4.
 """
 
 import copy
@@ -13,9 +14,15 @@ import copy
 import pytest
 import torch
 
-from dexbotic_tpu_torch.models.cogact import cast_matrices_
+from dexbotic_tpu_torch.nn.core import cast_matrices_
 from dexbotic_tpu_torch.models.dit import DiT, DiTConfig, init_dit_
-from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_ref
+from dexbotic_tpu_torch.ops.attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
+    flash_attention_fwd,
+    flash_attention_ref,
+)
 from dexbotic_tpu_torch.ops.diffusion import DiffusionSchedule
 from dexbotic_tpu_torch.ops.dit_fused import dit_sample_ref, fused_dit_sample
 
@@ -49,6 +56,46 @@ def test_flash_kernel_matches_plain(cuda, B, S, Hq, Hkv, D):
     bound = 2 * (plain.float() - ref).abs().max().item() + 1e-3
     assert (out.float() - ref).abs().max().item() <= bound
     assert torch.all(out[0, 2] == 0)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [(2, 100, 4, 2, 64), (1, 300, 8, 8, 128),
+                                          (2, 70, 4, 1, 128)])
+def test_flash_backward_kernel_matches_plain(cuda, B, S, Hq, Hkv, D):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(B, S, H, D, generator=g, device=cuda).bfloat16().requires_grad_(True)
+               for H in (Hq, Hkv, Hkv))
+    dout = torch.randn(B, S, Hq, D, generator=g, device=cuda).bfloat16()
+    valid = torch.ones(B, S, dtype=torch.int32, device=cuda)
+    valid[-1, -17:] = 0
+    grp = torch.cumsum(valid, 1, dtype=torch.int32)
+    q_grp = grp.clone()
+    q_grp[0, 2] = 0  # a row that sees no key takes no gradient
+    seg = (torch.arange(S, device=cuda) >= S // 2).int()[None].expand(B, S).contiguous()
+    ints = (q_grp, grp, valid)
+    n0 = flash_attention_bwd.launches
+    out = flash_attention(q, k, v, *ints, q_seg=seg, kv_seg=seg)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == n0 + 1
+    with torch.no_grad():
+        # the plain version on K3's inputs: the out and lse K1 saved (K1 is deterministic)
+        out_k, lse_k = flash_attention_fwd(q, k, v, *ints, None, seg, seg)
+        assert torch.equal(out_k, out)
+        ref = flash_attention_bwd_ref(q.float(), k.float(), v.float(), *ints, out_k.float(), lse_k,
+                                      dout.float(), None, seg, seg)
+        plain = flash_attention_bwd_ref(q, k, v, *ints, out_k, lse_k, dout, None, seg, seg)
+    for got, p, r in zip((q.grad, k.grad, v.grad), plain, ref):
+        bound = 2 * (p.float() - r).abs().max().item() + 1e-3
+        assert (got.float() - r).abs().max().item() <= bound
+    assert torch.all(q.grad[0, 2] == 0)
+
+
+def test_flash_backward_kernel_refuses_what_it_does_not_serve(cuda):
+    q = torch.randn(1, 8, 2, 32, device=cuda).bfloat16()  # head_dim 32
+    ints = [torch.ones(1, 8, dtype=torch.int32, device=cuda)] * 3
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, q, q, *ints, q, lse, q)
 
 
 @pytest.mark.parametrize("dtype,hidden,heads,depth", [

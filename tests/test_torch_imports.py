@@ -46,4 +46,5 @@ def test_kernel_modules_import_without_nvcc_or_gpu():
     from dexbotic_tpu_torch.ops import attention, dit_fused  # noqa: F401
 
     assert build.LIBRARY._lib is None  # nothing was built or loaded by importing
-    assert sorted(os.listdir(os.path.join(PKG, "csrc"))) == ["dit_sampler.cu", "flash_fwd.cu"]
+    assert sorted(os.listdir(os.path.join(PKG, "csrc"))) == ["dit_sampler.cu", "flash_bwd.cu",
+                                                             "flash_fwd.cu"]
