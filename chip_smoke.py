@@ -7,11 +7,19 @@ Phases, any failure exits non-zero without a result line:
   2. build the hand-written kernels from ``dexbotic_tpu_torch/csrc``;
   3. K1 (flash-attention forward) against its plain version at the served
      prompt's shape, the training step's shape and three more;
-  4. K2 (fused DiT sampler) against its plain version at DiT-B width;
+  4. K2 (fused DiT sampler) against its plain version at DiT-B width, with
+     bf16 weights, then (4b) with int8 block weights;
+  4c. K4 (int8-weight matmul) against its plain version, bf16 and fp32
+     activations, at the served shapes (z_embed, t_mlp) and LLaMA-7B's;
   5. the serving slice: CogACT-7B (LLaMA-2-7B + CLIP-L/336 + DiT-B, seeded
      random weights, bf16) served over HTTP by the port's CogActServer, with
      both kernels' launch counts read around the served requests, then the
      same frame through the plain path (kernels off) for a cosine check;
+  5b. the same model quantized (inference_quantize="w8a8": weight-only int8,
+     int8 activations from 2048 rows) served over HTTP: single frames, a
+     batch_size=2 request and an 8-frame one, with the K1, K2 and K4 launch
+     counts read around them; then the kernel-vs-plain cosine on the int8
+     weights and the int8 chunk's cosine to phase 5's bf16 chunk;
   6. K3 (flash-attention backward) against its plain version, gradients of
      sum(out * dO) through FlashAttention at K1's shapes, the training step's
      (B=8, S=2048, 32 heads of 128) first; the plain version gets K3's own
@@ -29,8 +37,15 @@ Phases, any failure exits non-zero without a result line:
 
 Error rule for a kernel: its max error against the plain version run in
 fp32 on the same bf16 inputs must not exceed 2x the plain bf16 version's
-error against that reference + 1e-3.  The last two lines printed are the
-kernels' JSON summary and ``{"ok": true, "device": {...}}``.
+error against that reference + 1e-3 (K4: the reference in fp64, for bf16 and
+fp32 activations).  Each kernel's bound is the larger of the bytes its
+function must move (each input read once, each output written once) over
+3.35 TB/s and its operations over the H100 SXM's peak for their type (989
+TFLOP/s bf16; 495 TF32 for K4's fp32 activations); the library time is one
+PyTorch call computing the same function (SDPA for K1 and K3, a bf16 matmul
+on the dequantized weight for K4), timed here and used nowhere in the port.
+The last two lines printed are the kernels' JSON summary and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -49,11 +64,14 @@ import sys
 import tempfile
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
 
 REPS = 20
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 495e12}  # dense tensor-core bf16; TF32
 
 # The recipe keeps TokenizerConfig's model_max_length, 2048, and the collator
 # pads every training row to it.  A sample of the synthetic suite is 576 image
@@ -77,12 +95,15 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = REPS) -> float:
-    """Median device time of one call, over ``reps`` calls after a warm-up."""
+def median_ms(fn, reps: int = REPS, flush=None) -> float:
+    """Median device time of one call, over ``reps`` calls after a warm-up;
+    ``flush`` (untimed) runs before each, to start from a cold L2."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -90,6 +111,62 @@ def median_ms(fn, reps: int = REPS) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float, dtype=torch.bfloat16) -> tuple[float, str]:
+    """(least time in ms the card could take, which of the two sets it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """Quantized layers take the plain dequantize formulation (K4 off) inside:
+    the plain path of a kernel-vs-plain comparison."""
+    from dexbotic_tpu_torch.ops import quant_matmul
+
+    quant_matmul.KERNEL_DISPATCH = False
+    try:
+        yield
+    finally:
+        quant_matmul.KERNEL_DISPATCH = True
+
+
+def sdpa(q, k, v, mask):
+    """(backend name, q, k, v as [B, H, S, D] leaves, call) of
+    scaled_dot_product_attention on the same inputs and mask: the first of
+    flash, cuDNN, memory-efficient and math that takes them."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel([backend]):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
+        try:
+            with torch.no_grad(), warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # the refusals of the backends tried first
+                call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return backend.name, (qt, kt, vt), call
+    raise RuntimeError("no SDPA backend takes these inputs")
+
+
+def attn_counts(q, k, ints, seg, out_tensors) -> tuple[int, int]:
+    """(bytes, live query-key pairs x query heads) of one attention call."""
+    from dexbotic_tpu_torch.ops.attention import _allowed
+
+    pairs = int(_allowed(*ints, seg, seg).sum().item()) * q.shape[2]
+    return nbytes(*ints, seg, seg, *out_tensors), pairs
 
 
 def check_bound(name: str, err: float, plain_err: float, failures: list) -> None:
@@ -121,7 +198,7 @@ def attn_inputs(case, gen):
 
 
 def phase_flash(failures: list) -> dict:
-    from dexbotic_tpu_torch.ops.attention import flash_attention_fwd, flash_attention_ref
+    from dexbotic_tpu_torch.ops.attention import _allowed, flash_attention_fwd, flash_attention_ref
 
     print("phase 3: K1 flash_fwd vs plain")
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -140,18 +217,32 @@ def phase_flash(failures: list) -> dict:
         ms = median_ms(lambda: flash_attention_fwd(q, k, v, q_grp, *args))
         plain_ms = median_ms(lambda: flash_attention_ref(q, k, v, q_grp, *args))
         check_bound(name, err, plain_err, failures)
-        print(f"    lse err {lse_err:.3g}  kernel {ms:.4f} ms  plain bf16 {plain_ms:.4f} ms")
+        io_bytes, pairs = attn_counts(q, k, (q_grp, grp, valid), seg, (q, k, v, out, lse))
+        bound_ms, bound_by = bound(io_bytes, 4 * q.shape[-1] * pairs)
+        line = (f"    lse err {lse_err:.3g}  kernel {ms:.4f} ms  plain bf16 {plain_ms:.4f} ms  "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
+        lib = {"library_ms": None}
+        if case in (SERVE_CASE, TRAIN_CASE):  # the main paths' shapes: the library's time
+            mask = _allowed(q_grp, grp, valid, seg, seg)
+            backend, _, call = sdpa(q, k, v, mask)
+            with torch.no_grad():
+                lib_err = (call().transpose(1, 2).float() - ref).abs().max().item()
+                lib = {"library_ms": median_ms(call), "sdpa_backend": backend}
+            line += f"  SDPA ({backend}) {lib['library_ms']:.4f} ms, err {lib_err:.3g}"
+        print(line)
         worst = max(worst, err)
-        times.append((ms, plain_ms))
+        times.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      **lib})
         del q, k, v, out, lse, ref, ref_lse, plain
         free_memory()
     # serving's shape, then training's
-    return {"max_abs_err": worst, "ms": times[0][0], "plain_ms": times[0][1],
-            "train_ms": times[1][0], "train_plain_ms": times[1][1]}
+    return {"max_abs_err": worst, **times[0],
+            **{f"train_{key}": val for key, val in times[1].items()}}
 
 
 def phase_flash_bwd(failures: list) -> dict:
     from dexbotic_tpu_torch.ops.attention import (
+        _allowed,
         flash_attention,
         flash_attention_bwd,
         flash_attention_bwd_ref,
@@ -191,30 +282,80 @@ def phase_flash_bwd(failures: list) -> dict:
             bwd_args = (q, k, v, *ints, out_k, lse_k, dout, None, seg, seg)
             ms = median_ms(lambda: flash_attention_bwd(*bwd_args))
             plain_ms = median_ms(lambda: flash_attention_bwd_ref(*bwd_args), reps=5)
-        print(f"    kernel {ms:.4f} ms  plain bf16 {plain_ms:.4f} ms")
-        if main is None:
-            main = (ms, plain_ms)
+            # inputs q, k, v, out, dO, lse and the masks; outputs dq, dk, dv: 10 D
+            # operations a live pair and query head (S, dP, dV, dK, dQ)
+            io_bytes, pairs = attn_counts(q, k, ints, seg, (q, k, v, out_k, dout, lse_k, *got))
+            bound_ms, bound_by = bound(io_bytes, 10 * q.shape[-1] * pairs)
+        line = (f"    kernel {ms:.4f} ms  plain bf16 {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                f"({bound_by})")
+        library_ms = None
+        if main is None:  # training's shape: autograd through SDPA on the same inputs and mask
+            backend, leaves, call = sdpa(q, k, v, _allowed(*ints, seg, seg))
+            lib_out = call()
+            dout_t = dout.transpose(1, 2)
+            library_ms = median_ms(lambda: torch.autograd.grad(lib_out, leaves, dout_t,
+                                                               retain_graph=True))
+            line += f"  SDPA backward ({backend}) {library_ms:.4f} ms"
+            del lib_out, leaves
+            main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms, "sdpa_backend": backend}
+        print(line)
         del q, k, v, dout, out, got, ref, plain, out_k, lse_k, bwd_args
         free_memory()
-    return {"max_abs_err": worst, "ms": main[0], "plain_ms": main[1]}
+    return {"max_abs_err": worst, **main}
 
 
-def phase_dit(failures: list) -> dict:
+def dit_bound(head, cfg, B: int, steps: int, cfg_scale: float) -> tuple[float, str]:
+    """K2's bound: the head's parameters, z and the noise read once, the chunk
+    written once; the operations of every step's products on the real rows
+    (blocks, final projection, x embedding, attention) plus the per-call
+    timestep MLP and z projection."""
+    rows = (2 if cfg_scale > 1.0 else 1) * B
+    S, H, A, T = cfg.seq_len, cfg.hidden_size, cfg.in_channels, cfg.chunk_size
+    block = 3 * H * H + H * H + 2 * H * cfg.mlp_dim
+    per_step = 2 * rows * S * block * cfg.depth + 2 * rows * T * H * A * 2 \
+        + 4 * rows * S * S * H * cfg.depth
+    once = 2 * steps * (cfg.freq_embed_size * H + H * H) + 2 * rows * cfg.token_size * H
+    io = sum(p.numel() * p.element_size() for p in head.parameters()) \
+        + 4 * B * (cfg.token_size + 2 * T * A)
+    return bound(io, steps * per_step + once)
+
+
+def _dit_head(seed: int):
+    """DiT-B (token 4096, chunk 16, action 7) with seeded weights, final redrawn;
+    returns (cfg, bf16 head, its fp32 copy)."""
     from dexbotic_tpu_torch.models.dit import DiT, DiTConfig, init_dit_
     from dexbotic_tpu_torch.nn.core import cast_matrices_
-    from dexbotic_tpu_torch.ops.diffusion import DiffusionSchedule
-    from dexbotic_tpu_torch.ops.dit_fused import dit_sample_ref, fused_dit_sample
 
-    print("phase 4: K2 dit_sample vs plain (DiT-B, bf16 weights)")
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(2)
-    cfg = DiTConfig()  # DiT-B, token 4096, chunk 16, action 7
-    with torch.device(dev):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cfg = DiTConfig()
+    with torch.device("cuda"):
         head = DiT(cfg)
     init_dit_(head, g)
     redraw_final_(head, g)
     head32 = copy.deepcopy(head)
     cast_matrices_(head, torch.bfloat16)
+    return cfg, head, head32, g
+
+
+def phase_dit(failures: list, int8: bool = False) -> dict:
+    """K2 against its plain version: bf16 weights (phase 4) or int8 block
+    weights (4b: the bf16 head quantized as serving quantizes it; its fp32
+    reference holds the same int8 values with fp32 scales)."""
+    from dexbotic_tpu_torch.ops.diffusion import DiffusionSchedule
+    from dexbotic_tpu_torch.ops.dit_fused import dit_sample_ref, fused_dit_sample
+    from dexbotic_tpu_torch.ops.quant import quantize_model_
+
+    print("phase 4b: K2 dit_sample vs plain (DiT-B, int8 block weights)" if int8 else
+          "phase 4: K2 dit_sample vs plain (DiT-B, bf16 weights)")
+    dev = torch.device("cuda")
+    cfg, head, head32, g = _dit_head(2)
+    if int8:
+        quantize_model_(head)
+        head32 = copy.deepcopy(head)
+        for p in head32.parameters():
+            if p.is_floating_point():
+                p.data = p.data.float()
     sched = DiffusionSchedule.create(100)
     worst, main = 0.0, None
     for B, sampler, steps in ((1, "ddim", 10), (2, "ddim", 10), (1, "dpm", 5)):
@@ -223,19 +364,75 @@ def phase_dit(failures: list) -> dict:
         kw = dict(steps=steps, cfg_scale=1.5, sampler=sampler)
         out = fused_dit_sample(head, cfg, z, noise, sched, **kw)
         torch.cuda.synchronize()
-        ref = dit_sample_ref(head32, cfg, z, noise, sched, **kw)
-        plain = dit_sample_ref(head, cfg, z, noise, sched, **kw)
+        with plain_int8():
+            ref = dit_sample_ref(head32, cfg, z, noise, sched, **kw)
+            plain = dit_sample_ref(head, cfg, z, noise, sched, **kw)
+            plain_ms = median_ms(lambda: dit_sample_ref(head, cfg, z, noise, sched, **kw), reps=5)
         err = (out - ref).abs().max().item()
         plain_err = (plain - ref).abs().max().item()
         ms = median_ms(lambda: fused_dit_sample(head, cfg, z, noise, sched, **kw))
-        plain_ms = median_ms(lambda: dit_sample_ref(head, cfg, z, noise, sched, **kw), reps=5)
+        bound_ms, bound_by = dit_bound(head, cfg, B, steps, 1.5)
         check_bound(f"{sampler}-{steps} CFG 1.5 B={B}", err, plain_err, failures)
         print(f"    |ref| max {ref.abs().max().item():.4g}  kernel {ms:.4f} ms  "
-              f"plain bf16 {plain_ms:.4f} ms")
+              f"plain bf16 {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
         worst = max(worst, err)
         if main is None:
-            main = (ms, plain_ms)
-    return {"max_abs_err": worst, "ms": main[0], "plain_ms": main[1]}
+            main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"max_abs_err": worst, **main, "library_ms": None}
+
+
+# K4's cases: (layer, M, K, N).  Served: z_embed at every request (M = 2 rows
+# with CFG at B=1; 16 on the plain sampler path of an 8-frame micro-batch) and
+# t_mlp when K2's tables are built (M = 10 steps) or on that plain path (16).
+K4_SERVED = [("z_embed", 2, 4096, 768), ("z_embed", 16, 4096, 768),
+             ("t_mlp.fc0", 10, 256, 768), ("t_mlp.fc0", 16, 256, 768),
+             ("t_mlp.fc1", 10, 768, 768), ("t_mlp.fc1", 16, 768, 768)]
+K4_LLAMA = [(f"llama {K}->{N}", M, K, N) for M in (1, 16, 64)
+            for K, N in ((4096, 4096), (4096, 11008), (11008, 4096))]
+
+
+def phase_quant_matmul(failures: list) -> dict:
+    from dexbotic_tpu_torch.ops.quant import quantize_weight
+    from dexbotic_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_ref
+
+    print("phase 4c: K4 quant_matmul vs plain (int8 weights of bf16 layers; L2 flushed "
+          "before every timed call)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    flush = scratch.zero_
+    worst, main = 0.0, None
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, M, K, N in K4_SERVED + K4_LLAMA:
+            q, s = quantize_weight((torch.randn(N, K, generator=g, device=dev) * 0.02).bfloat16())
+            s = s[:, 0].to(dtype)  # quant_linear casts the scales to x's dtype
+            x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+            out = quant_matmul(x, q, s)
+            torch.cuda.synchronize()
+            ref = quant_matmul_ref(x.double(), q, s.double())
+            plain = quant_matmul_ref(x, q, s)
+            err = (out.double() - ref).abs().max().item()
+            label = f"{name} M={M} K={K} N={N} {str(dtype)[6:]}"
+            check_bound(label, err, (plain.double() - ref).abs().max().item(), failures)
+            w = q.to(dtype) * s[:, None]  # the dequantized weight
+            ms = median_ms(lambda: quant_matmul(x, q, s), flush=flush)
+            plain_ms = median_ms(lambda: quant_matmul_ref(x, q, s), flush=flush)
+            lib_ms = median_ms(lambda: torch.matmul(x, w.t()), flush=flush)
+            lib_deq_ms = median_ms(lambda: torch.matmul(x, (q.to(dtype) * s[:, None]).t()),
+                                   flush=flush)
+            bound_ms, bound_by = bound(nbytes(x, q, s, out), 2 * M * N * K, dtype)
+            print(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  matmul on the dequantized "
+                  f"weight {lib_ms:.4f} ms, with the dequantize {lib_deq_ms:.4f} ms  bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of it")
+            worst = max(worst, err)
+            if main is None:  # z_embed at B=1, bf16: the served call
+                main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": lib_ms,
+                        "library_with_dequantize_ms": lib_deq_ms}
+            del q, s, x, out, ref, plain, w
+    del scratch
+    free_memory()
+    return {"max_abs_err": worst, **main}
 
 
 @torch.no_grad()
@@ -275,39 +472,61 @@ def _post(port: int, prompt: str, frames: list, batch_size: int = 1):
     return out, time.perf_counter() - t0
 
 
-def phase_slice(failures: list) -> dict:
+PROMPT = "pick up the moka pot"
+
+
+def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) -> dict:
+    """Serve CogACT-7B over HTTP with the launch counts read around the
+    requests, then hold the kernel path against the plain path on one frame.
+
+    Phase 5 (bf16): six single frames and a batch_size=2 request.  Phase 5b
+    (``quantize``): the same seeded model quantized, six single frames, a
+    batch_size=2 request and an 8-frame one; ``bf16`` is phase 5's result, for
+    the int8 chunk's cosine to the bf16 chunk and the latency beside it."""
+    from dexbotic_tpu_torch.data import fast_image
     from dexbotic_tpu_torch.exp import base_exp
     from dexbotic_tpu_torch.exp.cogact_exp import CogActExp, CogActModelConfig
     from dexbotic_tpu_torch.exp.serve import CogActServer, _cogact_images, _cogact_prompt_ids
     from dexbotic_tpu_torch.models.cogact import cogact_inference_action
+    from dexbotic_tpu_torch.ops import quant_matmul as qm
     from dexbotic_tpu_torch.ops.attention import flash_attention
     from dexbotic_tpu_torch.ops.dit_fused import fused_dit_sample
+    from dexbotic_tpu_torch.ops.quant import quantized_bytes
 
-    print("phase 5: CogACT-7B served through /process_frame")
+    print(f"phase 5b: CogACT-7B, inference_quantize={quantize!r}, served through /process_frame"
+          if quantize else "phase 5: CogACT-7B served through /process_frame")
     exp = CogActExp(model=CogActModelConfig(), data=base_exp.DataConfig(image_processor="clip_336"),
-                    device="cuda")
+                    device="cuda", inference_quantize=quantize)
     t0 = time.perf_counter()
     cfg, model, norms = exp.load_for_inference()
     redraw_final_(model.action_head, torch.Generator(device="cuda").manual_seed(3))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = quantized_bytes(model)
     print(f"  built {n_params / 1e9:.3f}B params on the card in {time.perf_counter() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+          f"{weight_bytes / 2**30:.2f} GiB of weights, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; host image path: "
+          f"{'fast_image (g++)' if fast_image.available() else 'numpy'}")
     tokenizer = exp.tokenizer.build_tokenizer()
     server = CogActServer(exp, cfg, model, tokenizer, norms, host="127.0.0.1", port=0)
     httpd = server.serve_background()
     port = httpd.server_address[1]
-    png, prompt = _frame_png(), "pick up the moka pot"
+    png, prompt = _frame_png(), PROMPT
+    kernels = {"flash_fwd": flash_attention, "dit_sample": fused_dit_sample}
+    if quantize:
+        kernels["quant_matmul"] = qm.quant_matmul
     try:
-        flash_attention.launches = 0
-        fused_dit_sample.launches = 0
+        for fn in kernels.values():
+            fn.launches = 0
         singles, latencies = [], []
         for _ in range(6):
             out, dt = _post(port, prompt, [png])
             singles.append(out)
             latencies.append(dt)
         batch, batch_dt = _post(port, f"{prompt};{prompt}", [png, png], batch_size=2)
-        launches = {"flash_fwd": flash_attention.launches, "dit_sample": fused_dit_sample.launches}
+        if quantize:  # 8 x 832 = 6656 rows: W8A8 in the prefill, the plain sampler
+            batch8, batch8_dt = _post(port, ";".join([prompt] * 8), [png] * 8, batch_size=8)
+        launches = {name: fn.launches for name, fn in kernels.items()}
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -317,13 +536,17 @@ def phase_slice(failures: list) -> dict:
             failures.append(f"single response shape {out.shape} / finite {np.isfinite(out).all()}")
     if batch.shape != (2, cfg.chunk_size, cfg.action_dim) or not np.isfinite(batch).all():
         failures.append(f"batch response shape {batch.shape}")
+    if quantize and (batch8.shape != (8, cfg.chunk_size, cfg.action_dim)
+                     or not np.isfinite(batch8).all()):
+        failures.append(f"8-frame response shape {batch8.shape}")
     for name, n in launches.items():
         if n <= 0:
             failures.append(f"kernel {name} was not launched on the served path")
     n_tok = len(_cogact_prompt_ids(exp, cfg, tokenizer, prompt))
+    p50 = statistics.median(latencies[1:]) * 1e3
     print(f"  prompt {n_tok} tokens; request latency ms: first {latencies[0] * 1e3:.1f}, "
-          f"p50 of the rest {statistics.median(latencies[1:]) * 1e3:.1f}, "
-          f"batch_size=2 {batch_dt * 1e3:.1f}")
+          f"p50 of the rest {p50:.1f}, batch_size=2 {batch_dt * 1e3:.1f}"
+          + (f", 8 frames {batch8_dt * 1e3:.1f}" if quantize else ""))
 
     # the same frame through the kernel path and the plain path, same noise
     L = -(-n_tok // 64) * 64
@@ -338,14 +561,21 @@ def phase_slice(failures: list) -> dict:
     cfg_plain = dataclasses.replace(cfg, fused_sampler=False,
                                     vlm=dataclasses.replace(cfg.vlm, llm=llm_plain))
     a = cogact_inference_action(model, cfg, ids, valid, imgs, noise=noise).flatten()
-    b = cogact_inference_action(model, cfg_plain, ids, valid, imgs, noise=noise).flatten()
-    cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+    with plain_int8():
+        b = cogact_inference_action(model, cfg_plain, ids, valid, imgs, noise=noise).flatten()
+    cos = _cosine(a, b)
     diff = (a - b).abs().max().item()
     print(f"  kernel path vs plain path: max abs diff {diff:.5g}, cosine {cos:.6f}, "
           f"|chunk| max {b.abs().max().item():.4g}")
     if not cos >= 0.99:
         failures.append(f"slice cosine {cos} < 0.99")
-    return launches
+    result = {"launches": launches, "chunk": a, "p50_ms": p50, "weight_bytes": weight_bytes}
+    if quantize:
+        qm.W8A8_MIN_ROWS = None  # "w8a8" set it for this process
+        print(f"  int8 vs bf16 (phase 5, same seed, frame and noise): weights "
+              f"{weight_bytes / 2**30:.2f} vs {bf16['weight_bytes'] / 2**30:.2f} GiB; request p50 "
+              f"{p50:.1f} vs {bf16['p50_ms']:.1f} ms; chunk cosine {_cosine(a, bf16['chunk']):.6f}")
+    return result
 
 
 LIBERO_PROMPT = "put the black bowl in the bottom drawer of the cabinet and close it"
@@ -356,7 +586,7 @@ def write_suite(root: str) -> str:
     episodes of 24 frames); returns its name."""
     from PIL import Image
 
-    from dexbotic_tpu.data.registry import register_dataset
+    from dexbotic_tpu_torch.data.registry import register_dataset
 
     episodes, frames = 3, 24
     rng = np.random.default_rng(6)
@@ -419,7 +649,7 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def phase_train_compare(failures: list, dataset: str) -> None:
-    from dexbotic_tpu.data.collator import Collator
+    from dexbotic_tpu_torch.data.collator import Collator
     from dexbotic_tpu_torch.exp.trainer import Trainer
     from dexbotic_tpu_torch.models.cogact import cogact_loss
     from dexbotic_tpu_torch.ops.attention import flash_attention_bwd
@@ -544,8 +774,13 @@ def main() -> int:
     failures: list = []
     k1 = phase_flash(failures)
     k2 = phase_dit(failures)
-    launches = phase_slice(failures)
+    k2q = phase_dit(failures, int8=True)
+    k4 = phase_quant_matmul(failures)
+    serve = phase_slice(failures)
     free_memory()  # the serving model
+    serve_q = phase_slice(failures, quantize="w8a8", bf16=serve)
+    free_memory()
+    launches, launches_q = serve["launches"], serve_q["launches"]
     k3 = phase_flash_bwd(failures)
     train = phase_train(failures)
     if failures:
@@ -560,11 +795,19 @@ def main() -> int:
         {"name": "dit_sample", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/dit_sampler.cu",
          "replaces": "dexbotic_tpu/ops/dit_fused.py:58",
          "launches": launches["dit_sample"], **k2},
+        {"name": "dit_sample_int8", "route": "cuda",
+         "source": "dexbotic_tpu_torch/csrc/dit_sampler.cu",
+         "replaces": "dexbotic_tpu/ops/dit_fused.py:58",
+         "launches": launches_q["dit_sample"], **k2q},
         {"name": "flash_bwd", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "dexbotic_tpu/ops/attention.py:565",
          "also_replaces": ["dexbotic_tpu/ops/attention.py:498", "dexbotic_tpu/ops/attention.py:400",
                            "dexbotic_tpu/ops/attention.py:446"],
          "launches": train["launches"]["flash_bwd"], **k3},
+        {"name": "quant_matmul", "route": "cuda",
+         "source": "dexbotic_tpu_torch/csrc/quant_matmul.cu",
+         "replaces": "dexbotic_tpu/ops/quant_matmul.py:77",
+         "launches": launches_q["quant_matmul"], **k4},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,4 +7,4 @@ Kernels written by hand for Hopper live in ``csrc/`` and are built at first
 use by ``kernels/build.py``.
 """
 
-from dexbotic_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX  # noqa: F401
+from dexbotic_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX  # noqa: F401

@@ -36,7 +36,14 @@
 // Numerics follow the TPU kernel: products accumulate in fp32 and round to
 // the weight dtype, LayerNorm/softmax/scheduler math is fp32, the residual
 // stream is kept in the weight dtype.  The fp32-weight instance uses plain
-// FMA instead of tensor cores.  Int8 weights are not served here.
+// FMA instead of tensor cores.
+// Int8 block weights (the JAX int8 path, dit_fused.py:84-88): each layer's
+// q [N, K] int8 (a column's k contiguous) with per-column scales s [N] in the
+// weight dtype.  cp.async lands the int8 slab where the dense slab would go,
+// half the bytes of the bf16 stream; the product builds each mma B fragment
+// from two int8 of one column, each dequantized to the weight dtype as
+// round(float(q) * float(s)), the TPU kernel's `w.astype(cdtype) *
+// s.astype(cdtype)`, and then multiplies exactly as the dense path does.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -70,6 +77,11 @@ struct Stage {
   static constexpr int BYTES = 2 * ELEMS * int(sizeof(T));
 };
 
+// An int8 weight slab [NC columns][KC k] takes the dense slab's place; its
+// rows are padded by 16 bytes so a warp's fragment loads hit distinct banks.
+constexpr int LDQ = KC + 16;
+static_assert(NC * LDQ <= KC * Stage<__nv_bfloat16>::LD * 2, "int8 slab fits the weight slab");
+
 struct Params {
   const float* coef;  // [N, 6] scheduler coefficients, execution order
   const void* cond;   // [N, rows, H] condition token per step
@@ -79,13 +91,17 @@ struct Params {
   const float* xb;    // [H]
   const void* fw;     // [H, A]
   const float* fb;    // [A]
-  const void* wqkv;   // [depth, H, 3H]
+  const void* wqkv;   // [depth, H, 3H] (int8: [depth, 3H, H])
+  const void* sqkv;   // int8 only: [depth, 3H] scales in the weight dtype
   const float* bqkv;  // [depth, 3H]
   const void* wo;     // [depth, H, H]
+  const void* so;
   const float* bo;
-  const void* w0;  // [depth, H, M]
+  const void* w0;  // [depth, H, M] (int8: [depth, M, H])
+  const void* s0;
   const float* b0;
-  const void* w1;  // [depth, M, H]
+  const void* w1;  // [depth, M, H] (int8: [depth, H, M])
+  const void* s1;
   const float* b1;
   float* out;  // [B, T, A]
   void* h;     // [RP, H] residual stream
@@ -164,6 +180,11 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators
@@ -254,33 +275,45 @@ __device__ void bias_act_phase(const Params& p, const float* __restrict__ bias, 
 // part[c] = A[:, c-th k chunk] @ W[c-th k chunk, :] for every chunk c.
 // Item i = (chunk i / (N / NC), column block i % (N / NC)); block b takes
 // items [b * total / G, (b + 1) * total / G).
-template <typename T>
+template <typename T, bool Q>
 struct Product {
-  const T* W;  // [K, N]; null: no product
+  using WT = typename std::conditional<Q, int8_t, T>::type;
+  const WT* W;  // [K, N] (int8: [N, K]); null: no product
+  const T* S;   // int8 only: the layer's [N] scales
   int K, N;
 };
 
-template <typename T>
-__device__ __forceinline__ void item_range(const Product<T>& pr, int& first, int& last) {
+template <typename T, bool Q>
+__device__ __forceinline__ void item_range(const Product<T, Q>& pr, int& first, int& last) {
   const int total = (pr.K / KC) * (pr.N / NC), G = gridDim.x;
   first = int(long(blockIdx.x) * total / G);
   last = int(long(blockIdx.x + 1) * total / G);
 }
 
-// the item's weight slab [KC, NC] -> Ws (cp.async, whole 16-byte pieces of rows)
-template <typename T>
-__device__ __forceinline__ void stage_weights(const Product<T>& pr, int item, T* Ws) {
-  constexpr int EPV = 16 / int(sizeof(T)), RV = KC / EPV;
+// the item's weight slab [KC, NC] -> Ws (cp.async, whole 16-byte pieces of rows);
+// int8: [NC, KC] bytes at row stride LDQ
+template <typename T, bool Q>
+__device__ __forceinline__ void stage_weights(const Product<T, Q>& pr, int item, T* Ws) {
   const int nblk = pr.N / NC, k0 = (item / nblk) * KC, n0 = (item % nblk) * NC;
-  for (int e = threadIdx.x; e < KC * RV; e += NTHREADS) {
-    const int r = e / RV, v = e % RV;
-    cp_async16(Ws + r * Stage<T>::LD + v * EPV, pr.W + size_t(k0 + r) * pr.N + n0 + v * EPV);
+  if constexpr (Q) {
+    int8_t* Wq = reinterpret_cast<int8_t*>(Ws);
+    constexpr int RV = KC / 16;
+    for (int e = threadIdx.x; e < NC * RV; e += NTHREADS) {
+      const int r = e / RV, v = e % RV;
+      cp_async16(Wq + r * LDQ + v * 16, pr.W + size_t(n0 + r) * pr.K + k0 + v * 16);
+    }
+  } else {
+    constexpr int EPV = 16 / int(sizeof(T)), RV = KC / EPV;
+    for (int e = threadIdx.x; e < KC * RV; e += NTHREADS) {
+      const int r = e / RV, v = e % RV;
+      cp_async16(Ws + r * Stage<T>::LD + v * EPV, pr.W + size_t(k0 + r) * pr.N + n0 + v * EPV);
+    }
   }
 }
 
 // the item's activation slab [RP, KC] -> As
-template <typename T>
-__device__ __forceinline__ void stage_acts(const Params& p, const T* A, const Product<T>& pr,
+template <typename T, bool Q>
+__device__ __forceinline__ void stage_acts(const Params& p, const T* A, const Product<T, Q>& pr,
                                            int item, T* As) {
   constexpr int EPV = 16 / int(sizeof(T)), RV = KC / EPV;
   const int k0 = (item / (pr.N / NC)) * KC;
@@ -296,8 +329,8 @@ __device__ __forceinline__ void stage_acts(const Params& p, const T* A, const Pr
 // prefetch of layer j + 1, one product ahead); each is issued at the start of
 // the non-product phase that follows the previous product.  Those phases only
 // use the first stage's activation area, so the requests never collide.
-template <typename T>
-__device__ void prefetch_weights(const Product<T>& next, T* stage) {
+template <typename T, bool Q>
+__device__ void prefetch_weights(const Product<T, Q>& next, T* stage) {
   if (next.W == nullptr) return;
   int first, last;
   item_range(next, first, last);
@@ -308,8 +341,8 @@ __device__ void prefetch_weights(const Product<T>& next, T* stage) {
 
 // The product `cur` of activations A [RP, cur.K]; the weights of its first
 // two items were requested by prefetch_weights.
-template <typename T>
-__device__ void gemm_phase(const Params& p, const T* __restrict__ A, const Product<T>& cur, T* stage) {
+template <typename T, bool Q>
+__device__ void gemm_phase(const Params& p, const T* __restrict__ A, const Product<T, Q>& cur, T* stage) {
   using St = Stage<T>;
   const int N = cur.N, nblk = N / NC, RP = p.RP, RF = RP / 16;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -322,6 +355,9 @@ __device__ void gemm_phase(const Params& p, const T* __restrict__ A, const Produ
     cp_async_wait<0>();
     __syncthreads();
     const T* Ws = As + St::A_ELEMS + warp * 16;  // this warp's 16 columns
+    // int8: the rows of this warp's 16 columns, and their first column's scale
+    const int8_t* Wq = reinterpret_cast<const int8_t*>(As + St::A_ELEMS) + warp * 16 * LDQ;
+    const T* S = Q ? cur.S + (item % nblk) * NC + warp * 16 : nullptr;
     float* dst = p.part + size_t(item / nblk) * RP * N + (item % nblk) * NC + warp * 16;
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       // rows g, g + 8 of each 16-row fragment; columns 2 t4, 2 t4 + 1 of each 8-column half
@@ -329,11 +365,31 @@ __device__ void gemm_phase(const Params& p, const T* __restrict__ A, const Produ
       const T* bsrc = Ws + (((lane >> 3) & 1) * 8 + (lane & 7)) * St::LD + (lane >> 4) * 8;
       const T* asrc = As + (lane & 15) * St::LD + (lane >> 4) * 8;
       float acc[RFMAX][2][4] = {};
+      // int8: column g of each 8-column half, k pairs (2 t4, 2 t4 + 1) and (+8, +9)
+      float sc[2] = {0.f, 0.f};
+      if constexpr (Q) {
+        sc[0] = to_f<T>(S[g]);
+        sc[1] = to_f<T>(S[8 + g]);
+      }
+      const int8_t* qsrc = Wq + g * LDQ + 2 * t4;
+      auto deq2 = [](const int8_t* src, float scale) {
+        const uint16_t v = *reinterpret_cast<const uint16_t*>(src);
+        return pack_bf16(float(int8_t(v & 0xff)) * scale, float(int8_t(v >> 8)) * scale);
+      };
       // fragments of k step ks + 1 load while step ks multiplies: one item is
       // only 8 steps, too short for the warp scheduler to hide the latencies
       uint32_t bw[2][4], af[2][RFMAX][4];
       auto load = [&](int ks, int buf) {
-        ldsm_x4_t(bw[buf], bsrc + ks * 16 * St::LD);  // W[k:k+16, 16 columns] as two col-major 16x8
+        if constexpr (Q) {
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int8_t* src = qsrc + hf * 8 * LDQ + ks * 16;
+            bw[buf][2 * hf] = deq2(src, sc[hf]);
+            bw[buf][2 * hf + 1] = deq2(src + 8, sc[hf]);
+          }
+        } else {
+          ldsm_x4_t(bw[buf], bsrc + ks * 16 * St::LD);  // W[k:k+16, 16 columns] as two col-major 16x8
+        }
 #pragma unroll
         for (int rf = 0; rf < RFMAX; ++rf)
           if (rf < RF) ldsm_x4(af[buf][rf], asrc + rf * 16 * St::LD + ks * 16);
@@ -363,10 +419,11 @@ __device__ void gemm_phase(const Params& p, const T* __restrict__ A, const Produ
       }
     } else {
       const int col = lane & 15, half = lane >> 4;
+      const float sc = Q ? to_f<T>(S[col]) : 0.f;
       float acc[RFMAX][8] = {};
 #pragma unroll 4
       for (int k = 0; k < KC; ++k) {
-        const float w = to_f<T>(Ws[k * St::LD + col]);
+        const float w = Q ? rnd<T>(float(Wq[col * LDQ + k]) * sc) : to_f<T>(Ws[k * St::LD + col]);
 #pragma unroll
         for (int rf = 0; rf < RFMAX; ++rf)
           if (rf < RF)
@@ -496,8 +553,10 @@ __device__ void final_phase(const Params& p, int step, float* sm) {
   }
 }
 
-template <typename T>
+template <typename T, bool Q>
 __global__ void __launch_bounds__(NTHREADS) dit_sample_kernel(Params p) {
+  using Pr = Product<T, Q>;
+  using WT = typename Pr::WT;
   extern __shared__ __align__(128) unsigned char smem[];
   T* stage = reinterpret_cast<T*>(smem);
   float* sm = reinterpret_cast<float*>(smem);  // the non-product phases' view
@@ -508,14 +567,18 @@ __global__ void __launch_bounds__(NTHREADS) dit_sample_kernel(Params p) {
     p.xp[e] = 0.f;
   }
   grid.sync();
-  const T* wqkv = static_cast<const T*>(p.wqkv);
-  const T* wo = static_cast<const T*>(p.wo);
-  const T* w0 = static_cast<const T*>(p.w0);
-  const T* w1 = static_cast<const T*>(p.w1);
+  const WT* wqkv = static_cast<const WT*>(p.wqkv);
+  const WT* wo = static_cast<const WT*>(p.wo);
+  const WT* w0 = static_cast<const WT*>(p.w0);
+  const WT* w1 = static_cast<const WT*>(p.w1);
+  // int8 scales of layer j (null for dense weights)
+  auto scales = [](const void* base, size_t off) {
+    return Q ? static_cast<const T*>(base) + off : static_cast<const T*>(nullptr);
+  };
   const T* hn = static_cast<const T*>(p.hn);
   const T* attn = static_cast<const T*>(p.attn);
   const T* m = static_cast<const T*>(p.m);
-  const Product<T> qkv0{wqkv, H, 3 * H}, none{nullptr, 0, 0};
+  const Pr qkv0{wqkv, scales(p.sqkv, 0), H, 3 * H}, none{nullptr, nullptr, 0, 0};
   prefetch_weights(qkv0, stage);
   for (int step = 0; step < p.N; ++step) {
     embed_phase<T>(p, step);
@@ -523,30 +586,31 @@ __global__ void __launch_bounds__(NTHREADS) dit_sample_kernel(Params p) {
     residual_ln_phase<T>(p, nullptr, 0, sm);
     grid.sync();
     for (int j = 0; j < p.depth; ++j) {
-      const Product<T> pqkv{wqkv + size_t(j) * H * 3 * H, H, 3 * H};
-      const Product<T> po{wo + size_t(j) * H * H, H, H};
-      const Product<T> p0{w0 + size_t(j) * H * M, H, M};
-      const Product<T> p1{w1 + size_t(j) * M * H, M, H};
-      const Product<T> after = j + 1 < p.depth ? Product<T>{pqkv.W + size_t(H) * 3 * H, H, 3 * H}
-                               : step + 1 < p.N ? qkv0 : none;
-      gemm_phase<T>(p, hn, pqkv, stage);
+      const Pr pqkv{wqkv + size_t(j) * H * 3 * H, scales(p.sqkv, size_t(j) * 3 * H), H, 3 * H};
+      const Pr po{wo + size_t(j) * H * H, scales(p.so, size_t(j) * H), H, H};
+      const Pr p0{w0 + size_t(j) * H * M, scales(p.s0, size_t(j) * M), H, M};
+      const Pr p1{w1 + size_t(j) * M * H, scales(p.s1, size_t(j) * H), M, H};
+      const Pr after = j + 1 < p.depth
+                           ? Pr{pqkv.W + size_t(H) * 3 * H, scales(p.sqkv, size_t(j + 1) * 3 * H), H, 3 * H}
+                           : step + 1 < p.N ? qkv0 : none;
+      gemm_phase<T, Q>(p, hn, pqkv, stage);
       grid.sync();
       prefetch_weights(po, stage);
       bias_act_phase<T, false>(p, p.bqkv + size_t(j) * 3 * H, 3 * H, p.qkv);
       grid.sync();
       attn_phase<T>(p, sm);
       grid.sync();
-      gemm_phase<T>(p, attn, po, stage);
+      gemm_phase<T, Q>(p, attn, po, stage);
       grid.sync();
       prefetch_weights(p0, stage);
       residual_ln_phase<T>(p, p.bo + size_t(j) * H, H / KC, sm);
       grid.sync();
-      gemm_phase<T>(p, hn, p0, stage);
+      gemm_phase<T, Q>(p, hn, p0, stage);
       grid.sync();
       prefetch_weights(p1, stage);
       bias_act_phase<T, true>(p, p.b0 + size_t(j) * M, M, p.m);
       grid.sync();
-      gemm_phase<T>(p, m, p1, stage);
+      gemm_phase<T, Q>(p, m, p1, stage);
       grid.sync();
       prefetch_weights(after, stage);
       residual_ln_phase<T>(p, p.b1 + size_t(j) * H, M / KC, sm);
@@ -557,14 +621,14 @@ __global__ void __launch_bounds__(NTHREADS) dit_sample_kernel(Params p) {
   }
 }
 
-template <typename T>
+template <typename T, bool Q>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const int smem = Stage<T>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(dit_sample_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(dit_sample_kernel<T, Q>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int occ = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, dit_sample_kernel<T>, NTHREADS, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, dit_sample_kernel<T, Q>, NTHREADS, smem);
   if (err != cudaSuccess) return err;
   if (occ < 1) return cudaErrorInvalidConfiguration;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -574,7 +638,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   dim3 grid(sms);
   Params local = p;
   void* args[] = {&local};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(dit_sample_kernel<T>), grid,
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(dit_sample_kernel<T, Q>), grid,
                                     dim3(NTHREADS), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -582,11 +646,12 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-extern "C" int dbx_dit_sample(int bf16, const void* coef, const void* cond, const void* x0,
-                              const void* pos, const void* xw, const void* xb, const void* fw,
-                              const void* fb, const void* wqkv, const void* bqkv, const void* wo,
-                              const void* bo, const void* w0, const void* b0, const void* w1,
-                              const void* b1, void* out, void* h, void* hn, void* qkv,
+extern "C" int dbx_dit_sample(int bf16, int int8, const void* coef, const void* cond,
+                              const void* x0, const void* pos, const void* xw, const void* xb,
+                              const void* fw, const void* fb, const void* wqkv, const void* sqkv,
+                              const void* bqkv, const void* wo, const void* so, const void* bo,
+                              const void* w0, const void* s0, const void* b0, const void* w1,
+                              const void* s1, const void* b1, void* out, void* h, void* hn, void* qkv,
                               void* attn, void* m, void* x, void* xp, void* part, int B, int T,
                               int A, int H,
                               int heads, int M, int depth, int N, int RP, int cfg_pair,
@@ -595,7 +660,8 @@ extern "C" int dbx_dit_sample(int bf16, const void* coef, const void* cond, cons
   // the non-product phases' shared memory: the first stage's activation area
   const int smem_floats = bf16 ? Stage<__nv_bfloat16>::A_ELEMS / 2 : Stage<float>::A_ELEMS;
   if (RP > RPMAX || RP % 16 || A > AMAX || T + 1 > 32 || H % KC || M % KC || heads <= 0 ||
-      H % heads || 3 * (T + 1) * (dh + 1) > smem_floats || H + NW > smem_floats)
+      H % heads || 3 * (T + 1) * (dh + 1) > smem_floats || H + NW > smem_floats ||
+      (int8 && (!sqkv || !so || !s0 || !s1)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.coef = static_cast<const float*>(coef);
@@ -607,12 +673,16 @@ extern "C" int dbx_dit_sample(int bf16, const void* coef, const void* cond, cons
   p.fw = fw;
   p.fb = static_cast<const float*>(fb);
   p.wqkv = wqkv;
+  p.sqkv = sqkv;
   p.bqkv = static_cast<const float*>(bqkv);
   p.wo = wo;
+  p.so = so;
   p.bo = static_cast<const float*>(bo);
   p.w0 = w0;
+  p.s0 = s0;
   p.b0 = static_cast<const float*>(b0);
   p.w1 = w1;
+  p.s1 = s1;
   p.b1 = static_cast<const float*>(b1);
   p.out = static_cast<float*>(out);
   p.h = h;
@@ -626,5 +696,7 @@ extern "C" int dbx_dit_sample(int bf16, const void* coef, const void* cond, cons
   p.B = B; p.T = T; p.A = A; p.H = H; p.heads = heads; p.M = M; p.depth = depth;
   p.N = N; p.RP = RP; p.cfg_pair = cfg_pair; p.cfg_scale = cfg_scale; p.sampler = sampler;
   auto st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(bf16 ? launch<__nv_bfloat16>(p, st) : launch<float>(p, st));
+  if (int8)
+    return static_cast<int>(bf16 ? launch<__nv_bfloat16, true>(p, st) : launch<float, true>(p, st));
+  return static_cast<int>(bf16 ? launch<__nv_bfloat16, false>(p, st) : launch<float, false>(p, st));
 }

@@ -3,9 +3,11 @@
 Layered dataclass configs that users subclass and override, and
 ``python -m <exp module> --task {train,inference,inference_single,
 compute_norm_stats}`` dispatch (``train`` by default).  The data pipeline,
-tokenization and norm statistics are the JAX package's own shared modules,
-which import no JAX.  Not ported: host decode workers (``num_workers > 0``:
-``data/loader.py`` imports JAX), multi-process norm statistics, int8 serving.
+tokenization and norm statistics are the port's copies of the JAX package's
+(``data/``, ``tokenization/``).  Serving may quantize the weights to int8
+(``inference_quantize``).  Not ported: host decode workers
+(``num_workers > 0``: ``data/loader.py`` imports JAX), multi-process norm
+statistics.
 """
 
 from __future__ import annotations
@@ -23,22 +25,24 @@ import numpy as np
 import torch
 from torch import nn
 
-from dexbotic_tpu.data import normalize
-from dexbotic_tpu.data import transforms as T
-from dexbotic_tpu.data.collator import Collator
-from dexbotic_tpu.data.dexdata import DexDataset
-from dexbotic_tpu.data.image_processing import (
+from dexbotic_tpu_torch.data import normalize
+from dexbotic_tpu_torch.data import transforms as T
+from dexbotic_tpu_torch.data.collator import Collator
+from dexbotic_tpu_torch.data.dexdata import DexDataset
+from dexbotic_tpu_torch.data.image_processing import (
     DummyRGBProcessor,
     ImageProcessorConfig,
     PixelAug,
     PreprocessRGB,
 )
-from dexbotic_tpu.data.multimodal import LoadMultiModal
-from dexbotic_tpu.data.transforms import DEFAULT_PROMPT_TEMPLATE
-from dexbotic_tpu.tokenization.tokenize import DummyTokenization, LLMTokenization, SimpleTokenizer
+from dexbotic_tpu_torch.data.multimodal import LoadMultiModal
+from dexbotic_tpu_torch.data.transforms import DEFAULT_PROMPT_TEMPLATE
+from dexbotic_tpu_torch.tokenization.tokenize import DummyTokenization, LLMTokenization, SimpleTokenizer
 from dexbotic_tpu_torch.exp.optim import OptimizerConfig
 from dexbotic_tpu_torch.exp.trainer import Trainer, TrainerConfig
 from dexbotic_tpu_torch.nn.core import cast_matrices_
+from dexbotic_tpu_torch.ops import quant_matmul
+from dexbotic_tpu_torch.ops.quant import quantize_model_
 
 
 @dataclass
@@ -63,7 +67,7 @@ class TokenizerConfig(Config):
             elif not sp_path.endswith(".model"):
                 sp_path = None
             if sp_path:
-                from dexbotic_tpu.tokenization.spm import SpmTokenizer
+                from dexbotic_tpu_torch.tokenization.spm import SpmTokenizer
 
                 return SpmTokenizer(sp_path, model_max_length=self.model_max_length)
             from transformers import AutoTokenizer
@@ -77,7 +81,7 @@ class TokenizerConfig(Config):
         # register the chat template's <|...|> markers as single special tokens
         import re
 
-        from dexbotic_tpu.tokenization import conversation as conversation_lib
+        from dexbotic_tpu_torch.tokenization import conversation as conversation_lib
 
         conv = conversation_lib.conv_templates.get(self.chat_template)
         if conv is not None:
@@ -244,7 +248,10 @@ class BaseExp:
     tokenizer: TokenizerConfig = field(default_factory=TokenizerConfig)
     action: ActionConfig = field(default_factory=ActionConfig)
     data: DataConfig = field(default_factory=DataConfig)
-    inference_quantize: str = ""  # "" = bf16 serving; int8 is not ported yet
+    # "" = bf16 serving; "int8" = weight-only int8 (ops/quant.py), K4 at few
+    # rows; "w8a8" = also int8 activations for matmuls of >= 2048 rows
+    inference_quantize: str = ""
+    inference_quantize_min_size: int = 1 << 16  # skip weights smaller than this
     # >1 coalesces concurrent single-frame requests into one device call
     serve_micro_batch: int = 0
     device: str = "cuda"
@@ -253,11 +260,21 @@ class BaseExp:
         """Serving dtype policy: fp32 tensors with ndim >= 2 -> bf16, 1-D stay fp32.
 
         Applied to the module while it is laid out on the meta device, before
-        its weights are materialised."""
-        if self.inference_quantize:
-            raise NotImplementedError(
-                f"inference_quantize={self.inference_quantize!r} is not ported yet")
+        its weights are materialised (quantization needs the values: see
+        :meth:`quantize_inference_model`)."""
+        if self.inference_quantize not in ("", "int8", "w8a8"):
+            raise ValueError(f"unknown inference_quantize={self.inference_quantize!r}")
         return cast_matrices_(model, torch.bfloat16)
+
+    def quantize_inference_model(self, model: nn.Module) -> nn.Module:
+        """Optional weight-only int8 quantization of the materialised serving
+        model, in place (``ops/quant.quantize_model_``); "w8a8" additionally
+        turns on int8 activations for matmuls of >= 2048 rows, as JAX does."""
+        if self.inference_quantize:
+            quantize_model_(model, min_size=self.inference_quantize_min_size)
+            if self.inference_quantize == "w8a8":
+                quant_matmul.W8A8_MIN_ROWS = 2048
+        return model
 
     # ---- hooks each policy exp implements --------------------------------
 

@@ -107,9 +107,13 @@ class CogActExp(base_exp.BaseExp):
         return cfg, model, loss_fn
 
     def load_for_inference(self):
-        """(config, model in the serving dtype on ``device``, norm stats or None)."""
+        """(config, model in the serving dtype on ``device``, norm stats or None).
+
+        With ``inference_quantize`` the model is quantized once its weights
+        hold their values (initialised, then filled from the checkpoint)."""
         cfg = self.model.build_config()
         model = self.model.build_params(cfg, self.device, prepare=self.prepare_inference_params)
+        self.quantize_inference_model(model)
         norms = None
         if self.model.model_name_or_path:
             path = os.path.join(self.model.model_name_or_path, "norm_stats.json")

@@ -24,9 +24,9 @@ import numpy as np
 import torch
 from PIL import Image
 
-from dexbotic_tpu.data.image_processing import preprocess_images_batch, to_numpy_image
-from dexbotic_tpu.tokenization import conversation as conversation_lib
-from dexbotic_tpu.tokenization.tokenize import tokenizer_image_token
+from dexbotic_tpu_torch.data.image_processing import preprocess_images_batch, to_numpy_image
+from dexbotic_tpu_torch.tokenization import conversation as conversation_lib
+from dexbotic_tpu_torch.tokenization.tokenize import tokenizer_image_token
 
 
 def _disposition_param(header: str, key: str):

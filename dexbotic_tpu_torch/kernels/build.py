@@ -41,13 +41,15 @@ _SIGNATURES = {
     # q, k, v, q_grp, kv_grp, kv_valid, q_seg, kv_seg, o, lse,
     # B, Sq, Skv, Hq, Hkv, D, scale, stream
     "dbx_flash_fwd": [_P] * 10 + [_I] * 6 + [_F, _P],
-    # bf16?, coef, cond, x0, pos, xw, xb, fw, fb, wqkv, bqkv, wo, bo, w0, b0,
-    # w1, b1, out, h, hn, qkv, attn, m, x, xp, part,
+    # bf16?, int8?, coef, cond, x0, pos, xw, xb, fw, fb, wqkv, sqkv, bqkv, wo, so,
+    # bo, w0, s0, b0, w1, s1, b1, out, h, hn, qkv, attn, m, x, xp, part,
     # B, T, A, H, heads, M, depth, N, RP, cfg_pair, cfg_scale, sampler, stream
-    "dbx_dit_sample": [_I] + [_P] * 25 + [_I] * 10 + [_F, _I, _P],
+    "dbx_dit_sample": [_I, _I] + [_P] * 29 + [_I] * 10 + [_F, _I, _P],
     # q~ (pre-scaled), k, v, dout, lse, delta, q_grp, kv_grp, kv_valid, q_seg,
     # kv_seg, dq, dk, dv, B, Sq, Skv, Hq, Hkv, D, scale, stream
     "dbx_flash_bwd": [_P] * 14 + [_I] * 6 + [_F, _P],
+    # bf16?, x, q, s, out, part, M, N, K, splits, stream
+    "dbx_quant_matmul": [_I] + [_P] * 5 + [_I] * 4 + [_P],
 }
 
 

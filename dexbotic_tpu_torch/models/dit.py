@@ -129,7 +129,7 @@ def dit_forward(head: DiT, cfg: DiTConfig, x: torch.Tensor, t: torch.Tensor, z: 
     if drop_gen is not None and cfg.class_dropout_prob > 0:
         drop = torch.rand((B,), generator=drop_gen, device=x.device) < cfg.class_dropout_prob
         z = torch.where(drop[:, None, None], head.uncondition.to(z.dtype)[None, None, :], z)
-    cdtype = head.x_embed.weight.dtype
+    cdtype = core.weight_dtype(head.x_embed)
     x, z = x.to(cdtype), z.to(cdtype)
     xe = head.x_embed(x)
     te = timestep_embedding(t, cfg.freq_embed_size).to(cdtype)

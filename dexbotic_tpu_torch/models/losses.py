@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from dexbotic_tpu.constants import IGNORE_INDEX
+from dexbotic_tpu_torch.constants import IGNORE_INDEX
 
 
 def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

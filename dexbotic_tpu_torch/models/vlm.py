@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from dexbotic_tpu.constants import IMAGE_TOKEN_INDEX
+from dexbotic_tpu_torch.constants import IMAGE_TOKEN_INDEX
 from dexbotic_tpu_torch.nn.projector import Projector, apply_projector, init_projector_
 from dexbotic_tpu_torch.nn.transformer import (
     Transformer,

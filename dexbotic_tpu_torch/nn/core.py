@@ -17,6 +17,8 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from dexbotic_tpu_torch.ops import norms
+from dexbotic_tpu_torch.ops.quant import quantize_weight
+from dexbotic_tpu_torch.ops.quant_matmul import quant_linear
 
 
 def _quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -38,6 +40,48 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class QuantLinear(nn.Module):
+    """Weight-only int8 ``Linear`` (the JAX ``{"w": {"q", "s"}}`` linear):
+    ``q`` int8 [out, in] and per-output-channel scales ``s`` [out] in the
+    original weight's dtype; ``forward`` is ``ops/quant_matmul.quant_linear``."""
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor, bias: nn.Parameter | None):
+        super().__init__()
+        self.out_features, self.in_features = q.shape
+        self.q = nn.Parameter(q, requires_grad=False)
+        self.s = nn.Parameter(s, requires_grad=False)
+        self.bias = bias
+
+    @classmethod
+    def from_linear(cls, lin: nn.Linear) -> "QuantLinear":
+        q, s = quantize_weight(lin.weight.detach())
+        return cls(q, s[:, 0], lin.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return quant_linear(x, self.q, self.s, self.bias)
+
+
+class QuantEmbedding(nn.Module):
+    """Weight-only int8 embedding table, per-row scales: ``q`` int8 [V, D],
+    ``s`` [V, 1] in the original table's dtype (read by :func:`embed` and the
+    tied ``nn/transformer.lm_logits``)."""
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor):
+        super().__init__()
+        self.num_embeddings, self.embedding_dim = q.shape
+        self.q = nn.Parameter(q, requires_grad=False)
+        self.s = nn.Parameter(s, requires_grad=False)
+
+    @classmethod
+    def from_embedding(cls, emb: nn.Embedding) -> "QuantEmbedding":
+        return cls(*quantize_weight(emb.weight.detach()))
+
+
+def weight_dtype(mod: nn.Module) -> torch.dtype:
+    """The dtype a layer's weight is served in (a quantized layer's: its scales')."""
+    return mod.s.dtype if isinstance(mod, (QuantLinear, QuantEmbedding)) else mod.weight.dtype
 
 
 def cast_matrices_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -74,7 +118,9 @@ def remat_call(fn, remat, *args):
     return fn(*args)
 
 
-def embed(mod: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+def embed(mod: nn.Module, ids: torch.Tensor) -> torch.Tensor:
+    if isinstance(mod, QuantEmbedding):  # rows of q, times their scales, in the scales' dtype
+        return mod.q[ids].to(mod.s.dtype) * mod.s[ids]
     return F.embedding(ids, mod.weight)
 
 

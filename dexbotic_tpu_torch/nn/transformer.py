@@ -114,7 +114,10 @@ def embed_tokens(llm: Transformer, cfg: TransformerConfig, ids: torch.Tensor, dt
 def lm_logits(llm: Transformer, cfg: TransformerConfig, hidden: torch.Tensor) -> torch.Tensor:
     if hasattr(llm, "lm_head"):
         return llm.lm_head(hidden)
-    return hidden @ llm.embed.weight.to(hidden.dtype).t()  # tied embedding
+    e = llm.embed  # tied embedding
+    if isinstance(e, core.QuantEmbedding):  # int8 rows, per-row scales, in hidden's dtype
+        return (hidden @ e.q.to(hidden.dtype).t()) * e.s.to(hidden.dtype).t()
+    return hidden @ e.weight.to(hidden.dtype).t()
 
 
 def transformer_forward(cfg: TransformerConfig, llm: Transformer, embeds: torch.Tensor,

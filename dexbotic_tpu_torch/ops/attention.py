@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from dexbotic_tpu.constants import MASKED_BIAS
+from dexbotic_tpu_torch.constants import MASKED_BIAS
 
 
 def _allowed(q_grp, kv_grp, kv_valid, q_seg, kv_seg) -> torch.Tensor:

@@ -8,10 +8,14 @@ launches the kernel or raises; on a CPU tensor it runs
 :func:`dit_sample_ref`, the plain version: the samplers of
 ``ops/diffusion.py`` looped over ``dit_forward``.
 
-The kernel takes the block weights stacked per layer as [depth, in, out]; the
-wrapper builds those buffers, the scheduler table and the timestep MLP's
+The kernel takes the block weights stacked per layer as [depth, in, out], or,
+when every block layer is quantized (``nn/core.QuantLinear``), as int8
+[depth, out, in] with [depth, out] scales in the head's dtype, dequantized in
+the kernel as the JAX kernel does (``w.astype(cdtype) * s.astype(cdtype)``).
+The wrapper builds those buffers, the scheduler table and the timestep MLP's
 output once per head and caches them on it (rebuilt when a parameter they
-come from is replaced or changed in place).
+come from is replaced or changed in place).  ``t_mlp`` and ``z_embed`` run as
+the head's own layers: through K4 (``ops/quant_matmul.py``) when quantized.
 """
 
 from __future__ import annotations
@@ -21,7 +25,11 @@ import torch
 import torch.nn.functional as F
 
 from dexbotic_tpu_torch.models.dit import DiT, DiTConfig, dit_forward, dit_forward_with_cfg
+from dexbotic_tpu_torch.nn.core import QuantLinear, weight_dtype
 from dexbotic_tpu_torch.ops.diffusion import DiffusionSchedule, ddim_timesteps, dpm_coefficients
+from dexbotic_tpu_torch.ops.quant import dequantize_weight
+
+_BLOCK_LINEARS = ("qkv", "o", "fc0", "fc1")
 
 
 @torch.no_grad()
@@ -83,28 +91,44 @@ def _cached(head: DiT, name: str, params, extra, build):
     return hit[1]
 
 
+def _dense_weight(lin) -> torch.Tensor:
+    """A layer's [out, in] weight; a quantized one dequantized once, as the
+    JAX wrapper does for x_embed and final (``dit_fused.py:290-297``): the
+    fp32 product q * s rounded once to the scales' dtype, which is what the
+    kernel's in-register ``w.astype(cdtype) * s.astype(cdtype)`` gives."""
+    return dequantize_weight(lin.q, lin.s) if isinstance(lin, QuantLinear) else lin.weight
+
+
 def _stacked_weights(head: DiT) -> dict:
-    """[depth, in, out] weights in the head's dtype and [depth, out] fp32 biases."""
+    """[depth, in, out] weights in the head's dtype, or int8 [depth, out, in] with
+    [depth, out] scales ``s*`` when every block layer is quantized, and
+    [depth, out] fp32 biases."""
     lins = {
         "qkv": [b.attn.qkv for b in head.blocks], "o": [b.attn.o for b in head.blocks],
         "fc0": [b.mlp.fc0 for b in head.blocks], "fc1": [b.mlp.fc1 for b in head.blocks],
     }
+    cdtype = weight_dtype(head.x_embed)
+    int8 = all(isinstance(lin, QuantLinear) for ls in lins.values() for lin in ls)
 
     def build():
         bufs = {}
         for name, ls in lins.items():
-            bufs["w" + name] = torch.stack([lin.weight.t() for lin in ls]).contiguous()
+            if int8:
+                bufs["w" + name] = torch.stack([lin.q for lin in ls]).contiguous()
+                bufs["s" + name] = torch.stack([lin.s.to(cdtype) for lin in ls]).contiguous()
+            else:
+                bufs["w" + name] = torch.stack([_dense_weight(lin).t() for lin in ls]).contiguous()
             bufs["b" + name] = torch.stack([lin.bias.float() for lin in ls]).contiguous()
         return bufs
 
-    params = [p for ls in lins.values() for lin in ls for p in (lin.weight, lin.bias)]
+    params = [p for ls in lins.values() for lin in ls for p in lin.parameters()]
     return _cached(head, "stacked", params, None, build)
 
 
 def _step_tables(head: DiT, cfg: DiTConfig, schedule: DiffusionSchedule, steps: int,
                  sampler: str, dev) -> tuple:
     """(coefficient table [N, 6] fp32, t_mlp(timestep embedding) [N, H]) on ``dev``."""
-    cdtype = head.x_embed.weight.dtype
+    cdtype = weight_dtype(head.x_embed)
 
     def build():
         C, ts = coefficient_table(schedule, steps, sampler)
@@ -126,19 +150,19 @@ def prepare(head: DiT, cfg: DiTConfig, z: torch.Tensor, schedule: DiffusionSched
 
     What depends only on the weights and the schedule is built once and cached
     on the head; per call only the condition tokens are computed."""
-    cdtype = head.x_embed.weight.dtype
+    cdtype = weight_dtype(head.x_embed)
     coef, te = _step_tables(head, cfg, schedule, steps, sampler, z.device)
     with torch.no_grad():
         zc = z[:, 0, :].to(cdtype)
         if cfg_scale > 1.0:
             zc = torch.cat([zc, head.uncondition.to(cdtype)[None].expand_as(zc)], dim=0)
         cond = (te[:, None, :] + head.z_embed(zc)[None]).to(cdtype).contiguous()
-    small = _cached(head, "small", [head.pos_embed, head.x_embed.weight, head.x_embed.bias,
-                                    head.final.weight, head.final.bias], None, lambda: {
+    small = _cached(head, "small", [head.pos_embed, *head.x_embed.parameters(),
+                                    *head.final.parameters()], None, lambda: {
         "pos": head.pos_embed.to(cdtype).contiguous(),
-        "xw": head.x_embed.weight.t().to(cdtype).contiguous(),
+        "xw": _dense_weight(head.x_embed).t().to(cdtype).contiguous(),
         "xb": head.x_embed.bias.float().contiguous(),
-        "fw": head.final.weight.t().to(cdtype).contiguous(),
+        "fw": _dense_weight(head.final).t().to(cdtype).contiguous(),
         "fb": head.final.bias.float().contiguous(),
     })
     return {"coef": coef, "cond": cond, **small, **_stacked_weights(head)}
@@ -147,7 +171,7 @@ def prepare(head: DiT, cfg: DiTConfig, z: torch.Tensor, schedule: DiffusionSched
 def _launch(head: DiT, cfg: DiTConfig, z, noise, schedule, steps, cfg_scale, sampler):
     from dexbotic_tpu_torch.kernels import build
 
-    cdtype = head.x_embed.weight.dtype
+    cdtype = weight_dtype(head.x_embed)
     if cdtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"DiT sampler kernel takes bf16 or fp32 weights, got {cdtype}")
     if cfg_scale > 1.0 and not hasattr(head, "uncondition"):
@@ -162,8 +186,13 @@ def _launch(head: DiT, cfg: DiTConfig, z, noise, schedule, steps, cfg_scale, sam
     for name, t in prep.items():
         if t.device != noise.device or not t.is_contiguous():
             raise ValueError(f"K2 operand {name} not contiguous on {noise.device}")
-    if any(prep[k].dtype != cdtype for k in ("wqkv", "wo", "wfc0", "wfc1", "cond", "pos", "xw", "fw")):
-        raise TypeError("DiT head weights must share one dtype (int8 heads are not served by K2)")
+    int8 = prep["wqkv"].dtype == torch.int8
+    dense = () if int8 else tuple("w" + n for n in _BLOCK_LINEARS)
+    if any(prep[k].dtype != cdtype for k in (*dense, "cond", "pos", "xw", "fw")):
+        raise TypeError(f"DiT head weights must share one dtype, {cdtype}")
+    if int8 and any(prep["w" + n].dtype != torch.int8 or prep["s" + n].dtype != cdtype
+                    for n in _BLOCK_LINEARS):
+        raise TypeError(f"int8 block weights need int8 q and scales in {cdtype}")
     dev = noise.device
     x0 = noise.float().contiguous()
     out = torch.empty_like(x0)
@@ -175,12 +204,17 @@ def _launch(head: DiT, cfg: DiTConfig, z, noise, schedule, steps, cfg_scale, sam
     # fp32 partial products [K / 128, RP, N] of the largest product
     part = torch.empty(max(3 * H * H, H * M) // 128 * RP, dtype=torch.float32, device=dev)
     p = prep
+
+    def scales(name):  # int8 scales of a block linear, or none
+        return p["s" + name].data_ptr() if int8 else None
+
     code = build.load().dbx_dit_sample(
-        int(cdtype == torch.bfloat16), p["coef"].data_ptr(), p["cond"].data_ptr(),
+        int(cdtype == torch.bfloat16), int(int8), p["coef"].data_ptr(), p["cond"].data_ptr(),
         x0.data_ptr(), p["pos"].data_ptr(), p["xw"].data_ptr(), p["xb"].data_ptr(),
-        p["fw"].data_ptr(), p["fb"].data_ptr(), p["wqkv"].data_ptr(), p["bqkv"].data_ptr(),
-        p["wo"].data_ptr(), p["bo"].data_ptr(), p["wfc0"].data_ptr(), p["bfc0"].data_ptr(),
-        p["wfc1"].data_ptr(), p["bfc1"].data_ptr(), out.data_ptr(), h.data_ptr(),
+        p["fw"].data_ptr(), p["fb"].data_ptr(), p["wqkv"].data_ptr(), scales("qkv"),
+        p["bqkv"].data_ptr(), p["wo"].data_ptr(), scales("o"), p["bo"].data_ptr(),
+        p["wfc0"].data_ptr(), scales("fc0"), p["bfc0"].data_ptr(), p["wfc1"].data_ptr(),
+        scales("fc1"), p["bfc1"].data_ptr(), out.data_ptr(), h.data_ptr(),
         hn.data_ptr(), qkv.data_ptr(), attn.data_ptr(), m.data_ptr(), x.data_ptr(),
         xp.data_ptr(), part.data_ptr(), B, T, A, H, cfg.num_heads, M, cfg.depth, steps, RP,
         int(cfg_scale > 1.0), float(cfg_scale), int(sampler == "dpm"),

@@ -8,6 +8,13 @@ unstacked into ``<name>.<i>``; a leaf ``w`` becomes ``weight`` (transposed
 when 2-D: ``nn.Linear`` is ``[out, in]``), ``b`` becomes ``bias`` and
 ``embedding`` becomes ``weight``; any other leaf keeps its name.  A tied
 embedding has no ``lm_head`` on either side.
+
+An int8-quantized weight (``ops/quant.py``: ``{"q": [..., in, Np], "s":
+[..., 1, N]}`` under ``w``, ``{"q": [V, D], "s": [V, 1]}`` under
+``embedding``) fills the ``q`` and ``s`` of a ``QuantLinear`` /
+``QuantEmbedding``: a linear's ``q`` is transposed to [N, in] with the
+zero-padded columns the TPU kernel's tiling added dropped, its ``s`` becomes
+[N]; an embedding's pair keeps its layout.
 """
 
 from __future__ import annotations
@@ -23,7 +30,12 @@ _RENAME = {"w": "weight", "b": "bias", "embedding": "weight"}
 
 
 def _flatten(tree, prefix=()) -> Iterator[tuple[tuple, np.ndarray]]:
-    if isinstance(tree, dict):
+    if isinstance(tree, dict) and set(tree) == {"q", "s"} and prefix[-1:] == ("w",):
+        # quantized linear: drop the padded columns, which only q carries
+        s = np.asarray(tree["s"])
+        yield prefix + ("q",), np.asarray(tree["q"])[..., : s.shape[-1]]
+        yield prefix + ("s",), s
+    elif isinstance(tree, dict):
         for k, v in tree.items():
             yield from _flatten(v, prefix + (k,))
     else:
@@ -40,6 +52,11 @@ def _port_leaves(path: tuple, arr: np.ndarray) -> Iterator[tuple[str, np.ndarray
         entries = [(path, arr)]
     for parts, val in entries:
         leaf = parts[-1]
+        if len(parts) > 1 and parts[-2] in ("w", "embedding") and leaf in ("q", "s"):
+            if parts[-2] == "w":  # [in, N] -> [N, in]; [1, N] -> [N]
+                val = val.T if leaf == "q" else val.reshape(-1)
+            yield ".".join(parts[:-2] + (leaf,)), val
+            continue
         if leaf == "w" and val.ndim == 2:
             val = val.T
         yield ".".join(parts[:-1] + (_RENAME.get(leaf, leaf),)), val

@@ -1,4 +1,4 @@
-"""The port imports torch and never jax, and builds nothing when imported."""
+"""The port imports torch, never jax nor the JAX package, and builds nothing when imported."""
 
 import os
 import pkgutil
@@ -20,9 +20,10 @@ def test_every_module_imports_with_jax_blocked():
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises ImportError
+        "sys.modules['dexbotic_tpu'] = None\n"  # and so does any import of the JAX package
         f"for name in {_modules()!r}:\n"
         "    importlib.import_module(name)\n"
-        "assert sys.modules['jax'] is None\n"
+        "assert sys.modules['jax'] is None and sys.modules['dexbotic_tpu'] is None\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -41,10 +42,30 @@ def test_no_jax_in_the_sources():
                     assert not pat.search(fh.read()), f
 
 
+def _sources():
+    for root, _, files in os.walk(PKG):
+        yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_jax_package_in_the_sources():
+    """No line of the port or of chip_smoke.py imports dexbotic_tpu (the port's
+    own dexbotic_tpu_torch is fine)."""
+    pat = re.compile(r"^\s*(import dexbotic_tpu|from dexbotic_tpu)(\.|\s|$)", re.M)
+    for path in _sources():
+        with open(path) as fh:
+            found = pat.findall(fh.read())
+        assert not found, (path, found)
+
+
 def test_kernel_modules_import_without_nvcc_or_gpu():
     from dexbotic_tpu_torch.kernels import build
-    from dexbotic_tpu_torch.ops import attention, dit_fused  # noqa: F401
+    from dexbotic_tpu_torch.ops import attention, dit_fused, quant_matmul  # noqa: F401
 
     assert build.LIBRARY._lib is None  # nothing was built or loaded by importing
-    assert sorted(os.listdir(os.path.join(PKG, "csrc"))) == ["dit_sampler.cu", "flash_bwd.cu",
-                                                             "flash_fwd.cu"]
+    csrc = os.path.join(PKG, "csrc")
+    assert sorted(os.listdir(csrc)) == ["dit_sampler.cu", "flash_bwd.cu", "flash_fwd.cu", "host",
+                                        "quant_matmul.cu"]
+    # host code (g++, built into _build/ by data/fast_image.py), outside the kernels' hash
+    assert os.listdir(os.path.join(csrc, "host")) == ["fast_image.cpp"]
+    assert all(os.path.dirname(p) == csrc for p in build.LIBRARY._sources())

@@ -119,8 +119,8 @@ def test_unported_options_raise(served):
     with pytest.raises(NotImplementedError):
         _serve(served, fuse_preprocess=True)
     e = _exp()
-    e.inference_quantize = "int8"
-    with pytest.raises(NotImplementedError):
+    e.inference_quantize = "int4"
+    with pytest.raises(ValueError):
         e.load_for_inference()
 
 

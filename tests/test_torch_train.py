@@ -42,6 +42,7 @@ from dexbotic_tpu.models import cogact as jcogact
 from dexbotic_tpu.models import vlm as jvlm
 from dexbotic_tpu.nn import transformer as jtransformer
 from dexbotic_tpu.nn import vit as jvit
+from dexbotic_tpu_torch.data import registry as tregistry
 from dexbotic_tpu_torch.exp import optim as toptim
 from dexbotic_tpu_torch.exp import trainer as ttrainer
 from dexbotic_tpu_torch.models import cogact as tcogact
@@ -302,9 +303,11 @@ def mini_suite(tmp_path):
             }))
         with open(f"{root}/e{e}.jsonl", "w") as f:
             f.write("\n".join(lines))
-    register_dataset({"torch": {"data_path_prefix": root, "annotations": root, "frequency": 1}},
-                     prefix="mini", meta_data={"non_delta_mask": [6], "periodic_mask": None,
-                                               "periodic_range": None})
+    # the JAX package's DexDataset and the port's copy each read their own registry
+    for register in (register_dataset, tregistry.register_dataset):
+        register({"torch": {"data_path_prefix": root, "annotations": root, "frequency": 1}},
+                 prefix="mini", meta_data={"non_delta_mask": [6], "periodic_mask": None,
+                                           "periodic_range": None})
     return root
 
 
@@ -369,10 +372,12 @@ def test_exp_train_checkpoint_then_serve(tmp_path, mini_suite, monkeypatch):
 
 def test_norm_stats_and_batches_match_jax(tmp_path, mini_suite, monkeypatch):
     """The experiment layer's data path (re-declared in the port because the
-    JAX exp modules import JAX) gives the JAX package's norm stats and batches."""
-    from dexbotic_tpu.data.collator import Collator
+    JAX exp modules import JAX), over the port's copies of the data and
+    tokenization modules, gives the JAX package's norm stats and batches."""
+    from dexbotic_tpu.data.collator import Collator as JCollator
     from dexbotic_tpu.exp import base_exp as jbase
     from dexbotic_tpu.exp import cogact_exp as jexp
+    from dexbotic_tpu_torch.data.collator import Collator as TCollator
     from dexbotic_tpu_torch.exp import base_exp as tbase
     from dexbotic_tpu_torch.exp import cogact_exp as texp
 
@@ -385,7 +390,8 @@ def test_norm_stats_and_batches_match_jax(tmp_path, mini_suite, monkeypatch):
     assert stats["port"] == stats["jax"]
 
     batches = {}
-    for side, base, mod in (("jax", jbase, jexp), ("port", tbase, texp)):
+    for side, base, mod, Collator in (("jax", jbase, jexp, JCollator),
+                                      ("port", tbase, texp, TCollator)):
         exp = mod.CogActExp(
             model=mod.CogActModelConfig(llm_preset="test", vit_preset="test",
                                         action_model_type="DiT-S", chunk_size=4),
@@ -397,8 +403,8 @@ def test_norm_stats_and_batches_match_jax(tmp_path, mini_suite, monkeypatch):
         ds = exp.data.build_data(exp.build_tokenization(tok), exp.action.build_action_process_func())
         it = base.data_iterator(ds, Collator(pad_token_id=tok.pad_token_id, max_length=96), 4,
                                 seed=7)
-        # the shared DexDataset replaces an episode's last frame by one drawn
-        # from the process-global `random` (data/dexdata.py:181-186)
+        # each DexDataset replaces an episode's last frame by one drawn from
+        # the process-global `random` (data/dexdata.py:181-186)
         random.seed(3)
         batches[side] = [next(it) for _ in range(3)]
     for bj, bt in zip(batches["jax"], batches["port"]):
