@@ -23,7 +23,8 @@ Phases, any failure exits non-zero without a result line:
   6. K3 (flash-attention backward) against its plain version, gradients of
      sum(out * dO) through FlashAttention at K1's shapes, the training step's
      (B=8, S=2048, 32 heads of 128) first; the plain version gets K3's own
-     inputs, the out and lse K1 saved;
+     inputs, the out and lse K1 saved; two K3 calls must give bitwise-equal
+     gradients (K1's determinism is checked there too);
   7. the training slice, CogACT-7B on the LIBERO recipe with a frozen LLM
      (rows padded to the recipe's 2048 tokens), on a synthetic Dexdata suite
      of 480x640 frames written to a temp dir:
@@ -44,6 +45,8 @@ function must move (each input read once, each output written once) over
 TFLOP/s bf16; 495 TF32 for K4's fp32 activations); the library time is one
 PyTorch call computing the same function (SDPA for K1 and K3, a bf16 matmul
 on the dequantized weight for K4), timed here and used nowhere in the port.
+K1's and K3's ``device_ms`` is their kernels' own device time per call from
+``torch.profiler``, beside ``ms`` (CUDA events around the Python call).
 The last two lines printed are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.
 """
@@ -111,6 +114,26 @@ def median_ms(fn, reps: int = REPS, flush=None) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, kernels: tuple, reps: int = 10) -> float:
+    """The named kernels' own device time per call (``torch.profiler``,
+    ``self_device_time_total``): the call's time without its host wrapper."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+                for e in prof.key_averages() if any(k in e.key for k in kernels))
+    if total <= 0:
+        raise RuntimeError(f"the profiler saw no device time of {kernels}")
+    return total / reps / 1e3
+
+
+K1_KERNELS = ("flash_fwd_kernel", "tile_class_kernel")
+K3_KERNELS = ("pre_kernel", "tile_class_kernel", "dkv_kernel", "dq_kernel")
 
 
 def bound(nbytes: float, ops: float, dtype=torch.bfloat16) -> tuple[float, str]:
@@ -227,8 +250,11 @@ def phase_flash(failures: list) -> dict:
             backend, _, call = sdpa(q, k, v, mask)
             with torch.no_grad():
                 lib_err = (call().transpose(1, 2).float() - ref).abs().max().item()
-                lib = {"library_ms": median_ms(call), "sdpa_backend": backend}
-            line += f"  SDPA ({backend}) {lib['library_ms']:.4f} ms, err {lib_err:.3g}"
+                lib = {"library_ms": median_ms(call), "sdpa_backend": backend,
+                       "device_ms": device_ms(lambda: flash_attention_fwd(q, k, v, q_grp, *args),
+                                              K1_KERNELS)}
+            line += (f"  kernels alone {lib['device_ms']:.4f} ms  SDPA ({backend}) "
+                     f"{lib['library_ms']:.4f} ms, err {lib_err:.3g}")
         print(line)
         worst = max(worst, err)
         times.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -280,6 +306,9 @@ def phase_flash_bwd(failures: list) -> dict:
             if seg is not None and not (q.grad[:, 5] == 0).all():
                 failures.append(f"{name}: a row that sees no key got a gradient")
             bwd_args = (q, k, v, *ints, out_k, lse_k, dout, None, seg, seg)
+            again = flash_attention_bwd(*bwd_args)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                failures.append(f"{name}: two K3 calls gave different gradients")
             ms = median_ms(lambda: flash_attention_bwd(*bwd_args))
             plain_ms = median_ms(lambda: flash_attention_bwd_ref(*bwd_args), reps=5)
             # inputs q, k, v, out, dO, lse and the masks; outputs dq, dk, dv: 10 D
@@ -295,12 +324,13 @@ def phase_flash_bwd(failures: list) -> dict:
             dout_t = dout.transpose(1, 2)
             library_ms = median_ms(lambda: torch.autograd.grad(lib_out, leaves, dout_t,
                                                                retain_graph=True))
-            line += f"  SDPA backward ({backend}) {library_ms:.4f} ms"
+            dev_ms = device_ms(lambda: flash_attention_bwd(*bwd_args), K3_KERNELS)
+            line += f"  kernels alone {dev_ms:.4f} ms  SDPA backward ({backend}) {library_ms:.4f} ms"
             del lib_out, leaves
-            main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": library_ms, "sdpa_backend": backend}
+            main = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library_ms, "sdpa_backend": backend}
         print(line)
-        del q, k, v, dout, out, got, ref, plain, out_k, lse_k, bwd_args
+        del q, k, v, dout, out, got, again, ref, plain, out_k, lse_k, bwd_args
         free_memory()
     return {"max_abs_err": worst, **main}
 

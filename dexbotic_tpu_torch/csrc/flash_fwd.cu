@@ -12,91 +12,90 @@
 // Writes O (bf16, [B, Sq, Hq, D]) and the per-row log-sum-exp (fp32,
 // [B, Hq, Sq]) for a later backward.
 //
-// What bounds it on the card: at the slice's prefill (S ~ 832-1408, D 128)
-// the work is about 4*S^2*D flops per (b, h) against 4*S*D bytes of q/k/v, so
-// it is compute-bound and belongs on the tensor cores; what a simple kernel
-// loses is latency (global loads, shared-memory round trips, barriers)
-// rather than bytes.
-// Design (FlashAttention-2 shape): one block of 4 warps per (64-row q tile,
-// h, b); each warp owns 16 query rows and keeps its Q fragments, the 16x64
-// score tile and the 16xD output accumulator in registers across the whole
-// kv loop.  Products are mma.sync m16n8k16 (bf16 in, fp32 accumulate) with
-// operands fetched by ldmatrix from shared-memory tiles whose rows are padded
-// by 16 bytes (conflict-free); the probabilities are rounded to bf16 and
-// re-used from the score registers as the A operand of P V.  The softmax
-// statistics stay fp32 per row (a quad of threads shares a row).  Each block
-// first reads its kv mask vectors once to list the kv tiles it must visit:
-// a tile whose smallest valid kv_grp exceeds the q tile's largest q_grp is
-// skipped, which halves the work of a causal prefill.  The listed tiles'
-// K, V and mask vectors then stream through two shared-memory buffers with
-// cp.async, the next tile loading while this one computes.  No dense [S, S]
-// mask exists anywhere.  q is pre-scaled on load as bf16(float(q)*scale),
-// exactly as _flash_impl pre-scales it.  wgmma, TMA and warp specialisation
-// are left for later work.
+// What bounds it on the card: about 4*S^2*D flops per (b, h) against 4*S*D
+// bytes, so the tensor cores, reachable at full rate only through wgmma.
+// Design (FlashAttention-3's forward, without its intra-warpgroup overlap):
+//  * a pre-pass (tile_class_kernel) classes every (64-row q tile, 64-row kv
+//    tile) pair as dead, partial or wholly visible; each block lists the live
+//    kv tiles of its q tile from that map, so dead tiles are never loaded and
+//    visible ones skip the per-element mask test;
+//  * one block per (q tile of 64 * NWG rows, h, b), the heaviest q tiles
+//    (the last, under a causal mask) first;
+//  * one producer warp (of its own warpgroup when NWG = 2, which gives its
+//    registers to the consumers by setmaxnreg) loads the Q tile, then
+//    streams K and V tiles of BK rows by TMA into 128-byte-swizzled shared
+//    memory through a ring of stages handed over by mbarriers (full: TMA
+//    bytes + the tile's mask vectors written by the warp; empty: every
+//    consumer thread);
+//  * NWG consumer warpgroups of 64 query rows: Q is pre-scaled in place once
+//    it lands (bf16(float(q) * scale), as _flash_impl does), then per tile
+//    S = Q K^T by wgmma from shared memory, the fp32 online softmax in
+//    registers (exp2 with the log2(e) factor fused; O rescaled only when a
+//    row's max moved), and O += P V by wgmma with P (bf16) straight from the
+//    score registers and V as the transposed B operand.
+// NWG = 2 with BK = 128 for large grids, NWG = 1 with BK = 64 (two blocks an
+// SM) for small ones: the wrapper picks by the number of blocks (PERF.md).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
 
-#include <climits>
-#include <cstdint>
+using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NTHREADS = 128;  // 4 warps x 16 query rows
-constexpr int MAX_TILES = 256;  // kv tiles a block can list: Skv <= 16384
-constexpr float NEG = -2.3819763e38f;  // constants.MASKED_BIAS
+using namespace hopper;
 
-template <int D>
-struct Smem {
-  static constexpr int LD = D + 8;  // padded row: ldmatrix rows hit distinct banks
-  __nv_bfloat16 q[BQ][LD];
-  __nv_bfloat16 k[2][BK][LD];
-  __nv_bfloat16 v[2][BK][LD];
-  int qg[BQ], qs[BQ];
-  int kg[2][BK], kvld[2][BK], ks[2][BK];
-  int tmin[MAX_TILES];  // smallest valid kv_grp per kv tile
-  short live[MAX_TILES];  // the kv tiles to visit, in order
-  int qmax, nlive;
+constexpr int MAX_TILES = 256;  // 64-row kv tiles: Skv <= 16384
+constexpr float NEG = -2.3819763e38f;  // constants.MASKED_BIAS
+constexpr float L2E = 1.4426950408889634f;  // exp(x) = exp2(x * L2E)
+
+template <int D, int NWG, int BK>
+struct FwdSmem {
+  static constexpr int P = D / 64, BQ = 64 * NWG;
+  static constexpr int STAGES = 2;
+  alignas(1024) bf16 q[P][BQ * 64];
+  alignas(1024) bf16 k[STAGES][P][BK * 64];
+  alignas(1024) bf16 v[STAGES][P][BK * 64];
+  int kg[STAGES][BK], kvld[STAGES][BK], ks[STAGES][BK];
+  uint64_t full[STAGES], empty[STAGES], qbar;
+  short live[MAX_TILES];
+  uint8_t cls[MAX_TILES];
+  int nlive;
 };
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// cp.async of `bytes` (16 or 0) from global, the rest of the 16 zero-filled
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Class of (64-row q tile, 64-row kv tile) pairs, from the int vectors:
+// DEAD when no query row sees a key of the tile, VISIBLE when every query
+// row (of those < Sq) sees every key (so every key row is < Skv and valid),
+// PARTIAL otherwise.  grid (kv tiles, q tiles, B), 256 threads: thread
+// 4 r + c tests query row r against 16 keys.  cls is [B, q tiles, kv tiles].
+__global__ void __launch_bounds__(256) tile_class_kernel(
+    const int* __restrict__ q_grp, const int* __restrict__ kv_grp,
+    const int* __restrict__ kv_valid, const int* __restrict__ q_seg,
+    const int* __restrict__ kv_seg, uint8_t* __restrict__ cls, int Sq, int Skv) {
+  __shared__ int kg[TILE], kvv[TILE], ks[TILE];
+  const int kt = blockIdx.x, qt = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  if (tid < TILE) {
+    const int j = kt * TILE + tid;
+    const bool in = j < Skv;
+    kg[tid] = in ? kv_grp[size_t(b) * Skv + j] : 0;
+    kvv[tid] = in && kv_valid[size_t(b) * Skv + j] != 0;
+    ks[tid] = in && kv_seg ? kv_seg[size_t(b) * Skv + j] : 0;
+  }
+  __syncthreads();
+  const int i = qt * TILE + tid / 4, c0 = (tid % 4) * 16;
+  bool any = false, all = true;
+  if (i < Sq) {
+    const int qg = q_grp[size_t(b) * Sq + i], qs = q_seg ? q_seg[size_t(b) * Sq + i] : 0;
+#pragma unroll
+    for (int c = c0; c < c0 + 16; ++c) {
+      const bool ok = kvv[c] && kg[c] <= qg && ks[c] == qs;
+      any |= ok;
+      all &= ok;
+    }
+  }
+  any = __syncthreads_or(any);
+  all = __syncthreads_and(all);
+  if (tid == 0)
+    cls[(size_t(b) * gridDim.y + qt) * gridDim.x + kt] = any ? (all ? VISIBLE : PARTIAL) : DEAD;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -109,226 +108,280 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ q_grp,
+template <int D, int NWG, int BK>
+__global__ void __launch_bounds__(128 * NWG + 32 + 96 * (NWG - 1), 3 - NWG) flash_fwd_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const int* __restrict__ q_grp,
     const int* __restrict__ kv_grp, const int* __restrict__ kv_valid,
     const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq, int Skv,
-    int Hq, int Hkv, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
-  constexpr int V8 = D / 8;  // 16-byte vectors per row
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
+    const uint8_t* __restrict__ cls, bf16* __restrict__ o, float* __restrict__ lse, int Sq,
+    int Skv, int Hq, int Hkv, int B, float scale) {
+  using Smem = FwdSmem<D, NWG, BK>;
+  constexpr int P = Smem::P, BQ = Smem::BQ, STAGES = Smem::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024));
+
+  const int nqt = (Sq + BQ - 1) / BQ, hb = Hq * B;
+  const int qt = nqt - 1 - static_cast<int>(blockIdx.x) / hb;  // heaviest q tiles first
+  const int h = static_cast<int>(blockIdx.x) % hb % Hq, b = static_cast<int>(blockIdx.x) % hb / Hq;
+  const int hk = h / (Hq / Hkv), q0 = qt * BQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r0 = warp * 16, g = lane >> 2, t4 = lane & 3;
-  const int ntiles = (Skv + BK - 1) / BK;
-  const int* kvg = kv_grp + size_t(b) * Skv;
-  const int* kvv = kv_valid + size_t(b) * Skv;
-  const int* kvs = kv_seg ? kv_seg + size_t(b) * Skv : nullptr;
 
-  // ---- Q tile (pre-scaled), q mask vectors, per-tile smallest valid kv_grp ----
-  for (int idx = tid; idx < BQ * V8; idx += NTHREADS) {
-    const int r = idx / V8, c = (idx % V8) * 8, qi = q0 + r;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (qi < Sq)
-      raw = *reinterpret_cast<const uint4*>(q + ((size_t(b) * Sq + qi) * Hq + h) * D + c);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-    uint4 scaled;
-    uint32_t* s32 = reinterpret_cast<uint32_t*>(&scaled);
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      s32[u] = pack_bf16(__bfloat162float(e[2 * u]) * scale, __bfloat162float(e[2 * u + 1]) * scale);
-    *reinterpret_cast<uint4*>(&sm.q[r][c]) = scaled;
-  }
-  if (tid < BQ) {
-    const int qi = q0 + tid;
-    // padded rows see nothing and do not raise the tile's max group
-    sm.qg[tid] = qi < Sq ? q_grp[size_t(b) * Sq + qi] : INT_MIN;
-    sm.qs[tid] = (qi < Sq && q_seg) ? q_seg[size_t(b) * Sq + qi] : 0;
-  }
-  for (int t = tid; t < ntiles; t += NTHREADS) sm.tmin[t] = INT_MAX;
-  __syncthreads();
-  for (int j = tid; j < Skv; j += NTHREADS)
-    if (kvv[j]) atomicMin(&sm.tmin[j / BK], kvg[j]);
-  if (warp == 0) {
-    int mx = max(sm.qg[lane], sm.qg[lane + 32]);
-    for (int off = 16; off; off >>= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    if (lane == 0) sm.qmax = mx;
-  }
-  __syncthreads();
-  if (tid == 0) {
+  if (warp == 4 * NWG) {
+    // ---- the live kv tiles of this q tile, from the class map ----
+    const int nq64 = (Sq + TILE - 1) / TILE, nk64 = (Skv + TILE - 1) / TILE;
+    const int nkt = (Skv + BK - 1) / BK;
+    const uint8_t* map = cls + size_t(b) * nq64 * nk64;
     int n = 0;
-    for (int t = 0; t < ntiles; ++t)
-      if (sm.tmin[t] <= sm.qmax) sm.live[n++] = static_cast<short>(t);
-    sm.nlive = n;
+    for (int t0 = 0; t0 < nkt; t0 += 32) {
+      const int t = t0 + lane;
+      const int c = t < nkt ? tile_class(map, nq64, nk64, q0 / TILE, q0 / TILE + NWG,
+                                         t * (BK / TILE), (t + 1) * (BK / TILE))
+                            : DEAD;
+      const unsigned live = __ballot_sync(0xffffffffu, c != DEAD);
+      if (c != DEAD) {
+        const int pos = n + __popc(live & ((1u << lane) - 1));
+        sm.live[pos] = static_cast<short>(t);
+        sm.cls[pos] = static_cast<uint8_t>(c);
+      }
+      n += __popc(live);
+    }
+    if (lane == 0) {
+      sm.nlive = n;
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(&sm.full[s], 33);  // the TMA issue + 32 lanes' mask vectors
+        mbar_init(&sm.empty[s], 128 * NWG);
+      }
+      mbar_init(&sm.qbar, 1);
+      fence_barrier_init();
+    }
   }
-
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qa[kk], &sm.q[r0 + (lane & 15)][kk * 16 + (lane >> 4) * 8]);
-  const int qg_r[2] = {sm.qg[r0 + g], sm.qg[r0 + g + 8]};
-  const int qs_r[2] = {sm.qs[r0 + g], sm.qs[r0 + g + 8]};
-
-  // K/V rows and mask vectors of kv tile t -> buffer `buf`; rows past Skv read
-  // as zeros, and their zero kv_valid masks them
-  auto load_tile = [&](int t, int buf) {
-    const int k0 = t * BK;
-    for (int idx = tid; idx < BK * V8; idx += NTHREADS) {
-      const int r = idx / V8, c = (idx % V8) * 8, kj = k0 + r;
-      const int in = kj < Skv ? 16 : 0;
-      const size_t off = ((size_t(b) * Skv + min(kj, Skv - 1)) * Hkv + hk) * D + c;
-      cp_async16(&sm.k[buf][r][c], k + off, in);
-      cp_async16(&sm.v[buf][r][c], v + off, in);
-    }
-    if (tid < BK) {
-      const int kj = min(k0 + tid, Skv - 1), in = k0 + tid < Skv ? 4 : 0;
-      cp_async4(&sm.kg[buf][tid], kvg + kj, in);
-      cp_async4(&sm.kvld[buf][tid], kvv + kj, in);
-      if (kvs) cp_async4(&sm.ks[buf][tid], kvs + kj, in);
-      else sm.ks[buf][tid] = 0;
-    }
-    asm volatile("cp.async.commit_group;\n");
-  };
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};  // l is this thread's partial row sum
-
-  __syncthreads();  // the tile list
+  __syncthreads();
   const int nlive = sm.nlive;
-  if (nlive > 0) load_tile(sm.live[0], 0);
-  for (int i = 0; i < nlive; ++i) {
-    const int buf = i & 1;
-    if (i + 1 < nlive) {
-      load_tile(sm.live[i + 1], buf ^ 1);
-      asm volatile("cp.async.wait_group 1;\n");
-    } else {
-      asm volatile("cp.async.wait_group 0;\n");
-    }
-    __syncthreads();
 
-    // ---- S = Q K^T, 16 x 64 per warp, in registers ----
-    float s[BK / 8][4];
+  if (warp >= 4 * NWG) {
+    // ================= producer warp (of a warpgroup when NWG = 2) =================
+    if constexpr (NWG == 2) reg_dealloc<24>();
+    if (warp > 4 * NWG) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.qbar, BQ * D * 2);
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int p = 0; p < P; ++p)
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int jp = 0; jp < BK / 16; ++jp) {
-        uint32_t bk[4];
-        ldsm_x4(bk, &sm.k[buf][jp * 16 + (lane >> 4) * 8 + (lane & 7)][kk * 16 + ((lane >> 3) & 1) * 8]);
-        mma16816(s[2 * jp], qa[kk], bk[0], bk[1]);
-        mma16816(s[2 * jp + 1], qa[kk], bk[2], bk[3]);
-      }
+        for (int r = 0; r < BQ; r += 64) tma_load(sm.q[p] + r * 64, &tq, &sm.qbar, p * 64, h, q0 + r, b);
     }
-
-    // ---- mask, online softmax (fp32); masked scores become -inf -> p = 0 ----
-    float mx[2] = {NEG, NEG};
+    const int* kvg = kv_grp + size_t(b) * Skv;
+    const int* kvv = kv_valid + size_t(b) * Skv;
+    const int* kvs = kv_seg ? kv_seg + size_t(b) * Skv : nullptr;
+    for (int it = 0; it < nlive; ++it) {
+      const int s = it % STAGES, j0 = sm.live[it] * BK;
+      mbar_wait(&sm.empty[s], ((it / STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&sm.full[s], 2 * BK * D * 2);
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
+        for (int p = 0; p < P; ++p)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, c = j * 8 + 2 * t4 + (e & 1);
-        const bool ok = sm.kvld[buf][c] && sm.kg[buf][c] <= qg_r[r] && sm.ks[buf][c] == qs_r[r];
-        s[j][e] = ok ? s[j][e] : -INFINITY;
-        mx[r] = fmaxf(mx[r], s[j][e]);
+          for (int r = 0; r < BK; r += 64) {
+            tma_load(sm.k[s][p] + r * 64, &tk, &sm.full[s], p * 64, hk, j0 + r, b);
+            tma_load(sm.v[s][p] + r * 64, &tv, &sm.full[s], p * 64, hk, j0 + r, b);
+          }
       }
+      for (int r = lane; r < BK; r += 32) {  // rows past Skv: invalid
+        const int j = j0 + r;
+        const bool in = j < Skv;
+        sm.kg[s][r] = in ? kvg[j] : 0;
+        sm.kvld[s][r] = in ? kvv[j] : 0;
+        sm.ks[s][r] = in && kvs ? kvs[j] : 0;
+      }
+      mbar_arrive(&sm.full[s]);
     }
-    float corr[2], rs[2] = {0.f, 0.f};
+  } else {
+    // ================= consumer warpgroups =================
+    if constexpr (NWG == 2) reg_alloc<240>();
+    const int wg = warp / 4, w = warp % 4, g = lane / 4, t4 = lane % 4, wtid = tid % 128;
+    int qg_r[2], qs_r[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m_r[r], quad_max(mx[r]));
-      corr[r] = m_r[r] == NEG ? 0.f : expf(m_r[r] - m_new);
-      m_r[r] = m_new;
+      const int i = q0 + wg * 64 + w * 16 + g + 8 * r;
+      qg_r[r] = i < Sq ? q_grp[size_t(b) * Sq + i] : INT_MIN;
+      qs_r[r] = i < Sq && q_seg ? q_seg[size_t(b) * Sq + i] : 0;
     }
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
+
+    // ---- this warpgroup's Q rows, pre-scaled in place ----
+    mbar_wait(&sm.qbar, 0);
+    for (int u = wtid; u < 64 * D / 8; u += 128) {
+      uint4* ptr = reinterpret_cast<uint4*>(sm.q[u / 512] + wg * 64 * 64) + u % 512;
+      uint4 raw = *ptr;
+      uint32_t* w32 = reinterpret_cast<uint32_t*>(&raw);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m_r[e >> 1]);
-        rs[e >> 1] += s[j][e];
+        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&w32[e]);
+        w32[e] = pack_bf16(__low2float(x) * scale, __high2float(x) * scale);
       }
+      *ptr = raw;
     }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+
+    float acc[D / 2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * corr[r] + rs[r];
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};  // l: this thread's partial row sums
+
+    for (int it = 0; it < nlive; ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&sm.full[s], (it / STAGES) & 1);
+
+      // ---- S = Q K^T (64 x BK per warpgroup) ----
+      float sc[BK / 2];
+      wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int p = kk / 4, off = (kk % 4) * 16;
+        wgmma_ss<BK>(sc, desc_k(sm.q[p] + wg * 64 * 64 + off), desc_k(sm.k[s][p] + off), kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // ---- mask (partial tiles only), online softmax in fp32 ----
+      if (sm.cls[it] == PARTIAL) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, c = j * 8 + 2 * t4 + (e & 1);
+            const bool ok = sm.kvld[s][c] && sm.kg[s][c] <= qg_r[r] && sm.ks[s][c] == qs_r[r];
+            if (!ok) sc[4 * j + e] = -INFINITY;
+          }
+      }
+      float mx[2] = {NEG, NEG};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+      float corr[2], rs[2] = {0.f, 0.f}, ms[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m_r[r], quad_max(mx[r]));
+        corr[r] = m_r[r] == NEG ? 0.f : exp2f((m_r[r] - m_new) * L2E);
+        m_r[r] = m_new;
+        ms[r] = m_new == NEG ? 0.f : m_new * L2E;  // a row masked so far: every p is exp2(-inf)
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[4 * j + e] = exp2f(fmaf(sc[4 * j + e], L2E, -ms[e >> 1]));
+          rs[e >> 1] += sc[4 * j + e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * corr[r] + rs[r];
+      // O is rescaled only where a row's max moved (corr is then != 1; a
+      // warp-uniform test: after the first tiles the max rarely moves)
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[4 * j + 0] *= corr[0];
+          acc[4 * j + 1] *= corr[0];
+          acc[4 * j + 2] *= corr[1];
+          acc[4 * j + 3] *= corr[1];
+        }
+      }
+
+      // ---- O += P V: P (bf16) from the score registers, V transposed B ----
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) acc_to_a(pa[kk], sc, kk);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<D>(acc, pa[kk], desc_mn(sm.v[s][0] + kk * 16 * 64, BK * 64 * 2), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      mbar_arrive(&sm.empty[s]);
     }
 
-    // ---- O += P V; P (bf16) comes straight from the score registers ----
+    // ---- finalize: O / l, LSE = m + log(l); rows that see no key give 0 ----
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    for (int r = 0; r < 2; ++r) {
+      const int i = q0 + wg * 64 + w * 16 + g + 8 * r;
+      const float denom = fmaxf(quad_sum(l_r[r]), 1e-30f);
+      if (i >= Sq) continue;
+      const float inv = 1.f / denom;
+      bf16* orow = o + ((size_t(b) * Sq + i) * Hq + h) * D;
 #pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t bv[4];
-        ldsm_x4_t(bv, &sm.v[buf][kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)][np * 16 + (lane >> 4) * 8]);
-        mma16816(acc[2 * np], pa, bv[0], bv[1]);
-        mma16816(acc[2 * np + 1], pa, bv[2], bv[3]);
-      }
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t4) =
+            pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+      if (t4 == 0) lse[(size_t(b) * Hq + h) * Sq + i] = m_r[r] + logf(denom);
     }
-    __syncthreads();  // this buffer is refilled next
-  }
-
-  // ---- finalize: O / l, LSE = m + log(l); fully masked rows give 0 ----
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + r0 + g + 8 * r;
-    const float denom = fmaxf(quad_sum(l_r[r]), 1e-30f);
-    if (qi >= Sq) continue;
-    const float inv = 1.f / denom;
-    __nv_bfloat16* orow = o + ((size_t(b) * Sq + qi) * Hq + h) * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t4) =
-          pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    if (t4 == 0) lse[(size_t(b) * Hq + h) * Sq + qi] = m_r[r] + logf(denom);
   }
 }
 
-template <int D>
+template <int D, int NWG, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* q_grp,
-                   const int* kv_grp, const int* kv_valid, const int* q_seg,
-                   const int* kv_seg, void* o, float* lse, int B, int Sq, int Skv,
-                   int Hq, int Hkv, float scale, cudaStream_t stream) {
-  const int smem = sizeof(Smem<D>);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                   const int* kv_grp, const int* kv_valid, const int* q_seg, const int* kv_seg,
+                   uint8_t* cls, void* o, float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                   float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;  // 64-row boxes: a larger tile is several
+  if (!make_map(&tq, q, B, Sq, Hq, D) || !make_map(&tk, k, B, Skv, Hkv, D) ||
+      !make_map(&tv, v, B, Skv, Hkv, D))
+    return cudaErrorInvalidValue;
+  cudaError_t err = static_cast<cudaError_t>(
+      dbx_flash_tile_classes(q_grp, kv_grp, kv_valid, q_seg, kv_seg, cls, B, Sq, Skv,
+                             static_cast<void*>(stream)));
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), q_grp, kv_grp, kv_valid, q_seg, kv_seg,
-      static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, Hq, Hkv, scale);
+  const int smem = sizeof(FwdSmem<D, NWG, BK>) + 1024;
+  static const cudaError_t attr = cudaFuncSetAttribute(  // once per instance
+      flash_fwd_kernel<D, NWG, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const int blocks = (Sq + 64 * NWG - 1) / (64 * NWG) * Hq * B;
+  flash_fwd_kernel<D, NWG, BK><<<blocks, NWG == 2 ? 384 : 160, smem, stream>>>(
+      tq, tk, tv, q_grp, kv_grp, kv_valid, q_seg, kv_seg, cls, static_cast<bf16*>(o), lse, Sq,
+      Skv, Hq, Hkv, B, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int dbx_flash_fwd(const void* q, const void* k, const void* v,
-                             const void* q_grp, const void* kv_grp,
-                             const void* kv_valid, const void* q_seg,
-                             const void* kv_seg, void* o, void* lse, int B, int Sq,
-                             int Skv, int Hq, int Hkv, int D, float scale,
+// cls: scratch of B * ceil(Sq / 64) * ceil(Skv / 64) bytes; rows: 64 or 128
+// query rows a block.
+extern "C" int dbx_flash_fwd(const void* q, const void* k, const void* v, const void* q_grp,
+                             const void* kv_grp, const void* kv_valid, const void* q_seg,
+                             const void* kv_seg, void* o, void* lse, void* cls, int B, int Sq,
+                             int Skv, int Hq, int Hkv, int D, float scale, int rows,
                              void* stream) {
-  if (Skv < 1 || Skv > MAX_TILES * BK || Sq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (Skv < 1 || Skv > MAX_TILES * TILE || Sq < 1 || Hkv < 1 || Hq % Hkv || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto qg = static_cast<const int*>(q_grp), kg = static_cast<const int*>(kv_grp);
   auto kvv = static_cast<const int*>(kv_valid);
   auto qs = static_cast<const int*>(q_seg), ks = static_cast<const int*>(kv_seg);
+  auto c = static_cast<uint8_t*>(cls);
   auto l = static_cast<float*>(lse);
-  if (D == 128) return launch<128>(q, k, v, qg, kg, kvv, qs, ks, o, l, B, Sq, Skv, Hq, Hkv, scale, st);
-  if (D == 64) return launch<64>(q, k, v, qg, kg, kvv, qs, ks, o, l, B, Sq, Skv, Hq, Hkv, scale, st);
+  if (D == 128 && rows == 128)
+    return launch<128, 2, 128>(q, k, v, qg, kg, kvv, qs, ks, c, o, l, B, Sq, Skv, Hq, Hkv, scale, st);
+  if (D == 128 && rows == 64)
+    return launch<128, 1, 64>(q, k, v, qg, kg, kvv, qs, ks, c, o, l, B, Sq, Skv, Hq, Hkv, scale, st);
+  if (D == 64 && rows == 128)
+    return launch<64, 2, 128>(q, k, v, qg, kg, kvv, qs, ks, c, o, l, B, Sq, Skv, Hq, Hkv, scale, st);
+  if (D == 64 && rows == 64)
+    return launch<64, 1, 64>(q, k, v, qg, kg, kvv, qs, ks, c, o, l, B, Sq, Skv, Hq, Hkv, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The class map of K1 and K3 (the tests hold it against its plain version).
+extern "C" int dbx_flash_tile_classes(const void* q_grp, const void* kv_grp, const void* kv_valid,
+                                      const void* q_seg, const void* kv_seg, void* cls, int B,
+                                      int Sq, int Skv, void* stream) {
+  const dim3 grid((Skv + TILE - 1) / TILE, (Sq + TILE - 1) / TILE, B);
+  tile_class_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(q_grp), static_cast<const int*>(kv_grp),
+      static_cast<const int*>(kv_valid), static_cast<const int*>(q_seg),
+      static_cast<const int*>(kv_seg), static_cast<uint8_t*>(cls), Sq, Skv);
+  return static_cast<int>(cudaGetLastError());
 }

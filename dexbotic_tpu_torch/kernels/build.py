@@ -35,19 +35,23 @@ LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C signatures of the entry points (see the .cu files).
 _SIGNATURES = {
-    # q, k, v, q_grp, kv_grp, kv_valid, q_seg, kv_seg, o, lse,
-    # B, Sq, Skv, Hq, Hkv, D, scale, stream
-    "dbx_flash_fwd": [_P] * 10 + [_I] * 6 + [_F, _P],
+    # q, k, v, q_grp, kv_grp, kv_valid, q_seg, kv_seg, o, lse, cls,
+    # B, Sq, Skv, Hq, Hkv, D, scale, rows, stream
+    "dbx_flash_fwd": [_P] * 11 + [_I] * 6 + [_F, _I, _P],
+    # q_grp, kv_grp, kv_valid, q_seg, kv_seg, cls, B, Sq, Skv, stream
+    "dbx_flash_tile_classes": [_P] * 6 + [_I] * 3 + [_P],
     # bf16?, int8?, coef, cond, x0, pos, xw, xb, fw, fb, wqkv, sqkv, bqkv, wo, so,
     # bo, w0, s0, b0, w1, s1, b1, out, h, hn, qkv, attn, m, x, xp, part,
     # B, T, A, H, heads, M, depth, N, RP, cfg_pair, cfg_scale, sampler, stream
     "dbx_dit_sample": [_I, _I] + [_P] * 29 + [_I] * 10 + [_F, _I, _P],
-    # q~ (pre-scaled), k, v, dout, lse, delta, q_grp, kv_grp, kv_valid, q_seg,
-    # kv_seg, dq, dk, dv, B, Sq, Skv, Hq, Hkv, D, scale, stream
-    "dbx_flash_bwd": [_P] * 14 + [_I] * 6 + [_F, _P],
+    # q, k, v, out, dout, lse, q_grp, kv_grp, kv_valid, q_seg, kv_seg, dq, dk,
+    # dv, q~ (scratch), delta (scratch), cls (scratch), B, Sq, Skv, Hq, Hkv, D,
+    # scale, dout's element strides (b, s, h), stream
+    "dbx_flash_bwd": [_P] * 17 + [_I] * 6 + [_F] + [_L] * 3 + [_P],
     # bf16?, x, q, s, out, part, M, N, K, splits, stream
     "dbx_quant_matmul": [_I] + [_P] * 5 + [_I] * 4 + [_P],
 }
@@ -91,37 +95,51 @@ class _Library:
         so = os.path.join(BUILD_DIR, f"libdexbotic_kernels_{self._digest()}.so")
         if not os.path.exists(so):
             t0 = time.perf_counter()
-            tag = f"{os.getpid()}.tmp"
-            srcs = [s for s in self._sources() if s.endswith(".cu")]
-            objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in srcs]
-            nvcc = self._nvcc()
-            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s], text=True,
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-                     for s, o in zip(srcs, objs)]
-            logs = [p.communicate()[0] for p in procs]
-            failed = [s for s, p in zip(srcs, procs) if p.returncode != 0]
-            if not failed:
-                r = subprocess.run([nvcc, *LINK_FLAGS, "-o", f"{so}.{tag}", *objs],
-                                   capture_output=True, text=True)
-                logs.append(r.stdout + r.stderr)
-                if r.returncode != 0:
-                    failed = ["link"]
-            for o in objs:
-                if os.path.exists(o):
-                    os.remove(o)
-            self.build_log = "\n".join(logs)
-            with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-                f.write(self.build_log)
-            if failed:
-                raise RuntimeError(f"nvcc failed for {failed}:\n{self.build_log}")
-            os.replace(f"{so}.{tag}", so)
+            self.build_log = build_library([s for s in self._sources() if s.endswith(".cu")], so)
             self.build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(so)
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        return lib
+        return bind(so)
+
+
+def build_library(sources: list[str], so: str, extra_flags=()) -> str:
+    """nvcc each source to an object (all started together), link them into
+    ``so``; returns nvcc's output (``-Xptxas -v``), also written to
+    ``build.log`` beside ``so``.  Raises if a step fails."""
+    out_dir = os.path.dirname(so)
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(out_dir, f"{os.path.basename(s)}.{tag}.o") for s in sources]
+    nvcc = LIBRARY._nvcc()
+    flags = [*NVCC_FLAGS, *extra_flags]
+    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", o, s], text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for s, o in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [s for s, p in zip(sources, procs) if p.returncode != 0]
+    if not failed:
+        r = subprocess.run([nvcc, *LINK_FLAGS, "-o", f"{so}.{tag}", *objs],
+                           capture_output=True, text=True)
+        logs.append(r.stdout + r.stderr)
+        if r.returncode != 0:
+            failed = ["link"]
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    log = "\n".join(logs)
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+    os.replace(f"{so}.{tag}", so)
+    return log
+
+
+def bind(so: str, signatures: dict | None = None) -> ctypes.CDLL:
+    """Load ``so`` and set the C signatures of its entry points."""
+    lib = ctypes.CDLL(so)
+    for name, argtypes in (signatures or _SIGNATURES).items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
 LIBRARY = _Library()

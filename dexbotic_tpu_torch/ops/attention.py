@@ -14,11 +14,16 @@ k/v [B, Skv, Hkv, D] with Hq % Hkv == 0 (GQA); int32 [B, S] mask vectors.
   On CPU tensors each runs its plain version (:func:`flash_attention_ref`,
   where a fully masked row gives 0, and :func:`flash_attention_bwd_ref`); on
   CUDA tensors each launches its kernel or raises.
+* :func:`flash_tile_classes` is the per-call pre-pass both kernels share:
+  every (64-row q tile, 64-row kv tile) pair classed dead, partial or wholly
+  visible (plain version :func:`flash_tile_classes_ref`).
 * :func:`attention` dispatches: ``impl="auto"`` sends CUDA tensors to the
   kernels and CPU tensors to ``attention_xla``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -76,11 +81,83 @@ def flash_attention_ref(q, k, v, q_grp, kv_grp, kv_valid, scale=None, q_seg=None
     return out.to(q.dtype), lse
 
 
+TILE = 64  # rows of a class-map tile
+DEAD, PARTIAL, VISIBLE = 0, 1, 2
+
+
+def flash_tile_classes_ref(q_grp, kv_grp, kv_valid, q_seg=None, kv_seg=None) -> torch.Tensor:
+    """Plain version of the class pre-pass: uint8 [B, ceil(Sq/64), ceil(Skv/64)].
+
+    A (q tile, kv tile) pair is DEAD when no query row sees a key of the
+    tile, VISIBLE when every query row sees every key (rows past Sq do not
+    count; keys past Skv are masked), PARTIAL otherwise."""
+    B, Sq = q_grp.shape
+    Skv = kv_grp.shape[1]
+    nq, nk = -(-Sq // TILE), -(-Skv // TILE)
+    allowed = _allowed(q_grp, kv_grp, kv_valid, q_seg, kv_seg)[:, 0]
+    grid = torch.zeros(B, nq * TILE, nk * TILE, dtype=torch.bool, device=allowed.device)
+    grid[:, :Sq, :Skv] = allowed
+    counts = torch.ones_like(grid)  # query rows past Sq see everything: they do not count
+    counts[:, :Sq, Skv:] = False
+    counts[:, :Sq, :Skv] = allowed
+    tiles = grid.reshape(B, nq, TILE, nk, TILE)
+    any_ = tiles.any(4).any(2)
+    all_ = counts.reshape(B, nq, TILE, nk, TILE).all(4).all(2)
+    return torch.where(any_, torch.where(all_, VISIBLE, PARTIAL), DEAD).to(torch.uint8)
+
+
 def _i32(x: torch.Tensor | None) -> torch.Tensor | None:
-    return None if x is None else x.to(torch.int32).contiguous()
+    if x is None or (x.dtype == torch.int32 and x.is_contiguous()):
+        return x
+    return x.to(torch.int32).contiguous()
 
 
-def _flash_cuda(q, k, v, q_grp, kv_grp, kv_valid, scale, q_seg, kv_seg):
+def _mask_args(q, B, Sq, Skv, q_grp, kv_grp, kv_valid, q_seg, kv_seg) -> list:
+    """The int32 mask vectors' pointers (None for absent segments), checked."""
+    if (q_seg is None) != (kv_seg is None):
+        raise ValueError("pass both q_seg and kv_seg or neither")
+    ints = [_i32(t) for t in (q_grp, kv_grp, kv_valid, q_seg, kv_seg)]
+    for t, n in zip(ints, (Sq, Skv, Skv, Sq, Skv)):
+        if t is not None and (t.shape != (B, n) or t.device != q.device):
+            raise ValueError(f"mask vector of shape {tuple(t.shape)} on {t.device}, want ({B}, {n})")
+    return [None if t is None else t.data_ptr() for t in ints]
+
+
+def _classes_buffer(B, Sq, Skv, device) -> torch.Tensor:
+    return torch.empty(B * -(-Sq // TILE) * -(-Skv // TILE), dtype=torch.uint8, device=device)
+
+
+def flash_tile_classes(q_grp, kv_grp, kv_valid, q_seg=None, kv_seg=None) -> torch.Tensor:
+    """The class pre-pass of K1 and K3 alone; CPU tensors take the plain version."""
+    if q_grp.device.type == "cpu":
+        return flash_tile_classes_ref(q_grp, kv_grp, kv_valid, q_seg, kv_seg)
+    from dexbotic_tpu_torch.kernels import build
+
+    (B, Sq), Skv = q_grp.shape, kv_grp.shape[1]
+    ptr = _mask_args(q_grp, B, Sq, Skv, q_grp, kv_grp, kv_valid, q_seg, kv_seg)
+    cls = _classes_buffer(B, Sq, Skv, q_grp.device)
+    code = build.load().dbx_flash_tile_classes(
+        *ptr, cls.data_ptr(), B, Sq, Skv, torch.cuda.current_stream(q_grp.device).cuda_stream)
+    build.check(code, "dbx_flash_tile_classes")
+    return cls.view(B, -(-Sq // TILE), -(-Skv // TILE))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fwd_rows(B: int, Sq: int, Hq: int, sms: int) -> int:
+    """Query rows a K1 block takes on a card of ``sms`` SMs: 128 (two
+    warpgroups, one block an SM) when that makes at least eight waves of
+    blocks, else 64 (one warpgroup, two blocks an SM, twice the blocks).
+    On the H100, 64-row blocks were faster at 224-896 blocks of 128 rows,
+    even at 1024 and slower from 1792 (PERF.md)."""
+    return 128 if -(-Sq // 128) * Hq * B >= 8 * sms else 64
+
+
+def _flash_cuda(q, k, v, q_grp, kv_grp, kv_valid, scale, q_seg, kv_seg, rows=None):
+    """K1's launch; ``rows`` overrides :func:`fwd_rows` (tests, measurements)."""
     from dexbotic_tpu_torch.kernels import build
 
     B, Sq, Hq, D = q.shape
@@ -93,22 +170,19 @@ def _flash_cuda(q, k, v, q_grp, kv_grp, kv_valid, scale, q_seg, kv_seg):
         raise ValueError(f"flash kernel serves 0 < Skv <= 16384 and Sq > 0, got Sq={Sq} Skv={Skv}")
     if Hq % Hkv or k.shape != v.shape or k.shape[0] != B:
         raise ValueError(f"bad GQA shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
-    if (q_seg is None) != (kv_seg is None):
-        raise ValueError("pass both q_seg and kv_seg or neither")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for t in (q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("flash kernel needs 16-byte aligned q/k/v")
-    ints = [_i32(t) for t in (q_grp, kv_grp, kv_valid, q_seg, kv_seg)]
-    for t, n in zip(ints, (Sq, Skv, Skv, Sq, Skv)):
-        if t is not None and (t.shape != (B, n) or t.device != q.device):
-            raise ValueError(f"mask vector of shape {tuple(t.shape)} on {t.device}, want ({B}, {n})")
+    ptr = _mask_args(q, B, Sq, Skv, q_grp, kv_grp, kv_valid, q_seg, kv_seg)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    ptr = [None if t is None else t.data_ptr() for t in ints]
+    cls = _classes_buffer(B, Sq, Skv, q.device)
+    rows = rows or fwd_rows(B, Sq, Hq, _sm_count(q.device.index))
     code = build.load().dbx_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptr, out.data_ptr(), lse.data_ptr(),
-        B, Sq, Skv, Hq, Hkv, D, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        cls.data_ptr(), B, Sq, Skv, Hq, Hkv, D, float(scale), rows,
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(code, "dbx_flash_fwd")
     flash_attention.launches += 1
     return out, lse
@@ -124,6 +198,17 @@ def flash_attention_fwd(q, k, v, q_grp, kv_grp, kv_valid, scale=None, q_seg=None
     raise RuntimeError(f"flash attention has no kernel for device {q.device}")
 
 
+def flash_bwd_preprocess_ref(q, out, g, scale):
+    """Plain version of K3's preprocess launch: (q~, delta).
+
+    q~ = q pre-scaled and rounded to its dtype, the q K1 multiplied;
+    delta = rowsum(dO * O) in fp32, [B, Hq, Sq], with dO rounded to q's
+    dtype first, as ``_flash_bwd_impl`` computes them."""
+    qs = (q.float() * scale).to(q.dtype)
+    delta = (g.to(q.dtype).float() * out.float()).sum(-1).transpose(1, 2)
+    return qs, delta
+
+
 def flash_attention_bwd_ref(q, k, v, q_grp, kv_grp, kv_valid, out, lse, g, scale=None,
                             q_seg=None, kv_seg=None):
     """Plain version of kernel K3: (dq, dk, dv) in the inputs' dtypes.
@@ -137,11 +222,11 @@ def flash_attention_bwd_ref(q, k, v, q_grp, kv_grp, kv_valid, out, lse, g, scale
     _, Skv, Hkv, _ = k.shape
     group = Hq // Hkv
     scale = D ** -0.5 if scale is None else scale
-    qs = (q.float() * scale).to(q.dtype).float()
+    qs, delta = flash_bwd_preprocess_ref(q, out, g, scale)
+    qs, delta = qs.float(), delta[..., None]  # delta [B, Hq, Sq, 1]
     kf = _gqa_expand(k.float(), group)
     vf = _gqa_expand(v.float(), group)
     do = g.to(q.dtype).float()
-    delta = (do * out.float()).sum(-1).transpose(1, 2)[..., None]  # [B, Hq, Sq, 1]
     allowed = _allowed(q_grp, kv_grp, kv_valid, q_seg, kv_seg)
     s = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
     p = torch.where(allowed, torch.exp(s - lse[..., None]), 0.0)
@@ -170,25 +255,27 @@ def _flash_bwd_cuda(q, k, v, q_grp, kv_grp, kv_valid, out, lse, g, scale, q_seg,
     if out.shape != q.shape or g.shape != q.shape or lse.shape != (B, Hq, Sq):
         raise ValueError(f"bad saved shapes out={tuple(out.shape)} dO={tuple(g.shape)} "
                          f"lse={tuple(lse.shape)}")
-    if (q_seg is None) != (kv_seg is None):
-        raise ValueError("pass both q_seg and kv_seg or neither")
-    qs = (q.float() * scale).to(torch.bfloat16).contiguous()  # the q~ K1 multiplied
-    do = g.to(torch.bfloat16).contiguous()  # arrives strided from the o-projection's backward
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    k, v, lse = k.contiguous(), v.contiguous(), lse.float().contiguous()
-    for t in (qs, k, v, do):
+    # dO is read through its strides when they are a row-major [B, S, H, D]
+    # layout with 16-byte multiples (padded rows, a slice), else copied
+    do = g if g.dtype == torch.bfloat16 else g.to(torch.bfloat16)
+    sb, ss, sh, sd = do.stride()
+    if (sd != 1 or any(st % 8 for st in (sb, ss, sh)) or do.data_ptr() % 16
+            or sh < D or ss < Hq * sh or sb < Sq * ss):
+        do = do.contiguous()
+    q, k, v, out = q.contiguous(), k.contiguous(), v.contiguous(), out.contiguous()
+    lse = lse.float().contiguous()
+    for t in (q, k, v, out):
         if t.data_ptr() % 16:
-            raise ValueError("flash backward needs 16-byte aligned q/k/v/dO")
-    ints = [_i32(t) for t in (q_grp, kv_grp, kv_valid, q_seg, kv_seg)]
-    for t, n in zip(ints, (Sq, Skv, Skv, Sq, Skv)):
-        if t is not None and (t.shape != (B, n) or t.device != q.device):
-            raise ValueError(f"mask vector of shape {tuple(t.shape)} on {t.device}, want ({B}, {n})")
-    dq, dk, dv = torch.empty_like(qs), torch.empty_like(k), torch.empty_like(v)
-    ptr = [None if t is None else t.data_ptr() for t in ints]
+            raise ValueError("flash backward needs 16-byte aligned q/k/v/out")
+    ptr = _mask_args(q, B, Sq, Skv, q_grp, kv_grp, kv_valid, q_seg, kv_seg)
+    dq, dk, dv, qs = (torch.empty_like(t) for t in (q, k, v, q))
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    cls = _classes_buffer(B, Sq, Skv, q.device)
     code = build.load().dbx_flash_bwd(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), *ptr, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, Sq, Skv, Hq, Hkv, D, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        *ptr, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), qs.data_ptr(), delta.data_ptr(),
+        cls.data_ptr(), B, Sq, Skv, Hq, Hkv, D, float(scale), *do.stride()[:3],
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(code, "dbx_flash_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

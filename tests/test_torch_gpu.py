@@ -7,7 +7,10 @@ Tolerances are the bf16 rule of chip_smoke.py: the kernel's max error
 against the plain version run in fp32 on the same inputs may be at most
 twice the plain bf16 version's error plus 1e-3 (for K3 on each of dq, dk and
 dv); the fp32 instance of K2 at 1e-4.  K4 with fp32 activations and K2 with
-int8 weights follow the same rule against fp64 and fp32 references.
+int8 weights follow the same rule against fp64 and fp32 references.  K1's
+lse is held at 1e-4 against the plain version's on the same bf16 q~ (they
+differ by exp and summation order only); K1 and K3 must repeat their outputs
+bit for bit, and the class pre-pass must equal its plain version.
 """
 
 import contextlib
@@ -19,11 +22,14 @@ import torch
 from dexbotic_tpu_torch.nn.core import cast_matrices_
 from dexbotic_tpu_torch.models.dit import DiT, DiTConfig, init_dit_
 from dexbotic_tpu_torch.ops.attention import (
+    _flash_cuda,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_ref,
     flash_attention_fwd,
     flash_attention_ref,
+    flash_tile_classes,
+    flash_tile_classes_ref,
 )
 from dexbotic_tpu_torch.ops import quant_matmul as qm
 from dexbotic_tpu_torch.ops.diffusion import DiffusionSchedule
@@ -92,6 +98,141 @@ def test_flash_backward_kernel_matches_plain(cuda, B, S, Hq, Hkv, D):
         bound = 2 * (p.float() - r).abs().max().item() + 1e-3
         assert (got.float() - r).abs().max().item() <= bound
     assert torch.all(q.grad[0, 2] == 0)
+
+
+def _attn_case(cuda, B, Sq, Skv, Hq, Hkv, D, seed, segments):
+    """bf16 q [B, Sq], k/v [B, Skv], dO; the queries are the last Sq of the
+    Skv positions, the last row's final 17 keys padding; with ``segments``,
+    two segments and a query row that sees no key (row 2, when Sq > 3)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v, dout = (torch.randn(B, S, H, D, generator=g, device=cuda).bfloat16()
+                     for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv), (Sq, Hq)))
+    valid = torch.ones(B, Skv, dtype=torch.int32, device=cuda)
+    if Skv > 17:
+        valid[-1, -17:] = 0
+    kv_grp = torch.cumsum(valid, 1, dtype=torch.int32)
+    q_grp = kv_grp[:, Skv - Sq:].clone()
+    q_seg = kv_seg = None
+    if segments:
+        kv_seg = (torch.arange(Skv, device=cuda) >= Skv // 2).int()[None].expand(B, Skv).contiguous()
+        q_seg = kv_seg[:, Skv - Sq:].contiguous()
+        if Sq > 3:
+            q_grp[0, 2] = 0
+    return q, k, v, dout, (q_grp, kv_grp, valid), q_seg, kv_seg
+
+
+def _bound(plain, ref):
+    return 2 * (plain.float() - ref).abs().max().item() + 1e-3
+
+
+def _check_k1(cuda, case, rows):
+    q, k, v, _, ints, q_seg, kv_seg = case
+    out, lse = _flash_cuda(q, k, v, *ints, q.shape[-1] ** -0.5, q_seg, kv_seg, rows=rows)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_ref(q.float(), k.float(), v.float(), *ints, None, q_seg, kv_seg)
+    plain, plain_lse = flash_attention_ref(q, k, v, *ints, None, q_seg, kv_seg)
+    assert (out.float() - ref).abs().max().item() <= _bound(plain, ref)
+    live = ref_lse > -1e30  # the lse of the same bf16 q~, up to exp and summation order
+    assert (lse - plain_lse)[live].abs().max().item() <= 1e-4
+    if q_seg is not None and q.shape[1] > 3:
+        assert torch.all(out[0, 2] == 0)
+    return out, lse
+
+
+def _check_k3(cuda, case):
+    q, k, v, dout, ints, q_seg, kv_seg = case
+    out, lse = flash_attention_fwd(q, k, v, *ints, None, q_seg, kv_seg)
+    got = flash_attention_bwd(q, k, v, *ints, out, lse, dout, None, q_seg, kv_seg)
+    torch.cuda.synchronize()
+    ref = flash_attention_bwd_ref(q.float(), k.float(), v.float(), *ints, out.float(), lse,
+                                  dout.float(), None, q_seg, kv_seg)
+    plain = flash_attention_bwd_ref(q, k, v, *ints, out, lse, dout, None, q_seg, kv_seg)
+    for a, p, r in zip(got, plain, ref):
+        assert torch.isfinite(a).all()
+        assert (a.float() - r).abs().max().item() <= _bound(p, r)
+    if q_seg is not None and q.shape[1] > 3:
+        assert torch.all(got[0][0, 2] == 0)
+    return got
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 1304])
+def test_flash_kernels_at_tile_edges(cuda, S):
+    """K1 at both block shapes and K3 at lengths around the 64- and 128-row
+    tiles, GQA 4:1, D=128, segments and a row that sees no key."""
+    case = _attn_case(cuda, 1, S, S, 8, 2, 128, seed=S, segments=S > 3)
+    for rows in (64, 128):
+        _check_k1(cuda, case, rows)
+    _check_k3(cuda, case)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D", [(2, 129, 129, 8, 2, 64), (2, 65, 300, 4, 1, 128),
+                                              (1, 200, 520, 4, 4, 64)])
+def test_flash_kernels_d64_and_cross_lengths(cuda, B, Sq, Skv, Hq, Hkv, D):
+    """D=64, and queries shorter than the keys (Sq != Skv)."""
+    case = _attn_case(cuda, B, Sq, Skv, Hq, Hkv, D, seed=Sq + Skv, segments=True)
+    for rows in (64, 128):
+        _check_k1(cuda, case, rows)
+    _check_k3(cuda, case)
+
+
+@pytest.mark.parametrize("Sq,Skv", [(64, 64), (192, 192), (576, 576), (100, 192)])
+def test_flash_kernels_with_every_key_visible(cuda, Sq, Skv):
+    """Bidirectional attention (all-zero groups, as the vision tower passes
+    them) with every key valid: every tile is wholly visible, and at
+    Skv % 128 == 64 K1's 128-row kv tile reaches past Skv, where its keys
+    must stay masked."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Skv)
+    q, k, v, dout = (torch.randn(2, S, H, 128, generator=g, device=cuda).bfloat16()
+                     for S, H in ((Sq, 8), (Skv, 2), (Skv, 2), (Sq, 8)))
+    zeros = torch.zeros(2, Skv, dtype=torch.int32, device=cuda)
+    ints = (zeros[:, :Sq].contiguous(), zeros, torch.ones_like(zeros))
+    case = (q, k, v, dout, ints, None, None)
+    for rows in (64, 128):
+        _check_k1(cuda, case, rows)
+    _check_k3(cuda, case)
+
+
+def test_flash_kernels_are_deterministic(cuda):
+    """Two calls on the same inputs give bitwise-equal outputs (K1) and
+    gradients (K3): no atomics, fixed summation order."""
+    q, k, v, dout, ints, q_seg, kv_seg = _attn_case(cuda, 2, 700, 700, 8, 2, 128, 11, True)
+    first = flash_attention_fwd(q, k, v, *ints, None, q_seg, kv_seg)
+    again = flash_attention_fwd(q, k, v, *ints, None, q_seg, kv_seg)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    out, lse = first
+    g1 = flash_attention_bwd(q, k, v, *ints, out, lse, dout, None, q_seg, kv_seg)
+    g2 = flash_attention_bwd(q, k, v, *ints, out, lse, dout, None, q_seg, kv_seg)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def test_flash_backward_reads_strided_dout(cuda):
+    """dO handed over as a strided view gives the gradients of its contiguous copy."""
+    q, k, v, dout, ints, q_seg, kv_seg = _attn_case(cuda, 2, 130, 130, 4, 2, 128, 12, True)
+    out, lse = flash_attention_fwd(q, k, v, *ints, None, q_seg, kv_seg)
+    wide = torch.zeros(2, 130, 4, 2 * 128, dtype=torch.bfloat16, device=cuda)
+    wide[..., :128] = dout
+    strided = wide[..., :128]
+    assert not strided.is_contiguous()
+    a = flash_attention_bwd(q, k, v, *ints, out, lse, strided, None, q_seg, kv_seg)
+    b = flash_attention_bwd(q, k, v, *ints, out, lse, dout, None, q_seg, kv_seg)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_flash_tile_classes_match_plain(cuda, seed):
+    """The class pre-pass on random group, valid and segment vectors (and a
+    row that sees no key) against its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    B, Sq, Skv = 2, 300, 450
+    q_grp = torch.randint(0, 40, (B, Sq), generator=g, device=cuda, dtype=torch.int32)
+    kv_grp = torch.randint(0, 40, (B, Skv), generator=g, device=cuda, dtype=torch.int32)
+    valid = (torch.rand(B, Skv, generator=g, device=cuda) > 0.1).int()
+    q_seg = torch.randint(0, 2, (B, Sq), generator=g, device=cuda, dtype=torch.int32)
+    kv_seg = torch.randint(0, 2, (B, Skv), generator=g, device=cuda, dtype=torch.int32)
+    q_grp[0, 5] = -1
+    for segs in ((None, None), (q_seg, kv_seg)):
+        got = flash_tile_classes(q_grp, kv_grp, valid, *segs)
+        assert torch.equal(got.cpu(), flash_tile_classes_ref(q_grp, kv_grp, valid, *segs).cpu())
 
 
 def test_flash_backward_kernel_refuses_what_it_does_not_serve(cuda):

@@ -64,8 +64,8 @@ def test_kernel_modules_import_without_nvcc_or_gpu():
 
     assert build.LIBRARY._lib is None  # nothing was built or loaded by importing
     csrc = os.path.join(PKG, "csrc")
-    assert sorted(os.listdir(csrc)) == ["dit_sampler.cu", "flash_bwd.cu", "flash_fwd.cu", "host",
-                                        "quant_matmul.cu"]
+    assert sorted(os.listdir(csrc)) == ["dit_sampler.cu", "flash_bwd.cu", "flash_fwd.cu",
+                                        "hopper.cuh", "host", "quant_matmul.cu"]
     # host code (g++, built into _build/ by data/fast_image.py), outside the kernels' hash
     assert os.listdir(os.path.join(csrc, "host")) == ["fast_image.cpp"]
     assert all(os.path.dirname(p) == csrc for p in build.LIBRARY._sources())
