@@ -7,6 +7,11 @@ Phases, any failure exits non-zero without a result line:
   2. build the hand-written kernels from ``dexbotic_tpu_torch/csrc``;
   3. K1 (flash-attention forward) against its plain version at the served
      prompt's shape, the training step's shape and three more;
+  3b. K1 at head_dim 256 against its plain version at pi0's prefix (8 query
+     heads on 1 kv head, the text's padded tail masked) and its suffix
+     against the cached prefix: 1 x 816 and 51 x 867 (inference_single),
+     1 x 832 and 51 x 883 (a served request), 2 x 832 and 2 x 51 x 883 (the
+     batch_size=2 request, whose prefix takes 128-row blocks);
   4. K2 (fused DiT sampler) against its plain version at DiT-B width, with
      bf16 weights, then (4b) with int8 block weights;
   4c. K4 (int8-weight matmul) against its plain version, bf16 and fp32
@@ -20,6 +25,16 @@ Phases, any failure exits non-zero without a result line:
      batch_size=2 request and an 8-frame one, with the K1, K2 and K4 launch
      counts read around them; then the kernel-vs-plain cosine on the int8
      weights and the int8 chunk's cosine to phase 5's bf16 chunk;
+  5c. pi0 at full width (SigLIP so400m/224 + Gemma-2B + the Gemma-300M
+     expert, seeded random bf16 weights, fp32 activations and KV cache as
+     in the JAX package, K1 fed bf16) served over HTTP by the port's
+     FlowVLAServer: 12 requests of 3 views and a state, one of 1 view and a
+     batch_size=2 one, with K1's launches (18 layers x (prefill + 10 Euler
+     steps) a device call) and the plain attention calls on CUDA (must be 0)
+     read around them; then one request through the kernel path and the
+     plain path (attn_impl="xla": fp32 throughout) on the same noise for a
+     cosine check, the device path by part (``part_calls`` of
+     script/profile_pi0_torch.py) and K1's host time a call;
   6. K3 (flash-attention backward) against its plain version, gradients of
      sum(out * dO) through FlashAttention at K1's shapes, the training step's
      (B=8, S=2048, 32 heads of 128) first; the plain version gets K3's own
@@ -266,6 +281,85 @@ def phase_flash(failures: list) -> dict:
             **{f"train_{key}": val for key, val in times[1].items()}}
 
 
+# pi0's K1 calls (Gemma-2B and its expert: 8 query heads on 1 kv head of 256):
+# a prefix of 3 views x 256 image tokens + the text, bidirectional, the text's
+# padded tail masked; the 51-token suffix (state token, 50 actions) against
+# that cached prefix.  PROMPT is 22 byte-level tokens: of the 48 of pi0's
+# inference_single (816; 51 x 867), and of the server's 64-token bucket
+# (832; 51 x 883; the batch_size=2 request's 2 x 832 takes 128-row blocks).
+PI0_VIEWS, PI0_PROMPT_TOKENS, PI0_SUFFIX = 3 * 256, 22, 51
+PI0_CASES = [  # (result key, B, text tokens, prefix or suffix)
+    ("d256_prefix", 1, 48, "prefix"), ("d256_suffix", 1, 48, "suffix"),
+    ("d256_served_prefix", 1, 64, "prefix"), ("d256_served_suffix", 1, 64, "suffix"),
+    ("d256_batch2_prefix", 2, 64, "prefix"), ("d256_batch2_suffix", 2, 64, "suffix")]
+
+
+def pi0_attn_inputs(B: int, text: int, part: str, gen):
+    """(name, q, k, v, (q_grp, kv_grp, kv_valid)) of a pi0 call: the prefix
+    of ``PI0_VIEWS + text`` tokens or the suffix against it, cached."""
+    dev = torch.device("cuda")
+    prefix = PI0_VIEWS + text
+    Sq = prefix if part == "prefix" else PI0_SUFFIX
+    Skv = prefix + (0 if part == "prefix" else Sq)
+    q = torch.randn(B, Sq, 8, 256, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(B, Skv, 1, 256, generator=gen, device=dev).bfloat16() for _ in range(2))
+    valid = torch.ones(B, Skv, dtype=torch.int32, device=dev)
+    valid[:, PI0_VIEWS + PI0_PROMPT_TOKENS: prefix] = 0
+    kv_grp = torch.zeros(B, Skv, dtype=torch.int32, device=dev)
+    if Skv > prefix:  # suffix groups: state token 1, action tokens 2
+        kv_grp[:, prefix:] = 2
+        kv_grp[:, prefix] = 1
+    name = f"pi0 {part} B={B} Sq={Sq} Skv={Skv} H=8/1 D=256"
+    return name, q, k, v, (kv_grp[:, Skv - Sq:].contiguous(), kv_grp, valid)
+
+
+def phase_flash_d256(failures: list) -> dict:
+    """K1 at head_dim 256 against its plain version at pi0's shapes (those of
+    inference_single, of a served request and of the batch_size=2 request),
+    with the block rows ``fwd_rows`` picks, its time, its kernels' own time,
+    its bound and SDPA's time (cuDNN with a bool mask, or the backend that
+    took the inputs when cuDNN refused).  Both block shapes must be held."""
+    from dexbotic_tpu_torch.ops.attention import (
+        _allowed, _sm_count, flash_attention_fwd, flash_attention_ref, fwd_rows)
+
+    print("phase 3b: K1 flash_fwd vs plain at head_dim 256 (pi0)")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rows, block_rows = {}, set()
+    for key, B, text, part in PI0_CASES:
+        name, q, k, v, ints = pi0_attn_inputs(B, text, part, g)
+        n_rows = fwd_rows(B, q.shape[1], 8, _sm_count(0), 256)
+        block_rows.add(n_rows)
+        out, lse = flash_attention_fwd(q, k, v, *ints)
+        torch.cuda.synchronize()
+        ref, _ = flash_attention_ref(q.float(), k.float(), v.float(), *ints)
+        plain, _ = flash_attention_ref(q, k, v, *ints)
+        err = (out.float() - ref).abs().max().item()
+        check_bound(f"{name} ({n_rows}-row blocks)", err,
+                    (plain.float() - ref).abs().max().item(), failures)
+        ms = median_ms(lambda: flash_attention_fwd(q, k, v, *ints))
+        dev_ms = device_ms(lambda: flash_attention_fwd(q, k, v, *ints), K1_KERNELS)
+        plain_ms = median_ms(lambda: flash_attention_ref(q, k, v, *ints))
+        io_bytes, pairs = attn_counts(q, k, ints, None, (q, k, v, out, lse))
+        bound_ms, bound_by = bound(io_bytes, 4 * q.shape[-1] * pairs)
+        backend, _, call = sdpa(q, k, v, _allowed(*ints, None, None))
+        with torch.no_grad():
+            lib_err = (call().transpose(1, 2).float() - ref).abs().max().item()
+        lib_ms = median_ms(call)
+        note = "" if backend == "CUDNN_ATTENTION" else f" (cuDNN refused these inputs: {backend})"
+        print(f"    kernel {ms:.4f} ms  kernels alone {dev_ms:.4f} ms  plain bf16 {plain_ms:.4f} ms  "
+              f"bound {bound_ms:.4f} ms ({bound_by})  SDPA ({backend}) {lib_ms:.4f} ms, "
+              f"err {lib_err:.3g}{note}")
+        rows[key] = {"B_Sq_Skv_Hq_Hkv_D": [B, q.shape[1], k.shape[1], 8, 1, 256],
+                     "block_rows": n_rows, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms, "sdpa_backend": backend}
+        del q, k, v, out, lse, ref, plain
+        free_memory()
+    if block_rows != {64, 128}:
+        failures.append(f"phase 3b held K1 at head_dim 256 only with {block_rows}-row blocks")
+    return rows
+
+
 def phase_flash_bwd(failures: list) -> dict:
     from dexbotic_tpu_torch.ops.attention import (
         _allowed,
@@ -473,21 +567,22 @@ def redraw_final_(head, gen) -> None:
     head.final.bias.normal_(0.0, 0.02, generator=gen)
 
 
-def _frame_png() -> bytes:
+def _frame_png(seed: int = 0) -> bytes:
     from PIL import Image
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     buf = io.BytesIO()
     Image.fromarray(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)).save(buf, "PNG")
     return buf.getvalue()
 
 
-def _post(port: int, prompt: str, frames: list, batch_size: int = 1):
+def _post(port: int, prompt: str, frames: list, batch_size: int = 1, states: str | None = None):
     boundary = "dexboticsmoke"
-    parts = [f"--{boundary}\r\nContent-Disposition: form-data; name=\"text\"\r\n\r\n{prompt}\r\n",
-             f"--{boundary}\r\nContent-Disposition: form-data; name=\"batch_size\"\r\n\r\n"
-             f"{batch_size}\r\n"]
-    body = "".join(parts).encode()
+    fields = {"text": prompt, "batch_size": batch_size}
+    if states is not None:
+        fields["states"] = states
+    body = "".join(f"--{boundary}\r\nContent-Disposition: form-data; name=\"{k}\"\r\n\r\n{v}\r\n"
+                   for k, v in fields.items()).encode()
     for i, png in enumerate(frames):
         body += (f"--{boundary}\r\nContent-Disposition: form-data; name=\"image\"; "
                  f"filename=\"f{i}.png\"\r\nContent-Type: image/png\r\n\r\n").encode()
@@ -519,7 +614,7 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
     from dexbotic_tpu_torch.exp.serve import CogActServer, _cogact_images, _cogact_prompt_ids
     from dexbotic_tpu_torch.models.cogact import cogact_inference_action
     from dexbotic_tpu_torch.ops import quant_matmul as qm
-    from dexbotic_tpu_torch.ops.attention import flash_attention
+    from dexbotic_tpu_torch.ops.attention import attention, flash_attention
     from dexbotic_tpu_torch.ops.dit_fused import fused_dit_sample
     from dexbotic_tpu_torch.ops.quant import quantized_bytes
 
@@ -548,6 +643,7 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
     try:
         for fn in kernels.values():
             fn.launches = 0
+        attention.plain_cuda_calls = 0
         singles, latencies = [], []
         for _ in range(6):
             out, dt = _post(port, prompt, [png])
@@ -557,10 +653,13 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
         if quantize:  # 8 x 832 = 6656 rows: W8A8 in the prefill, the plain sampler
             batch8, batch8_dt = _post(port, ";".join([prompt] * 8), [png] * 8, batch_size=8)
         launches = {name: fn.launches for name, fn in kernels.items()}
+        plain_calls = attention.plain_cuda_calls
     finally:
         httpd.shutdown()
         httpd.server_close()
-    print(f"  launches during serving: {launches}")
+    print(f"  launches during serving: {launches}; plain attention calls on CUDA {plain_calls}")
+    if plain_calls:
+        failures.append(f"{plain_calls} attention calls of the served LLM took the plain path")
     for out in singles:
         if out.shape != (cfg.chunk_size, cfg.action_dim) or not np.isfinite(out).all():
             failures.append(f"single response shape {out.shape} / finite {np.isfinite(out).all()}")
@@ -606,6 +705,137 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
               f"{weight_bytes / 2**30:.2f} vs {bf16['weight_bytes'] / 2**30:.2f} GiB; request p50 "
               f"{p50:.1f} vs {bf16['p50_ms']:.1f} ms; chunk cosine {_cosine(a, bf16['chunk']):.6f}")
     return result
+
+
+def phase_pi0(failures: list) -> dict:
+    """Serve pi0 at full width over HTTP with K1's launches and the plain
+    CUDA attention calls counted around the requests; hold the kernel path
+    against the plain path on one request; time the device path by part."""
+    from dexbotic_tpu_torch.data.image_processing import preprocess_images_batch
+    from dexbotic_tpu_torch.exp.pi0_exp import Pi0Exp
+    from dexbotic_tpu_torch.exp.serve import FlowVLAServer, _decode_frames
+    from dexbotic_tpu_torch.models import flow_vla as fv
+    from dexbotic_tpu_torch.ops.attention import attention, flash_attention, flash_attention_fwd
+    from script.profile_pi0_torch import part_calls, split_parts, wall_ms
+
+    print("phase 5c: pi0 (SigLIP so400m/224 + Gemma-2B + Gemma-300M expert, bf16 weights, "
+          "fp32 activations) served through /process_frame")
+    exp = Pi0Exp(device="cuda")
+    t0 = time.perf_counter()
+    cfg, model, _ = exp.load_for_inference()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  built {n_params / 1e9:.3f}B params on the card in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    rng = np.random.default_rng(12)
+    # pi0-format statistics: 7 env action dims, the state padded to action_dim
+    D = cfg.action_dim
+    norms = {"action": {"mean": rng.normal(0, 0.1, 7).tolist(), "std": rng.uniform(0.5, 2, 7).tolist()},
+             "state": {"mean": rng.normal(0, 0.1, D).tolist(), "std": rng.uniform(0.5, 2, D).tolist()}}
+    state = json.dumps(rng.normal(0, 0.5, 8).round(4).tolist())  # an 8-dof robot's state
+    views = [_frame_png(seed) for seed in range(3)]
+    server = FlowVLAServer(exp, cfg, model, exp.tokenizer.build_tokenizer(), norms,
+                           host="127.0.0.1", port=0)
+    httpd = server.serve_background()
+    port = httpd.server_address[1]
+    # one attention call a layer: the prefill, then one per Euler step
+    per_call = cfg.llm.num_layers * (1 + cfg.num_flow_steps)
+    n_single = 12
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        flash_attention.launches = 0
+        attention.plain_cuda_calls = 0
+        singles, latencies = [], []
+        for _ in range(n_single):
+            out, dt = _post(port, PROMPT, views, states=state)
+            singles.append(out)
+            latencies.append(dt)
+        one_view, _ = _post(port, PROMPT, views[:1], states=state)
+        batch, batch_dt = _post(port, PROMPT, views + views, batch_size=2, states=f"{state};{state}")
+        launches, plain_calls = flash_attention.launches, attention.plain_cuda_calls
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expected = (n_single + 2) * per_call
+    print(f"  launches during serving: K1 {launches} (expected {n_single + 2} device calls x "
+          f"{per_call} = {expected}); plain attention calls on CUDA {plain_calls}")
+    shapes = [o.shape for o in singles + [one_view]] + [batch.shape[1:]]
+    if any(sh != (cfg.chunk_size, 7) for sh in shapes) or batch.shape[0] != 2:
+        failures.append(f"pi0 response shapes {set(shapes)}, batch {batch.shape}")
+    if not all(np.isfinite(o).all() for o in singles + [one_view, batch]):
+        failures.append("pi0: a non-finite action")
+    if launches != expected:
+        failures.append(f"pi0: K1 launched {launches} times, expected {expected}")
+    if plain_calls:
+        failures.append(f"pi0: {plain_calls} attention calls of the decoder or the expert "
+                        "took the plain path")
+    lat = sorted(x * 1e3 for x in latencies[1:])
+    p50, p90 = statistics.median(lat), float(np.percentile(lat, 90))
+    print(f"  request latency ms over {len(lat)} after the first ({latencies[0] * 1e3:.1f}): "
+          f"p50 {p50:.1f}, p90 {p90:.1f}; batch_size=2 {batch_dt * 1e3:.1f}; peak memory "
+          f"allocated {peak:.2f} GiB")
+
+    # one request's inputs by hand: the kernel path, the plain path, the parts
+    ids = np.zeros((1, 64), np.int32)
+    row = server._prompt_ids(PROMPT)
+    ids[0, : len(row)] = row
+    ids_t = torch.from_numpy(ids).cuda()
+    text_mask = (ids_t != 0).to(torch.int32)
+    frames, order = _decode_frames(views)
+    imgs = torch.from_numpy(preprocess_images_batch(
+        frames, exp.data.build_image_processor(), channel_order=order))[None].cuda()
+    masks = torch.ones((1, 3), dtype=torch.int32, device=ids_t.device)
+    states = torch.from_numpy(server.stats.normalize("state", server._parse_state(state, D)[None])).cuda()
+    noise = torch.randn((1, cfg.chunk_size, cfg.action_dim),
+                        generator=torch.Generator(device="cuda").manual_seed(13), device="cuda")
+    args = (ids_t, text_mask, imgs, masks, states)
+    plain_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, attn_impl="xla"),
+                                    expert=dataclasses.replace(cfg.expert, attn_impl="xla"))
+    # the residual stream, norms, MLPs and cache in fp32, as the JAX package
+    # computes them; the plain path is fp32 throughout, the kernel path
+    # rounds only K1's q/k/v to bf16
+    with torch.no_grad():
+        act_dtype = fv.embed_prefix(model, cfg, imgs, masks, ids_t, text_mask)[0].dtype
+    if act_dtype != torch.float32:
+        failures.append(f"pi0: the prefix is embedded in {act_dtype}, not the images' fp32")
+    a = fv.flow_vla_inference_action(model, cfg, *args, noise=noise)
+    n0 = flash_attention.launches
+    b = fv.flow_vla_inference_action(model, plain_cfg, *args, noise=noise)
+    cos = _cosine(a.flatten(), b.flatten())
+    vcos = _cosine((a - noise).flatten(), (b - noise).flatten())
+    print(f"  activations {act_dtype}; kernel path (K1 in bf16) vs fp32 plain path: max abs "
+          f"diff {(a - b).abs().max().item():.5g}, chunk cosine {cos:.6f}, cosine of the "
+          f"integrated velocity {vcos:.6f}, |chunk| max "
+          f"{b.abs().max().item():.4g}")
+    if flash_attention.launches != n0:
+        failures.append("pi0: the plain path launched K1")
+    if not (cos >= 0.99 and vcos >= 0.99):
+        failures.append(f"pi0 chunk cosine {cos} / velocity cosine {vcos} < 0.99")
+
+    calls = part_calls(model, cfg, *args, noise)
+    parts = {f"{part}_ms": ms for part, (ms,) in
+             split_parts({name: (wall_ms(fn),) for name, fn in calls.items()}).items()}
+    t_call = parts["device_call_ms"]
+    _, q, k, v, ints = pi0_attn_inputs(1, 64, "suffix", torch.Generator(device="cuda").manual_seed(14))
+    for _ in range(5):
+        flash_attention_fwd(q, k, v, *ints)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(100):
+        flash_attention_fwd(q, k, v, *ints)
+    host_ms = (time.perf_counter() - t) * 10
+    torch.cuda.synchronize()
+    print(f"  device path (CUDA-synchronised wall clock, medians of 5): ViT + projector (and the "
+          f"text embedding) {parts['vit_projector_ms']:.2f} ms, prefill {parts['prefill_ms']:.2f} ms "
+          f"({cfg.llm.num_layers} layers), {cfg.num_flow_steps} Euler steps "
+          f"{parts['euler_steps_ms']:.2f} ms, whole call {t_call:.2f} ms; K1 wrapper host time "
+          f"{host_ms:.4f} ms a call (suffix shape)")
+    del model, server, a, b, q, k, v
+    free_memory()
+    return {"launches": launches, "launches_per_call": per_call, "plain_cuda_calls": plain_calls,
+            "p50_ms": p50, "p90_ms": p90, "batch2_ms": batch_dt * 1e3, "peak_gib": peak,
+            "cosine": cos, "velocity_cosine": vcos, "k1_host_ms": host_ms, **parts}
 
 
 LIBERO_PROMPT = "put the black bowl in the bottom drawer of the cabinet and close it"
@@ -781,6 +1011,31 @@ def phase_train(failures: list) -> dict:
         return phase_train_steps(failures, dataset)
 
 
+def k1_build_report(log: str, failures: list) -> dict:
+    """Registers and spills of every K1 instance from nvcc's ``-Xptxas -v``
+    output ("flash_fwd_kernel<D, NWG, BK>"); a spilling instance fails."""
+    import re
+
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"flash_fwd_kernelILi(\d+)ELi(\d+)ELi(\d+)E", m.group(1))
+            name = f"flash_fwd_kernel<{k.group(1)}, {k.group(2)}, {k.group(3)}>" if k else None
+        elif name and "spill stores" in line:
+            report[name] = {"spill_bytes": sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))}
+        elif name and "registers" in line:
+            report[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            name = None
+    for n, r in sorted(report.items()):
+        print(f"  {n}: {r.get('registers')} registers, {r['spill_bytes']} bytes of spills")
+        if r["spill_bytes"]:
+            failures.append(f"{n} spills {r['spill_bytes']} bytes")
+    if not any("<256," in n for n in report):
+        failures.append("nvcc's output lists no K1 instance at head_dim 256")
+    return report
+
+
 def free_memory() -> None:
     gc.collect()
     if torch.cuda.is_available():
@@ -802,7 +1057,13 @@ def main() -> int:
     print(f"phase 2: kernels built/loaded in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {build.LIBRARY.build_seconds})")
     failures: list = []
+    log = build.LIBRARY.build_log
+    if not log:  # built by an earlier process: its nvcc output is beside the library
+        with open(os.path.join(build.BUILD_DIR, "build.log")) as f:
+            log = f.read()
+    k1_build = k1_build_report(log, failures)
     k1 = phase_flash(failures)
+    k1_d256 = phase_flash_d256(failures)
     k2 = phase_dit(failures)
     k2q = phase_dit(failures, int8=True)
     k4 = phase_quant_matmul(failures)
@@ -810,6 +1071,7 @@ def main() -> int:
     free_memory()  # the serving model
     serve_q = phase_slice(failures, quantize="w8a8", bf16=serve)
     free_memory()
+    pi0 = phase_pi0(failures)
     launches, launches_q = serve["launches"], serve_q["launches"]
     k3 = phase_flash_bwd(failures)
     train = phase_train(failures)
@@ -821,7 +1083,7 @@ def main() -> int:
          "replaces": "dexbotic_tpu/ops/attention.py:86",
          "also_replaces": "dexbotic_tpu/ops/attention.py:165",
          "launches": launches["flash_fwd"], "train_launches": train["launches"]["flash_fwd"],
-         **k1},
+         "pi0_launches": pi0["launches"], **k1, **k1_d256, "build": k1_build},
         {"name": "dit_sample", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/dit_sampler.cu",
          "replaces": "dexbotic_tpu/ops/dit_fused.py:58",
          "launches": launches["dit_sample"], **k2},

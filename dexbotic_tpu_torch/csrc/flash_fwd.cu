@@ -35,6 +35,8 @@
 //    score registers and V as the transposed B operand.
 // NWG = 2 with BK = 128 for large grids, NWG = 1 with BK = 64 (two blocks an
 // SM) for small ones: the wrapper picks by the number of blocks (PERF.md).
+// Head dims 64, 128 and 256; at 256 both shapes take BK = 64 and one block
+// an SM, and O += P V is one m64n256k16 wgmma a 16-key step.
 
 #include "hopper.cuh"
 
@@ -108,8 +110,13 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// Blocks an SM: two one-warpgroup blocks at D <= 128; one block at D = 256,
+// whose O accumulator alone is 128 fp32 a thread (two blocks would cap the
+// registers near 204 and spill) and whose tiles take 160-192 KB of shared
+// memory.  (Arithmetic, not ?:, which nvcc's host stub rejects here.)
 template <int D, int NWG, int BK>
-__global__ void __launch_bounds__(128 * NWG + 32 + 96 * (NWG - 1), 3 - NWG) flash_fwd_kernel(
+__global__ void __launch_bounds__(128 * NWG + 32 + 96 * (NWG - 1),
+                                  3 - NWG - (D / 256) * (2 - NWG)) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const int* __restrict__ q_grp,
     const int* __restrict__ kv_grp, const int* __restrict__ kv_valid,
@@ -371,6 +378,12 @@ extern "C" int dbx_flash_fwd(const void* q, const void* k, const void* v, const 
     return launch<64, 2, 128>(q, k, v, qg, kg, kvv, qs, ks, c, o, l, B, Sq, Skv, Hq, Hkv, scale, st);
   if (D == 64 && rows == 64)
     return launch<64, 1, 64>(q, k, v, qg, kg, kvv, qs, ks, c, o, l, B, Sq, Skv, Hq, Hkv, scale, st);
+  // D = 256: 64-row kv tiles (four panels each of K and V a stage: a
+  // 128-row tile would need ~320 KB of shared memory)
+  if (D == 256 && rows == 128)
+    return launch<256, 2, 64>(q, k, v, qg, kg, kvv, qs, ks, c, o, l, B, Sq, Skv, Hq, Hkv, scale, st);
+  if (D == 256 && rows == 64)
+    return launch<256, 1, 64>(q, k, v, qg, kg, kvv, qs, ks, c, o, l, B, Sq, Skv, Hq, Hkv, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

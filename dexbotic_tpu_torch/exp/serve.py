@@ -1,12 +1,13 @@
 """HTTP action server: POST /process_frame -> JSON action chunk.
 
-Port of the CogACT serving path of dexbotic_tpu/exp/serve.py: multipart
-form with a 'text' prompt, image file parts and an optional 'batch_size';
-the response is a JSON [chunk_size x action_dim] list (a list of those for
-batch_size > 1).  Stdlib http.server; host-side image preprocessing;
-optional micro-batching of concurrent single-frame requests.  The device
-call draws its noise from one ``torch.Generator`` seeded from the config and
-advanced by every request.
+Port of the CogACT and flow-VLA (pi0/pi0.5/DM0) serving paths of
+dexbotic_tpu/exp/serve.py: multipart form with a 'text' prompt, image file
+parts and optional 'batch_size' and 'states' fields; the response is a JSON
+[chunk_size x action_dim] list (a list of those for batch_size > 1).
+Stdlib http.server; host-side image preprocessing; optional micro-batching
+of concurrent single-frame requests.  The device call draws its noise from
+one ``torch.Generator`` seeded from the config and advanced by every
+request.
 """
 
 from __future__ import annotations
@@ -79,6 +80,46 @@ def parse_multipart(headers: dict, body: bytes):
         else:
             fields[name] = payload.decode()
     return fields, files
+
+
+class ServingStats:
+    """Serving-side state normalisation and action denormalisation, as the
+    JAX ``ServingStats``: ``use_quantiles`` picks (x - min) / (max - min +
+    1e-6) * 2 - 1 over (x - mean) / (std + 1e-6); the denormalisation pads
+    the statistics to the data width with identity values and does not clip."""
+
+    def __init__(self, mapping, use_quantiles: bool):
+        self.mapping = mapping if isinstance(mapping, dict) else {}
+        self.use_quantiles = use_quantiles
+
+    def has(self, key: str) -> bool:
+        return isinstance(self.mapping.get(key), dict)
+
+    def _st(self, key, names, width=None):
+        st = [np.asarray(self.mapping[key][n], np.float64).reshape(-1) for n in names]
+        if width is not None:  # identity padding to the data width
+            fill = {"min": -1.0, "max": 1.0, "mean": 0.0, "std": 1.0}
+            st = [np.concatenate([v, np.full(width - v.shape[-1], fill[n])])
+                  if v.shape[-1] < width else v for n, v in zip(names, st)]
+        return st
+
+    def normalize(self, key: str, x: np.ndarray) -> np.ndarray:
+        if not self.has(key):
+            return x
+        if self.use_quantiles:
+            lo, hi = self._st(key, ("min", "max"))
+            return ((x - lo) / (hi - lo + 1e-6) * 2.0 - 1.0).astype(np.float32)
+        mean, std = self._st(key, ("mean", "std"))
+        return ((x - mean) / (std + 1e-6)).astype(np.float32)
+
+    def denormalize(self, key: str, x: np.ndarray) -> np.ndarray:
+        if not self.has(key):
+            return x
+        if self.use_quantiles:
+            lo, hi = self._st(key, ("min", "max"), width=x.shape[-1])
+            return (x + 1.0) / 2.0 * (hi - lo + 1e-6) + lo
+        mean, std = self._st(key, ("mean", "std"), width=x.shape[-1])
+        return x * (std + 1e-6) + mean
 
 
 def _cogact_prompt_ids(exp, cfg, tokenizer, prompt: str, assistant_stub=" ") -> list:
@@ -333,3 +374,141 @@ class CogActServer(ActionServer):
             for k, (i, _, _) in enumerate(items):
                 results[i] = out[k].tolist()
         return results
+
+
+class FlowVLAServer(ActionServer):
+    """pi0/pi0.5/DM0 serving: multi-view posts with states, 'batch_size'
+    requests and micro-batched single requests (the JAX ``FlowVLAServer``).
+
+    Each row is a prompt, a group of views (views past ``num_images`` are
+    dropped, missing ones zero-filled and masked) and a state; the state is
+    normalised with the served statistics, and the chunk is denormalised,
+    passed through the exp's output transforms against the raw state
+    (``AbsoluteAction``) and cut to the environment's action dims."""
+
+    def __init__(self, exp, cfg, model, tokenizer, norms, host="0.0.0.0", port=7891,
+                 micro_batch: int = 0, micro_batch_window_ms: float = 5.0):
+        super().__init__(host, port, micro_batch=micro_batch,
+                         micro_batch_window_ms=micro_batch_window_ms)
+        self.exp, self.cfg, self.tokenizer, self.norms = exp, cfg, tokenizer, norms
+        # pi0 normalises by mean/std, pi0.5 and DM0 by quantiles
+        self.stats = ServingStats(norms, use_quantiles=getattr(exp.action, "use_quantiles", True))
+        self.device = torch.device(exp.device)
+        self.infer = exp.make_infer_fn(cfg, model)
+        self.generator = torch.Generator(device=self.device).manual_seed(exp.model.seed)
+        self.num_images = exp.data.num_images
+        self._prompt_cache: dict = {}
+
+    def _prompt_ids(self, prompt: str) -> np.ndarray:
+        ids = self._prompt_cache.get(prompt)
+        if ids is None:
+            out = self.exp.build_tokenization(self.tokenizer)(
+                conversations=[{"from": "human", "value": prompt}])
+            ids = np.asarray(out["input_ids"], np.int32)
+            if len(self._prompt_cache) < 1024:
+                self._prompt_cache[prompt] = ids
+        return ids
+
+    @staticmethod
+    def _parse_state(row: str | None, dim: int) -> np.ndarray:
+        """One state row (a JSON array or comma-separated floats) -> zero-padded [dim]."""
+        s = np.zeros((dim,), np.float32)
+        if row:
+            try:
+                vals = np.asarray(json.loads(row), np.float32).reshape(-1)
+            except (json.JSONDecodeError, ValueError):
+                vals = np.asarray([float(x) for x in row.split(",")], np.float32)
+            s[: len(vals)] = vals[:dim]
+        return s
+
+    def _infer_rows(self, prompts, payload_groups, state_rows, pad_to=None) -> list:
+        """One batched device call over B rows; ``pad_to`` pads the batch by
+        repeating row 0 (padded rows are dropped).  Token length is padded to
+        a multiple of 64."""
+        B = len(prompts)
+        Bp = max(pad_to or B, B)
+        if Bp > B:
+            prompts = list(prompts) + [prompts[0]] * (Bp - B)
+            payload_groups = list(payload_groups) + [payload_groups[0]] * (Bp - B)
+            state_rows = list(state_rows) + [state_rows[0]] * (Bp - B)
+        per = len(payload_groups[0])
+        if any(len(g) != per for g in payload_groups):
+            raise ValueError("ragged view groups")
+        rows = [self._prompt_ids(p) for p in prompts]
+        L = -(-max(len(r) for r in rows) // 64) * 64
+        ids = np.zeros((Bp, L), np.int32)
+        for b, r in enumerate(rows):
+            ids[b, : len(r)] = r
+        proc = self.exp.data.build_image_processor()
+        images = np.zeros((Bp, self.num_images, proc.size, proc.size, 3), np.float32)
+        masks = np.zeros((Bp, self.num_images), np.int32)
+        keep = min(per, self.num_images)
+        frames, order = _decode_frames([p for g in payload_groups for p in g])
+        flat = preprocess_images_batch(frames, proc, channel_order=order)
+        for b in range(Bp):
+            images[b, :keep] = flat[b * per: b * per + keep]
+            masks[b, :keep] = 1
+        states = self.stats.normalize("state", np.stack(state_rows))
+        dev = self.device
+        ids_t = torch.from_numpy(ids).to(dev)
+        raw = self.infer(ids_t, (ids_t != 0).to(torch.int32), torch.from_numpy(images).to(dev),
+                         torch.from_numpy(masks).to(dev), torch.from_numpy(states).to(dev),
+                         self.generator)
+        raw = raw.float().cpu().numpy()
+        return [self._postprocess(raw[b], state_rows[b]) for b in range(B)]
+
+    def get_response(self, fields, files):
+        """With 'batch_size'=B the images are B groups of views in order and
+        'states' carries B semicolon-separated vectors."""
+        prompt = fields.get("text", "")
+        B = int(fields.get("batch_size", 1))
+        payloads = [p for _, p in files]
+        if len(payloads) % B:
+            raise ValueError(f"{len(payloads)} images not divisible by batch_size {B}")
+        per = len(payloads) // B
+        groups = [payloads[i * per: (i + 1) * per] for i in range(B)]
+        state_strs = (fields.get("states") or "").split(";")
+        state_rows = [self._parse_state(state_strs[b] if b < len(state_strs) else None,
+                                        self.cfg.action_dim) for b in range(B)]
+        results = self._infer_rows([prompt] * B, groups, state_rows)
+        return results[0] if B == 1 else results
+
+    def get_batched_response(self, requests):
+        """Coalesced single requests -> one padded device call per view count;
+        each request keeps its own prompt and state."""
+        results = [None] * len(requests)
+        by_per: dict = {}
+        for i, (fields, files) in enumerate(requests):
+            payloads = [p for _, p in files]
+            by_per.setdefault(len(payloads), []).append((i, fields, payloads))
+        for items in by_per.values():
+            state_rows = [self._parse_state((f.get("states") or "").split(";")[0],
+                                            self.cfg.action_dim) for _, f, _ in items]
+            out = self._infer_rows([f.get("text", "") for _, f, _ in items],
+                                   [g for _, _, g in items], state_rows,
+                                   pad_to=self.micro_batch if len(items) > 1 else None)
+            for k, (i, _, _) in enumerate(items):
+                results[i] = out[k]
+        return results
+
+    def _postprocess(self, out, state_row) -> list:
+        """Denormalise the chunk, turn deltas absolute against the raw request
+        state with the exp's output transforms, then cut to the env's dims."""
+        out = np.asarray(out, np.float64)
+        if self.stats.has("action"):
+            out = self.stats.denormalize("action", out)
+        elif self.norms is not None and "min" in self.norms:  # flat {min, max} (CogACT format)
+            lo = np.asarray(self.norms["min"], np.float64)
+            hi = np.asarray(self.norms["max"], np.float64)
+            d = min(out.shape[-1], len(lo))
+            a = np.clip(out[:, :d], -1, 1)
+            out = np.concatenate([lo[:d] + (a + 1) * 0.5 * (hi[:d] - lo[:d]), out[:, d:]], axis=-1)
+        icfg = getattr(self.exp, "inference_cfg", None)
+        if icfg is not None:
+            pipe, meta = icfg.build_output_transforms({})
+            if pipe.transforms:
+                data = {"action": out, "state": np.asarray(state_row, np.float64),
+                        "meta_data": meta}
+                out = np.asarray(pipe(data)["action"])
+            out = out[:, : getattr(icfg, "action_dim_out", out.shape[-1])]
+        return out.tolist()

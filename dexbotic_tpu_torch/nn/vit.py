@@ -63,6 +63,13 @@ CLIP_VIT_L_336 = ViTConfig(
     intermediate_size=4096, act="quick_gelu", ln_eps=1e-5, use_cls=True,
     pre_ln=True, select_layer=-2, drop_cls=True,
 )
+SIGLIP_SO400M_384 = ViTConfig(
+    image_size=384, patch_size=14, hidden_size=1152, num_layers=27, num_heads=16,
+    intermediate_size=4304, act="gelu_tanh", select_layer=-2,
+)
+SIGLIP_SO400M_224 = dataclasses.replace(
+    SIGLIP_SO400M_384, image_size=224, select_layer=None
+)  # PaliGemma's tower (pi0/pi0.5); head_dim 72 stays on attn_impl="xla"
 
 
 class _Attn(nn.Module):

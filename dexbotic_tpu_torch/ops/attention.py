@@ -17,8 +17,11 @@ k/v [B, Skv, Hkv, D] with Hq % Hkv == 0 (GQA); int32 [B, S] mask vectors.
 * :func:`flash_tile_classes` is the per-call pre-pass both kernels share:
   every (64-row q tile, 64-row kv tile) pair classed dead, partial or wholly
   visible (plain version :func:`flash_tile_classes_ref`).
-* :func:`attention` dispatches: ``impl="auto"`` sends CUDA tensors to the
-  kernels and CPU tensors to ``attention_xla``.
+* :func:`attention` dispatches: ``impl="auto"`` sends CUDA tensors whose
+  head_dim K1 serves (:data:`FLASH_HEAD_DIMS`, :func:`flash_serves`) to the
+  kernels, and every other call to ``attention_xla``, as the JAX ``auto``
+  sends unaligned head dims to XLA; such a plain call on CUDA tensors counts
+  on ``attention.plain_cuda_calls`` (an explicit ``impl="xla"`` does not).
 """
 
 from __future__ import annotations
@@ -82,6 +85,8 @@ def flash_attention_ref(q, k, v, q_grp, kv_grp, kv_valid, scale=None, q_seg=None
 
 
 TILE = 64  # rows of a class-map tile
+FLASH_HEAD_DIMS = (64, 128, 256)  # K1's instances (csrc/flash_fwd.cu)
+FLASH_BWD_HEAD_DIMS = (64, 128)  # K3's (csrc/flash_bwd.cu)
 DEAD, PARTIAL, VISIBLE = 0, 1, 2
 
 
@@ -147,12 +152,18 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def fwd_rows(B: int, Sq: int, Hq: int, sms: int) -> int:
-    """Query rows a K1 block takes on a card of ``sms`` SMs: 128 (two
-    warpgroups, one block an SM) when that makes at least eight waves of
-    blocks, else 64 (one warpgroup, two blocks an SM, twice the blocks).
-    On the H100, 64-row blocks were faster at 224-896 blocks of 128 rows,
-    even at 1024 and slower from 1792 (PERF.md)."""
+def fwd_rows(B: int, Sq: int, Hq: int, sms: int, D: int = 128) -> int:
+    """Query rows a K1 block takes on a card of ``sms`` SMs.
+
+    At head_dim <= 128: 128 (two warpgroups, one block an SM) when that
+    makes at least eight waves of blocks, else 64 (one warpgroup, two blocks
+    an SM, twice the blocks); on the H100, 64-row blocks were faster at
+    224-896 blocks of 128 rows, even at 1024 and slower from 1792.  At 256
+    both shapes run one block an SM: 128 rows once 64-row blocks would need
+    more than one wave (on the H100, 64 rows were faster at 104 blocks of 64
+    and slower at 208; PERF.md)."""
+    if D == 256:
+        return 128 if -(-Sq // 64) * Hq * B > sms else 64
     return 128 if -(-Sq // 128) * Hq * B >= 8 * sms else 64
 
 
@@ -164,8 +175,8 @@ def _flash_cuda(q, k, v, q_grp, kv_grp, kv_valid, scale, q_seg, kv_seg, rows=Non
     _, Skv, Hkv, _ = k.shape
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
         raise TypeError(f"flash kernel takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if D not in (64, 128):
-        raise ValueError(f"flash kernel serves head_dim 64 and 128, got {D}")
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash kernel serves head_dim {FLASH_HEAD_DIMS}, got {D}")
     if not (0 < Skv <= 16384 and Sq > 0):  # the kernel lists at most 256 kv tiles of 64
         raise ValueError(f"flash kernel serves 0 < Skv <= 16384 and Sq > 0, got Sq={Sq} Skv={Skv}")
     if Hq % Hkv or k.shape != v.shape or k.shape[0] != B:
@@ -178,7 +189,7 @@ def _flash_cuda(q, k, v, q_grp, kv_grp, kv_valid, scale, q_seg, kv_seg, rows=Non
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     cls = _classes_buffer(B, Sq, Skv, q.device)
-    rows = rows or fwd_rows(B, Sq, Hq, _sm_count(q.device.index))
+    rows = rows or fwd_rows(B, Sq, Hq, _sm_count(q.device.index), D)
     code = build.load().dbx_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptr, out.data_ptr(), lse.data_ptr(),
         cls.data_ptr(), B, Sq, Skv, Hq, Hkv, D, float(scale), rows,
@@ -246,8 +257,9 @@ def _flash_bwd_cuda(q, k, v, q_grp, kv_grp, kv_valid, out, lse, g, scale, q_seg,
     _, Skv, Hkv, _ = k.shape
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
         raise TypeError(f"flash backward takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if D not in (64, 128):
-        raise ValueError(f"flash backward serves head_dim 64 and 128, got {D}")
+    if D not in FLASH_BWD_HEAD_DIMS:  # K1 also serves 256: its gradient stops here
+        raise ValueError(f"flash backward serves head_dim {FLASH_BWD_HEAD_DIMS}, got {D} "
+                         f"(K1 runs head_dim 256 forward only)")
     if not (0 < Skv <= 16384 and 0 < Sq <= 16384):
         raise ValueError(f"flash backward serves 0 < Sq, Skv <= 16384, got Sq={Sq} Skv={Skv}")
     if Hq % Hkv or k.shape != v.shape or k.shape[0] != B:
@@ -329,14 +341,33 @@ def flash_attention(q, k, v, q_grp, kv_grp, kv_valid, scale=None, q_seg=None, kv
 flash_attention.launches = 0  # K1 launches in this process
 
 
+def flash_serves(head_dim: int) -> bool:
+    """Whether ``attention(impl="auto")`` sends a CUDA call of this head_dim
+    to K1: a rule of the shape, decided before any launch."""
+    return head_dim in FLASH_HEAD_DIMS
+
+
 def attention(q, k, v, q_grp, kv_grp, kv_valid, scale=None, impl: str = "auto",
               q_seg=None, kv_seg=None):
-    """impl: 'auto' | 'flash' | 'xla'.  'auto' takes the kernel for CUDA tensors."""
+    """impl: 'auto' | 'flash' | 'xla'.  'auto' takes the kernel for CUDA
+    tensors of a head_dim it serves, else the plain ``attention_xla``.
+
+    K1 computes in bf16: a CUDA call in fp32 (π0's decoder and expert, whose
+    residual stream is fp32) is rounded to bf16 at the kernel's input and
+    its output returned in fp32."""
     if impl == "auto":
-        impl = "flash" if q.device.type == "cuda" else "xla"
+        impl = "flash" if q.device.type == "cuda" and flash_serves(q.shape[-1]) else "xla"
+        if impl == "xla" and q.device.type == "cuda":
+            attention.plain_cuda_calls += 1
     if impl == "xla":
         return attention_xla(q, k, v, q_grp, kv_grp, kv_valid, scale, q_seg=q_seg, kv_seg=kv_seg)
     if impl == "flash":
+        if q.device.type == "cuda" and q.dtype == torch.float32:
+            return flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), q_grp, kv_grp,
+                                   kv_valid, scale, q_seg=q_seg, kv_seg=kv_seg).float()
         return flash_attention(q, k, v, q_grp, kv_grp, kv_valid, scale, q_seg=q_seg, kv_seg=kv_seg)
     raise ValueError(f"unknown attention impl: {impl}")
+
+
+attention.plain_cuda_calls = 0  # 'auto' calls on CUDA tensors sent to attention_xla
 

@@ -130,3 +130,14 @@ class DiffusionSchedule:
             x = float(f32["sig_ratio"][i]) * x + float(f32["coef"][i]) * d
             x0_prev = x0
         return x
+
+
+def flow_euler_sample(v_fn, noise: torch.Tensor, num_steps: int = 10) -> torch.Tensor:
+    """The pi0/DM0 flow-matching Euler integrator: x' = v(x, t) from t = 1 to
+    0 with dt = -1/num_steps; ``v_fn(x, t)`` takes t as a 0-d tensor in
+    noise's dtype, accumulated in that dtype as the JAX scan carries it."""
+    dt = -1.0 / num_steps
+    x, t = noise, torch.tensor(1.0, dtype=noise.dtype, device=noise.device)
+    for _ in range(num_steps):
+        x, t = x + v_fn(x, t) * dt, t + dt
+    return x

@@ -1,4 +1,4 @@
-"""RMSNorm and LayerNorm, computed in fp32 (port of dexbotic_tpu/ops/norms.py)."""
+"""RMSNorm, adaptive RMSNorm and LayerNorm, computed in fp32 (port of dexbotic_tpu/ops/norms.py)."""
 
 from __future__ import annotations
 
@@ -13,6 +13,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
     var = xf.square().mean(-1, keepdim=True)
     normed = xf * torch.reciprocal(torch.sqrt(var + eps))
     return (normed * (weight_offset + weight.float())).to(x.dtype)
+
+
+def ada_rms_norm(x: torch.Tensor, weight: torch.Tensor, cond_scale: torch.Tensor,
+                 eps: float = 1e-6, weight_offset: float = 0.0) -> torch.Tensor:
+    """Adaptive RMSNorm: rms_norm(x) * (1 + cond_scale), with a per-sample
+    scale [B, D] (or [B, 1, D]) from a conditioning vector."""
+    normed = rms_norm(x, weight, eps, weight_offset)
+    if cond_scale.ndim == normed.ndim - 1:
+        cond_scale = cond_scale[:, None, :]
+    return (normed.float() * (1.0 + cond_scale.float())).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor | None = None,

@@ -19,7 +19,10 @@ error against the plain version in fp32 over seeded draws, as a ratio to
 chip_smoke's bound (2 x the plain bf16 version's error + 1e-3).  Shapes:
 chip_smoke's training case (B=8, S=2048, 32 heads of 128, 1304 live tokens)
 and serving's (S=832, 773 live) at B=1, at batch_size=2 and for an 8-frame
-request; ``rows`` adds serving at B=4 and training's micro-batch of 2.  Each
+request; ``rows`` adds serving at B=4, training's micro-batch of 2 and pi0's
+head_dim-256 calls (8 query heads on 1 kv head: the prefix, 816 tokens in
+``inference_single`` and 832 served, and the 51-token suffix against it, at
+B=1 and batch_size=2).  Each
 mode prints one JSON line; ``--out DIR`` also writes it to
 ``DIR/bench_flash_<mode>.json``.
 """
@@ -49,6 +52,9 @@ SERVE_B2 = (2, 832, 32, 32, 128, 59)  # batch_size=2
 SERVE_B4 = (4, 832, 32, 32, 128, 59)  # between the two: where the block rule turns
 SERVE_B8 = (8, 832, 32, 32, 128, 59)  # an 8-frame request
 TRAIN_B2 = (2, 2048, 32, 32, 128, 2048 - 1304)  # chip_smoke 7a's micro-batch
+PI0 = [("pi0_prefix", 1, 816, 816), ("pi0_prefix_served", 1, 832, 832),
+       ("pi0_suffix", 1, 51, 867), ("pi0_suffix_served", 1, 51, 883),
+       ("pi0_prefix_b2", 2, 832, 832), ("pi0_suffix_b2", 2, 51, 883)]  # label, B, Sq, Skv
 K1_KERNELS = ("flash_fwd_kernel", "tile_class_kernel")
 K3_KERNELS = ("dkv_kernel", "dq_kernel", "pre_kernel", "tile_class_kernel")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -71,6 +77,23 @@ def inputs(case, seed: int):
     valid[:, S - pad:] = 0
     grp = torch.cumsum(valid, 1, dtype=torch.int32)
     return q, k, v, dout, (grp.clone(), grp, valid)
+
+
+def pi0_inputs(B: int, Sq: int, Skv: int, seed: int):
+    """A pi0 call at head_dim 256: the bidirectional prefix (Sq = Skv) with
+    the text's last 26 of 48 tokens padding, or the suffix (state token group
+    1, actions group 2) against the cached prefix."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, Sq, 8, 256, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(B, Skv, 1, 256, generator=g, device="cuda").bfloat16() for _ in range(2))
+    P = Skv if Sq == Skv else Skv - Sq
+    valid = torch.ones(B, Skv, dtype=torch.int32, device="cuda")
+    valid[:, 768 + 22: P] = 0
+    kv_grp = torch.zeros(B, Skv, dtype=torch.int32, device="cuda")
+    if Sq < Skv:
+        kv_grp[:, P:] = 2
+        kv_grp[:, P] = 1
+    return q, k, v, (kv_grp[:, Skv - Sq:].contiguous(), kv_grp, valid)
 
 
 def median_ms(fn, reps: int = 20) -> float:
@@ -214,6 +237,18 @@ def rows(args) -> dict:
                       "sms": sms, "ms_64_128_128_64": ms, "picked": A.fwd_rows(B, S, Hq, sms),
                       "device_ms_64": device_ms(f[64], K1_KERNELS),
                       "device_ms_128": device_ms(f[128], K1_KERNELS)}
+        print(label, json.dumps(res[label]), flush=True)
+        del q, k, v, ints
+    for label, B, Sq, Skv in PI0:
+        q, k, v, ints = pi0_inputs(B, Sq, Skv, 3)
+        f = {r: (lambda r=r: A._flash_cuda(q, k, v, *ints, 256 ** -0.5, None, None, rows=r))
+             for r in (64, 128)}
+        ms = [median_ms(f[r]) for r in (64, 128, 128, 64)]
+        res[label] = {"blocks_64": -(-Sq // 64) * 8 * B, "blocks_128": -(-Sq // 128) * 8 * B,
+                      "sms": sms, "ms_64_128_128_64": ms, "picked": A.fwd_rows(B, Sq, 8, sms, 256),
+                      "device_ms_64": device_ms(f[64], K1_KERNELS),
+                      "device_ms_128": device_ms(f[128], K1_KERNELS),
+                      "host_ms_64": host_ms(f[64])}
         print(label, json.dumps(res[label]), flush=True)
         del q, k, v, ints
     return res

@@ -100,3 +100,37 @@ def test_dispatch():
     meta = [a.to("meta") for a in args]
     with pytest.raises(RuntimeError):  # no silent path for a device without a kernel
         ta.flash_attention(*meta)
+
+
+@pytest.mark.parametrize("Sq,Skv", [(16, 16), (5, 40)])
+def test_flash_plain_matches_jax_flash_head_dim_256(Sq, Skv):
+    """pi0's shapes at a small size: D=256, MQA (8 query heads on 1 kv head);
+    Sq = Skv is the bidirectional prefix with a padded text tail, Sq < Skv the
+    suffix against the cached prefix (state token group 1, actions group 2)."""
+    rng = np.random.default_rng(Sq + Skv)
+    q = rng.standard_normal((1, Sq, 8, 256)).astype(np.float32)
+    k, v = (rng.standard_normal((1, Skv, 1, 256)).astype(np.float32) for _ in range(2))
+    valid = np.ones((1, Skv), np.int32)
+    kv_grp = np.zeros((1, Skv), np.int32)
+    if Sq == Skv:
+        valid[0, -3:] = 0
+    else:
+        valid[0, Skv - Sq - 4: Skv - Sq] = 0
+        kv_grp[0, Skv - Sq:] = [1] + [2] * (Sq - 1)
+    q_grp = kv_grp[:, Skv - Sq:].copy()
+    ref = jax_flash_attention(_j(q), _j(k), _j(v), _j(q_grp), _j(kv_grp), _j(valid),
+                              interpret=True, block_q=16, block_kv=16)
+    got = ta.flash_attention(_t(q), _t(k), _t(v), _t(q_grp), _t(kv_grp), _t(valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+def test_dispatch_rule_is_a_function_of_head_dim():
+    """``auto`` sends a CUDA call to K1 exactly where K1 serves the head_dim
+    (no length thresholds); a CPU call never counts as a plain CUDA call."""
+    assert [d for d in (16, 32, 64, 72, 96, 128, 192, 256, 320, 512) if ta.flash_serves(d)] == \
+        [64, 128, 256]
+    assert ta.FLASH_HEAD_DIMS == (64, 128, 256) and ta.FLASH_BWD_HEAD_DIMS == (64, 128)
+    q, k, v, qg, kg, valid, _, _, _ = _case("gqa")
+    n0 = ta.attention.plain_cuda_calls
+    ta.attention(*[_t(x) for x in (q, k, v, qg, kg, valid)])
+    assert ta.attention.plain_cuda_calls == n0

@@ -222,7 +222,9 @@ def test_config_fields_match_jax(name):
     assert tf == jf
 
 
-@pytest.mark.parametrize("name", ["LLAMA2_7B", "CLIP_VIT_L_336", "LLM_TEST", "VIT_TEST"])
+@pytest.mark.parametrize("name", ["LLAMA2_7B", "CLIP_VIT_L_336", "LLM_TEST", "VIT_TEST", "GEMMA_2B",
+                                  "GEMMA_300M_EXPERT", "GEMMA_300M_EXPERT_ADARMS", "QWEN3_1_7B",
+                                  "QWEN3_06B_EXPERT", "SIGLIP_SO400M_224", "EXPERT_TEST_ADARMS"])
 def test_presets_match_jax(name):
     assert dataclasses.asdict(getattr(tpresets, name)) == dataclasses.asdict(getattr(jpresets, name))
 
@@ -233,6 +235,7 @@ def test_preset_tables_and_dit_sizes_match_jax():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jpresets.LLM_PRESETS[key])
     for key, cfg in tpresets.VIT_PRESETS.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jpresets.VIT_PRESETS[key])
+    assert set(tpresets.EXPERT_PRESETS) == set(jpresets.EXPERT_PRESETS)
     jc, tc = _cfgs()
     assert dataclasses.asdict(tc.dit) == dataclasses.asdict(jc.dit)
     assert tc.vlm.num_image_tokens == jc.vlm.num_image_tokens == 4
@@ -244,3 +247,30 @@ def test_denorm_actions_matches_jax():
     np.testing.assert_allclose(tcogact.denorm_actions(a, lo, hi),
                                np.asarray(jcogact.denorm_actions(jnp.asarray(a), lo, hi)),
                                rtol=1e-6, atol=1e-6)
+
+
+def test_decoder_prefill_cache_matches_jax():
+    """transformer_forward, the N=1 case of mot_forward, keeps CogACT's
+    numbers; its prefill into a KV cache writes what the JAX cache holds."""
+    jcfg, tcfg = jtransformer.TransformerConfig(**LLM), ttransformer.TransformerConfig(**LLM)
+    params = jax.device_get(jtransformer.init_transformer(jax.random.PRNGKey(4), jcfg))
+    llm = ttransformer.Transformer(tcfg)
+    load_jax_params(llm, params)
+    rng = np.random.default_rng(4)
+    emb = rng.standard_normal((2, 10, 64)).astype(np.float32)
+    valid = np.ones((2, 10), np.int32)
+    valid[0, -3:] = 0
+    grp = np.cumsum(valid, 1).astype(np.int32)
+    ref, cache = jtransformer.transformer_forward(jcfg, params, jnp.asarray(emb), jnp.asarray(grp - 1),
+                                                 jnp.asarray(grp), jnp.asarray(valid),
+                                                 update_cache=True)
+    args = [torch.from_numpy(a) for a in (emb, grp - 1, grp, valid)]
+    with torch.no_grad():
+        got = ttransformer.transformer_forward(tcfg, llm, *args)
+        outs, tcache = ttransformer.mot_forward([ttransformer.Stream(tcfg, llm, args[0])], *args[1:],
+                                                update_cache=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(outs[0].numpy(), got.numpy())
+    assert tcache["length"] == int(cache["length"]) == 10
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tcache[key].numpy(), np.asarray(cache[key]), atol=1e-4, rtol=0)

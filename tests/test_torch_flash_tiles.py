@@ -143,3 +143,11 @@ def test_tile_classes_on_cpu_take_the_plain_version():
 def test_fwd_rows_rule(B, S, Hq, rows):
     """K1 takes 128-row blocks when they make eight waves on the H100's 132 SMs, else 64."""
     assert ta.fwd_rows(B, S, Hq, 132) == rows
+
+
+@pytest.mark.parametrize("B,Sq,rows", [(1, 816, 64), (1, 832, 64), (1, 51, 64), (2, 51, 64),
+                                       (2, 832, 128), (8, 51, 64)])
+def test_fwd_rows_rule_head_dim_256(B, Sq, rows):
+    """At head_dim 256 (pi0: 8 query heads) K1 takes 128-row blocks once its
+    64-row blocks would need more than one wave of the H100's 132 SMs."""
+    assert ta.fwd_rows(B, Sq, 8, 132, 256) == rows

@@ -23,6 +23,8 @@ from dexbotic_tpu_torch.nn.core import cast_matrices_
 from dexbotic_tpu_torch.models.dit import DiT, DiTConfig, init_dit_
 from dexbotic_tpu_torch.ops.attention import (
     _flash_cuda,
+    attention,
+    attention_xla,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_ref,
@@ -241,6 +243,108 @@ def test_flash_backward_kernel_refuses_what_it_does_not_serve(cuda):
     lse = torch.zeros(1, 2, 8, device=cuda)
     with pytest.raises(ValueError):
         flash_attention_bwd(q, q, q, *ints, q, lse, q)
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 816])
+def test_flash_kernel_d256_at_tile_edges(cuda, S):
+    """K1 at head_dim 256 (pi0's Gemma), MQA 8:1, both block shapes, at
+    lengths around the tiles; segments and a row that sees no key."""
+    case = _attn_case(cuda, 1, S, S, 8, 1, 256, seed=S, segments=S > 3)
+    for rows in (64, 128):
+        _check_k1(cuda, case, rows)
+
+
+@pytest.mark.parametrize("B,Sq,Skv", [(1, 51, 867), (2, 51, 883), (1, 816, 816)])
+def test_flash_kernel_d256_prefix_and_suffix(cuda, B, Sq, Skv):
+    """pi0's calls: the bidirectional prefix with its text tail masked, and the
+    suffix (state token group 1, actions group 2) against the cached prefix."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Skv)
+    q = torch.randn(B, Sq, 8, 256, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, Skv, 1, 256, generator=g, device=cuda).bfloat16() for _ in range(2))
+    valid = torch.ones(B, Skv, dtype=torch.int32, device=cuda)
+    P = Skv - Sq if Sq < Skv else Skv
+    valid[:, P - 20: P] = 0  # the text's padded tail
+    kv_grp = torch.zeros(B, Skv, dtype=torch.int32, device=cuda)
+    if Sq < Skv:
+        kv_grp[:, P:] = 2
+        kv_grp[:, P] = 1
+    case = (q, k, v, None, (kv_grp[:, Skv - Sq:].contiguous(), kv_grp, valid), None, None)
+    for rows in (64, 128):
+        _check_k1(cuda, case, rows)
+
+
+@pytest.mark.parametrize("Sq,Skv", [(64, 64), (192, 192), (100, 192)])
+def test_flash_kernel_d256_with_every_key_visible(cuda, Sq, Skv):
+    """All-zero groups and every key valid at Skv % 128 == 64: the 128-row
+    block's last kv tile reaches past Skv, where its keys stay masked."""
+    g = torch.Generator(device=cuda).manual_seed(Sq * Skv)
+    q = torch.randn(2, Sq, 8, 256, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(2, Skv, 1, 256, generator=g, device=cuda).bfloat16() for _ in range(2))
+    zeros = torch.zeros(2, Skv, dtype=torch.int32, device=cuda)
+    case = (q, k, v, None, (zeros[:, :Sq].contiguous(), zeros, torch.ones_like(zeros)), None, None)
+    for rows in (64, 128):
+        _check_k1(cuda, case, rows)
+
+
+def test_flash_kernel_d256_is_deterministic(cuda):
+    q, k, v, _, ints, q_seg, kv_seg = _attn_case(cuda, 2, 700, 700, 8, 1, 256, 13, True)
+    for rows in (64, 128):
+        first = _flash_cuda(q, k, v, *ints, 256 ** -0.5, q_seg, kv_seg, rows=rows)
+        again = _flash_cuda(q, k, v, *ints, 256 ** -0.5, q_seg, kv_seg, rows=rows)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_wrappers_refuse_what_they_do_not_serve(cuda):
+    ints = [torch.ones(1, 8, dtype=torch.int32, device=cuda)] * 3
+    with pytest.raises(ValueError, match="head_dim"):  # SigLIP's 72
+        flash_attention_fwd(*(torch.randn(1, 8, 2, 72, device=cuda).bfloat16(),) * 3, *ints)
+    with pytest.raises(TypeError):  # fp32 q/k/v
+        flash_attention_fwd(*(torch.randn(1, 8, 2, 256, device=cuda),) * 3, *ints)
+    q = torch.randn(1, 8, 2, 256, device=cuda).bfloat16().requires_grad_(True)
+    out = flash_attention(q, q, q, *ints)  # K1 serves 256 forward; K3 does not
+    with pytest.raises(ValueError, match="forward only"):
+        out.sum().backward()
+
+
+def test_auto_dispatch_counts_plain_cuda_calls(cuda):
+    """``attention(impl="auto")`` on CUDA: head_dim 72 takes the plain path and
+    counts it; 256 launches K1 and does not count."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    ints = [torch.zeros(1, 40, dtype=torch.int32, device=cuda),
+            torch.zeros(1, 40, dtype=torch.int32, device=cuda),
+            torch.ones(1, 40, dtype=torch.int32, device=cuda)]
+    for D, plain in ((72, True), (256, False)):
+        q, k, v = (torch.randn(1, 40, 4, D, generator=g, device=cuda).bfloat16() for _ in range(3))
+        n_plain, n_k1 = attention.plain_cuda_calls, flash_attention.launches
+        out = attention(q, k, v, *ints)
+        assert attention.plain_cuda_calls - n_plain == int(plain)
+        assert flash_attention.launches - n_k1 == int(not plain)
+        if plain:
+            assert torch.equal(out, attention_xla(q, k, v, *ints))
+
+
+def test_auto_dispatch_rounds_fp32_to_bf16_at_k1(cuda):
+    """An fp32 call (π0's decoder and expert) takes K1 on its bf16-rounded
+    q/k/v and returns fp32: exactly K1 on the rounded inputs, and within the
+    error rule of the fp32 plain version."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    valid = torch.ones(1, 867, dtype=torch.int32, device=cuda)
+    valid[:, 790:816] = 0
+    kv_grp = torch.zeros(1, 867, dtype=torch.int32, device=cuda)
+    kv_grp[:, 816] = 1
+    kv_grp[:, 817:] = 2
+    ints = (kv_grp[:, 816:].contiguous(), kv_grp, valid)
+    q = torch.randn(1, 51, 8, 256, generator=g, device=cuda)
+    k, v = (torch.randn(1, 867, 1, 256, generator=g, device=cuda) for _ in range(2))
+    n_plain, n_k1 = attention.plain_cuda_calls, flash_attention.launches
+    out = attention(q, k, v, *ints)
+    assert out.dtype == torch.float32
+    assert (attention.plain_cuda_calls - n_plain, flash_attention.launches - n_k1) == (0, 1)
+    rounded = flash_attention_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), *ints)[0]
+    assert torch.equal(out, rounded.float())
+    ref = attention_xla(q, k, v, *ints)
+    plain_bf16 = attention_xla(q.bfloat16(), k.bfloat16(), v.bfloat16(), *ints).float()
+    assert (out - ref).abs().max() <= 2 * (plain_bf16 - ref).abs().max() + 1e-3
 
 
 @pytest.mark.parametrize("dtype,hidden,heads,depth", [
