@@ -11,7 +11,9 @@ Phases, any failure exits non-zero without a result line:
      heads on 1 kv head, the text's padded tail masked) and its suffix
      against the cached prefix: 1 x 816 and 51 x 867 (inference_single),
      1 x 832 and 51 x 883 (a served request), 2 x 832 and 2 x 51 x 883 (the
-     batch_size=2 request, whose prefix takes 128-row blocks);
+     batch_size=2 request, whose prefix takes 128-row blocks), and pi0's
+     training rows (phase 8: 4 x 867, prefix, state token and actions in
+     one bidirectional-prefix call);
   4. K2 (fused DiT sampler) against its plain version at DiT-B width, with
      bf16 weights, then (4b) with int8 block weights;
   4c. K4 (int8-weight matmul) against its plain version, bf16 and fp32
@@ -36,10 +38,12 @@ Phases, any failure exits non-zero without a result line:
      cosine check, the device path by part (``part_calls`` of
      script/profile_pi0_torch.py) and K1's host time a call;
   6. K3 (flash-attention backward) against its plain version, gradients of
-     sum(out * dO) through FlashAttention at K1's shapes, the training step's
-     (B=8, S=2048, 32 heads of 128) first; the plain version gets K3's own
-     inputs, the out and lse K1 saved; two K3 calls must give bitwise-equal
-     gradients (K1's determinism is checked there too);
+     sum(out * dO) through FlashAttention: at pi0's training shape first (the
+     LIBERO recipe's micro-batch: B=4, 867 tokens, 8 query heads on 1 kv head
+     of 256), then at K1's shapes, CogACT training's (B=8, S=2048, 32 heads
+     of 128) first; the plain version gets K3's own inputs, the out and lse
+     K1 saved; two K3 calls must give bitwise-equal gradients (K1's
+     determinism is checked there too);
   7. the training slice, CogACT-7B on the LIBERO recipe with a frozen LLM
      (rows padded to the recipe's 2048 tokens), on a synthetic Dexdata suite
      of 480x640 frames written to a temp dir:
@@ -49,7 +53,19 @@ Phases, any failure exits non-zero without a result line:
      projector's and the DiT's gradients; (b) three steps (micro-batch 8,
      accumulation 2) through CogActExp.train(), with K1/K3 launch counts read
      around them, a finite loss at each step and checkpoint-3 holding
-     norm_stats.json; prints the step time, samples/s and peak memory.
+     norm_stats.json; prints the step time, samples/s and peak memory;
+  8. the pi0 training slice: pi0 at full width and depth (Pi0Exp's default,
+     3.238B parameters) on the LIBERO pi0 recipe (3 views, the text padded to
+     48 tokens, remat, no freeze) over a synthetic 3-view Dexdata suite with
+     pi0-format statistics: (a) one optimizer step (micro-batch 2) through the
+     kernel path and the plain path (attn_impl="xla" on the decoder and the
+     expert) on the same weights, batch, noise and flow times, compared on
+     loss, grad_norm and the gradient cosine of the LLM, the expert and the
+     action projections, K3 counted on both paths; (b) three steps
+     (micro-batch 4, accumulation 4) through Pi0Exp.train() with the K1/K3
+     launches and plain CUDA attention calls counted, a finite loss at each
+     step, checkpoint-3 holding norm_stats.json and a peak below 80 GiB;
+     prints the step time, samples/s and peak memory.
 
 Error rule for a kernel: its max error against the plain version run in
 fp32 on the same bf16 inputs must not exceed 2x the plain bf16 version's
@@ -62,6 +78,8 @@ PyTorch call computing the same function (SDPA for K1 and K3, a bf16 matmul
 on the dequantized weight for K4), timed here and used nowhere in the port.
 K1's and K3's ``device_ms`` is their kernels' own device time per call from
 ``torch.profiler``, beside ``ms`` (CUDA events around the Python call).
+Phase 2 lists the registers and spills of every K1 and K3 instance from
+nvcc's ``-Xptxas -v``; a spill fails.
 The last two lines printed are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.
 """
@@ -174,10 +192,11 @@ def plain_int8():
         quant_matmul.KERNEL_DISPATCH = True
 
 
-def sdpa(q, k, v, mask):
+def sdpa(q, k, v, mask, backward: bool = False):
     """(backend name, q, k, v as [B, H, S, D] leaves, call) of
     scaled_dot_product_attention on the same inputs and mask: the first of
-    flash, cuDNN, memory-efficient and math that takes them."""
+    flash, cuDNN, memory-efficient and math that takes them (and, with
+    ``backward``, also takes their gradient)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
@@ -189,9 +208,11 @@ def sdpa(q, k, v, mask):
                 return torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
         try:
-            with torch.no_grad(), warnings.catch_warnings():
+            with torch.set_grad_enabled(backward), warnings.catch_warnings():
                 warnings.simplefilter("ignore")  # the refusals of the backends tried first
-                call()
+                out = call()
+                if backward:
+                    torch.autograd.grad(out.sum(), (qt, kt, vt))
             torch.cuda.synchronize()
         except RuntimeError:
             continue
@@ -287,11 +308,14 @@ def phase_flash(failures: list) -> dict:
 # that cached prefix.  PROMPT is 22 byte-level tokens: of the 48 of pi0's
 # inference_single (816; 51 x 867), and of the server's 64-token bucket
 # (832; 51 x 883; the batch_size=2 request's 2 x 832 takes 128-row blocks).
+# Training (phase 8) gives K1 the joint rows, 816 + 51 (pi0_train_attn_inputs).
 PI0_VIEWS, PI0_PROMPT_TOKENS, PI0_SUFFIX = 3 * 256, 22, 51
-PI0_CASES = [  # (result key, B, text tokens, prefix or suffix)
+PI0_TRAIN_MICRO = 4  # the LIBERO pi0 recipe's per_device_batch_size
+PI0_CASES = [  # (result key, B, text tokens, prefix, suffix or training rows)
     ("d256_prefix", 1, 48, "prefix"), ("d256_suffix", 1, 48, "suffix"),
     ("d256_served_prefix", 1, 64, "prefix"), ("d256_served_suffix", 1, 64, "suffix"),
-    ("d256_batch2_prefix", 2, 64, "prefix"), ("d256_batch2_suffix", 2, 64, "suffix")]
+    ("d256_batch2_prefix", 2, 64, "prefix"), ("d256_batch2_suffix", 2, 64, "suffix"),
+    ("d256_train", PI0_TRAIN_MICRO, 48, "train")]
 
 
 def pi0_attn_inputs(B: int, text: int, part: str, gen):
@@ -315,8 +339,8 @@ def pi0_attn_inputs(B: int, text: int, part: str, gen):
 
 def phase_flash_d256(failures: list) -> dict:
     """K1 at head_dim 256 against its plain version at pi0's shapes (those of
-    inference_single, of a served request and of the batch_size=2 request),
-    with the block rows ``fwd_rows`` picks, its time, its kernels' own time,
+    inference_single, of a served request, of the batch_size=2 request and
+    of a training micro-batch), with the block rows ``fwd_rows`` picks, its time, its kernels' own time,
     its bound and SDPA's time (cuDNN with a bool mask, or the backend that
     took the inputs when cuDNN refused).  Both block shapes must be held."""
     from dexbotic_tpu_torch.ops.attention import (
@@ -326,7 +350,10 @@ def phase_flash_d256(failures: list) -> dict:
     g = torch.Generator(device="cuda").manual_seed(11)
     rows, block_rows = {}, set()
     for key, B, text, part in PI0_CASES:
-        name, q, k, v, ints = pi0_attn_inputs(B, text, part, g)
+        if part == "train":
+            name, q, k, v, ints, _ = pi0_train_attn_inputs(B, g)
+        else:
+            name, q, k, v, ints = pi0_attn_inputs(B, text, part, g)
         n_rows = fwd_rows(B, q.shape[1], 8, _sm_count(0), 256)
         block_rows.add(n_rows)
         out, lse = flash_attention_fwd(q, k, v, *ints)
@@ -360,6 +387,25 @@ def phase_flash_d256(failures: list) -> dict:
     return rows
 
 
+def pi0_train_attn_inputs(B: int, gen):
+    """(name, q, k, v, (q_grp, kv_grp, kv_valid), None) of pi0's training
+    call (the LIBERO recipe's rows): 3 views x 256 image tokens and the text
+    padded to 48, bidirectional, its tail masked, then the state token (group
+    1) and 50 action tokens (group 2), 867 tokens, 8 query heads on 1 kv head
+    of 256."""
+    dev = torch.device("cuda")
+    prefix = PI0_VIEWS + 48
+    S = prefix + PI0_SUFFIX
+    q = torch.randn(B, S, 8, 256, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(B, S, 1, 256, generator=gen, device=dev).bfloat16() for _ in range(2))
+    valid = torch.ones(B, S, dtype=torch.int32, device=dev)
+    valid[:, PI0_VIEWS + PI0_PROMPT_TOKENS: prefix] = 0
+    grp = torch.zeros(B, S, dtype=torch.int32, device=dev)
+    grp[:, prefix] = 1
+    grp[:, prefix + 1:] = 2
+    return f"pi0 training B={B} S={S} H=8/1 D=256", q, k, v, (grp.clone(), grp, valid), None
+
+
 def phase_flash_bwd(failures: list) -> dict:
     from dexbotic_tpu_torch.ops.attention import (
         _allowed,
@@ -371,10 +417,14 @@ def phase_flash_bwd(failures: list) -> dict:
 
     print("phase 6: K3 flash_bwd vs plain (gradients of sum(out * dO) through FlashAttention)")
     g = torch.Generator(device="cuda").manual_seed(5)
-    worst, main = 0.0, None
-    # K1's cases, training's shape first: the one K3 serves on the main path
-    for case in [TRAIN_CASE, SERVE_CASE, *OTHER_CASES]:
-        name, q, k, v, ints, seg = attn_inputs(case, g)
+    worst, rows = 0.0, {}
+    # pi0's training shape (phase 8), then K1's cases, CogACT training's
+    # (phase 7) first: those two are the main paths' shapes
+    cases = [("pi0_train", lambda: pi0_train_attn_inputs(PI0_TRAIN_MICRO, g))]
+    cases += [("main" if case == TRAIN_CASE else None, lambda case=case: attn_inputs(case, g))
+              for case in [TRAIN_CASE, SERVE_CASE, *OTHER_CASES]]
+    for key, make in cases:
+        name, q, k, v, ints, seg = make()
         q, k, v = (t.requires_grad_(True) for t in (q, k, v))
         dout = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
         out = flash_attention(q, k, v, *ints, q_seg=seg, kv_seg=seg)
@@ -411,9 +461,8 @@ def phase_flash_bwd(failures: list) -> dict:
             bound_ms, bound_by = bound(io_bytes, 10 * q.shape[-1] * pairs)
         line = (f"    kernel {ms:.4f} ms  plain bf16 {plain_ms:.4f} ms  bound {bound_ms:.4f} ms "
                 f"({bound_by})")
-        library_ms = None
-        if main is None:  # training's shape: autograd through SDPA on the same inputs and mask
-            backend, leaves, call = sdpa(q, k, v, _allowed(*ints, seg, seg))
+        if key is not None:  # a main path's shape: autograd through SDPA on the same inputs and mask
+            backend, leaves, call = sdpa(q, k, v, _allowed(*ints, seg, seg), backward=True)
             lib_out = call()
             dout_t = dout.transpose(1, 2)
             library_ms = median_ms(lambda: torch.autograd.grad(lib_out, leaves, dout_t,
@@ -421,12 +470,17 @@ def phase_flash_bwd(failures: list) -> dict:
             dev_ms = device_ms(lambda: flash_attention_bwd(*bwd_args), K3_KERNELS)
             line += f"  kernels alone {dev_ms:.4f} ms  SDPA backward ({backend}) {library_ms:.4f} ms"
             del lib_out, leaves
-            main = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": library_ms, "sdpa_backend": backend}
+            rows[key] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                         "sdpa_backend": backend}
+            if key == "pi0_train":
+                rows[key]["B_S_Hq_Hkv_D"] = [q.shape[0], q.shape[1], 8, 1, 256]
+                rows[key]["max_abs_err"] = max((a.float() - r).abs().max().item()
+                                               for a, r in zip(got, ref))
         print(line)
         del q, k, v, dout, out, got, again, ref, plain, out_k, lse_k, bwd_args
         free_memory()
-    return {"max_abs_err": worst, **main}
+    return {"max_abs_err": worst, **rows["main"], "pi0_train": rows["pi0_train"]}
 
 
 def dit_bound(head, cfg, B: int, steps: int, cfg_scale: float) -> tuple[float, str]:
@@ -841,33 +895,39 @@ def phase_pi0(failures: list) -> dict:
 LIBERO_PROMPT = "put the black bowl in the bottom drawer of the cabinet and close it"
 
 
-def write_suite(root: str) -> str:
-    """A synthetic Dexdata suite of 480x640 PNG frames and 7-dof states (3
-    episodes of 24 frames); returns its name."""
+def write_suite(root: str, views: int = 1, name: str = "train", frames: int = 24) -> str:
+    """A synthetic Dexdata suite of 480x640 PNG frames (``views`` cameras)
+    and 7-dof states (3 episodes of ``frames`` frames; past the 24th the
+    images repeat); returns its name."""
     from PIL import Image
 
     from dexbotic_tpu_torch.data.registry import register_dataset
 
-    episodes, frames = 3, 24
+    episodes = 3
     rng = np.random.default_rng(6)
     os.makedirs(root, exist_ok=True)
     yy, xx = np.mgrid[0:480, 0:640]
     for e in range(episodes):
         lines = []
         for t in range(frames):
-            img = np.stack([(xx + 9 * t) % 256, (yy + 40 * e) % 256, (xx + yy) // 5 % 256], -1)
-            img = (img + rng.integers(0, 16, img.shape)).clip(0, 255).astype(np.uint8)
-            Image.fromarray(img).save(os.path.join(root, f"e{e}f{t}.png"))
+            row = {}
+            for c in range(1, views + 1):  # the images' draws first: phase 7's data stays put
+                url = f"e{e}f{t % 24}.png" if views == 1 else f"e{e}f{t % 24}c{c}.png"
+                if t < 24:
+                    img = np.stack([(xx + 9 * t) % 256, (yy + 40 * e) % 256,
+                                    (xx + yy) // (4 + c) % 256], -1)
+                    img = (img + rng.integers(0, 16, img.shape)).clip(0, 255).astype(np.uint8)
+                    Image.fromarray(img).save(os.path.join(root, url))
+                row[f"images_{c}"] = {"type": "image", "url": url}
             state = np.sin(np.arange(7) * 0.7 + t * 0.2 + e) + 0.01 * rng.standard_normal(7)
-            lines.append(json.dumps({"images_1": {"type": "image", "url": f"e{e}f{t}.png"},
-                                     "state": state.tolist(), "prompt": LIBERO_PROMPT,
-                                     "is_robot": True}))
+            row.update(state=state.tolist(), prompt=LIBERO_PROMPT, is_robot=True)
+            lines.append(json.dumps(row))
         with open(os.path.join(root, f"e{e}.jsonl"), "w") as f:
             f.write("\n".join(lines))
-    register_dataset({"train": {"data_path_prefix": root, "annotations": root, "frequency": 1}},
+    register_dataset({name: {"data_path_prefix": root, "annotations": root, "frequency": 1}},
                      prefix="smoke", meta_data={"non_delta_mask": [6], "periodic_mask": None,
                                                 "periodic_range": None})
-    return "smoke_train"
+    return f"smoke_{name}"
 
 
 def train_exp(dataset: str, out: str, micro: int, accum: int, steps: int):
@@ -1011,17 +1071,186 @@ def phase_train(failures: list) -> dict:
         return phase_train_steps(failures, dataset)
 
 
-def k1_build_report(log: str, failures: list) -> dict:
-    """Registers and spills of every K1 instance from nvcc's ``-Xptxas -v``
-    output ("flash_fwd_kernel<D, NWG, BK>"); a spilling instance fails."""
+def write_pi0_stats(path: str, dim: int = 32) -> str:
+    """pi0-format statistics (mean/std of the action and the state, padded to
+    action_dim), seeded, as a user hands them to ``statistic_mapping``."""
+    rng = np.random.default_rng(16)
+    norms = {key: {"mean": rng.normal(0, 0.1, dim).tolist(), "std": rng.uniform(0.5, 2, dim).tolist()}
+             for key in ("action", "state")}
+    with open(path, "w") as f:
+        json.dump({"norm_stats": norms}, f)
+    return path
+
+
+def pi0_train_exp(dataset: str, stats: str, out: str, micro: int, accum: int, steps: int,
+                  save_optimizer: bool = True):
+    """pi0 on the LIBERO recipe (playground/benchmarks/libero/libero_pi0.py):
+    Pi0Exp's default model at full width and depth, 3 views at siglip_224
+    with zero padding and masks, the text padded to 48 tokens, remat, no
+    freeze, the default optimizer; ``micro`` x ``accum`` rows a step."""
+    from dexbotic_tpu_torch.exp.optim import OptimizerConfig
+    from dexbotic_tpu_torch.exp.pi0_exp import Pi0Exp
+    from dexbotic_tpu_torch.exp.trainer import TrainerConfig
+
+    base = Pi0Exp()
+    return Pi0Exp(
+        data=dataclasses.replace(base.data, dataset_name=dataset, image_processor="siglip_224"),
+        action=dataclasses.replace(base.action, statistic_mapping=stats),
+        trainer=TrainerConfig(output_dir=out, max_steps=steps, per_device_batch_size=micro,
+                              gradient_accumulation_steps=accum, logging_steps=1,
+                              save_steps=steps, bf16=True, gradient_checkpointing=True,
+                              resume=False, save_optimizer=save_optimizer),
+        optimizer=OptimizerConfig(),
+        device="cuda",
+    )
+
+
+def phase_pi0_train_compare(failures: list, dataset: str, stats: str) -> dict:
+    """One pi0 optimizer step (micro-batch 2) through the kernel path and the
+    plain path (attn_impl="xla" on the decoder and the expert) on the same
+    weights, batch, noise and flow times; the 26 GB of moments are freed
+    between the two."""
+    from dexbotic_tpu_torch.data.collator import Collator
+    from dexbotic_tpu_torch.exp.trainer import Trainer
+    from dexbotic_tpu_torch.models import flow_vla as fv
+    from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+
+    print("phase 8a: one pi0 training step, kernel path vs plain path (micro-batch 2)")
+    exp = pi0_train_exp(dataset, stats, "out_pi0_compare", 2, 1, 1)
+    tok = exp.tokenizer.build_tokenizer()
+    cfg, model, _ = exp.build_model(tok)
+    ds = exp.data.build_data(exp.build_tokenization(tok), exp.action.build_action_process_func())
+    batch = Collator(pad_token_id=tok.pad_token_id, max_length=exp.tokenizer.model_max_length)(
+        [ds[0], ds[len(ds) // 2]])
+    n_text = batch["attention_mask"].sum(1).tolist()
+    print(f"  rows: images {batch['images'].shape}, masks {batch['image_masks'].tolist()}, "
+          f"text tokens {n_text} of {batch['input_ids'].shape[1]}, states {batch['states'].shape}, "
+          f"actions {batch['actions'].shape}")
+    g = torch.Generator(device="cuda").manual_seed(15)
+    noise = torch.randn((2, cfg.chunk_size, cfg.action_dim), generator=g, device="cuda")
+    time_ = fv.sample_flow_time(2, g, "cuda")
+    plain_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, attn_impl="xla"),
+                                    expert=dataclasses.replace(cfg.expert, attn_impl="xla"))
+    watched = {"llm": ("vlm.llm.",), "expert": ("expert.",),
+               "action_proj": ("action_in_proj.", "action_out_proj.")}
+    prefixes = sum(watched.values(), ())
+    results, plain_grads, sums = {}, {}, {k: [0.0, 0.0, 0.0] for k in watched}
+    for label, c in (("plain", plain_cfg), ("kernel", cfg)):
+        def loss_fn(m, b, gen, c=c):
+            b = dict(b)
+            b["states"] = b.pop("states", None)
+            return fv.flow_vla_loss(m, c, b, gen, remat=True, noise=noise, time=time_)
+
+        trainer = Trainer(loss_fn, model, exp.trainer, exp.optimizer)
+        start = {n: trainer.params[n].detach().clone() for n in trainer.optimizer.mu}
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        loss, _ = trainer.accumulate_grads(batch)
+        launches = (flash_attention.launches, flash_attention_bwd.launches)
+        with torch.no_grad():
+            for n, p in trainer.params.items():
+                if not n.startswith(prefixes) or p.grad is None:
+                    continue
+                if label == "plain":
+                    plain_grads[n] = p.grad.detach().clone()
+                    continue
+                a, b = p.grad.float().flatten(), plain_grads.pop(n).float().flatten()
+                key = next(k for k, pre in watched.items() if n.startswith(pre))
+                sums[key][0] += torch.dot(a, b).item()
+                sums[key][1] += torch.dot(a, a).item()
+                sums[key][2] += torch.dot(b, b).item()
+        norm = trainer.apply_gradients()
+        with torch.no_grad():
+            for n, value in start.items():
+                trainer.params[n].copy_(value)
+        results[label] = (float(loss), float(norm), launches)
+        del trainer, start
+        free_memory()
+    (lp, np_, kp), (lk, nk, kk) = results["plain"], results["kernel"]
+    rel_loss, rel_norm = abs(lk - lp) / abs(lp), abs(nk - np_) / abs(np_)
+    cos = {k: d / math.sqrt(a * b) if a > 0 and b > 0 else float("nan") for k, (d, a, b) in sums.items()}
+    print(f"  loss kernel {lk:.6g} plain {lp:.6g} (rel {rel_loss:.3g}); grad_norm kernel {nk:.6g} "
+          f"plain {np_:.6g} (rel {rel_norm:.3g}); gradient cosine {cos}; K1/K3 launches "
+          f"kernel path {kk}, plain path {kp}")
+    n_layers = cfg.llm.num_layers
+    checks = [(math.isfinite(lk) and rel_loss <= 1e-2, f"pi0 loss rel diff {rel_loss} > 1e-2"),
+              (math.isfinite(nk) and rel_norm <= 2e-2, f"pi0 grad_norm rel diff {rel_norm} > 2e-2"),
+              (all(v >= 0.99 for v in cos.values()), f"pi0 gradient cosine {cos} < 0.99"),
+              (kk[1] >= n_layers and kp == (0, 0), f"pi0 K1/K3 launches {kk} / plain {kp}")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    del model, plain_grads
+    free_memory()
+    return {"loss": [lk, lp], "grad_norm": [nk, np_], "cosine": cos, "launches": kk}
+
+
+def phase_pi0_train_steps(failures: list, dataset: str, stats: str) -> dict:
+    """Three steps of the recipe through Pi0Exp.train(), K1/K3 and the plain
+    CUDA attention calls counted around them.  The checkpoint leaves out the
+    optimizer's moments (save_optimizer=False: 26 GB to disk)."""
+    from dexbotic_tpu_torch.ops.attention import attention, flash_attention, flash_attention_bwd
+
+    micro, accum, steps = PI0_TRAIN_MICRO, 4, 3
+    print(f"phase 8b: {steps} pi0 training steps through Pi0Exp.train() "
+          f"(micro-batch {micro}, accumulation {accum}, remat, no freeze)")
+    exp = pi0_train_exp(dataset, stats, "out_pi0_train", micro, accum, steps, save_optimizer=False)
+    n_layers = exp.model.build_config().llm.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention_bwd.launches = attention.plain_cuda_calls = 0
+    t0 = time.perf_counter()
+    log = exp.train()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": flash_attention.launches, "flash_bwd": flash_attention_bwd.launches}
+    plain_calls = attention.plain_cuda_calls
+    with open(os.path.join("out_pi0_train", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    for r in rows:
+        print(f"  step {r['step']}: loss {r['loss']:.6g} grad_norm {r['grad_norm']:.6g} "
+              f"step time {1 / r['steps_per_sec']:.4f} s")
+    step_s = statistics.median(1 / r["steps_per_sec"] for r in rows[1:])
+    rate = micro * accum / step_s
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  train() wall {wall:.1f} s; step time (median of steps 2-{steps}) {step_s:.4f} s, "
+          f"{rate:.3f} samples/s; peak memory allocated {peak:.2f} GiB; launches {launches} "
+          f"(expected K3 {n_layers} x {accum} x {steps}, K1 twice that under remat); plain "
+          f"attention calls on CUDA {plain_calls}")
+    ckpt = os.path.join("out_pi0_train", f"checkpoint-{steps}")
+    n_bwd = n_layers * accum * steps
+    checks = [(log.get("step") == steps and len(rows) == steps, f"pi0 ran {len(rows)} of {steps} steps"),
+              (all(math.isfinite(r["loss"]) for r in rows), "pi0: non-finite loss"),
+              (os.path.exists(os.path.join(ckpt, "norm_stats.json")), f"{ckpt} lacks norm_stats"),
+              (launches["flash_bwd"] == n_bwd, f"pi0: K3 launched {launches['flash_bwd']} != {n_bwd}"),
+              (launches["flash_fwd"] >= 2 * n_bwd, f"pi0: K1 launched {launches['flash_fwd']} < {2 * n_bwd}"),
+              (plain_calls == 0, f"pi0: {plain_calls} attention calls took the plain path"),
+              (peak < 80, f"pi0 training peak {peak:.2f} GiB >= 80")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    return {"launches": launches, "step_s": step_s, "samples_per_s": rate, "peak_gib": peak,
+            "losses": [r["loss"] for r in rows]}
+
+
+def phase_pi0_train(failures: list) -> dict:
+    """Phase 8 in a temp dir (a 3-view suite, pi0 statistics, checkpoints), removed after."""
+    with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
+        # episodes of 60 frames: the recipe's 50-step action chunks need 50
+        dataset = write_suite(os.path.join(tmp, "suite"), views=3, name="views3", frames=60)
+        stats = write_pi0_stats(os.path.join(tmp, "pi0_norm_stats.json"))
+        compare = phase_pi0_train_compare(failures, dataset, stats)
+        return {"compare": compare, **phase_pi0_train_steps(failures, dataset, stats)}
+
+
+def flash_build_report(log: str, failures: list) -> tuple[dict, dict]:
+    """Registers and spills of every K1 instance ("flash_fwd_kernel<D, NWG,
+    BK>") and every K3 instance ("dkv_kernel<D, NWG, stages, split>",
+    "dq_kernel<D, NWG, stages>") from nvcc's ``-Xptxas -v`` output, as (K1's,
+    K3's); a spilling instance fails, and so does a kernel with no instance
+    at head_dim 256."""
     import re
 
     report, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"flash_fwd_kernelILi(\d+)ELi(\d+)ELi(\d+)E", m.group(1))
-            name = f"flash_fwd_kernel<{k.group(1)}, {k.group(2)}, {k.group(3)}>" if k else None
+            k = re.search(r"(flash_fwd_kernel|dkv_kernel|dq_kernel)I((?:Li\d+E)+)E", m.group(1))
+            args = ", ".join(re.findall(r"Li(\d+)E", k.group(2))) if k else ""
+            name = f"{k.group(1)}<{args}>" if k else None
         elif name and "spill stores" in line:
             report[name] = {"spill_bytes": sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))}
         elif name and "registers" in line:
@@ -1031,9 +1260,12 @@ def k1_build_report(log: str, failures: list) -> dict:
         print(f"  {n}: {r.get('registers')} registers, {r['spill_bytes']} bytes of spills")
         if r["spill_bytes"]:
             failures.append(f"{n} spills {r['spill_bytes']} bytes")
-    if not any("<256," in n for n in report):
-        failures.append("nvcc's output lists no K1 instance at head_dim 256")
-    return report
+    k1 = {n: r for n, r in report.items() if n.startswith("flash_fwd_kernel")}
+    k3 = {n: r for n, r in report.items() if not n.startswith("flash_fwd_kernel")}
+    for kernel, found in (("flash_fwd_kernel", k1), ("dkv_kernel", k3), ("dq_kernel", k3)):
+        if not any(n.startswith(f"{kernel}<256,") for n in found):
+            failures.append(f"nvcc's output lists no {kernel} instance at head_dim 256")
+    return k1, k3
 
 
 def free_memory() -> None:
@@ -1061,7 +1293,7 @@ def main() -> int:
     if not log:  # built by an earlier process: its nvcc output is beside the library
         with open(os.path.join(build.BUILD_DIR, "build.log")) as f:
             log = f.read()
-    k1_build = k1_build_report(log, failures)
+    k1_build, k3_build = flash_build_report(log, failures)
     k1 = phase_flash(failures)
     k1_d256 = phase_flash_d256(failures)
     k2 = phase_dit(failures)
@@ -1075,6 +1307,8 @@ def main() -> int:
     launches, launches_q = serve["launches"], serve_q["launches"]
     k3 = phase_flash_bwd(failures)
     train = phase_train(failures)
+    free_memory()
+    pi0_train = phase_pi0_train(failures)
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
@@ -1083,7 +1317,8 @@ def main() -> int:
          "replaces": "dexbotic_tpu/ops/attention.py:86",
          "also_replaces": "dexbotic_tpu/ops/attention.py:165",
          "launches": launches["flash_fwd"], "train_launches": train["launches"]["flash_fwd"],
-         "pi0_launches": pi0["launches"], **k1, **k1_d256, "build": k1_build},
+         "pi0_launches": pi0["launches"], "pi0_train_launches": pi0_train["launches"]["flash_fwd"],
+         **k1, **k1_d256, "build": k1_build},
         {"name": "dit_sample", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/dit_sampler.cu",
          "replaces": "dexbotic_tpu/ops/dit_fused.py:58",
          "launches": launches["dit_sample"], **k2},
@@ -1095,7 +1330,8 @@ def main() -> int:
          "replaces": "dexbotic_tpu/ops/attention.py:565",
          "also_replaces": ["dexbotic_tpu/ops/attention.py:498", "dexbotic_tpu/ops/attention.py:400",
                            "dexbotic_tpu/ops/attention.py:446"],
-         "launches": train["launches"]["flash_bwd"], **k3},
+         "launches": train["launches"]["flash_bwd"],
+         "pi0_train_launches": pi0_train["launches"]["flash_bwd"], **k3, "build": k3_build},
         {"name": "quant_matmul", "route": "cuda",
          "source": "dexbotic_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "dexbotic_tpu/ops/quant_matmul.py:77",

@@ -27,21 +27,34 @@
 //  * the class map of K1's tile_class_kernel (dead / partial / visible per
 //    64 x 64 tile pair): dead pairs are skipped, visible ones skip the mask
 //    test;
-//  * dkv_kernel, one block per (128-row kv tile, kv head, b), the kv tiles
-//    that most q tiles reach (the first, under a causal mask) first.  K and
-//    V of the tile arrive once by TMA; one producer warp (whose warpgroup
-//    gives its registers to the consumers by setmaxnreg) streams (query head
-//    of the group, 64-row q tile) items, q~ and dO by TMA plus lse, delta
-//    and the q mask vectors, through a ring of three stages under
-//    mbarriers.  Two consumer warpgroups of 64 kv rows each compute
-//    S^T = K q~^T and dP^T = V dO^T by wgmma from shared memory, P^T (while
-//    dP^T runs) and dS^T in registers, then dV += P^T dO (while dS^T is
-//    formed) and dK += dS^T q~ by wgmma with A from those registers and dO,
-//    q~ as transposed B operands;
-//  * dq_kernel, one block per (128-row q tile, q head, b), heaviest first,
-//    the same producer and register split: q~ and dO stay in shared memory,
-//    K and V tiles of 64 rows stream in, and two warpgroups recompute S and
-//    dP to accumulate dQ += dS K.
+//  * dkv_kernel, one block per (kv tile, kv head, b), the kv tiles that
+//    most q tiles reach (the first, under a causal mask) first.  K and V of
+//    the tile arrive once by TMA; one producer warp streams (query head of
+//    the group, 64-row q tile) items, q~ and dO by TMA plus lse, delta and
+//    the q mask vectors, through a ring of stages under mbarriers.  Consumer
+//    warpgroups of 64 kv rows compute S^T = K q~^T and dP^T = V dO^T by
+//    wgmma from shared memory, P^T (while dP^T runs) and dS^T in registers,
+//    then dV += P^T dO (while dS^T is formed) and dK += dS^T q~ by wgmma
+//    with A from those registers and dO, q~ as transposed B operands;
+//  * dq_kernel, one block per (q tile, q head, b), heaviest first, the same
+//    producer: q~ and dO stay in shared memory, K and V tiles of 64 rows
+//    stream in, and consumer warpgroups of 64 q rows recompute S and dP to
+//    accumulate dQ += dS K.
+// Head dims 64 and 128: 128-row kv and q tiles, two consumer warpgroups
+// (each holding its dK and dV, 64 + 64 fp32 a thread at 128) and a producer
+// warpgroup that gives its registers away by setmaxnreg, rings of three
+// stages.
+// Head dim 256 (pi0's Gemma): dK and dV of 64 kv rows are 128 fp32 a thread
+// each, so no warpgroup holds both, and a 64-row q~/dO stage is 64 KB, so
+// two stages and a 64-row K/V tile (192 KB) are what shared memory holds.
+// dK and dV of a kv tile are therefore split between two blocks of one
+// consumer warpgroup (160 threads) that each recompute S^T (the dK one also
+// dP^T; the dV one reads no V): 1.25x the products of the unsplit backward.
+// dq_kernel takes 64-row q tiles with one consumer warpgroup and a
+// two-stage K/V ring.  script/bench_flash_torch.py `d256` builds the
+// alternatives it was chosen over (PERF.md): dK and dV in the two
+// warpgroups of one block was 2-4 % slower, and 128-row dq tiles on two
+// warpgroups spill under setmaxnreg's 240 registers.
 // Both launches are deterministic: every output element is summed by one
 // thread in a fixed order, no atomics.
 // Precision: P and dS may enter their products (dV, dK, dQ) as two bf16
@@ -70,7 +83,12 @@ using namespace hopper;
 
 constexpr bool LO_DV = K3_LO_PARTS & 1, LO_DK = K3_LO_PARTS & 2, LO_DQ = K3_LO_PARTS & 4;
 constexpr int MAX_TILES = 256;  // 64-row tiles: Sq, Skv <= 16384
-constexpr int ST = 3;           // ring stages of both main kernels
+enum : int { ACC_DV = 1, ACC_DK = 2, ACC_BOTH = 3 };  // what a dkv consumer accumulates
+
+// threads of a block with NWG consumer warpgroups: one producer warp, or at
+// NWG = 2 a producer warpgroup (setmaxnreg needs whole warpgroups).
+// Arithmetic, not ?:, which nvcc's host stub rejects in __launch_bounds__.
+#define K3_THREADS(NWG) (128 * (NWG) + 32 + 96 * ((NWG) - 1))
 
 // ---------------------------------------------------------------------------
 // q~ and delta: one warp per (b, i, h) row
@@ -83,8 +101,9 @@ __global__ void __launch_bounds__(256) pre_kernel(const bf16* __restrict__ q,
                                                   long long do_ss, long long do_sh,
                                                   bf16* __restrict__ qs, float* __restrict__ delta,
                                                   int B, int Sq, int Hq, float scale) {
-  constexpr int E = D / 32;  // elements a lane: 4 (8 bytes) or 2 (4 bytes)
-  using V = typename std::conditional<E == 4, uint2, uint32_t>::type;
+  constexpr int E = D / 32;  // elements a lane: 8 (16 bytes), 4 (8 bytes) or 2 (4 bytes)
+  using V = typename std::conditional<
+      E == 8, uint4, typename std::conditional<E == 4, uint2, uint32_t>::type>::type;
   const size_t row = size_t(blockIdx.x) * 8 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= size_t(B) * Sq * Hq) return;
@@ -110,14 +129,14 @@ __global__ void __launch_bounds__(256) pre_kernel(const bf16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// dK, dV: one block per (128-row kv tile, kv head, b)
+// dK, dV: one block per (KR-row kv tile, [part,] kv head, b)
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int KR, int ST>
 struct DkvSmem {
   static constexpr int P = D / 64;
-  alignas(1024) bf16 k[P][128 * 64];
-  alignas(1024) bf16 v[P][128 * 64];
+  alignas(1024) bf16 k[P][KR * 64];
+  alignas(1024) bf16 v[P][KR * 64];
   alignas(1024) bf16 q[ST][P][64 * 64];
   alignas(1024) bf16 dO[ST][P][64 * 64];
   float lse[ST][64], delta[ST][64];
@@ -128,8 +147,153 @@ struct DkvSmem {
   int nlive;
 };
 
-template <int D>
-__global__ void __launch_bounds__(384, 1) dkv_kernel(
+// One consumer warpgroup over the block's items: for its 64 kv rows (rows
+// kr.. of the block's K/V tile, k0 + kr.. of the sequence), dV += P^T dO
+// and/or dK += dS^T q~ as WHAT asks, then those rows of dK/dV written out.
+template <int WHAT, int D, int KR, int ST>
+__device__ __forceinline__ void dkv_consume(DkvSmem<D, KR, ST>& sm, int kr, int k0, int nlive,
+                                            int nitems, const int* __restrict__ kv_grp,
+                                            const int* __restrict__ kv_valid,
+                                            const int* __restrict__ kv_seg, bf16* __restrict__ dk,
+                                            bf16* __restrict__ dv, int Skv, int Hkv, int hk, int b) {
+  constexpr bool DV = WHAT & ACC_DV, DK = WHAT & ACC_DK;
+  const int w = threadIdx.x / 32 % 4, lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
+  int kg_r[2], kvv_r[2], ks_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = k0 + kr + w * 16 + g + 8 * r;
+    const bool in = j < Skv;
+    kvv_r[r] = in ? kv_valid[size_t(b) * Skv + j] : 0;
+    kg_r[r] = in ? kv_grp[size_t(b) * Skv + j] : INT_MAX;
+    ks_r[r] = in && kv_seg ? kv_seg[size_t(b) * Skv + j] : 0;
+  }
+  float dk_acc[DK ? D / 2 : 1], dv_acc[DV ? D / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < (DK ? D / 2 : 1); ++i) dk_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (DV ? D / 2 : 1); ++i) dv_acc[i] = 0.f;
+  mbar_wait(&sm.kvbar, 0);
+
+  for (int it = 0; it < nitems; ++it) {
+    const int s = it % ST;
+    mbar_wait(&sm.full[s], (it / ST) & 1);
+
+    // ---- S^T = K q~^T, then dP^T = V dO^T (64 kv rows x 64 q columns) ----
+    float st[32];
+    [[maybe_unused]] float dpt[DK ? 32 : 1];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int p = kk / 4, off = (kk % 4) * 16;
+      wgmma_ss<64>(st, desc_k(sm.k[p] + kr * 64 + off), desc_k(sm.q[s][p] + off), kk);
+    }
+    wgmma_commit();
+    if constexpr (DK) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int p = kk / 4, off = (kk % 4) * 16;
+        wgmma_ss<64>(dpt, desc_k(sm.v[p] + kr * 64 + off), desc_k(sm.dO[s][p] + off), kk);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T is in; dP^T still runs
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(st);
+
+    // ---- P^T (fp32, masked before exp can overflow) ----
+    const bool partial = sm.cls[it % nlive] == PARTIAL;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, c = j * 8 + 2 * t4 + (e & 1);
+        const bool ok = !partial || (kvv_r[r] && kg_r[r] <= sm.qg[s][c] && ks_r[r] == sm.qs[s][c]);
+        st[4 * j + e] = ok ? __expf(st[4 * j + e] - sm.lse[s][c]) : 0.f;
+      }
+
+    // ---- dV += P^T dO (A from registers, dO the transposed B), while
+    // dS^T = P^T (dP^T - delta) is formed; then dK += dS^T q~ ----
+    [[maybe_unused]] uint32_t pa[4][4], pl[4][4], da[4][4], dl[4][4];
+    if constexpr (DV) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        acc_to_a(pa[kk], st, kk);
+        if constexpr (LO_DV) acc_rest_to_a(pl[kk], pa[kk], st, kk);
+      }
+      fence_regs(dv_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t bo = desc_mn(sm.dO[s][0] + kk * 16 * 64, 64 * 64 * 2);
+        wgmma_rs<D>(dv_acc, pa[kk], bo, 1);
+        if constexpr (LO_DV) wgmma_rs<D>(dv_acc, pl[kk], bo, 1);
+      }
+      wgmma_commit();
+    }
+    if constexpr (DK) {
+      if constexpr (DV) wgmma_wait<1>();  // dP^T is in; dV still runs
+      else wgmma_wait<0>();
+      fence_regs(dpt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + 2 * t4 + (e & 1);
+          dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - sm.delta[s][c]);
+        }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        acc_to_a(da[kk], dpt, kk);
+        if constexpr (LO_DK) acc_rest_to_a(dl[kk], da[kk], dpt, kk);
+      }
+      fence_regs(dk_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t bq = desc_mn(sm.q[s][0] + kk * 16 * 64, 64 * 64 * 2);
+        wgmma_rs<D>(dk_acc, da[kk], bq, 1);
+        if constexpr (LO_DK) wgmma_rs<D>(dk_acc, dl[kk], bq, 1);
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    if constexpr (DV) {
+      fence_regs(dv_acc);
+      fence_regs(pa);
+      if constexpr (LO_DV) fence_regs(pl);
+    }
+    if constexpr (DK) {
+      fence_regs(dk_acc);
+      fence_regs(da);
+      if constexpr (LO_DK) fence_regs(dl);
+    }
+    mbar_arrive(&sm.empty[s]);
+  }
+
+  // ---- dK (w.r.t. the scaled q~: the scale is folded in) and dV ----
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = k0 + kr + w * 16 + g + 8 * r;
+    if (j >= Skv) continue;
+    const size_t off = ((size_t(b) * Skv + j) * Hkv + hk) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      if constexpr (DK)
+        *reinterpret_cast<uint32_t*>(dk + off + n * 8 + 2 * t4) =
+            pack_bf16(dk_acc[4 * n + 2 * r], dk_acc[4 * n + 2 * r + 1]);
+      if constexpr (DV)
+        *reinterpret_cast<uint32_t*>(dv + off + n * 8 + 2 * t4) =
+            pack_bf16(dv_acc[4 * n + 2 * r], dv_acc[4 * n + 2 * r + 1]);
+    }
+  }
+}
+
+// NWG consumer warpgroups, ST ring stages; SPLIT 0: each warpgroup owns 64
+// kv rows, dK and dV (a 64 * NWG-row kv tile); 1: one warpgroup, blocks in
+// pairs over a 64-row kv tile, the first computing dV, the second dK.
+template <int D, int NWG, int ST, int SPLIT>
+__global__ void __launch_bounds__(K3_THREADS(NWG), 1) dkv_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -137,24 +301,30 @@ __global__ void __launch_bounds__(384, 1) dkv_kernel(
     const int* __restrict__ kv_valid, const int* __restrict__ q_seg,
     const int* __restrict__ kv_seg, const uint8_t* __restrict__ cls, bf16* __restrict__ dk,
     bf16* __restrict__ dv, int Sq, int Skv, int Hq, int Hkv, int B) {
-  using Smem = DkvSmem<D>;
+  static_assert(SPLIT == 0 || (SPLIT == 1 && NWG == 1), "SPLIT 1 takes one warpgroup");
+  constexpr int KR = SPLIT ? 64 : 64 * NWG, NR = SPLIT ? 2 : 1;
+  using Smem = DkvSmem<D, KR, ST>;
   constexpr int P = Smem::P;
   extern __shared__ unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024));
 
-  const int hb = Hkv * B, kt = static_cast<int>(blockIdx.x) / hb;  // first kv tiles first
-  const int hk = static_cast<int>(blockIdx.x) % hb % Hkv, b = static_cast<int>(blockIdx.x) % hb / Hkv;
-  const int group = Hq / Hkv, k0 = kt * 128;
+  const int per = Hkv * B * NR, bid = static_cast<int>(blockIdx.x);
+  const int kt = bid / per, role = bid % per % NR;  // first kv tiles first
+  const int hk = bid % per / NR % Hkv, b = bid % per / NR / Hkv;
+  const int group = Hq / Hkv, k0 = kt * KR;
+  const bool need_v = !(SPLIT && role == 0);  // a dV block never reads V
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  if (warp == 8) {
+  if (warp == 4 * NWG) {
     // ---- the 64-row q tiles that reach this kv tile ----
     const int nq64 = (Sq + TILE - 1) / TILE, nk64 = (Skv + TILE - 1) / TILE;
     const uint8_t* map = cls + size_t(b) * nq64 * nk64;
     int n = 0;
     for (int t0 = 0; t0 < nq64; t0 += 32) {
       const int t = t0 + lane;
-      const int c = t < nq64 ? tile_class(map, nq64, nk64, t, t + 1, 2 * kt, 2 * kt + 2) : DEAD;
+      const int c = t < nq64 ? tile_class(map, nq64, nk64, t, t + 1, kt * (KR / TILE),
+                                          (kt + 1) * (KR / TILE))
+                             : DEAD;
       const unsigned live = __ballot_sync(0xffffffffu, c != DEAD);
       if (c != DEAD) {
         const int pos = n + __popc(live & ((1u << lane) - 1));
@@ -167,7 +337,7 @@ __global__ void __launch_bounds__(384, 1) dkv_kernel(
       sm.nlive = n;
       for (int s = 0; s < ST; ++s) {
         mbar_init(&sm.full[s], 33);
-        mbar_init(&sm.empty[s], 256);
+        mbar_init(&sm.empty[s], 128 * NWG);
       }
       mbar_init(&sm.kvbar, 1);
       fence_barrier_init();
@@ -176,18 +346,18 @@ __global__ void __launch_bounds__(384, 1) dkv_kernel(
   __syncthreads();
   const int nlive = sm.nlive, nitems = nlive * group;
 
-  if (warp >= 8) {
-    // ================= producer warp, of a warpgroup that gives its registers away =================
-    reg_dealloc<24>();
-    if (warp > 8) return;
+  if (warp >= 4 * NWG) {
+    // ================= producer warp (of a warpgroup that gives its registers away at NWG = 2) =================
+    if constexpr (NWG == 2) reg_dealloc<24>();
+    if (warp > 4 * NWG) return;
     if (lane == 0) {
-      mbar_arrive_expect_tx(&sm.kvbar, 2 * 128 * D * 2);
+      mbar_arrive_expect_tx(&sm.kvbar, (need_v ? 2 : 1) * KR * D * 2);
 #pragma unroll
       for (int p = 0; p < P; ++p)
 #pragma unroll
-        for (int r = 0; r < 128; r += 64) {
+        for (int r = 0; r < KR; r += 64) {
           tma_load(sm.k[p] + r * 64, &tk, &sm.kvbar, p * 64, hk, k0 + r, b);
-          tma_load(sm.v[p] + r * 64, &tv, &sm.kvbar, p * 64, hk, k0 + r, b);
+          if (need_v) tma_load(sm.v[p] + r * 64, &tv, &sm.kvbar, p * 64, hk, k0 + r, b);
         }
     }
     const int* qgb = q_grp + size_t(b) * Sq;
@@ -215,133 +385,31 @@ __global__ void __launch_bounds__(384, 1) dkv_kernel(
       mbar_arrive(&sm.full[s]);
     }
   } else {
-    // ================= consumer warpgroups: 64 kv rows each =================
-    reg_alloc<240>();
-    const int wg = warp / 4, w = warp % 4, g = lane / 4, t4 = lane % 4;
-    int kg_r[2], kvv_r[2], ks_r[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int j = k0 + wg * 64 + w * 16 + g + 8 * r;
-      const bool in = j < Skv;
-      kvv_r[r] = in ? kv_valid[size_t(b) * Skv + j] : 0;
-      kg_r[r] = in ? kv_grp[size_t(b) * Skv + j] : INT_MAX;
-      ks_r[r] = in && kv_seg ? kv_seg[size_t(b) * Skv + j] : 0;
-    }
-    float dk_acc[D / 2], dv_acc[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-    mbar_wait(&sm.kvbar, 0);
-
-    for (int it = 0; it < nitems; ++it) {
-      const int s = it % ST;
-      mbar_wait(&sm.full[s], (it / ST) & 1);
-
-      // ---- S^T = K q~^T, then dP^T = V dO^T (64 kv rows x 64 q columns) ----
-      float st[32], dpt[32];
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int p = kk / 4, off = (kk % 4) * 16;
-        wgmma_ss<64>(st, desc_k(sm.k[p] + wg * 64 * 64 + off), desc_k(sm.q[s][p] + off), kk);
-      }
-      wgmma_commit();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int p = kk / 4, off = (kk % 4) * 16;
-        wgmma_ss<64>(dpt, desc_k(sm.v[p] + wg * 64 * 64 + off), desc_k(sm.dO[s][p] + off), kk);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();  // S^T is in; dP^T still runs
-      fence_regs(st);
-
-      // ---- P^T (fp32, masked before exp can overflow) ----
-      const bool partial = sm.cls[it % nlive] == PARTIAL;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1, c = j * 8 + 2 * t4 + (e & 1);
-          const bool ok = !partial || (kvv_r[r] && kg_r[r] <= sm.qg[s][c] && ks_r[r] == sm.qs[s][c]);
-          st[4 * j + e] = ok ? __expf(st[4 * j + e] - sm.lse[s][c]) : 0.f;
-        }
-
-      // ---- dV += P^T dO (A from registers, dO the transposed B), while
-      // dS^T = P^T (dP^T - delta) is formed; then dK += dS^T q~ ----
-      uint32_t pa[4][4], da[4][4];
-      [[maybe_unused]] uint32_t pl[4][4], dl[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        acc_to_a(pa[kk], st, kk);
-        if constexpr (LO_DV) acc_rest_to_a(pl[kk], pa[kk], st, kk);
-      }
-      fence_regs(dv_acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t bo = desc_mn(sm.dO[s][0] + kk * 16 * 64, 64 * 64 * 2);
-        wgmma_rs<D>(dv_acc, pa[kk], bo, 1);
-        if constexpr (LO_DV) wgmma_rs<D>(dv_acc, pl[kk], bo, 1);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();  // dP^T is in; dV still runs
-      fence_regs(dpt);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = j * 8 + 2 * t4 + (e & 1);
-          dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - sm.delta[s][c]);
-        }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        acc_to_a(da[kk], dpt, kk);
-        if constexpr (LO_DK) acc_rest_to_a(dl[kk], da[kk], dpt, kk);
-      }
-      fence_regs(dk_acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t bq = desc_mn(sm.q[s][0] + kk * 16 * 64, 64 * 64 * 2);
-        wgmma_rs<D>(dk_acc, da[kk], bq, 1);
-        if constexpr (LO_DK) wgmma_rs<D>(dk_acc, dl[kk], bq, 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dv_acc);
-      fence_regs(dk_acc);
-      fence_regs(pa);
-      fence_regs(da);
-      if constexpr (LO_DV) fence_regs(pl);
-      if constexpr (LO_DK) fence_regs(dl);
-      mbar_arrive(&sm.empty[s]);
-    }
-
-    // ---- dK (w.r.t. the scaled q~: the scale is folded in) and dV ----
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int j = k0 + wg * 64 + w * 16 + g + 8 * r;
-      if (j >= Skv) continue;
-      const size_t off = ((size_t(b) * Skv + j) * Hkv + hk) * D;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        *reinterpret_cast<uint32_t*>(dk + off + n * 8 + 2 * t4) =
-            pack_bf16(dk_acc[4 * n + 2 * r], dk_acc[4 * n + 2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dv + off + n * 8 + 2 * t4) =
-            pack_bf16(dv_acc[4 * n + 2 * r], dv_acc[4 * n + 2 * r + 1]);
-      }
+    // ================= consumer warpgroups =================
+    if constexpr (NWG == 2) reg_alloc<240>();
+    const int wg = warp / 4;
+    if constexpr (!SPLIT) {
+      dkv_consume<ACC_BOTH>(sm, wg * 64, k0, nlive, nitems, kv_grp, kv_valid, kv_seg, dk, dv,
+                            Skv, Hkv, hk, b);
+    } else if (role == 1) {
+      dkv_consume<ACC_DK>(sm, 0, k0, nlive, nitems, kv_grp, kv_valid, kv_seg, dk, dv, Skv, Hkv,
+                          hk, b);
+    } else {
+      dkv_consume<ACC_DV>(sm, 0, k0, nlive, nitems, kv_grp, kv_valid, kv_seg, dk, dv, Skv, Hkv,
+                          hk, b);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// dQ: one block per (128-row q tile, q head, b)
+// dQ: one block per (64 * NWG-row q tile, q head, b)
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int BQ, int ST>
 struct DqSmem {
   static constexpr int P = D / 64, BK = 64;  // kv rows a tile
-  alignas(1024) bf16 q[P][128 * 64];
-  alignas(1024) bf16 dO[P][128 * 64];
+  alignas(1024) bf16 q[P][BQ * 64];
+  alignas(1024) bf16 dO[P][BQ * 64];
   alignas(1024) bf16 k[ST][P][BK * 64];
   alignas(1024) bf16 v[ST][P][BK * 64];
   int kg[ST][BK], kvld[ST][BK], ks[ST][BK];
@@ -351,8 +419,8 @@ struct DqSmem {
   int nlive;
 };
 
-template <int D>
-__global__ void __launch_bounds__(384, 1) dq_kernel(
+template <int D, int NWG, int ST>
+__global__ void __launch_bounds__(K3_THREADS(NWG), 1) dq_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -360,18 +428,19 @@ __global__ void __launch_bounds__(384, 1) dq_kernel(
     const int* __restrict__ kv_valid, const int* __restrict__ q_seg,
     const int* __restrict__ kv_seg, const uint8_t* __restrict__ cls, bf16* __restrict__ dq,
     int Sq, int Skv, int Hq, int Hkv, int B, float scale) {
-  using Smem = DqSmem<D>;
+  constexpr int BQ = 64 * NWG;
+  using Smem = DqSmem<D, BQ, ST>;
   constexpr int P = Smem::P, BK = Smem::BK;
   extern __shared__ unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024));
 
-  const int nqt = (Sq + 127) / 128, hb = Hq * B;
+  const int nqt = (Sq + BQ - 1) / BQ, hb = Hq * B;
   const int qt = nqt - 1 - static_cast<int>(blockIdx.x) / hb;  // heaviest q tiles first
   const int h = static_cast<int>(blockIdx.x) % hb % Hq, b = static_cast<int>(blockIdx.x) % hb / Hq;
-  const int hk = h / (Hq / Hkv), q0 = qt * 128;
+  const int hk = h / (Hq / Hkv), q0 = qt * BQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  if (warp == 8) {
+  if (warp == 4 * NWG) {
     // ---- the live kv tiles of this q tile ----
     const int nq64 = (Sq + TILE - 1) / TILE, nk64 = (Skv + TILE - 1) / TILE;
     const uint8_t* map = cls + size_t(b) * nq64 * nk64;
@@ -379,8 +448,8 @@ __global__ void __launch_bounds__(384, 1) dq_kernel(
     const int nkt = (Skv + BK - 1) / BK;
     for (int t0 = 0; t0 < nkt; t0 += 32) {
       const int t = t0 + lane;
-      const int c = t < nkt ? tile_class(map, nq64, nk64, 2 * qt, 2 * qt + 2, t * (BK / TILE),
-                                         (t + 1) * (BK / TILE))
+      const int c = t < nkt ? tile_class(map, nq64, nk64, qt * NWG, (qt + 1) * NWG,
+                                         t * (BK / TILE), (t + 1) * (BK / TILE))
                             : DEAD;
       const unsigned live = __ballot_sync(0xffffffffu, c != DEAD);
       if (c != DEAD) {
@@ -394,7 +463,7 @@ __global__ void __launch_bounds__(384, 1) dq_kernel(
       sm.nlive = n;
       for (int s = 0; s < ST; ++s) {
         mbar_init(&sm.full[s], 33);
-        mbar_init(&sm.empty[s], 256);
+        mbar_init(&sm.empty[s], 128 * NWG);
       }
       mbar_init(&sm.qbar, 1);
       fence_barrier_init();
@@ -403,16 +472,16 @@ __global__ void __launch_bounds__(384, 1) dq_kernel(
   __syncthreads();
   const int nlive = sm.nlive;
 
-  if (warp >= 8) {
-    // ================= producer warp, of a warpgroup that gives its registers away =================
-    reg_dealloc<24>();
-    if (warp > 8) return;
+  if (warp >= 4 * NWG) {
+    // ================= producer warp (of a warpgroup that gives its registers away at NWG = 2) =================
+    if constexpr (NWG == 2) reg_dealloc<24>();
+    if (warp > 4 * NWG) return;
     if (lane == 0) {
-      mbar_arrive_expect_tx(&sm.qbar, 2 * 128 * D * 2);
+      mbar_arrive_expect_tx(&sm.qbar, 2 * BQ * D * 2);
 #pragma unroll
       for (int p = 0; p < P; ++p)
 #pragma unroll
-        for (int r = 0; r < 128; r += 64) {
+        for (int r = 0; r < BQ; r += 64) {
           tma_load(sm.q[p] + r * 64, &tq, &sm.qbar, p * 64, h, q0 + r, b);
           tma_load(sm.dO[p] + r * 64, &tdo, &sm.qbar, p * 64, h, q0 + r, b);
         }
@@ -444,7 +513,7 @@ __global__ void __launch_bounds__(384, 1) dq_kernel(
     }
   } else {
     // ================= consumer warpgroups: 64 q rows each =================
-    reg_alloc<240>();
+    if constexpr (NWG == 2) reg_alloc<240>();
     const int wg = warp / 4, w = warp % 4, g = lane / 4, t4 = lane % 4;
     int qg_r[2], qs_r[2];
     float lse_r[2], delta_r[2];
@@ -540,14 +609,17 @@ __global__ void __launch_bounds__(384, 1) dq_kernel(
   }
 }
 
-template <int D>
+// KV_*: dkv_kernel's consumer warpgroups, ring stages and split; Q_*:
+// dq_kernel's warpgroups and stages.
+template <int D, int KV_NWG, int KV_ST, int SPLIT, int Q_NWG, int Q_ST>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
                    long long do_sb, long long do_ss, long long do_sh, const float* lse,
                    const int* q_grp, const int* kv_grp, const int* kv_valid, const int* q_seg,
                    const int* kv_seg, void* dq, void* dk, void* dv, void* qs, float* delta,
                    uint8_t* cls, int B, int Sq, int Skv, int Hq, int Hkv, float scale,
                    cudaStream_t stream) {
-  CUtensorMap tq, tdo, tk, tv;  // 64-row boxes; a 128-row tile is two
+  constexpr int KR = SPLIT ? 64 : 64 * KV_NWG, NR = SPLIT ? 2 : 1, BQ = 64 * Q_NWG;
+  CUtensorMap tq, tdo, tk, tv;  // 64-row boxes; a larger tile is several
   if (!make_map(&tq, qs, B, Sq, Hq, D) ||
       !make_map(&tdo, dout, B, Sq, Hq, D, do_sb, do_ss, do_sh) ||
       !make_map(&tk, k, B, Skv, Hkv, D) || !make_map(&tv, v, B, Skv, Hkv, D))
@@ -562,18 +634,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const int smem_kv = sizeof(DkvSmem<D>) + 1024, smem_q = sizeof(DqSmem<D>) + 1024;
+  const int smem_kv = sizeof(DkvSmem<D, KR, KV_ST>) + 1024;
+  const int smem_q = sizeof(DqSmem<D, BQ, Q_ST>) + 1024;
   static const cudaError_t attr[2] = {  // once per instance
-      cudaFuncSetAttribute(dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv),
-      cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q)};
+      cudaFuncSetAttribute(dkv_kernel<D, KV_NWG, KV_ST, SPLIT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv),
+      cudaFuncSetAttribute(dq_kernel<D, Q_NWG, Q_ST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_q)};
   if (attr[0] != cudaSuccess) return attr[0];
   if (attr[1] != cudaSuccess) return attr[1];
-  dkv_kernel<D><<<(Skv + 127) / 128 * Hkv * B, 384, smem_kv, stream>>>(
+  dkv_kernel<D, KV_NWG, KV_ST, SPLIT><<<(Skv + KR - 1) / KR * NR * Hkv * B, K3_THREADS(KV_NWG),
+                                        smem_kv, stream>>>(
       tq, tdo, tk, tv, lse, delta, q_grp, kv_grp, kv_valid, q_seg, kv_seg, cls,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, Hq, Hkv, B);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_kernel<D><<<(Sq + 127) / 128 * Hq * B, 384, smem_q, stream>>>(
+  dq_kernel<D, Q_NWG, Q_ST><<<(Sq + BQ - 1) / BQ * Hq * B, K3_THREADS(Q_NWG), smem_q, stream>>>(
       tq, tdo, tk, tv, lse, delta, q_grp, kv_grp, kv_valid, q_seg, kv_seg, cls,
       static_cast<bf16*>(dq), Sq, Skv, Hq, Hkv, B, scale);
   return cudaGetLastError();
@@ -584,7 +660,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
 // q, k, v, out: contiguous [B, S, H, D] bf16; dout: bf16 with element strides
 // (do_sb, do_ss, do_sh, 1); lse fp32 [B, Hq, Sq].  Scratch from the caller:
 // qs (like q), delta (fp32 [B, Hq, Sq]), cls (B * ceil(Sq/64) * ceil(Skv/64)
-// bytes).
+// bytes).  Head dims 64, 128 and 256.
 extern "C" int dbx_flash_bwd(const void* q, const void* k, const void* v, const void* out,
                              const void* dout, const void* lse, const void* q_grp,
                              const void* kv_grp, const void* kv_valid, const void* q_seg,
@@ -603,10 +679,14 @@ extern "C" int dbx_flash_bwd(const void* q, const void* k, const void* v, const 
   auto dl = static_cast<float*>(delta);
   auto c = static_cast<uint8_t*>(cls);
   if (D == 128)
-    return launch<128>(q, k, v, out, dout, do_sb, do_ss, do_sh, l, qg, kg, kvv, qsg, ksg, dq, dk,
-                       dv, qs, dl, c, B, Sq, Skv, Hq, Hkv, scale, st);
+    return launch<128, 2, 3, 0, 2, 3>(q, k, v, out, dout, do_sb, do_ss, do_sh, l, qg, kg, kvv, qsg,
+                                      ksg, dq, dk, dv, qs, dl, c, B, Sq, Skv, Hq, Hkv, scale, st);
   if (D == 64)
-    return launch<64>(q, k, v, out, dout, do_sb, do_ss, do_sh, l, qg, kg, kvv, qsg, ksg, dq, dk,
-                      dv, qs, dl, c, B, Sq, Skv, Hq, Hkv, scale, st);
+    return launch<64, 2, 3, 0, 2, 3>(q, k, v, out, dout, do_sb, do_ss, do_sh, l, qg, kg, kvv, qsg,
+                                     ksg, dq, dk, dv, qs, dl, c, B, Sq, Skv, Hq, Hkv, scale, st);
+  if (D == 256)  // see the header: dK and dV in separate blocks, 64-row dq tiles, 2 stages
+    return launch<256, 1, 2, 1, 1, 2>(q, k, v, out, dout, do_sb, do_ss, do_sh, l, qg, kg, kvv,
+                                      qsg, ksg, dq, dk, dv, qs, dl, c, B, Sq, Skv, Hq, Hkv, scale,
+                                      st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,4 +1,4 @@
-"""pi0 / pi0.5 / DM0 experiments (port of dexbotic_tpu/exp/pi0_exp.py, serving).
+"""pi0 / pi0.5 / DM0 experiments (port of dexbotic_tpu/exp/pi0_exp.py).
 
 Defaults as the JAX package's: PaliGemma (SigLIP so400m/224 + ``linear``
 projector + Gemma-2B) with the Gemma-300M action expert, 48-token fixed text
@@ -6,9 +6,11 @@ prompts, 3 camera views with zero padding and image masks, a state input,
 action_dim 32, chunk 50, 10 Euler steps; serving normalises the state and
 denormalises the chunk with the served statistics, then turns it absolute
 against the request's state.  The model is laid out and initialised from
-``seed`` directly on ``device`` in the serving dtype, then filled from
+``seed`` directly on ``device`` (in the serving dtype for inference, fp32
+for training, where the Trainer casts it), then filled from
 ``model_name_or_path`` (a port ``checkpoint-{step}`` directory) if set.
-Training (``flow_vla_loss``, K3 at head_dim 256) is a later slice.
+Training is ``BaseExp.train`` over :func:`flow_vla_loss` (a full fine-tune:
+the JAX exp freezes nothing either).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from dexbotic_tpu_torch.models.flow_vla import (
     build_flow_vla,
     dm0_config,
     flow_vla_inference_action,
+    flow_vla_loss,
     pi0_config,
     pi05_config,
 )
@@ -155,9 +158,18 @@ class Pi0Exp(base_exp.BaseExp):
 
         return Pi0Tokenization(tokenizer, max_len=self.tokenizer.model_max_length)
 
-    def train(self):
-        raise NotImplementedError("flow-VLA training (flow_vla_loss, K3 at head_dim 256) is not "
-                                  "ported yet: ROADMAP Queue 1 item 5")
+    def build_model(self, tokenizer):
+        """(config, fp32 model on ``device``, loss_fn(model, batch, generator))."""
+        cfg = self.model.build_config()
+        model = self.model.build_params(cfg, self.device)
+        remat = self.trainer.gradient_checkpointing
+
+        def loss_fn(model, batch, generator):
+            batch = dict(batch)
+            batch["states"] = batch.pop("states", None)
+            return flow_vla_loss(model, cfg, batch, generator, remat=remat)
+
+        return cfg, model, loss_fn
 
     def load_for_inference(self):
         """(config, model in the serving dtype on ``device``, the full norm

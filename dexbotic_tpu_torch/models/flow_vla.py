@@ -1,5 +1,5 @@
 """Flow-matching VLA family: pi0, pi0.5, DM0 on one MoT engine (port of
-dexbotic_tpu/models/flow_vla.py, inference only).
+dexbotic_tpu/models/flow_vla.py).
 
 One policy module, parameterised by config flags:
 
@@ -11,19 +11,20 @@ One policy module, parameterised by config flags:
 * DM0 (and DM0-Prog, with a progress token): Qwen3 VLM + Qwen3 expert with
   qk-norm, a causal prefix, time fused as in pi0.
 
-Inference prefills the prefix into a KV cache once, then integrates the flow
-by Euler steps (``ops/diffusion.flow_euler_sample``) that run the expert's
-suffix alone against the frozen cache.  On a CUDA device the decoder's and
-the expert's attention (head_dim 256 for Gemma, 128 for Qwen3) runs in
-kernel K1 (``ops/attention.py``).
+Training (:func:`flow_vla_loss`) runs the prefix and the noised action
+suffix jointly through both streams without a cache and regresses the
+expert's velocity on ``noise - actions``.  Inference prefills the prefix into
+a KV cache once, then integrates the flow by Euler steps
+(``ops/diffusion.flow_euler_sample``) that run the expert's suffix alone
+against the frozen cache.  On a CUDA device the decoder's and the expert's
+attention (head_dim 256 for Gemma, 128 for Qwen3) runs in kernel K1
+(``ops/attention.py``), and its gradient in kernel K3.
 
 The prefix is embedded in the images' dtype (fp32, as the server gives them)
 and every layer casts its weights to its input's dtype, as in the JAX
 package: with bf16 serving weights the decoder, the expert, their norms and
 the KV cache compute in fp32.  Only K1 rounds: a CUDA fp32 attention call is
 cast to bf16 at the kernel (``ops/attention.attention``).
-
-Not ported: ``flow_vla_loss`` (training, a later slice).
 """
 
 from __future__ import annotations
@@ -221,8 +222,57 @@ def _streams(model: FlowVLA, cfg: FlowVLAConfig, prefix_tokens, suffix_tokens, c
 
 
 # ---------------------------------------------------------------------------
-# Inference
+# Train / inference
 # ---------------------------------------------------------------------------
+
+
+def sample_flow_time(batch: int, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """[B] flow times t ~ Beta(1.5, 1), mapped to [0.001, 1) as the JAX loss
+    does.  Beta(1.5, 1)'s CDF is t^1.5, so t = U^(1/1.5) for U uniform, drawn
+    from ``generator`` (``torch.distributions.Beta`` takes none)."""
+    u = torch.rand(batch, generator=generator, dtype=torch.float32, device=device)
+    return u.pow(1.0 / 1.5) * 0.999 + 0.001
+
+
+def flow_vla_loss(model: FlowVLA, cfg: FlowVLAConfig, batch: dict,
+                  generator: Optional[torch.Generator] = None, remat=False,
+                  noise: Optional[torch.Tensor] = None, time: Optional[torch.Tensor] = None):
+    """Flow-matching MSE: (loss, {"action_loss", "loss"}).
+
+    x_t = t * noise + (1 - t) * actions is embedded as the suffix, the
+    prefix and the suffix run jointly through both streams (no cache,
+    ``remat`` per layer), and the expert's velocity over the last
+    ``chunk_size`` positions is regressed on u_t = noise - actions in fp32
+    over every action dim, padded ones included.  ``noise`` [B, chunk,
+    action_dim] and ``time`` [B] are injectable; otherwise both are drawn
+    from ``generator``."""
+    actions = batch["actions"].float()
+    B, device = actions.shape[0], actions.device
+    if noise is None:
+        noise = torch.randn(actions.shape, generator=generator, dtype=torch.float32, device=device)
+    if time is None:
+        time = sample_flow_time(B, generator, device)
+    noise, time = noise.float(), time.float()
+    t_exp = time[:, None, None]
+    x_t = t_exp * noise + (1 - t_exp) * actions
+    u_t = noise - actions
+
+    images = batch["images"]
+    image_masks = batch.get("image_masks")
+    if image_masks is None:
+        image_masks = torch.ones(images.shape[:2], dtype=torch.int32, device=images.device)
+    prefix_tokens, prefix_mask, prefix_ar = embed_prefix(
+        model, cfg, images, image_masks, batch["input_ids"], batch["attention_mask"])
+    states = batch.get("states") if cfg.use_state_token else None
+    suffix_tokens, suffix_mask, suffix_ar, cond = embed_suffix(
+        model, cfg, states, x_t, time, dtype=prefix_tokens.dtype)
+    mask, grp, positions = _positions_and_grp(prefix_mask, prefix_ar, suffix_mask, suffix_ar)
+    outs, _ = mot_forward(_streams(model, cfg, prefix_tokens, suffix_tokens, cond),
+                          positions=positions, q_grp=grp, q_valid=mask, remat=remat)
+    v_t = model.action_out_proj(outs[1][:, -cfg.chunk_size:])
+    loss = (v_t.float() - u_t).square().mean()
+    return loss, {"action_loss": loss, "loss": loss}
+
 
 
 @torch.no_grad()

@@ -8,7 +8,8 @@ joint attention call per layer (each stream with its own weights), with a KV
 cache in three modes:
 
 * no cache: a full-sequence forward (:func:`transformer_forward`, its N=1
-  case, is CogACT's prefill and training forward);
+  case, is CogACT's prefill and training forward; with two streams, the
+  flow VLAs' training forward, gradients through both, ``remat`` per layer);
 * prefill (``update_cache=True``): the new tokens' rotated K/V are written
   into the cache at its ``length`` (a fresh cache of the new length when
   ``cache`` is None); the caller's cache is not modified;

@@ -86,7 +86,7 @@ def flash_attention_ref(q, k, v, q_grp, kv_grp, kv_valid, scale=None, q_seg=None
 
 TILE = 64  # rows of a class-map tile
 FLASH_HEAD_DIMS = (64, 128, 256)  # K1's instances (csrc/flash_fwd.cu)
-FLASH_BWD_HEAD_DIMS = (64, 128)  # K3's (csrc/flash_bwd.cu)
+FLASH_BWD_HEAD_DIMS = (64, 128, 256)  # K3's (csrc/flash_bwd.cu)
 DEAD, PARTIAL, VISIBLE = 0, 1, 2
 
 
@@ -257,9 +257,8 @@ def _flash_bwd_cuda(q, k, v, q_grp, kv_grp, kv_valid, out, lse, g, scale, q_seg,
     _, Skv, Hkv, _ = k.shape
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
         raise TypeError(f"flash backward takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if D not in FLASH_BWD_HEAD_DIMS:  # K1 also serves 256: its gradient stops here
-        raise ValueError(f"flash backward serves head_dim {FLASH_BWD_HEAD_DIMS}, got {D} "
-                         f"(K1 runs head_dim 256 forward only)")
+    if D not in FLASH_BWD_HEAD_DIMS:
+        raise ValueError(f"flash backward serves head_dim {FLASH_BWD_HEAD_DIMS}, got {D}")
     if not (0 < Skv <= 16384 and 0 < Sq <= 16384):
         raise ValueError(f"flash backward serves 0 < Sq, Skv <= 16384, got Sq={Sq} Skv={Skv}")
     if Hq % Hkv or k.shape != v.shape or k.shape[0] != B:

@@ -1,10 +1,12 @@
 """K1 and K3 of dexbotic_tpu_torch on an H100: an A/B against the build of
 an earlier tree's sources (the mma.sync kernels before the wgmma redesign),
-K1's block-shape rule, and the sweep behind K3's lo parts.
+K1's block-shape rule, the sweep behind K3's lo parts, and K3's designs at
+head_dim 256.
 
     python script/bench_flash_torch.py ab --baseline DIR
     python script/bench_flash_torch.py rows
     python script/bench_flash_torch.py sweep --draws 100
+    python script/bench_flash_torch.py d256
 
 ``ab``: DIR holds an earlier tree's ``dexbotic_tpu_torch/csrc`` whose
 ``dbx_flash_fwd``/``dbx_flash_bwd`` take the signatures of the mma.sync
@@ -22,7 +24,15 @@ and serving's (S=832, 773 live) at B=1, at batch_size=2 and for an 8-frame
 request; ``rows`` adds serving at B=4, training's micro-batch of 2 and pi0's
 head_dim-256 calls (8 query heads on 1 kv head: the prefix, 816 tokens in
 ``inference_single`` and 832 served, and the 51-token suffix against it, at
-B=1 and batch_size=2).  Each
+B=1 and batch_size=2).  ``d256``: K3 at pi0's training shape (the LIBERO
+recipe's micro-batch, B=4, 867 tokens, 8 query heads on 1 kv head of 256)
+built four ways (dK and dV in separate one-warpgroup blocks, as the source
+builds them, or in the two warpgroups of one block; 64-row dq tiles on one
+warpgroup and a two-stage ring, as built, or 128 rows on two and one stage),
+the three alternatives as edits of a copy of the sources (``D256_EDITS``):
+each build's head_dim-256 spills, its gradients against the plain version
+in fp32 (as a ratio to chip_smoke's bound), its time a call in the order
+1 2 3 4 4 3 2 1, and its kernels' own device time.  Each
 mode prints one JSON line; ``--out DIR`` also writes it to
 ``DIR/bench_flash_<mode>.json``.
 """
@@ -33,6 +43,8 @@ import argparse
 import ctypes
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -94,6 +106,22 @@ def pi0_inputs(B: int, Sq: int, Skv: int, seed: int):
         kv_grp[:, P:] = 2
         kv_grp[:, P] = 1
     return q, k, v, (kv_grp[:, Skv - Sq:].contiguous(), kv_grp, valid)
+
+
+def pi0_train_inputs(B: int, seed: int):
+    """pi0's training call: 3 views x 256 image tokens and the text padded
+    to 48 (the last 26 padding), bidirectional, then the state token (group
+    1) and 50 action tokens (group 2); q, k, v, dO and the int vectors."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S, prefix = 867, 816
+    q, dout = (torch.randn(B, S, 8, 256, generator=g, device="cuda").bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, S, 1, 256, generator=g, device="cuda").bfloat16() for _ in range(2))
+    valid = torch.ones(B, S, dtype=torch.int32, device="cuda")
+    valid[:, 768 + 22: prefix] = 0
+    grp = torch.zeros(B, S, dtype=torch.int32, device="cuda")
+    grp[:, prefix] = 1
+    grp[:, prefix + 1:] = 2
+    return q, k, v, dout, (grp.clone(), grp, valid)
 
 
 def median_ms(fn, reps: int = 20) -> float:
@@ -289,12 +317,111 @@ def sweep(args) -> dict:
                                               for lo in libs}}
 
 
+D256_VARIANTS = {  # (dkv warpgroups a block, dq rows): what the build does
+    (1, 64): "dK, dV in separate blocks of one warpgroup (112 dkv blocks); dq 64 rows on one "
+             "warpgroup, 2 stages (448 blocks) -- as flash_bwd.cu builds it",
+    (2, 64): "dK, dV in the two warpgroups of one block (56 dkv blocks); dq 64 rows, 2 stages",
+    (1, 128): "dK, dV in separate blocks; dq 128 rows on two warpgroups, 1 stage (224 blocks)",
+    (2, 128): "dK, dV in one block's two warpgroups; dq 128 rows, 1 stage",
+}
+D256_LAUNCH = "launch<256, 1, 2, 1, 1, 2>("  # flash_bwd.cu's head_dim-256 instance
+# dkv_kernel's split kv tile taken by the two warpgroups of one block, the
+# first dV, the second dK, where the source gives them to a pair of blocks:
+# (text of flash_bwd.cu, what replaces it)
+D256_EDITS = [
+    ('static_assert(SPLIT == 0 || (SPLIT == 1 && NWG == 1), "SPLIT 1 takes one warpgroup");', ""),
+    ("NR = SPLIT ? 2 : 1;", "NR = SPLIT && NWG == 1 ? 2 : 1;"),
+    ("need_v = !(SPLIT && role == 0);", "need_v = !(SPLIT && NWG == 1 && role == 0);"),
+    ("} else if (role == 1) {", "} else if ((NWG == 1 ? role : wg) == 1) {"),
+    ("NR = SPLIT ? 2 : 1, BQ", "NR = SPLIT && KV_NWG == 1 ? 2 : 1, BQ"),
+]
+
+
+def d256_sources(variant) -> str:
+    """A csrc directory that builds K3's head_dim-256 ``variant``: this
+    tree's own for the design it builds, else an edited copy."""
+    dkv, rows = variant
+    if variant == (1, 64):
+        return build.SRC_DIR
+    csrc = os.path.join(build.BUILD_DIR, f"d256_{dkv}_{rows}_src")
+    shutil.rmtree(csrc, ignore_errors=True)
+    shutil.copytree(build.SRC_DIR, csrc)
+    path = os.path.join(csrc, "flash_bwd.cu")
+    with open(path) as f:
+        src = f.read()
+    edits = D256_EDITS if dkv == 2 else []
+    q_nwg = rows // 64
+    edits = [*edits, (D256_LAUNCH, f"launch<256, {dkv}, 2, 1, {q_nwg}, {3 - q_nwg}>(")]
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"flash_bwd.cu no longer holds {old!r} once: update D256_EDITS")
+        src = src.replace(old, new)
+    with open(path, "w") as f:
+        f.write(src)
+    return csrc
+
+
+def d256_spills(name: str) -> dict:
+    """Spill bytes of each head_dim-256 K3 instance in a build's nvcc output."""
+    with open(os.path.join(build.BUILD_DIR, name, "build.log")) as f:
+        log = f.read()
+    spills, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(dkv_kernel|dq_kernel)I((?:Li\d+E)+)E", line)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(2))
+            entry = f"{m.group(1)}<{', '.join(args)}>" if args[0] == "256" else None
+        elif entry and "spill stores" in line:
+            spills[entry] = sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+            entry = None
+    return spills
+
+
+def d256(args) -> dict:
+    from concurrent.futures import ThreadPoolExecutor
+
+    def make(variant):
+        name = "d256_{}_{}".format(*variant)
+        return variant, build_variant(d256_sources(variant), name)
+
+    with ThreadPoolExecutor(len(D256_VARIANTS)) as pool:  # one nvcc per source and build
+        libs = dict(pool.map(make, D256_VARIANTS))
+    q, k, v, dout, ints = pi0_train_inputs(4, 5)
+    out, lse = A.flash_attention_fwd(q, k, v, *ints)
+    scale = 256 ** -0.5
+    with torch.no_grad():
+        ref = A.flash_attention_bwd_ref(q.float(), k.float(), v.float(), *ints, out.float(), lse,
+                                        dout.float())
+        plain = A.flash_attention_bwd_ref(q, k, v, *ints, out, lse, dout)
+        bounds = [2 * (p.float() - r).abs().max().item() + 1e-3 for p, r in zip(plain, ref)]
+    del plain
+
+    def call(lib):
+        with mock.patch.object(build, "load", return_value=lib):  # this build's K3
+            return A._flash_bwd_cuda(q, k, v, *ints, out, lse, dout, scale, None, None)
+
+    res = {}
+    for variant, lib in libs.items():
+        got = call(lib)
+        ratios = [(a.float() - r).abs().max().item() / b for a, r, b in zip(got, ref, bounds)]
+        res[variant] = {"what": D256_VARIANTS[variant], "err_over_bound_dq_dk_dv": ratios,
+                        "spill_bytes": d256_spills("d256_{}_{}".format(*variant)),
+                        "deterministic": all(torch.equal(a, b) for a, b in zip(got, call(lib))),
+                        "device_ms": device_ms(lambda lib=lib: call(lib), K3_KERNELS), "ms": []}
+        print(variant, json.dumps(res[variant]), flush=True)
+    order = list(libs) + list(libs)[::-1]
+    for variant in order:
+        res[variant]["ms"].append(median_ms(lambda lib=libs[variant]: call(lib)))
+    return {"shape_B_S_Hq_Hkv_D": [4, 867, 8, 1, 256], "order": [list(v) for v in order],
+            "variants": {f"dkv={v[0]} dq_rows={v[1]}": r for v, r in res.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("bench_flash: no CUDA device", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser()
-    ap.add_argument("mode", choices=("ab", "rows", "sweep"))
+    ap.add_argument("mode", choices=("ab", "rows", "sweep", "d256"))
     ap.add_argument("--baseline", help="an earlier tree's dexbotic_tpu_torch/csrc (ab)")
     ap.add_argument("--draws", type=int, default=100)
     ap.add_argument("--out", help="a directory for the JSON result")
@@ -302,7 +429,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
-    res = {"card": card, "mode": args.mode, **{"ab": ab, "rows": rows, "sweep": sweep}[args.mode](args)}
+    modes = {"ab": ab, "rows": rows, "sweep": sweep, "d256": d256}
+    res = {"card": card, "mode": args.mode, **modes[args.mode](args)}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, f"bench_flash_{args.mode}.json"), "w") as f:

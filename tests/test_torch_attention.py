@@ -129,7 +129,7 @@ def test_dispatch_rule_is_a_function_of_head_dim():
     (no length thresholds); a CPU call never counts as a plain CUDA call."""
     assert [d for d in (16, 32, 64, 72, 96, 128, 192, 256, 320, 512) if ta.flash_serves(d)] == \
         [64, 128, 256]
-    assert ta.FLASH_HEAD_DIMS == (64, 128, 256) and ta.FLASH_BWD_HEAD_DIMS == (64, 128)
+    assert ta.FLASH_HEAD_DIMS == (64, 128, 256) and ta.FLASH_BWD_HEAD_DIMS == (64, 128, 256)
     q, k, v, qg, kg, valid, _, _, _ = _case("gqa")
     n0 = ta.attention.plain_cuda_calls
     ta.attention(*[_t(x) for x in (q, k, v, qg, kg, valid)])

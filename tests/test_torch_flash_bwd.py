@@ -95,3 +95,40 @@ def test_masked_rows_take_no_gradient_and_dout_may_be_strided():
     out.backward(g)
     assert torch.all(out[0, 4] == 0) and torch.all(qt.grad[0, 4] == 0)
     assert torch.isfinite(qt.grad).all()
+
+
+def _pi0_inputs(B=2, image=32, text=8, real=5, chunk=6):
+    """pi0's joint rows at a small S: ``image`` image tokens and ``text``
+    text tokens (the last ``text - real`` padding, the second row's second
+    half of the images missing), bidirectional; then the state token (group
+    1) and ``chunk`` action tokens (group 2).  8 query heads on 1 kv head of 256."""
+    S = image + text + 1 + chunk
+    rng = np.random.default_rng(21)
+    q, k, v, dout = (rng.standard_normal((B, S, H, 256)).astype(np.float32) for H in (8, 1, 1, 8))
+    valid = np.ones((B, S), np.int32)
+    valid[:, image + real: image + text] = 0
+    valid[1, image // 2: image] = 0
+    grp = np.zeros((B, S), np.int32)
+    grp[:, image + text] = 1
+    grp[:, image + text + 1:] = 2
+    return q, k, v, grp, valid, dout
+
+
+@pytest.mark.parametrize("single_block_max", [0, 1024])
+def test_flash_backward_d256_pi0_rows_match_jax(single_block_max):
+    """head_dim 256, MQA 8:1, the masked text tail and pi0's suffix groups:
+    K3's plain version against the JAX backward in interpret mode."""
+    q, k, v, grp, valid, dout = _pi0_inputs()
+    got = _port_grads(lambda a, b, c: ta.flash_attention(a, b, c, _t(grp), _t(grp), _t(valid)),
+                      q, k, v, dout)
+
+    def jax_loss(a, b, c):
+        out = jax_flash_attention(a, b, c, jnp.asarray(grp), jnp.asarray(grp), jnp.asarray(valid),
+                                  interpret=True, block_q=16, block_kv=16,
+                                  single_block_max=single_block_max)
+        return jnp.sum(out * dout)
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(q, k, v)
+    for g, w in zip(got, want):
+        assert np.abs(np.asarray(w)).max() > 1e-2
+        np.testing.assert_allclose(g, np.asarray(w), rtol=TOL, atol=TOL)

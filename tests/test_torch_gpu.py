@@ -300,10 +300,63 @@ def test_flash_wrappers_refuse_what_they_do_not_serve(cuda):
         flash_attention_fwd(*(torch.randn(1, 8, 2, 72, device=cuda).bfloat16(),) * 3, *ints)
     with pytest.raises(TypeError):  # fp32 q/k/v
         flash_attention_fwd(*(torch.randn(1, 8, 2, 256, device=cuda),) * 3, *ints)
+    x = torch.randn(1, 8, 2, 72, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="head_dim"):  # K3 serves 64, 128 and 256
+        flash_attention_bwd(x, x, x, *ints, x, torch.zeros(1, 2, 8, device=cuda), x)
     q = torch.randn(1, 8, 2, 256, device=cuda).bfloat16().requires_grad_(True)
-    out = flash_attention(q, q, q, *ints)  # K1 serves 256 forward; K3 does not
-    with pytest.raises(ValueError, match="forward only"):
-        out.sum().backward()
+    flash_attention(q, q, q, *ints).sum().backward()  # K1 and K3 both serve 256
+    assert torch.isfinite(q.grad).all()
+
+
+# pi0's training rows (the LIBERO recipe): 3 views x 256 image tokens and the
+# text padded to 48 tokens, of which PI0_TEXT are real, bidirectional; then
+# the state token (group 1) and 50 action tokens (group 2): 867 tokens.
+PI0_IMAGE, PI0_TEXT, PI0_PREFIX, PI0_SEQ = 768, 22, 816, 867
+
+
+def _pi0_train_case(cuda, B, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v, dout = (torch.randn(B, PI0_SEQ, H, 256, generator=g, device=cuda).bfloat16()
+                     for H in (8, 1, 1, 8))
+    valid = torch.ones(B, PI0_SEQ, dtype=torch.int32, device=cuda)
+    valid[:, PI0_IMAGE + PI0_TEXT: PI0_PREFIX] = 0
+    valid[-1, PI0_IMAGE - 256: PI0_IMAGE] = 0  # the last row lacks its third view
+    grp = torch.zeros(B, PI0_SEQ, dtype=torch.int32, device=cuda)
+    grp[:, PI0_PREFIX] = 1
+    grp[:, PI0_PREFIX + 1:] = 2
+    return q, k, v, dout, (grp.clone(), grp, valid), None, None
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 867])
+def test_flash_backward_d256_at_tile_edges(cuda, S):
+    """K3 at head_dim 256, MQA 8:1, at lengths around the 64-row tiles;
+    segments and a row that sees no key (no gradient)."""
+    _check_k3(cuda, _attn_case(cuda, 1, S, S, 8, 1, 256, seed=S, segments=S > 3))
+
+
+def test_flash_backward_d256_at_pi0_training_shape(cuda):
+    """K3 at the shape pi0's LIBERO recipe gives it: (4, 867, 8/1, 256)."""
+    _check_k3(cuda, _pi0_train_case(cuda, 4, 21))
+
+
+@pytest.mark.parametrize("B,Sq,Skv", [(2, 64, 64), (2, 192, 192), (1, 100, 192), (1, 51, 867)])
+def test_flash_backward_d256_with_every_key_visible(cuda, B, Sq, Skv):
+    """All-zero groups and every key valid: every tile wholly visible, the
+    last kv tile reaching past Skv where Skv % 64 != 0."""
+    g = torch.Generator(device=cuda).manual_seed(Sq * Skv)
+    q, dout = (torch.randn(B, Sq, 8, 256, generator=g, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, Skv, 1, 256, generator=g, device=cuda).bfloat16() for _ in range(2))
+    zeros = torch.zeros(B, Skv, dtype=torch.int32, device=cuda)
+    _check_k3(cuda, (q, k, v, dout, (zeros[:, :Sq].contiguous(), zeros, torch.ones_like(zeros)),
+                     None, None))
+
+
+def test_flash_backward_d256_is_deterministic(cuda):
+    q, k, v, dout, ints, _, _ = _pi0_train_case(cuda, 2, 22)
+    out, lse = flash_attention_fwd(q, k, v, *ints)
+    g1 = flash_attention_bwd(q, k, v, *ints, out, lse, dout)
+    g2 = flash_attention_bwd(q, k, v, *ints, out, lse, dout)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
 
 
 def test_auto_dispatch_counts_plain_cuda_calls(cuda):

@@ -197,8 +197,13 @@ def test_task_inference_single_and_unported_training(monkeypatch, capsys):
     assert actions.shape == (5, 8) and np.isfinite(actions).all()
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     np.testing.assert_allclose(printed, actions)
+    # training is ported: ``--task train`` reaches BaseExp.train, which every
+    # flow exp inherits (tests/test_torch_pi0_train.py runs it end to end)
+    from dexbotic_tpu_torch.exp.base_exp import BaseExp
+
+    assert Pi0Exp.train is Pi05Exp.train is BaseExp.train
     monkeypatch.setattr(sys, "argv", ["pi0_exp", "--task", "train"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        Pi0Exp.main(model=e.model, data=e.data, device="cpu")
+    monkeypatch.setattr(BaseExp, "train", lambda self: ("trained", self.exp_name))
+    assert Pi0Exp.main(model=e.model, data=e.data, device="cpu") == ("trained", "pi0")
     with pytest.raises(ValueError):
         dataclasses.replace(e, inference_quantize="int4").load_for_inference()
