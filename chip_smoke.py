@@ -16,8 +16,12 @@ Phases, any failure exits non-zero without a result line:
      one bidirectional-prefix call);
   4. K2 (fused DiT sampler) against its plain version at DiT-B width, with
      bf16 weights, then (4b) with int8 block weights;
-  4c. K4 (int8-weight matmul) against its plain version, bf16 and fp32
-     activations, at the served shapes (z_embed, t_mlp) and LLaMA-7B's;
+  4c. K4 (int8-weight matmul) against its plain version (the dequantize
+     formulation), bf16 and fp32 activations, at the served shapes (z_embed,
+     t_mlp), LLaMA-7B's at 1-64 rows and an int8 request's prefill products
+     (CLIP-L/336 at 577 rows, the projector at 576, LLaMA-2-7B at 832 and
+     1664); two calls must agree bit for bit, and where the dispatch rule
+     gives K4 the shape it must not be slower than the plain version;
   5. the serving slice: CogACT-7B (LLaMA-2-7B + CLIP-L/336 + DiT-B, seeded
      random weights, bf16) served over HTTP by the port's CogActServer, with
      both kernels' launch counts read around the served requests, then the
@@ -25,8 +29,12 @@ Phases, any failure exits non-zero without a result line:
   5b. the same model quantized (inference_quantize="w8a8": weight-only int8,
      int8 activations from 2048 rows) served over HTTP: single frames, a
      batch_size=2 request and an 8-frame one, with the K1, K2 and K4 launch
-     counts read around them; then the kernel-vs-plain cosine on the int8
-     weights and the int8 chunk's cosine to phase 5's bf16 chunk;
+     counts read around them; one more single frame, whose K4 launches must
+     equal the quantized products the dispatch rule gives K4, counted from
+     the model (and seen by forward hooks); then the kernel-vs-plain cosine
+     on the int8 weights, the int8 chunk's cosine to phase 5's bf16 chunk
+     (both >= 0.99) and the device path by part (tower + projector, prefill,
+     sampler) beside phase 5's;
   5c. pi0 at full width (SigLIP so400m/224 + Gemma-2B + the Gemma-300M
      expert, seeded random bf16 weights, fp32 activations and KV cache as
      in the JAX package, K1 fed bf16) served over HTTP by the port's
@@ -76,10 +84,12 @@ function must move (each input read once, each output written once) over
 TFLOP/s bf16; 495 TF32 for K4's fp32 activations); the library time is one
 PyTorch call computing the same function (SDPA for K1 and K3, a bf16 matmul
 on the dequantized weight for K4), timed here and used nowhere in the port.
-K1's and K3's ``device_ms`` is their kernels' own device time per call from
-``torch.profiler``, beside ``ms`` (CUDA events around the Python call).
-Phase 2 lists the registers and spills of every K1 and K3 instance from
-nvcc's ``-Xptxas -v``; a spill fails.
+``device_ms`` (K1, K3, K4, and K2 at its served call) is the kernels' own
+device time per call from ``torch.profiler`` (CUDA events of calls queued
+behind device work where three profiling sessions see none of its kernels),
+beside ``ms`` (CUDA events around the Python call).  Phase 2 lists the
+registers and spills of every K1, K3 and K4 instance from nvcc's
+``-Xptxas -v``; a spill fails.
 The last two lines printed are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.
 """
@@ -134,6 +144,11 @@ def card_line() -> str:
 def median_ms(fn, reps: int = REPS, flush=None) -> float:
     """Median device time of one call, over ``reps`` calls after a warm-up;
     ``flush`` (untimed) runs before each, to start from a cold L2."""
+    return statistics.median(times_ms(fn, reps, flush))
+
+
+def times_ms(fn, reps: int = REPS, flush=None) -> list:
+    """The device times of ``reps`` calls after a warm-up (see median_ms)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -146,27 +161,56 @@ def median_ms(fn, reps: int = REPS, flush=None) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
 
 
-def device_ms(fn, kernels: tuple, reps: int = 10) -> float:
+def device_ms(fn, kernels: tuple, reps: int = 10, sessions: int = 3) -> float:
     """The named kernels' own device time per call (``torch.profiler``,
-    ``self_device_time_total``): the call's time without its host wrapper."""
+    ``self_device_time_total``): the call's time without its host wrapper.
+    A profiling session can come back with no kernel record (CUPTI, once in
+    4c on an H100 after dozens of sessions in the process): it is run again,
+    and after ``sessions`` empty ones the time is :func:`queued_ms`'s."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-                for e in prof.key_averages() if any(k in e.key for k in kernels))
-    if total <= 0:
-        raise RuntimeError(f"the profiler saw no device time of {kernels}")
-    return total / reps / 1e3
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+                    for e in prof.key_averages() if any(k in e.key for k in kernels))
+        if total > 0:
+            return total / reps / 1e3
+    ms = queued_ms(fn, reps)
+    print(f"    the profiler saw no device time of {kernels} in {sessions} sessions; "
+          f"CUDA events of {reps} queued calls: {ms:.4f} ms a call")
+    return ms
+
+
+def queued_ms(fn, reps: int = 10) -> float:
+    """Device time per call of ``reps`` back-to-back calls, CUDA events
+    around them, enqueued behind a device sleep of at least twice the host's
+    enqueue (at <= 2 GHz): the calls and the gaps between their kernels,
+    without the host's time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * reps * host_s * 2e9, 2e9)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 K1_KERNELS = ("flash_fwd_kernel", "tile_class_kernel")
 K3_KERNELS = ("pre_kernel", "tile_class_kernel", "dkv_kernel", "dq_kernel")
+K2_KERNELS = ("dit_sample_kernel",)
+K4_KERNELS = ("qm_kernel", "reduce_kernel", "split_kernel")
 
 
 def bound(nbytes: float, ops: float, dtype=torch.bfloat16) -> tuple[float, str]:
@@ -551,66 +595,110 @@ def phase_dit(failures: list, int8: bool = False) -> dict:
         ms = median_ms(lambda: fused_dit_sample(head, cfg, z, noise, sched, **kw))
         bound_ms, bound_by = dit_bound(head, cfg, B, steps, 1.5)
         check_bound(f"{sampler}-{steps} CFG 1.5 B={B}", err, plain_err, failures)
-        print(f"    |ref| max {ref.abs().max().item():.4g}  kernel {ms:.4f} ms  "
+        alone = ""
+        if main is None:  # the served call: the kernel's own device time too
+            dev_ms = device_ms(lambda: fused_dit_sample(head, cfg, z, noise, sched, **kw),
+                               K2_KERNELS)
+            alone = f" (alone {dev_ms:.4f} ms)"
+        print(f"    |ref| max {ref.abs().max().item():.4g}  kernel {ms:.4f} ms{alone}  "
               f"plain bf16 {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
         worst = max(worst, err)
         if main is None:
-            main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            main = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by}
     return {"max_abs_err": worst, **main, "library_ms": None}
 
 
 # K4's cases: (layer, M, K, N).  Served: z_embed at every request (M = 2 rows
 # with CFG at B=1; 16 on the plain sampler path of an 8-frame micro-batch) and
 # t_mlp when K2's tables are built (M = 10 steps) or on that plain path (16).
+# LLaMA-7B's widths at few rows.  Prefill: an int8 request's products of
+# more rows, CLIP-L/336 (577 tokens, fp32 in the model), the mlp2x_gelu
+# projector (576, fp32) and LLaMA-2-7B's prefill (the 832-token bucket and
+# batch_size=2's 1664 rows, bf16).  Every case runs with bf16 and with fp32
+# activations.
 K4_SERVED = [("z_embed", 2, 4096, 768), ("z_embed", 16, 4096, 768),
              ("t_mlp.fc0", 10, 256, 768), ("t_mlp.fc0", 16, 256, 768),
              ("t_mlp.fc1", 10, 768, 768), ("t_mlp.fc1", 16, 768, 768)]
 K4_LLAMA = [(f"llama {K}->{N}", M, K, N) for M in (1, 16, 64)
             for K, N in ((4096, 4096), (4096, 11008), (11008, 4096))]
+K4_PREFILL = [("clip q/k/v/o", 577, 1024, 1024), ("clip fc1", 577, 1024, 4096),
+              ("clip fc2", 577, 4096, 1024), ("projector fc0", 576, 1024, 4096),
+              ("projector fc2", 576, 4096, 4096)] + [
+    (f"llama prefill {K}->{N}", M, K, N) for M in (832, 1664)
+    for K, N in ((4096, 4096), (4096, 11008), (11008, 4096))]
+K4_CASES = K4_SERVED + K4_LLAMA + K4_PREFILL
 
 
 def phase_quant_matmul(failures: list) -> dict:
+    """K4 against its plain version (the dequantize formulation, which
+    quant_linear runs where K4 is not dispatched) at every case, each output
+    against fp64; two calls must agree bit for bit; where the dispatch rule
+    gives K4 the shape, K4 must not be slower than the plain version."""
     from dexbotic_tpu_torch.ops.quant import quantize_weight
-    from dexbotic_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_ref
+    from dexbotic_tpu_torch.ops.quant_matmul import (plan, quant_matmul, quant_matmul_eligible,
+                                                     quant_matmul_ref)
 
     print("phase 4c: K4 quant_matmul vs plain (int8 weights of bf16 layers; L2 flushed "
-          "before every timed call)")
+          "and the host's enqueue hidden before every timed call)")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(10)
     scratch = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    flush = scratch.zero_
-    worst, main = 0.0, None
+
+    def flush():  # a cold L2; the host enqueues the timed call behind ~0.2 ms of device work
+        scratch.zero_()
+        torch.cuda._sleep(400_000)
+
+    worst, main, cases = 0.0, None, []
     for dtype in (torch.bfloat16, torch.float32):
-        for name, M, K, N in K4_SERVED + K4_LLAMA:
+        for name, M, K, N in K4_CASES:
             q, s = quantize_weight((torch.randn(N, K, generator=g, device=dev) * 0.02).bfloat16())
             s = s[:, 0].to(dtype)  # quant_linear casts the scales to x's dtype
             x = torch.randn(M, K, generator=g, device=dev).to(dtype)
             out = quant_matmul(x, q, s)
+            again = quant_matmul(x, q, s)
             torch.cuda.synchronize()
             ref = quant_matmul_ref(x.double(), q, s.double())
             plain = quant_matmul_ref(x, q, s)
             err = (out.double() - ref).abs().max().item()
             label = f"{name} M={M} K={K} N={N} {str(dtype)[6:]}"
             check_bound(label, err, (plain.double() - ref).abs().max().item(), failures)
+            if not torch.equal(out, again):
+                failures.append(f"K4 {label}: two calls differ")
+            del ref, plain, again
             w = q.to(dtype) * s[:, None]  # the dequantized weight
-            ms = median_ms(lambda: quant_matmul(x, q, s), flush=flush)
-            plain_ms = median_ms(lambda: quant_matmul_ref(x, q, s), flush=flush)
+            # kernel, plain, kernel, plain: the medians of the pooled calls
+            runs = [times_ms(fn, flush=flush) for fn in (lambda: quant_matmul(x, q, s),
+                                                         lambda: quant_matmul_ref(x, q, s)) * 2]
+            ms = statistics.median(runs[0] + runs[2])
+            plain_ms = statistics.median(runs[1] + runs[3])
+            dev_ms = device_ms(lambda: quant_matmul(x, q, s), K4_KERNELS)
             lib_ms = median_ms(lambda: torch.matmul(x, w.t()), flush=flush)
             lib_deq_ms = median_ms(lambda: torch.matmul(x, (q.to(dtype) * s[:, None]).t()),
                                    flush=flush)
             bound_ms, bound_by = bound(nbytes(x, q, s, out), 2 * M * N * K, dtype)
-            print(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  matmul on the dequantized "
-                  f"weight {lib_ms:.4f} ms, with the dequantize {lib_deq_ms:.4f} ms  bound "
-                  f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of it")
+            dispatched = quant_matmul_eligible(M, K, N)
+            p = plan(M, K, N)
+            print(f"    kernel {ms:.4f} ms, alone {dev_ms:.4f} ms ({p.rows} rows x "
+                  f"{p.channels} channels a block, {p.splits} split(s))  plain (dequantize "
+                  f"formulation) {plain_ms:.4f} ms  matmul on the dequantized weight "
+                  f"{lib_ms:.4f} ms, with the dequantize {lib_deq_ms:.4f} ms  bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of it  "
+                  f"dispatched: {'yes' if dispatched else 'no'}")
+            if dispatched and ms > plain_ms:
+                failures.append(f"K4 {label}: dispatched, but {ms:.4f} ms > the dequantize "
+                                f"formulation's {plain_ms:.4f} ms")
             worst = max(worst, err)
+            cases.append({"case": label, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "library_with_dequantize_ms": lib_deq_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+                          "dispatched": dispatched})
             if main is None:  # z_embed at B=1, bf16: the served call
-                main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": lib_ms,
-                        "library_with_dequantize_ms": lib_deq_ms}
-            del q, s, x, out, ref, plain, w
+                main = {k: v for k, v in cases[0].items() if k not in ("case", "max_abs_err")}
+            del q, s, x, out, w
     del scratch
     free_memory()
-    return {"max_abs_err": worst, **main}
+    return {"max_abs_err": worst, **main, "cases": cases}
 
 
 @torch.no_grad()
@@ -652,6 +740,88 @@ def _post(port: int, prompt: str, frames: list, batch_size: int = 1, states: str
 
 
 PROMPT = "pick up the moka pot"
+
+
+def k4_products(model, cfg, llm_rows: int, batch: int = 1) -> dict:
+    """{part: the quantized products of one request of ``batch`` frames that
+    the dispatch rule gives K4}, counted from the model: every QuantLinear
+    of the layers the request runs (the LLM's at the prompt's bucket, the
+    ViT's up to select_layer, the projector's, the DiT's z_embed at 2 rows a
+    frame with CFG) whose (rows, K, N) quant_linear sends to K4.  The DiT's
+    other layers run inside K2 or once per process (t_mlp's tables)."""
+    from dexbotic_tpu_torch.nn.core import QuantLinear
+    from dexbotic_tpu_torch.ops import quant_matmul as qm
+
+    vit = cfg.vlm.vit
+    vit_layers = vit.num_layers + (vit.select_layer + 1 if vit.select_layer is not None else 0)
+    rows_z = batch * (2 if cfg.cfg_scale > 1.0 else 1)
+    parts = {"llm": (model.vlm.llm.layers, batch * llm_rows),
+             "vit": (model.vlm.vit.layers[:vit_layers], batch * vit.seq_len),
+             "projector": (model.vlm.projector, batch * vit.num_output_tokens),
+             "z_embed": (model.action_head.z_embed, rows_z)}
+
+    def to_k4(rows, m):
+        return ((qm.W8A8_MIN_ROWS is None or rows < qm.W8A8_MIN_ROWS)
+                and qm.quant_matmul_eligible(rows, m.in_features, m.out_features))
+
+    return {part: sum(to_k4(rows, m) for m in mod.modules() if isinstance(m, QuantLinear))
+            for part, (mod, rows) in parts.items()}
+
+
+@contextlib.contextmanager
+def k4_calls(model):
+    """{module prefix: quantized products sent to K4} while inside, from
+    forward hooks on every QuantLinear (quant_linear's rule on the rows each
+    call sees)."""
+    from dexbotic_tpu_torch.nn.core import QuantLinear
+    from dexbotic_tpu_torch.ops import quant_matmul as qm
+
+    seen, handles = {}, []
+    for name, m in model.named_modules():
+        if isinstance(m, QuantLinear):
+            def hook(mod, args, name=name):
+                x = args[0]
+                rows = x.numel() // mod.in_features
+                if ((qm.W8A8_MIN_ROWS is None or rows < qm.W8A8_MIN_ROWS) and qm.KERNEL_DISPATCH
+                        and x.device.type == "cuda"
+                        and qm.quant_matmul_eligible(rows, mod.in_features, mod.out_features)):
+                    key = ".".join(name.split(".")[:2])
+                    seen[key] = seen.get(key, 0) + 1
+            handles.append(m.register_forward_pre_hook(hook))
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()
+
+
+@torch.no_grad()
+def cogact_parts_ms(model, cfg, ids, valid, imgs, noise) -> dict:
+    """A CogACT request's device path by part, each timed alone as a
+    CUDA-synchronised median of 10 (``wall_ms``): the ViT and projector
+    (``encode_images``), the LLM prefill on the spliced embeddings, the
+    action sampler on the cognition feature (K2 where
+    ``cogact_inference_action`` takes it, else the plain loop), and the
+    whole call."""
+    from dexbotic_tpu_torch.models.cogact import (cogact_inference_action, cognition_feature,
+                                                  schedule)
+    from dexbotic_tpu_torch.models.vlm import encode_images, splice_image_embeds, vlm_forward
+    from dexbotic_tpu_torch.ops.dit_fused import dit_sample_ref, fused_dit_sample
+    from script.profile_pi0_torch import wall_ms
+
+    embeds = splice_image_embeds(model.vlm, cfg.vlm, ids, encode_images(model.vlm, cfg.vlm, imgs))
+    z = cognition_feature(model, cfg, ids, valid, imgs)[0][:, None, :].float()
+    fused = cfg.fused_sampler and z.shape[0] * (2 if cfg.cfg_scale > 1.0 else 1) <= 4
+    sample = fused_dit_sample if fused else dit_sample_ref
+    kw = dict(steps=cfg.ddim_steps, cfg_scale=cfg.cfg_scale, sampler=cfg.sampler)
+    return {
+        "tower_projector_ms": wall_ms(lambda: encode_images(model.vlm, cfg.vlm, imgs), reps=10),
+        "prefill_ms": wall_ms(lambda: vlm_forward(model.vlm, cfg.vlm, ids, valid,
+                                                  inputs_embeds=embeds), reps=10),
+        "sampler_ms": wall_ms(lambda: sample(model.action_head, cfg.dit, z, noise, schedule(cfg),
+                                             **kw), reps=10),
+        "device_call_ms": wall_ms(lambda: cogact_inference_action(model, cfg, ids, valid, imgs,
+                                                                  noise=noise), reps=10)}
 
 
 def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) -> dict:
@@ -708,6 +878,11 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
             batch8, batch8_dt = _post(port, ";".join([prompt] * 8), [png] * 8, batch_size=8)
         launches = {name: fn.launches for name, fn in kernels.items()}
         plain_calls = attention.plain_cuda_calls
+        if quantize:  # one more single frame: K4's launches against the rule's products
+            with k4_calls(model) as seen:
+                qm.quant_matmul.launches = 0
+                _post(port, prompt, [png])
+                k4_single = qm.quant_matmul.launches
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -752,12 +927,31 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
           f"|chunk| max {b.abs().max().item():.4g}")
     if not cos >= 0.99:
         failures.append(f"slice cosine {cos} < 0.99")
-    result = {"launches": launches, "chunk": a, "p50_ms": p50, "weight_bytes": weight_bytes}
+    parts = cogact_parts_ms(model, cfg, ids, valid, imgs, noise)
+    result = {"launches": launches, "chunk": a, "p50_ms": p50, "weight_bytes": weight_bytes,
+              "parts": parts}
     if quantize:
+        want = k4_products(model, cfg, L)
+        print(f"  K4 launches in one single-frame request: {k4_single}; the rule's products, "
+              f"from the model: {sum(want.values())} {want}; from forward hooks: "
+              f"{sum(seen.values())} {seen}")
+        if not k4_single == sum(want.values()) == sum(seen.values()):
+            failures.append(f"K4 launched {k4_single} times in a single-frame request; the "
+                            f"dispatch rule gives it {sum(want.values())} products {want}, "
+                            f"the hooks saw {sum(seen.values())}")
+        result["k4_single_request"] = k4_single
         qm.W8A8_MIN_ROWS = None  # "w8a8" set it for this process
+        cos_bf16 = _cosine(a, bf16["chunk"])
         print(f"  int8 vs bf16 (phase 5, same seed, frame and noise): weights "
               f"{weight_bytes / 2**30:.2f} vs {bf16['weight_bytes'] / 2**30:.2f} GiB; request p50 "
-              f"{p50:.1f} vs {bf16['p50_ms']:.1f} ms; chunk cosine {_cosine(a, bf16['chunk']):.6f}")
+              f"{p50:.1f} vs {bf16['p50_ms']:.1f} ms; chunk cosine {cos_bf16:.6f}")
+        print("  device path by part, int8 vs bf16 (ms, CUDA-synchronised): "
+              + "; ".join(f"{k[:-3]} {v:.2f} vs {bf16['parts'][k]:.2f}" for k, v in parts.items()))
+        if not cos_bf16 >= 0.99:
+            failures.append(f"int8 vs bf16 chunk cosine {cos_bf16} < 0.99")
+    else:
+        print("  device path by part (ms, CUDA-synchronised): "
+              + "; ".join(f"{k[:-3]} {v:.2f}" for k, v in parts.items()))
     return result
 
 
@@ -1236,12 +1430,19 @@ def phase_pi0_train(failures: list) -> dict:
         return {"compare": compare, **phase_pi0_train_steps(failures, dataset, stats)}
 
 
-def flash_build_report(log: str, failures: list) -> tuple[dict, dict]:
+# K4's instances: (x dtype, x rows a block, consumer warpgroups), as
+# csrc/quant_matmul.cu:launch_rows builds them
+K4_INSTANCES = [(t, r, 1 if r <= 64 else 2) for t in ("bf16", "f32")
+                for r in (8, 16, 32, 64, 128, 192, 256)]
+
+
+def build_report(log: str, failures: list) -> tuple[dict, dict, dict]:
     """Registers and spills of every K1 instance ("flash_fwd_kernel<D, NWG,
-    BK>") and every K3 instance ("dkv_kernel<D, NWG, stages, split>",
-    "dq_kernel<D, NWG, stages>") from nvcc's ``-Xptxas -v`` output, as (K1's,
-    K3's); a spilling instance fails, and so does a kernel with no instance
-    at head_dim 256."""
+    BK>"), every K3 instance ("dkv_kernel<D, NWG, stages, split>",
+    "dq_kernel<D, NWG, stages>") and every K4 instance ("qm_kernel<x dtype,
+    rows, NWG>") from nvcc's ``-Xptxas -v`` output, as (K1's, K3's, K4's); a
+    spilling instance fails, and so do a kernel with no instance at head_dim
+    256 and a missing K4 instance."""
     import re
 
     report, name = {}, None
@@ -1249,8 +1450,14 @@ def flash_build_report(log: str, failures: list) -> tuple[dict, dict]:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"(flash_fwd_kernel|dkv_kernel|dq_kernel)I((?:Li\d+E)+)E", m.group(1))
-            args = ", ".join(re.findall(r"Li(\d+)E", k.group(2))) if k else ""
-            name = f"{k.group(1)}<{args}>" if k else None
+            qk = re.search(r"qm_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", m.group(1))
+            name = None
+            if k:
+                args = ", ".join(re.findall(r"Li(\d+)E", k.group(2)))
+                name = f"{k.group(1)}<{args}>"
+            elif qk:
+                dt = "bf16" if qk.group(1) != "f" else "f32"
+                name = f"qm_kernel<{dt}, {qk.group(2)}, {qk.group(3)}>"
         elif name and "spill stores" in line:
             report[name] = {"spill_bytes": sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))}
         elif name and "registers" in line:
@@ -1261,11 +1468,15 @@ def flash_build_report(log: str, failures: list) -> tuple[dict, dict]:
         if r["spill_bytes"]:
             failures.append(f"{n} spills {r['spill_bytes']} bytes")
     k1 = {n: r for n, r in report.items() if n.startswith("flash_fwd_kernel")}
-    k3 = {n: r for n, r in report.items() if not n.startswith("flash_fwd_kernel")}
+    k3 = {n: r for n, r in report.items() if n.startswith(("dkv_kernel", "dq_kernel"))}
+    k4 = {n: r for n, r in report.items() if n.startswith("qm_kernel")}
     for kernel, found in (("flash_fwd_kernel", k1), ("dkv_kernel", k3), ("dq_kernel", k3)):
         if not any(n.startswith(f"{kernel}<256,") for n in found):
             failures.append(f"nvcc's output lists no {kernel} instance at head_dim 256")
-    return k1, k3
+    for t, r, nwg in K4_INSTANCES:
+        if f"qm_kernel<{t}, {r}, {nwg}>" not in k4:
+            failures.append(f"nvcc's output lists no qm_kernel<{t}, {r}, {nwg}>")
+    return k1, k3, k4
 
 
 def free_memory() -> None:
@@ -1293,7 +1504,7 @@ def main() -> int:
     if not log:  # built by an earlier process: its nvcc output is beside the library
         with open(os.path.join(build.BUILD_DIR, "build.log")) as f:
             log = f.read()
-    k1_build, k3_build = flash_build_report(log, failures)
+    k1_build, k3_build, k4_build = build_report(log, failures)
     k1 = phase_flash(failures)
     k1_d256 = phase_flash_d256(failures)
     k2 = phase_dit(failures)
@@ -1335,7 +1546,8 @@ def main() -> int:
         {"name": "quant_matmul", "route": "cuda",
          "source": "dexbotic_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "dexbotic_tpu/ops/quant_matmul.py:77",
-         "launches": launches_q["quant_matmul"], **k4},
+         "launches": launches_q["quant_matmul"],
+         "single_request_launches": serve_q["k4_single_request"], **k4, "build": k4_build},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,174 +1,216 @@
 // K4: int8-weight matmul out[M, N] = (x[M, K] @ q[N, K]^T) * s[N] for Hopper
-// (sm_90a), with M <= 64 rows of bf16 or fp32 activations.
+// (sm_90a), bf16 or fp32 activations, any M.
 //
 // Replaces the TPU kernel dexbotic_tpu/ops/quant_matmul.py:_kernel, whose
 // (N block, K block) grid ran in order on one core, carrying an fp32
 // accumulator in VMEM over K and converting each int8 weight tile to the
 // compute dtype in VMEM.
 //
-// What bounds it on the card: at M <= 64 the work is streaming the int8
-// weights once (M=16, K=4096, N=11008: 45 MB, 13.5 us at 3.35 TB/s, against
-// ~1.5 us of bf16 tensor work), so the design keeps every weight byte off any
-// second trip and spreads the stream over all SMs:
-// - one warp per (8 output columns, K range): each thread streams 16
-//   consecutive int8 of one weight row (q is [N, K], so a column's weights are
-//   contiguous) per 64-deep k step, four steps in flight, with no shared
-//   memory; the activations (<= 64 x K, L2-resident) are read per step;
-// - the k order inside a step is permuted so that a thread's 16 weight bytes
-//   and 16 activation values are exactly the operands it owns in four
-//   mma.sync m16n8k16 steps: thread t4 of a quad owns physical k 16 t4 + 4 s
-//   + [0, 4) in step s, for A and for B alike, so every product pairs the
-//   same k (the sum does not depend on the order);
-// - int8 is exact in bf16: each byte becomes a bf16 in registers and the
-//   bf16 case is the plain version's product up to summation order; fp32
-//   activations are split into three bf16 parts hi + mid + lo (each the bf16
-//   rounding of what the parts before it left), one product each, which
-//   represents x to within 2^-24 |x|, fp32's own rounding;
-// - a product with few columns (N = 768 at the DiT) is split over K so that
-//   ~2100 warps stream at once; each split writes fp32 partials and a second
-//   pass sums them in split order and applies the scale (deterministic).
+// What bounds it on the card: at few rows (M <= 64) the stream of int8
+// weights (K = 4096, N = 11008: 45 MB, 13.5 us at 3.35 TB/s); at prefill
+// rows (hundreds to ~2k) the tensor cores (M = 832 at that shape: 75 GFLOP,
+// 76 us at 989 TFLOP/s).  Design (swap A and B):
+//  * a block computes a tile of out^T: 64 * NWG output channels (q's rows,
+//    the wgmma M side) by BN rows of x (the wgmma N side, 8 to 256), over a
+//    range of K in 64-deep steps;
+//  * one producer warp streams the step's int8 q tile ([64 NWG][64] bytes,
+//    TMA with 64-byte swizzle) and the activations' tile ([BN][64] bf16 per
+//    part, TMA with 128-byte swizzle) into a ring of stages handed over by
+//    mbarriers: every x tile is loaded once per block and step and shared by
+//    all of the block's channels;
+//  * each consumer warpgroup loads its 64 channels' A fragments from the
+//    ring with two 32-bit shared loads per 4 weights (conflict-free under the
+//    64-byte swizzle), expands int8 to bf16 in registers by the exponent-bias
+//    trick (prmt into the mantissa of 2^23, one fp32 subtract, the upper half
+//    of the fp32 is the exact bf16) and issues wgmma with A from registers
+//    and the x tile as a K-major B; the next stage's fragments are expanded
+//    while the current products run;
+//  * fp32 activations are split once per call into three bf16 parts hi +
+//    mid + lo (each the bf16 rounding of what the parts before it left),
+//    which carry x to within 2^-24 |x|, fp32's own rounding; each 16-deep
+//    step runs the three products into the same fp32 accumulator, smallest
+//    part first (no TF32);
+//  * a product that would leave SMs idle is split over K (the planner in
+//    ops/quant_matmul.py:plan picks the tile, the split and the grid); the
+//    splits write fp32 partials and a second pass sums them in split order
+//    and applies the scale (deterministic);
+//  * the grid runs the row tiles of one weight panel together, so that the
+//    panel comes from device memory once and from L2 for the other tiles.
 // Accumulation is fp32; the scale (in x's dtype) multiplies once at the end,
-// as the TPU kernel's flush did.  Rows >= M and columns >= N are masked.
+// as the TPU kernel's flush did.  Rows >= M and columns >= N read as zeros
+// (TMA) and are not written.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
 
-#include <cstdint>
 #include <type_traits>
+
+using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int WARPS = 4;     // warps per block, 8 columns each
-constexpr int KSTEP = 64;    // k per step: 16 per thread of a quad
-constexpr int MAX_RF = 4;    // 16-row fragments: M <= 64
-constexpr int INFLIGHT = 4;  // weight loads a thread keeps in flight
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+constexpr int KSTEP = 64;  // k of one stage: 64 int8 bytes of a weight row
 
-// c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulators
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+template <int BN, int NWG, int NP>
+struct Cfg {
+  static constexpr int BM = 64 * NWG;                 // output channels of a block
+  static constexpr int A_BYTES = BM * KSTEP;          // int8 weights of a stage
+  static constexpr int B_BYTES = BN * KSTEP * 2;      // one bf16 part of x of a stage
+  static constexpr int STAGE_BYTES = A_BYTES + NP * B_BYTES;
+  // prefill tiles: one block an SM; few rows: two, so that their weight
+  // streams overlap
+  static constexpr int BUDGET = NWG == 2 ? 200 * 1024 : 96 * 1024;
+  static constexpr int FIT = BUDGET / STAGE_BYTES;
+  static constexpr int STAGES = FIT > 8 ? 8 : (FIT < 2 ? 2 : FIT);
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+  static constexpr int THREADS = NWG == 2 ? 384 : 160;
+};
 
-// 16 int8 weights -> 8 bf16 pairs: pair i holds bytes 2i (low half), 2i + 1
-__device__ __forceinline__ void int8_to_bf16x2(const uint4& w, uint32_t (&b)[8]) {
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t v = words[i];
-    b[2 * i] = pack_bf16(float(int8_t(v & 0xff)), float(int8_t((v >> 8) & 0xff)));
-    b[2 * i + 1] = pack_bf16(float(int8_t((v >> 16) & 0xff)), float(int8_t(v >> 24)));
-  }
-}
-
-// 16 activations of one row (zeros past M) as bf16 pairs, in NP parts that sum
-// to x: NP = 1 for bf16; 3 for fp32 (hi, mid, lo)
-template <typename T, int NP>
-__device__ __forceinline__ void load_row(const T* __restrict__ src, bool valid,
-                                         uint32_t (&a)[NP][8]) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    uint4 v0 = make_uint4(0, 0, 0, 0), v1 = v0;
-    if (valid) {
-      v0 = __ldg(reinterpret_cast<const uint4*>(src));
-      v1 = __ldg(reinterpret_cast<const uint4*>(src) + 1);
-    }
-    a[0][0] = v0.x; a[0][1] = v0.y; a[0][2] = v0.z; a[0][3] = v0.w;
-    a[0][4] = v1.x; a[0][5] = v1.y; a[0][6] = v1.z; a[0][7] = v1.w;
-  } else {
-    float f[16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (valid) v = __ldg(reinterpret_cast<const float4*>(src) + i);
-      f[4 * i] = v.x; f[4 * i + 1] = v.y; f[4 * i + 2] = v.z; f[4 * i + 3] = v.w;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float r0 = f[2 * i], r1 = f[2 * i + 1];
-#pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        const __nv_bfloat16 h0 = __float2bfloat16(r0), h1 = __float2bfloat16(r1);
-        a[p][i] = pack_bf16(__bfloat162float(h0), __bfloat162float(h1));
-        r0 -= __bfloat162float(h0);
-        r1 -= __bfloat162float(h1);
-      }
-    }
-  }
+// four int8 weights (bytes w0..w3) -> bf16 pairs lo = (w0, w1), hi = (w2, w3):
+// each byte, biased to uint8, becomes the low mantissa byte of 2^23; one
+// subtract leaves the integer, whose fp32 upper half is its exact bf16
+__device__ __forceinline__ void i8x4_to_bf16x2(uint32_t u, uint32_t& lo, uint32_t& hi) {
+  const uint32_t b = u ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7650)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7651)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7652)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7653)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
-    quant_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
-                        const T* __restrict__ s, T* __restrict__ out, float* __restrict__ part,
-                        int M, int N, int K, int splits) {
-  constexpr int NP = std::is_same<T, __nv_bfloat16>::value ? 1 : 3;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int n0 = (blockIdx.x * WARPS + warp) * 8;
-  if (n0 >= N) return;  // no block-wide barrier below
-  const int steps = K / KSTEP, split = blockIdx.y;
-  const int kb0 = int(long(split) * steps / splits), kb1 = int(long(split + 1) * steps / splits);
-  const int RF = (M + 15) / 16;
-  const bool nvalid = n0 + g < N;
-  const int8_t* qrow = q + size_t(nvalid ? n0 + g : 0) * K + 16 * t4;
-  float acc[MAX_RF][4] = {};
-  for (int kb = kb0; kb < kb1; kb += INFLIGHT) {
-    uint4 wq[INFLIGHT];
-#pragma unroll
-    for (int u = 0; u < INFLIGHT; ++u) {
-      wq[u] = make_uint4(0, 0, 0, 0);
-      if (nvalid && kb + u < kb1) wq[u] = __ldcs(reinterpret_cast<const uint4*>(qrow + size_t(kb + u) * KSTEP));
+__device__ __forceinline__ float to_f32(T v) {
+  if constexpr (std::is_same<T, bf16>::value) return __bfloat162float(v);
+  else return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same<T, bf16>::value) return __float2bfloat16(v);
+  else return v;
+}
+
+// (launch bounds by arithmetic, not ?:, which nvcc's host stub rejects there)
+template <typename T, int BN, int NWG>
+__global__ void __launch_bounds__(160 + 224 * (NWG - 1), 3 - NWG) qm_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tx,
+    const T* __restrict__ s, T* __restrict__ out, float* __restrict__ part, int M, int N, int K,
+    int splits) {
+  constexpr int NP = std::is_same<T, bf16>::value ? 1 : 3;
+  using C = Cfg<BN, NWG, NP>;
+  constexpr int ST = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sb = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);  // x: [ST][NP][BN][64]
+  unsigned char* sa = sb + ST * NP * C::B_BYTES;                               // q: [ST][BM][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sa + ST * C::A_BYTES);
+  uint64_t* empty = full + ST;
+
+  const int r0 = blockIdx.x * BN, ch0 = blockIdx.y * C::BM, split = blockIdx.z;
+  const int steps = K / KSTEP;
+  const int kb0 = int(long(split) * steps / splits);
+  const int n_it = int(long(split + 1) * steps / splits) - kb0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4 * NWG);  // one arrival per consumer warp
     }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NWG) {
+    // ================= producer warp (of a warpgroup when NWG = 2) =================
+    if constexpr (NWG == 2) reg_dealloc<24>();
+    if (warp > 4 * NWG || lane != 0) return;
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % ST, k = (kb0 + it) * KSTEP;
+      mbar_wait(&empty[st], ((it / ST) & 1) ^ 1);
+      mbar_arrive_expect_tx(&full[st], C::STAGE_BYTES);
+      tma_load_3d(sa + st * C::A_BYTES, &tq, &full[st], k, ch0, 0);
 #pragma unroll
-    for (int u = 0; u < INFLIGHT; ++u) {
-      if (kb + u >= kb1) break;
-      uint32_t b[8];
-      int8_to_bf16x2(wq[u], b);
-      const int k = (kb + u) * KSTEP + 16 * t4;
+      for (int p = 0; p < NP; ++p)
+        tma_load_3d(sb + (st * NP + p) * C::B_BYTES, &tx, &full[st], k, r0, p);
+    }
+    return;
+  }
+
+  // ================= consumer warpgroups =================
+  if constexpr (NWG == 2) reg_alloc<240>();
+  const int wg = warp / 4, w = warp % 4, g = lane / 4, t = lane % 4;
+  // A fragment of a 16-deep step kk, rows g and g + 8 of this warp's 16
+  // channels: a[0] (g, 2t..2t+1), a[1] (g+8, same), a[2] (g, 2t+8..2t+9),
+  // a[3] (g+8, same).  Row r's 16-byte chunk c sits at chunk c ^ ((r >> 1) & 3).
+  const int ra = 64 * wg + 16 * w + g;
+  const uint32_t sel = (t & 1) ? 0x7632u : 0x5410u;  // the halves (byte pairs) of thread t
+  auto load_frags = [&](int st, uint32_t (&fa)[4][4]) {
+    const unsigned char* at = sa + st * C::A_BYTES;
 #pragma unroll
-      for (int rf = 0; rf < MAX_RF; ++rf) {
-        if (rf >= RF) break;
-        const int r0 = rf * 16 + g, r1 = r0 + 8;
-        uint32_t a0[NP][8], a1[NP][8];
-        load_row<T, NP>(x + size_t(r0) * K + k, r0 < M, a0);
-        load_row<T, NP>(x + size_t(r1) * K + k, r1 < M, a1);
+    for (int h = 0; h < 2; ++h) {
+      const int row = ra + 8 * h, sw = (row >> 1) & 3;
+      const unsigned char* rp = at + row * KSTEP + 4 * (t >> 1);
 #pragma unroll
-        for (int p = NP - 1; p >= 0; --p)  // smallest part first
-#pragma unroll
-          for (int st = 0; st < 4; ++st)
-            mma16816(acc[rf], a0[p][2 * st], a1[p][2 * st], a0[p][2 * st + 1], a1[p][2 * st + 1],
-                     b[2 * st], b[2 * st + 1]);
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t lo = *reinterpret_cast<const uint32_t*>(rp + ((kk ^ sw) << 4));
+        const uint32_t hi = *reinterpret_cast<const uint32_t*>(rp + ((kk ^ sw) << 4) + 8);
+        i8x4_to_bf16x2(__byte_perm(lo, hi, sel), fa[kk][h], fa[kk][2 + h]);
       }
     }
-  }
-  // c0, c1: row g, columns 2 t4, 2 t4 + 1; c2, c3: row g + 8
-  const int c = n0 + 2 * t4;
+  };
+
+  float acc[BN / 2];
 #pragma unroll
-  for (int rf = 0; rf < MAX_RF; ++rf) {
-    if (rf >= RF) break;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  uint32_t fa[2][4][4];
+
+  // one stage: its products from fragments fa[CUR], the next stage's
+  // fragments expanded while they run
+  auto step = [&](auto cur, int it) {
+    constexpr int CUR = decltype(cur)::value;
+    const int st = it % ST;
+    const unsigned char* bx = sb + st * NP * C::B_BYTES;
+    wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rf * 16 + g + (i >> 1) * 8, cc = c + (i & 1);
-      if (r >= M || cc >= N) continue;
-      if (splits == 1) {
-        float sc;
-        if constexpr (std::is_same<T, __nv_bfloat16>::value) sc = __bfloat162float(s[cc]); else sc = s[cc];
-        const float v = acc[rf][i] * sc;
-        if constexpr (std::is_same<T, __nv_bfloat16>::value) out[size_t(r) * N + cc] = __float2bfloat16(v);
-        else out[size_t(r) * N + cc] = v;
-      } else {
-        part[(size_t(split) * M + r) * N + cc] = acc[rf][i];
-      }
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int p = NP - 1; p >= 0; --p)  // smallest part first
+        wgmma_rs_k<BN>(acc, fa[CUR][kk], desc_k(bx + p * C::B_BYTES + kk * 32), 1);
+    wgmma_commit();
+    if (it + 1 < n_it) {
+      const int nx = (it + 1) % ST;
+      mbar_wait(&full[nx], ((it + 1) / ST) & 1);
+      load_frags(nx, fa[CUR ^ 1]);
     }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(fa[CUR]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+
+  mbar_wait(&full[0], 0);
+  load_frags(0, fa[0]);
+  for (int it = 0; it < n_it; it += 2) {
+    step(std::integral_constant<int, 0>(), it);
+    if (it + 1 < n_it) step(std::integral_constant<int, 1>(), it + 1);
   }
+
+  // acc[4 j + e]: channel 16 w + g + 8 (e >> 1) of this warpgroup's 64, x row 8 j + 2 t + (e & 1)
+  const int c0 = ch0 + ra;
+  float sc[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) sc[h] = c0 + 8 * h < N ? to_f32(s[c0 + 8 * h]) : 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 8 * j + 2 * t + (e & 1), c = c0 + 8 * (e >> 1);
+      if (r >= M || c >= N) continue;
+      if (splits == 1) out[size_t(r) * N + c] = from_f32<T>(acc[4 * j + e] * sc[e >> 1]);
+      else part[(size_t(split) * M + r) * N + c] = acc[4 * j + e];
+    }
 }
 
 // out = (sum of the splits' partials, in split order) * s
@@ -176,38 +218,99 @@ template <typename T>
 __global__ void __launch_bounds__(256)
     reduce_kernel(const float* __restrict__ part, const T* __restrict__ s, T* __restrict__ out,
                   int M, int N, int splits) {
-  const int e = blockIdx.x * 256 + threadIdx.x;
-  if (e >= M * N) return;
+  const long e = long(blockIdx.x) * 256 + threadIdx.x;
+  if (e >= long(M) * N) return;
   float v = 0.f;
   for (int i = 0; i < splits; ++i) v += part[size_t(i) * M * N + e];
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    out[e] = __float2bfloat16(v * __bfloat162float(s[e % N]));
-  else
-    out[e] = v * s[e % N];
+  out[e] = from_f32<T>(v * to_f32(s[e % N]));
+}
+
+// fp32 x [n] -> bf16 parts xs [3][n]: hi = bf16(x), mid = bf16(x - hi),
+// lo = bf16(x - hi - mid), four elements a thread
+__global__ void __launch_bounds__(256)
+    split_kernel(const float4* __restrict__ x, bf16* __restrict__ xs, long n) {
+  const long i = (long(blockIdx.x) * 256 + threadIdx.x) * 4;
+  if (i >= n) return;
+  const float4 v = x[i / 4];
+  float r[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    __nv_bfloat162 b[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      b[e] = __floats2bfloat162_rn(r[2 * e], r[2 * e + 1]);
+      r[2 * e] -= __low2float(b[e]);
+      r[2 * e + 1] -= __high2float(b[e]);
+    }
+    *reinterpret_cast<uint2*>(xs + p * n + i) = *reinterpret_cast<const uint2*>(b);
+  }
+}
+
+template <typename T, int BN, int NWG>
+cudaError_t launch(const void* x, const void* q, const void* s, void* out, void* part, void* xs,
+                   int M, int N, int K, int splits, cudaStream_t stream) {
+  constexpr bool B16 = std::is_same<T, bf16>::value;
+  constexpr int NP = B16 ? 1 : 3;
+  using C = Cfg<BN, NWG, NP>;
+  const void* xb = x;
+  if constexpr (!B16) {
+    const long n = long(M) * K;
+    split_kernel<<<unsigned((n / 4 + 255) / 256), 256, 0, stream>>>(
+        static_cast<const float4*>(x), static_cast<bf16*>(xs), n);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    xb = xs;
+  }
+  CUtensorMap tq, tx;
+  if (!make_map_rows(&tq, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 1, N, K, C::BM, KSTEP,
+                     CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !make_map_rows(&tx, xb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, NP, M, K, BN, KSTEP,
+                     CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(  // once per instance
+      qm_kernel<T, BN, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((M + BN - 1) / BN, (N + C::BM - 1) / C::BM, splits);
+  qm_kernel<T, BN, NWG><<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tx, static_cast<const T*>(s), static_cast<T*>(out), static_cast<float*>(part), M, N, K,
+      splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  reduce_kernel<T><<<unsigned((long(M) * N + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<const T*>(s), static_cast<T*>(out), M, N,
+      splits);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* q, const void* s, void* out, void* part, int M,
-                   int N, int K, int splits, cudaStream_t stream) {
-  const dim3 grid((N + WARPS * 8 - 1) / (WARPS * 8), splits);
-  quant_matmul_kernel<T><<<grid, WARPS * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(q), static_cast<const T*>(s),
-      static_cast<T*>(out), static_cast<float*>(part), M, N, K, splits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  reduce_kernel<T><<<(M * N + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<const T*>(s), static_cast<T*>(out), M, N, splits);
-  return cudaGetLastError();
+cudaError_t launch_rows(int rows, const void* x, const void* q, const void* s, void* out,
+                        void* part, void* xs, int M, int N, int K, int splits,
+                        cudaStream_t stream) {
+  switch (rows) {
+    case 8: return launch<T, 8, 1>(x, q, s, out, part, xs, M, N, K, splits, stream);
+    case 16: return launch<T, 16, 1>(x, q, s, out, part, xs, M, N, K, splits, stream);
+    case 32: return launch<T, 32, 1>(x, q, s, out, part, xs, M, N, K, splits, stream);
+    case 64: return launch<T, 64, 1>(x, q, s, out, part, xs, M, N, K, splits, stream);
+    case 128: return launch<T, 128, 2>(x, q, s, out, part, xs, M, N, K, splits, stream);
+    case 192: return launch<T, 192, 2>(x, q, s, out, part, xs, M, N, K, splits, stream);
+    case 256: return launch<T, 256, 2>(x, q, s, out, part, xs, M, N, K, splits, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-extern "C" int dbx_quant_matmul(int bf16, const void* x, const void* q, const void* s, void* out,
-                                void* part, int M, int N, int K, int splits, void* stream) {
-  if (M < 1 || M > MAX_RF * 16 || N < 1 || K < KSTEP || K % KSTEP || splits < 1 ||
-      splits > K / KSTEP || (splits > 1 && part == nullptr))
+// rows: x rows a block (8, 16, 32, 64 on one consumer warpgroup of 64
+// channels; 128, 192, 256 on two of 128); part: fp32 [splits, M, N] when
+// splits > 1; xs: bf16 [3, M, K] scratch for fp32 x.
+extern "C" int dbx_quant_matmul(int bf16_x, const void* x, const void* q, const void* s,
+                                void* out, void* part, void* xs, int M, int N, int K, int rows,
+                                int splits, void* stream) {
+  if (M < 1 || N < 1 || K < KSTEP || K % KSTEP || splits < 1 || splits > K / KSTEP ||
+      (splits > 1 && part == nullptr) || (!bf16_x && xs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(bf16 ? launch<__nv_bfloat16>(x, q, s, out, part, M, N, K, splits, st)
-                               : launch<float>(x, q, s, out, part, M, N, K, splits, st));
+  return static_cast<int>(
+      bf16_x ? launch_rows<bf16>(rows, x, q, s, out, part, xs, M, N, K, splits, st)
+             : launch_rows<float>(rows, x, q, s, out, part, xs, M, N, K, splits, st));
 }

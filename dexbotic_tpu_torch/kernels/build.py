@@ -52,8 +52,9 @@ _SIGNATURES = {
     # dv, q~ (scratch), delta (scratch), cls (scratch), B, Sq, Skv, Hq, Hkv, D,
     # scale, dout's element strides (b, s, h), stream
     "dbx_flash_bwd": [_P] * 17 + [_I] * 6 + [_F] + [_L] * 3 + [_P],
-    # bf16?, x, q, s, out, part, M, N, K, splits, stream
-    "dbx_quant_matmul": [_I] + [_P] * 5 + [_I] * 4 + [_P],
+    # bf16?, x, q, s, out, part (fp32 partials), xs (bf16 parts of fp32 x),
+    # M, N, K, rows (x rows a block), splits, stream
+    "dbx_quant_matmul": [_I] + [_P] * 6 + [_I] * 5 + [_P],
 }
 
 

@@ -443,30 +443,80 @@ def _plain_int8():
         qm.KERNEL_DISPATCH = True
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("M,K,N", [(2, 4096, 768), (35, 256, 200), (64, 1024, 4096), (1, 64, 8),
-                                   (16, 768, 768)])
-def test_quant_matmul_kernel_matches_plain(cuda, dtype, M, K, N):
-    g = torch.Generator(device=cuda).manual_seed(4)
+def _quant_case(cuda, dtype, M, K, N, seed=4):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     q, s = quantize_weight(torch.randn(N, K, generator=g, device=cuda) * 0.05)
     s = s[:, 0].to(dtype)
     x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
-    n0 = qm.quant_matmul.launches
-    out = qm.quant_matmul(x, q, s)
-    torch.cuda.synchronize()
-    assert qm.quant_matmul.launches == n0 + 1 and out.dtype == dtype and out.shape == (M, N)
-    ref_dtype = torch.float64 if dtype == torch.float32 else torch.float32
+    return x, q, s
+
+
+def _check_quant(out, x, q, s):
+    """The bf16 rule, against fp64 for fp32 activations."""
+    ref_dtype = torch.float64 if x.dtype == torch.float32 else torch.float32
     ref = qm.quant_matmul_ref(x.to(ref_dtype), q, s.to(ref_dtype))
     plain = qm.quant_matmul_ref(x, q, s)
     bound = 2 * (plain.to(ref_dtype) - ref).abs().max().item() + 1e-3
+    assert out.dtype == x.dtype and out.shape == ref.shape
     assert (out.to(ref_dtype) - ref).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", [(2, 4096, 768), (35, 256, 200), (64, 1024, 4096), (1, 64, 8),
+                                   (16, 768, 768), (65, 256, 200)])
+def test_quant_matmul_kernel_matches_plain(cuda, dtype, M, K, N):
+    x, q, s = _quant_case(cuda, dtype, M, K, N)
+    n0 = qm.quant_matmul.launches
+    out = qm.quant_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert qm.quant_matmul.launches == n0 + 1
+    _check_quant(out, x, q, s)
+
+
+@pytest.mark.parametrize("dtype,M,K,N", [
+    (torch.float32, 577, 1024, 1024),  # CLIP-L/336's rows
+    (torch.float32, 577, 1024, 1000),  # ragged N
+    (torch.float32, 576, 4096, 4096),  # the projector's
+    (torch.bfloat16, 832, 4096, 4096),  # the LLaMA prefill's
+    (torch.bfloat16, 1664, 4096, 1000)])  # batch_size=2's, ragged N
+def test_quant_matmul_kernel_matches_plain_at_prefill_rows(cuda, dtype, M, K, N):
+    x, q, s = _quant_case(cuda, dtype, M, K, N)
+    out = qm.quant_matmul(x, q, s)
+    torch.cuda.synchronize()
+    _check_quant(out, x, q, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", qm._FEW_ROWS + qm._MANY_ROWS)
+@pytest.mark.parametrize("splits", [1, 3])
+def test_quant_matmul_every_instance(cuda, dtype, rows, splits):
+    """Each tile of the kernel, on several row tiles with a ragged last one,
+    several channel tiles with a ragged N, unsplit and split over K."""
+    M, K, N = 2 * rows - 3 if rows > 8 else 5, 512, 200
+    x, q, s = _quant_case(cuda, dtype, M, K, N, seed=rows + splits)
+    ch = 64 if rows in qm._FEW_ROWS else 128
+    grid = (-(-M // rows), -(-N // ch), splits)
+    out = qm._launch(x, q, s, qm.Plan(rows, ch, splits, grid))
+    torch.cuda.synchronize()
+    _check_quant(out, x, q, s)
+
+
+@pytest.mark.parametrize("dtype,M,K,N", [(torch.bfloat16, 2, 4096, 768),
+                                         (torch.float32, 577, 1024, 1024),
+                                         (torch.bfloat16, 832, 4096, 4096)])
+def test_quant_matmul_kernel_is_deterministic(cuda, dtype, M, K, N):
+    """Split (ordered second pass) and unsplit plans repeat their output bit for bit."""
+    x, q, s = _quant_case(cuda, dtype, M, K, N)
+    a, b = qm.quant_matmul(x, q, s), qm.quant_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_quant_matmul_kernel_refuses_what_it_does_not_serve(cuda):
     q = torch.zeros(8, 64, dtype=torch.int8, device=cuda)
     s = torch.ones(8, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError):  # more than 64 rows
-        qm.quant_matmul(torch.zeros(65, 64, dtype=torch.bfloat16, device=cuda), q, s)
+    with pytest.raises(ValueError):  # more rows than the dispatch rule gives K4
+        qm.quant_matmul(torch.zeros(qm._MAX_M + 1, 64, dtype=torch.bfloat16, device=cuda), q, s)
     with pytest.raises(TypeError):  # scales in another dtype than x
         qm.quant_matmul(torch.zeros(4, 64, device=cuda), q, s)
 

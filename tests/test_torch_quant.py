@@ -168,17 +168,25 @@ def test_quant_linear_matches_jax(padded):
         np.testing.assert_allclose(plain, ref, atol=2e-5, rtol=0)
 
 
-def test_quant_matmul_eligibility_and_splits():
-    assert tqm.quant_matmul_eligible(1, 4096, 768) and tqm.quant_matmul_eligible(64, 11008, 4096)
-    assert not tqm.quant_matmul_eligible(65, 4096, 768)  # JAX's row limit
-    assert not tqm.quant_matmul_eligible(16, 588, 1024)  # the ViT patch embedding's K
-    assert tqm.quant_matmul_eligible(10, 256, 200)  # ragged N is masked by the kernel
-    # z_embed at N=768 streams over ~2100 warps: 16 splits of 4 k steps
-    assert tqm.k_splits(768, 4096) == 16
-    assert tqm.k_splits(11008, 4096) == 2 and tqm.k_splits(768, 256) == 1
-    for N, K in ((768, 4096), (11008, 4096), (4096, 11008), (768, 3072), (200, 64)):
-        s = tqm.k_splits(N, K)
-        assert 1 <= s <= max(1, K // 64 // 4)
+@pytest.mark.parametrize("M,K,N,eligible,splits", [
+    (1, 4096, 768, True, 16), (64, 11008, 4096, True, None),
+    (65, 4096, 768, True, None),  # past JAX's TPU guard (its _MAX_M = 64)
+    (tqm._MAX_M, 4096, 4096, True, None),  # the card's row limit ...
+    (tqm._MAX_M + 1, 4096, 4096, False, None),  # ... and one row past it
+    (16, 588, 1024, False, None),  # the ViT patch embedding's K
+    (10, 256, 200, True, 1),  # ragged N is masked by the kernel
+    (2, 4096, 768, True, 16),  # z_embed at N=768: 16 splits of 4 k steps fill the card
+    (64, 4096, 11008, True, 2), (10, 256, 768, True, 1), (10, 3072, 768, True, None),
+    (5, 64, 200, True, 1)])
+def test_quant_matmul_eligibility_and_splits(M, K, N, eligible, splits):
+    """The dispatch rule is one of shape: 1.._MAX_M rows and K a multiple of
+    64; the plan's K splits stay within 4 k steps a split."""
+    assert tqm.quant_matmul_eligible(M, K, N) == eligible
+    if eligible:
+        p = tqm.plan(M, K, N)
+        assert 1 <= p.splits <= max(1, K // 64 // 4)
+        if splits is not None:
+            assert p.splits == splits
 
 
 def test_w8a8_matches_jax_and_dispatches_at_the_row_threshold():
