@@ -15,7 +15,9 @@ Phases, any failure exits non-zero without a result line:
      training rows (phase 8: 4 x 867, prefix, state token and actions in
      one bidirectional-prefix call);
   4. K2 (fused DiT sampler) against its plain version at DiT-B width, with
-     bf16 weights, then (4b) with int8 block weights;
+     bf16 weights, then (4b) with int8 block weights: B=1, 2 and 8 (the
+     8-frame micro-batch, 16 rows with CFG), DDIM-10 and DPM-5, CFG 1.5,
+     with the plan's N tiles, items and partial MB of every product;
   4c. K4 (int8-weight matmul) against its plain version (the dequantize
      formulation), bf16 and fp32 activations, at the served shapes (z_embed,
      t_mlp), LLaMA-7B's at 1-64 rows and an int8 request's prefill products
@@ -23,13 +25,16 @@ Phases, any failure exits non-zero without a result line:
      1664); two calls must agree bit for bit, and where the dispatch rule
      gives K4 the shape it must not be slower than the plain version;
   5. the serving slice: CogACT-7B (LLaMA-2-7B + CLIP-L/336 + DiT-B, seeded
-     random weights, bf16) served over HTTP by the port's CogActServer, with
-     both kernels' launch counts read around the served requests, then the
-     same frame through the plain path (kernels off) for a cosine check;
+     random weights, bf16) served over HTTP by the port's CogActServer:
+     single frames, a batch_size=2 request and an 8-frame one (one K2 launch
+     for its 16 sampler rows), with both kernels' launch counts read around
+     the served requests, then the same frame, and the 8-frame batch,
+     through the plain path (kernels off) for a cosine check, and the device
+     path by part at 1 and 8 frames;
   5b. the same model quantized (inference_quantize="w8a8": weight-only int8,
      int8 activations from 2048 rows) served over HTTP: single frames, a
-     batch_size=2 request and an 8-frame one, with the K1, K2 and K4 launch
-     counts read around them; one more single frame, whose K4 launches must
+     batch_size=2 request and an 8-frame one (one K2 launch), with the K1,
+     K2 and K4 launch counts read around them; one more single frame, whose K4 launches must
      equal the quantized products the dispatch rule gives K4, counted from
      the model (and seen by forward hooks); then the kernel-vs-plain cosine
      on the int8 weights, the int8 chunk's cosine to phase 5's bf16 chunk
@@ -84,12 +89,14 @@ function must move (each input read once, each output written once) over
 TFLOP/s bf16; 495 TF32 for K4's fp32 activations); the library time is one
 PyTorch call computing the same function (SDPA for K1 and K3, a bf16 matmul
 on the dequantized weight for K4), timed here and used nowhere in the port.
-``device_ms`` (K1, K3, K4, and K2 at its served call) is the kernels' own
+``device_ms`` (K1, K3, K4, and K2 at B=1, 2 and 8) is the kernels' own
 device time per call from ``torch.profiler`` (CUDA events of calls queued
 behind device work where three profiling sessions see none of its kernels),
 beside ``ms`` (CUDA events around the Python call).  Phase 2 lists the
-registers and spills of every K1, K3 and K4 instance from nvcc's
-``-Xptxas -v``; a spill fails.
+registers and spills of every K1, K3, K4 and K2 instance from nvcc's
+``-Xptxas -v`` (a spill fails) and the HGMMA instructions of every K2
+instance from the library's SASS (``cuobjdump``; a bf16 instance without
+one fails).
 The last two lines printed are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.
 """
@@ -563,9 +570,12 @@ def _dit_head(seed: int):
 def phase_dit(failures: list, int8: bool = False) -> dict:
     """K2 against its plain version: bf16 weights (phase 4) or int8 block
     weights (4b: the bf16 head quantized as serving quantizes it; its fp32
-    reference holds the same int8 values with fp32 scales)."""
+    reference holds the same int8 values with fp32 scales), at B=1 (the
+    served call), B=2 and B=8 (CogACT's 8-frame micro-batch: 16 rows with
+    CFG), DDIM-10 and DPM-5, CFG 1.5; the plan's items and partial MB of
+    every product are printed for each row count."""
     from dexbotic_tpu_torch.ops.diffusion import DiffusionSchedule
-    from dexbotic_tpu_torch.ops.dit_fused import dit_sample_ref, fused_dit_sample
+    from dexbotic_tpu_torch.ops.dit_fused import dit_sample_ref, fused_dit_sample, plan
     from dexbotic_tpu_torch.ops.quant import quantize_model_
 
     print("phase 4b: K2 dit_sample vs plain (DiT-B, int8 block weights)" if int8 else
@@ -579,8 +589,10 @@ def phase_dit(failures: list, int8: bool = False) -> dict:
             if p.is_floating_point():
                 p.data = p.data.float()
     sched = DiffusionSchedule.create(100)
-    worst, main = 0.0, None
-    for B, sampler, steps in ((1, "ddim", 10), (2, "ddim", 10), (1, "dpm", 5)):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst, rows = 0.0, {}
+    for B, sampler, steps in ((1, "ddim", 10), (2, "ddim", 10), (8, "ddim", 10), (1, "dpm", 5),
+                              (2, "dpm", 5), (8, "dpm", 5)):
         z = torch.randn(B, 1, cfg.token_size, generator=g, device=dev)
         noise = torch.randn(B, cfg.chunk_size, cfg.in_channels, generator=g, device=dev)
         kw = dict(steps=steps, cfg_scale=1.5, sampler=sampler)
@@ -595,23 +607,37 @@ def phase_dit(failures: list, int8: bool = False) -> dict:
         ms = median_ms(lambda: fused_dit_sample(head, cfg, z, noise, sched, **kw))
         bound_ms, bound_by = dit_bound(head, cfg, B, steps, 1.5)
         check_bound(f"{sampler}-{steps} CFG 1.5 B={B}", err, plain_err, failures)
-        alone = ""
-        if main is None:  # the served call: the kernel's own device time too
+        alone, key = "", f"b{B}" if sampler == "ddim" else None
+        if key:  # DDIM-10, the served sampler: the kernel's own device time and its plan
             dev_ms = device_ms(lambda: fused_dit_sample(head, cfg, z, noise, sched, **kw),
                                K2_KERNELS)
             alone = f" (alone {dev_ms:.4f} ms)"
+            pl = plan(2 * B, cfg.chunk_size, cfg.hidden_size, cfg.mlp_dim, sms)
+            desc = pl.describe(cfg.hidden_size, cfg.mlp_dim)
+            print(f"    plan at {2 * B} rows: N tiles {pl.nt} x {pl.bn} rows; " + "; ".join(
+                f"{name} {d['chunks']} chunks, {d['items']} items, {d['partial_mb']:.2f} MB of "
+                f"partials" for name, d in desc.items() if isinstance(d, dict))
+                + f" (a layer: {sum(pl.partial_bytes(cfg.hidden_size, cfg.mlp_dim).values()) / 1e6:.2f}"
+                f" MB; its weights {dit_layer_bytes(head) / 1e6:.2f} MB)")
+            rows[key] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "plan": desc}
         print(f"    |ref| max {ref.abs().max().item():.4g}  kernel {ms:.4f} ms{alone}  "
               f"plain bf16 {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})")
         worst = max(worst, err)
-        if main is None:
-            main = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by}
-    return {"max_abs_err": worst, **main, "library_ms": None}
+    main = {k: v for k, v in rows["b1"].items() if k != "plan"}
+    return {"max_abs_err": worst, **main, "library_ms": None, "b1_plan": rows["b1"]["plan"],
+            "b2": rows["b2"], "b8": rows["b8"]}
+
+
+def dit_layer_bytes(head) -> int:
+    """One DiT block's weight bytes (int8 q and scales, or the dense weights)."""
+    return sum(p.numel() * p.element_size() for n, p in head.blocks[0].named_parameters()
+               if not n.endswith("bias"))
 
 
 # K4's cases: (layer, M, K, N).  Served: z_embed at every request (M = 2 rows
-# with CFG at B=1; 16 on the plain sampler path of an 8-frame micro-batch) and
-# t_mlp when K2's tables are built (M = 10 steps) or on that plain path (16).
+# with CFG at B=1; 16 at an 8-frame micro-batch) and t_mlp when K2's tables
+# are built (M = 10 steps) or on the plain sampler path (16 rows at B=8).
 # LLaMA-7B's widths at few rows.  Prefill: an int8 request's products of
 # more rows, CLIP-L/336 (577 tokens, fp32 in the model), the mlp2x_gelu
 # projector (576, fp32) and LLaMA-2-7B's prefill (the 832-token bucket and
@@ -801,17 +827,17 @@ def cogact_parts_ms(model, cfg, ids, valid, imgs, noise) -> dict:
     CUDA-synchronised median of 10 (``wall_ms``): the ViT and projector
     (``encode_images``), the LLM prefill on the spliced embeddings, the
     action sampler on the cognition feature (K2 where
-    ``cogact_inference_action`` takes it, else the plain loop), and the
-    whole call."""
+    ``cogact_inference_action`` takes it by K2's shape rule, else the plain
+    loop), and the whole call; at the batch of ``ids`` (1 or 8 frames)."""
     from dexbotic_tpu_torch.models.cogact import (cogact_inference_action, cognition_feature,
-                                                  schedule)
+                                                  k2_uses, schedule)
     from dexbotic_tpu_torch.models.vlm import encode_images, splice_image_embeds, vlm_forward
     from dexbotic_tpu_torch.ops.dit_fused import dit_sample_ref, fused_dit_sample
     from script.profile_pi0_torch import wall_ms
 
     embeds = splice_image_embeds(model.vlm, cfg.vlm, ids, encode_images(model.vlm, cfg.vlm, imgs))
     z = cognition_feature(model, cfg, ids, valid, imgs)[0][:, None, :].float()
-    fused = cfg.fused_sampler and z.shape[0] * (2 if cfg.cfg_scale > 1.0 else 1) <= 4
+    fused = cfg.fused_sampler and k2_uses(cfg, z.shape[0], cfg.cfg_scale)
     sample = fused_dit_sample if fused else dit_sample_ref
     kw = dict(steps=cfg.ddim_steps, cfg_scale=cfg.cfg_scale, sampler=cfg.sampler)
     return {
@@ -826,12 +852,14 @@ def cogact_parts_ms(model, cfg, ids, valid, imgs, noise) -> dict:
 
 def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) -> dict:
     """Serve CogACT-7B over HTTP with the launch counts read around the
-    requests, then hold the kernel path against the plain path on one frame.
+    requests, then hold the kernel path against the plain path on one frame
+    and on an 8-frame batch.
 
-    Phase 5 (bf16): six single frames and a batch_size=2 request.  Phase 5b
-    (``quantize``): the same seeded model quantized, six single frames, a
-    batch_size=2 request and an 8-frame one; ``bf16`` is phase 5's result, for
-    the int8 chunk's cosine to the bf16 chunk and the latency beside it."""
+    Phase 5 (bf16): six single frames, a batch_size=2 request and an 8-frame
+    one, which K2 must serve in one launch (16 rows with CFG).  Phase 5b
+    (``quantize``): the same seeded model quantized, the same requests; ``bf16``
+    is phase 5's result, for the int8 chunk's cosine to the bf16 chunk and
+    the latency and parts beside it."""
     from dexbotic_tpu_torch.data import fast_image
     from dexbotic_tpu_torch.exp import base_exp
     from dexbotic_tpu_torch.exp.cogact_exp import CogActExp, CogActModelConfig
@@ -874,8 +902,10 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
             singles.append(out)
             latencies.append(dt)
         batch, batch_dt = _post(port, f"{prompt};{prompt}", [png, png], batch_size=2)
-        if quantize:  # 8 x 832 = 6656 rows: W8A8 in the prefill, the plain sampler
-            batch8, batch8_dt = _post(port, ";".join([prompt] * 8), [png] * 8, batch_size=8)
+        # 8 x 832 = 6656 rows (int8: W8A8 in the prefill); 16 sampler rows: K2, once
+        k2_before = fused_dit_sample.launches
+        batch8, batch8_dt = _post(port, ";".join([prompt] * 8), [png] * 8, batch_size=8)
+        k2_batch8 = fused_dit_sample.launches - k2_before
         launches = {name: fn.launches for name, fn in kernels.items()}
         plain_calls = attention.plain_cuda_calls
         if quantize:  # one more single frame: K4's launches against the rule's products
@@ -894,17 +924,19 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
             failures.append(f"single response shape {out.shape} / finite {np.isfinite(out).all()}")
     if batch.shape != (2, cfg.chunk_size, cfg.action_dim) or not np.isfinite(batch).all():
         failures.append(f"batch response shape {batch.shape}")
-    if quantize and (batch8.shape != (8, cfg.chunk_size, cfg.action_dim)
-                     or not np.isfinite(batch8).all()):
+    if batch8.shape != (8, cfg.chunk_size, cfg.action_dim) or not np.isfinite(batch8).all():
         failures.append(f"8-frame response shape {batch8.shape}")
+    print(f"  K2 launches in the 8-frame request: {k2_batch8}")
+    if k2_batch8 != 1:
+        failures.append(f"the 8-frame request launched K2 {k2_batch8} times, not once")
     for name, n in launches.items():
         if n <= 0:
             failures.append(f"kernel {name} was not launched on the served path")
     n_tok = len(_cogact_prompt_ids(exp, cfg, tokenizer, prompt))
     p50 = statistics.median(latencies[1:]) * 1e3
     print(f"  prompt {n_tok} tokens; request latency ms: first {latencies[0] * 1e3:.1f}, "
-          f"p50 of the rest {p50:.1f}, batch_size=2 {batch_dt * 1e3:.1f}"
-          + (f", 8 frames {batch8_dt * 1e3:.1f}" if quantize else ""))
+          f"p50 of the rest {p50:.1f}, batch_size=2 {batch_dt * 1e3:.1f}, "
+          f"8 frames {batch8_dt * 1e3:.1f}")
 
     # the same frame through the kernel path and the plain path, same noise
     L = -(-n_tok // 64) * 64
@@ -927,9 +959,25 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
           f"|chunk| max {b.abs().max().item():.4g}")
     if not cos >= 0.99:
         failures.append(f"slice cosine {cos} < 0.99")
+    # the 8-frame micro-batch (the same frame 8 times, fresh noise): K2 at 16 rows
+    ids8, valid8, imgs8 = (t.expand(8, *t.shape[1:]).contiguous() for t in (ids, valid, imgs))
+    noise8 = torch.randn((8, cfg.chunk_size, cfg.action_dim),
+                         generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    n0 = fused_dit_sample.launches
+    a8 = cogact_inference_action(model, cfg, ids8, valid8, imgs8, noise=noise8).flatten()
+    k2_b8 = fused_dit_sample.launches - n0
+    with plain_int8():
+        b8 = cogact_inference_action(model, cfg_plain, ids8, valid8, imgs8, noise=noise8).flatten()
+    cos8 = _cosine(a8, b8)
+    print(f"  8 frames, kernel path (K2 launches: {k2_b8}) vs plain path: max abs diff "
+          f"{(a8 - b8).abs().max().item():.5g}, cosine {cos8:.6f}")
+    if k2_b8 != 1 or not cos8 >= 0.99:
+        failures.append(f"8-frame kernel path: {k2_b8} K2 launches, cosine {cos8} (want 1, >= 0.99)")
+    del b8
     parts = cogact_parts_ms(model, cfg, ids, valid, imgs, noise)
+    parts8 = cogact_parts_ms(model, cfg, ids8, valid8, imgs8, noise8)
     result = {"launches": launches, "chunk": a, "p50_ms": p50, "weight_bytes": weight_bytes,
-              "parts": parts}
+              "parts": parts, "parts_b8": parts8, "cos_b8": cos8, "k2_b8_request": k2_batch8}
     if quantize:
         want = k4_products(model, cfg, L)
         print(f"  K4 launches in one single-frame request: {k4_single}; the rule's products, "
@@ -945,13 +993,16 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
         print(f"  int8 vs bf16 (phase 5, same seed, frame and noise): weights "
               f"{weight_bytes / 2**30:.2f} vs {bf16['weight_bytes'] / 2**30:.2f} GiB; request p50 "
               f"{p50:.1f} vs {bf16['p50_ms']:.1f} ms; chunk cosine {cos_bf16:.6f}")
-        print("  device path by part, int8 vs bf16 (ms, CUDA-synchronised): "
-              + "; ".join(f"{k[:-3]} {v:.2f} vs {bf16['parts'][k]:.2f}" for k, v in parts.items()))
+        for label, mine, theirs in (("", parts, bf16["parts"]), (", 8 frames", parts8,
+                                                                 bf16["parts_b8"])):
+            print(f"  device path by part{label}, int8 vs bf16 (ms, CUDA-synchronised): "
+                  + "; ".join(f"{k[:-3]} {v:.2f} vs {theirs[k]:.2f}" for k, v in mine.items()))
         if not cos_bf16 >= 0.99:
             failures.append(f"int8 vs bf16 chunk cosine {cos_bf16} < 0.99")
     else:
-        print("  device path by part (ms, CUDA-synchronised): "
-              + "; ".join(f"{k[:-3]} {v:.2f}" for k, v in parts.items()))
+        for label, pts in (("", parts), (", 8 frames", parts8)):
+            print(f"  device path by part{label} (ms, CUDA-synchronised): "
+                  + "; ".join(f"{k[:-3]} {v:.2f}" for k, v in pts.items()))
     return result
 
 
@@ -1436,13 +1487,14 @@ K4_INSTANCES = [(t, r, 1 if r <= 64 else 2) for t in ("bf16", "f32")
                 for r in (8, 16, 32, 64, 128, 192, 256)]
 
 
-def build_report(log: str, failures: list) -> tuple[dict, dict, dict]:
+def build_report(log: str, failures: list) -> tuple[dict, dict, dict, dict]:
     """Registers and spills of every K1 instance ("flash_fwd_kernel<D, NWG,
     BK>"), every K3 instance ("dkv_kernel<D, NWG, stages, split>",
-    "dq_kernel<D, NWG, stages>") and every K4 instance ("qm_kernel<x dtype,
-    rows, NWG>") from nvcc's ``-Xptxas -v`` output, as (K1's, K3's, K4's); a
-    spilling instance fails, and so do a kernel with no instance at head_dim
-    256 and a missing K4 instance."""
+    "dq_kernel<D, NWG, stages>"), every K4 instance ("qm_kernel<x dtype,
+    rows, NWG>") and every K2 instance ("dit_sample_kernel<weight dtype,
+    int8 blocks>") from nvcc's ``-Xptxas -v`` output, as (K1's, K3's, K4's,
+    K2's); a spilling instance fails, and so do a kernel with no instance at
+    head_dim 256 and a missing K4 or K2 instance."""
     import re
 
     report, name = {}, None
@@ -1451,6 +1503,7 @@ def build_report(log: str, failures: list) -> tuple[dict, dict, dict]:
         if m:
             k = re.search(r"(flash_fwd_kernel|dkv_kernel|dq_kernel)I((?:Li\d+E)+)E", m.group(1))
             qk = re.search(r"qm_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", m.group(1))
+            dk = re.search(r"dit_sample_kernelI(13__nv_bfloat16|f)Lb([01])E", m.group(1))
             name = None
             if k:
                 args = ", ".join(re.findall(r"Li(\d+)E", k.group(2)))
@@ -1458,6 +1511,9 @@ def build_report(log: str, failures: list) -> tuple[dict, dict, dict]:
             elif qk:
                 dt = "bf16" if qk.group(1) != "f" else "f32"
                 name = f"qm_kernel<{dt}, {qk.group(2)}, {qk.group(3)}>"
+            elif dk:
+                dt = "bf16" if dk.group(1) != "f" else "f32"
+                name = f"dit_sample_kernel<{dt}, {'int8' if dk.group(2) == '1' else 'dense'}>"
         elif name and "spill stores" in line:
             report[name] = {"spill_bytes": sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))}
         elif name and "registers" in line:
@@ -1470,13 +1526,47 @@ def build_report(log: str, failures: list) -> tuple[dict, dict, dict]:
     k1 = {n: r for n, r in report.items() if n.startswith("flash_fwd_kernel")}
     k3 = {n: r for n, r in report.items() if n.startswith(("dkv_kernel", "dq_kernel"))}
     k4 = {n: r for n, r in report.items() if n.startswith("qm_kernel")}
+    k2 = {n: r for n, r in report.items() if n.startswith("dit_sample_kernel")}
     for kernel, found in (("flash_fwd_kernel", k1), ("dkv_kernel", k3), ("dq_kernel", k3)):
         if not any(n.startswith(f"{kernel}<256,") for n in found):
             failures.append(f"nvcc's output lists no {kernel} instance at head_dim 256")
     for t, r, nwg in K4_INSTANCES:
         if f"qm_kernel<{t}, {r}, {nwg}>" not in k4:
             failures.append(f"nvcc's output lists no qm_kernel<{t}, {r}, {nwg}>")
-    return k1, k3, k4
+    for n in K2_INSTANCES:
+        if n not in k2:
+            failures.append(f"nvcc's output lists no {n}")
+    return k1, k3, k4, k2
+
+
+# K2's instances (weight dtype, int8 blocks): the bf16 ones run their
+# products on wgmma, the fp32 ones (off the served path) on FMA
+K2_INSTANCES = [f"dit_sample_kernel<{t}, {q}>" for t in ("bf16", "f32") for q in ("dense", "int8")]
+
+
+def k2_sass_report(so: str, k2: dict, failures: list) -> None:
+    """The HGMMA instructions of every K2 instance in the built library's
+    SASS (cuobjdump), into ``k2``; a bf16 instance without one fails."""
+    import re
+    import shutil
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if tool is None:
+        failures.append("no cuobjdump: K2's SASS cannot be checked for HGMMA")
+        return
+    sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True, timeout=600).stdout
+    for chunk in sass.split("Function : ")[1:]:
+        m = re.match(r"\S*dit_sample_kernelI(13__nv_bfloat16|f)Lb([01])E", chunk)
+        if m:
+            name = (f"dit_sample_kernel<{'bf16' if m.group(1) != 'f' else 'f32'}, "
+                    f"{'int8' if m.group(2) == '1' else 'dense'}>")
+            k2.setdefault(name, {})["hgmma"] = chunk.count("HGMMA")
+    for n in K2_INSTANCES:
+        hg = k2.get(n, {}).get("hgmma", 0)
+        print(f"  {n}: {hg} HGMMA instructions in its SASS")
+        if n.startswith("dit_sample_kernel<bf16") and hg == 0:
+            failures.append(f"{n}'s SASS holds no HGMMA")
 
 
 def free_memory() -> None:
@@ -1504,7 +1594,8 @@ def main() -> int:
     if not log:  # built by an earlier process: its nvcc output is beside the library
         with open(os.path.join(build.BUILD_DIR, "build.log")) as f:
             log = f.read()
-    k1_build, k3_build, k4_build = build_report(log, failures)
+    k1_build, k3_build, k4_build, k2_build = build_report(log, failures)
+    k2_sass_report(build.LIBRARY.path, k2_build, failures)
     k1 = phase_flash(failures)
     k1_d256 = phase_flash_d256(failures)
     k2 = phase_dit(failures)
@@ -1532,11 +1623,13 @@ def main() -> int:
          **k1, **k1_d256, "build": k1_build},
         {"name": "dit_sample", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/dit_sampler.cu",
          "replaces": "dexbotic_tpu/ops/dit_fused.py:58",
-         "launches": launches["dit_sample"], **k2},
+         "launches": launches["dit_sample"], "launches_8_frame_request": serve["k2_b8_request"],
+         **k2, "build": k2_build},
         {"name": "dit_sample_int8", "route": "cuda",
          "source": "dexbotic_tpu_torch/csrc/dit_sampler.cu",
          "replaces": "dexbotic_tpu/ops/dit_fused.py:58",
-         "launches": launches_q["dit_sample"], **k2q},
+         "launches": launches_q["dit_sample"], "launches_8_frame_request": serve_q["k2_b8_request"],
+         **k2q},
         {"name": "flash_bwd", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "dexbotic_tpu/ops/attention.py:565",
          "also_replaces": ["dexbotic_tpu/ops/attention.py:498", "dexbotic_tpu/ops/attention.py:400",

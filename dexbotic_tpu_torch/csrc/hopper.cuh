@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by K1 (flash_fwd.cu), K3
-// (flash_bwd.cu) and K4 (quant_matmul.cu): mbarriers, TMA tile loads into
+// (flash_bwd.cu), K4 (quant_matmul.cu) and K2 (dit_sampler.cu): mbarriers, TMA tile loads into
 // swizzled shared memory, wgmma descriptors and products, the tensor maps' host-side
 // encoding, and the classes of (64-row q tile, 64-row kv tile) pairs: dead,
 // partial or wholly visible.
@@ -95,6 +95,12 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
 // generic-proxy writes to shared memory made visible to wgmma's async proxy
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// generic-proxy writes to global memory (by this thread, or by others and
+// acquired through a barrier) ordered before this thread's later TMA reads
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // Register budget of a warpgroup from here on (all four warps execute it):
@@ -193,6 +199,47 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// K2's shapes: both operands K-major, N = its activation rows (an N tile)
+__device__ __forceinline__ void wgmma_ss_n24(float (&d)[12], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "%12, %13, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n40(float (&d)[20], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19}, "
+      "%20, %21, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n72(float (&d)[36], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35}, "
+      "%36, %37, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -263,8 +310,14 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
 
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
-  if constexpr (N == 64) wgmma_ss_n64(d, a, b, scale_d);
-  else wgmma_ss_n128(d, a, b, scale_d);
+  if constexpr (N == 24) wgmma_ss_n24(d, a, b, scale_d);
+  else if constexpr (N == 40) wgmma_ss_n40(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64(d, a, b, scale_d);
+  else if constexpr (N == 72) wgmma_ss_n72(d, a, b, scale_d);
+  else {
+    static_assert(N == 128, "no wgmma_ss instance of this N");
+    wgmma_ss_n128(d, a, b, scale_d);
+  }
 }
 
 template <int N>
@@ -279,7 +332,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 // product's depth along B's 128-byte rows, as desc_k describes it): K4's
 // int8 weights (A, expanded in registers) times the activations' rows (B).
 // Any N that is a multiple of 8 up to 256 is a wgmma shape; these are the
-// ones K4 instantiates.
+// ones K4 and K2 instantiate.
 __device__ __forceinline__ void wgmma_rs_k_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t desc_b,
                                                  int scale_d) {
   asm volatile(
@@ -410,16 +463,66 @@ __device__ __forceinline__ void wgmma_rs_k_n256(float (&d)[128], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// K2's shapes (its int8 weights expanded in registers times the activation rows)
+__device__ __forceinline__ void wgmma_rs_k_n24(float (&d)[12], const uint32_t (&a)[4], uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_k_n40(float (&d)[20], const uint32_t (&a)[4], uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_k_n72(float (&d)[36], const uint32_t (&a)[4], uint64_t desc_b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_rs_k(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
                                            int scale_d) {
   if constexpr (N == 8) wgmma_rs_k_n8(d, a, b, scale_d);
   else if constexpr (N == 16) wgmma_rs_k_n16(d, a, b, scale_d);
+  else if constexpr (N == 24) wgmma_rs_k_n24(d, a, b, scale_d);
   else if constexpr (N == 32) wgmma_rs_k_n32(d, a, b, scale_d);
+  else if constexpr (N == 40) wgmma_rs_k_n40(d, a, b, scale_d);
   else if constexpr (N == 64) wgmma_rs_k_n64(d, a, b, scale_d);
+  else if constexpr (N == 72) wgmma_rs_k_n72(d, a, b, scale_d);
   else if constexpr (N == 128) wgmma_rs_k_n128(d, a, b, scale_d);
   else if constexpr (N == 192) wgmma_rs_k_n192(d, a, b, scale_d);
-  else wgmma_rs_k_n256(d, a, b, scale_d);
+  else {
+    static_assert(N == 256, "no wgmma_rs_k instance of this N");
+    wgmma_rs_k_n256(d, a, b, scale_d);
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -46,8 +46,9 @@ _SIGNATURES = {
     "dbx_flash_tile_classes": [_P] * 6 + [_I] * 3 + [_P],
     # bf16?, int8?, coef, cond, x0, pos, xw, xb, fw, fb, wqkv, sqkv, bqkv, wo, so,
     # bo, w0, s0, b0, w1, s1, b1, out, h, hn, qkv, attn, m, x, xp, part,
-    # B, T, A, H, heads, M, depth, N, RP, cfg_pair, cfg_scale, sampler, stream
-    "dbx_dit_sample": [_I, _I] + [_P] * 29 + [_I] * 10 + [_F, _I, _P],
+    # B, T, A, H, heads, M, depth, N, RP, cfg_pair, cfg_scale, sampler, bn, nt,
+    # the k chunks of qkv, o, fc0, fc1, probe, stream
+    "dbx_dit_sample": [_I, _I] + [_P] * 29 + [_I] * 10 + [_F, _I] + [_I] * 6 + [_P, _P],
     # q, k, v, out, dout, lse, q_grp, kv_grp, kv_valid, q_seg, kv_seg, dq, dk,
     # dv, q~ (scratch), delta (scratch), cls (scratch), B, Sq, Skv, Hq, Hkv, D,
     # scale, dout's element strides (b, s, h), stream
@@ -64,6 +65,7 @@ class _Library:
         self._lib = None
         self.build_seconds = None  # wall time of the build in this process
         self.build_log = ""
+        self.path = None  # the loaded library
 
     def _sources(self) -> list[str]:
         return sorted(glob.glob(os.path.join(SRC_DIR, "*.cu"))
@@ -98,6 +100,7 @@ class _Library:
             t0 = time.perf_counter()
             self.build_log = build_library([s for s in self._sources() if s.endswith(".cu")], so)
             self.build_seconds = time.perf_counter() - t0
+        self.path = so
         return bind(so)
 
 

@@ -23,7 +23,7 @@ from dexbotic_tpu_torch.models.losses import causal_lm_loss
 from dexbotic_tpu_torch.models.vlm import VLM, VLMConfig, gather_last_hidden, init_vlm_, vlm_forward
 from dexbotic_tpu_torch.nn.transformer import lm_logits
 from dexbotic_tpu_torch.ops.diffusion import DiffusionSchedule
-from dexbotic_tpu_torch.ops.dit_fused import dit_sample_ref, fused_dit_sample
+from dexbotic_tpu_torch.ops.dit_fused import dit_sample_ref, fused_dit_sample, k2_serves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +147,14 @@ def cogact_loss(
 
 
 @torch.no_grad()
+def k2_uses(cfg: CogActConfig, B: int, cfg_scale: float) -> bool:
+    """Whether K2's shape rule takes the action head's sampling of B frames
+    (2 B rows with CFG); past it the sampler runs the plain loop."""
+    d = cfg.dit
+    return k2_serves(B * (2 if cfg_scale > 1.0 else 1), cfg.chunk_size, cfg.action_dim,
+                     d.hidden_size, d.mlp_dim, d.num_heads)
+
+
 def cogact_inference_action(
     model: CogAct,
     cfg: CogActConfig,
@@ -168,8 +176,7 @@ def cogact_inference_action(
                             dtype=torch.float32, device=cog.device)
     head, z = model.action_head, cog[:, None, :].float()
     kw = dict(steps=ddim_steps, cfg_scale=cfg_scale, sampler=cfg.sampler)
-    if (cfg.fused_sampler and B * (2 if cfg_scale > 1.0 else 1) <= 4
-            and cog.device.type == "cuda"):
+    if k2_uses(cfg, B, cfg_scale) and cfg.fused_sampler and cog.device.type == "cuda":
         return fused_dit_sample(head, cfg.dit, z, noise, schedule(cfg), **kw)
     return dit_sample_ref(head, cfg.dit, z, noise, schedule(cfg), **kw)
 

@@ -8,17 +8,26 @@ launches the kernel or raises; on a CPU tensor it runs
 :func:`dit_sample_ref`, the plain version: the samplers of
 ``ops/diffusion.py`` looped over ``dit_forward``.
 
-The kernel takes the block weights stacked per layer as [depth, in, out], or,
-when every block layer is quantized (``nn/core.QuantLinear``), as int8
-[depth, out, in] with [depth, out] scales in the head's dtype, dequantized in
-the kernel as the JAX kernel does (``w.astype(cdtype) * s.astype(cdtype)``).
-The wrapper builds those buffers, the scheduler table and the timestep MLP's
-output once per head and caches them on it (rebuilt when a parameter they
-come from is replaced or changed in place).  ``t_mlp`` and ``z_embed`` run as
-the head's own layers: through K4 (``ops/quant_matmul.py``) when quantized.
+The kernel takes the block weights stacked per layer K-major, [depth, out,
+in], in the head's dtype or, when every block layer is quantized
+(``nn/core.QuantLinear``), as int8 with [depth, out] scales in the head's
+dtype, dequantized in the kernel as the JAX kernel does
+(``w.astype(cdtype) * s.astype(cdtype)``).  The wrapper builds those
+buffers, the scheduler table and the timestep MLP's output once per head and
+caches them on it (rebuilt when a parameter they come from is replaced or
+changed in place).  ``t_mlp`` and ``z_embed`` run as the head's own layers:
+through K4 (``ops/quant_matmul.py``) when quantized.
+
+Which shapes K2 serves is one rule, :func:`k2_serves`: up to 288 padded
+tokens (16 rows of 17 at DiT-B, 272: CogACT's 8-frame micro-batch with CFG).
+:func:`plan` picks, per row count, the kernel's N tile and each product's k
+chunks (its split-K into ordered fp32 partials).
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -100,8 +109,8 @@ def _dense_weight(lin) -> torch.Tensor:
 
 
 def _stacked_weights(head: DiT) -> dict:
-    """[depth, in, out] weights in the head's dtype, or int8 [depth, out, in] with
-    [depth, out] scales ``s*`` when every block layer is quantized, and
+    """[depth, out, in] weights in the head's dtype, or int8 [depth, out, in]
+    with [depth, out] scales ``s*`` when every block layer is quantized, and
     [depth, out] fp32 biases."""
     lins = {
         "qkv": [b.attn.qkv for b in head.blocks], "o": [b.attn.o for b in head.blocks],
@@ -117,7 +126,7 @@ def _stacked_weights(head: DiT) -> dict:
                 bufs["w" + name] = torch.stack([lin.q for lin in ls]).contiguous()
                 bufs["s" + name] = torch.stack([lin.s.to(cdtype) for lin in ls]).contiguous()
             else:
-                bufs["w" + name] = torch.stack([_dense_weight(lin).t() for lin in ls]).contiguous()
+                bufs["w" + name] = torch.stack([_dense_weight(lin) for lin in ls]).contiguous()
             bufs["b" + name] = torch.stack([lin.bias.float() for lin in ls]).contiguous()
         return bufs
 
@@ -168,7 +177,142 @@ def prepare(head: DiT, cfg: DiTConfig, z: torch.Tensor, schedule: DiffusionSched
     return {"coef": coef, "cond": cond, **small, **_stacked_weights(head)}
 
 
-def _launch(head: DiT, cfg: DiTConfig, z, noise, schedule, steps, cfg_scale, sampler):
+# K2's shapes (csrc/dit_sampler.cu): N tiles of these padded token rows, at
+# most four; 128-channel items of 64-deep k steps; 25 KB of shared memory for
+# the attention and LayerNorm phases.
+BN_TILES = (24, 40, 72)
+MAX_TILES = 4
+_MAX_ITEMS = 24  # a block's items in one product (the kernel's Table)
+_CB, _K_STEP, _SCRATCH_BYTES, _AMAX = 128, 64, 25 * 1024, 16
+# a product item's own cost beside its k steps, in k steps: the wait for its
+# activations and the store of its partial plane
+_ITEM_STEPS = 2
+
+
+def k2_serves(rows: int, T: int, A: int, H: int, M: int, heads: int) -> bool:
+    """Whether K2 serves ``rows`` sample rows (2 B with CFG) of T + 1 tokens,
+    action dim A, width H, MLP width M and ``heads`` heads: at most 288
+    padded tokens, four N tiles of 72 (CogACT's 8-frame micro-batch with CFG
+    at DiT-B: 16 rows of 17), 128-aligned widths, and the attention of one
+    head in the kernel's shared memory.  Past it the sampler runs the plain
+    loop."""
+    S = T + 1
+    return (rows >= 1 and rows * S <= BN_TILES[-1] * MAX_TILES and 1 <= A <= _AMAX and S <= 32
+            and H % _CB == 0 and M % _CB == 0 and heads > 0 and H % heads == 0
+            and 3 * S * (H // heads + 1) * 4 <= _SCRATCH_BYTES and (H + 8) * 4 <= _SCRATCH_BYTES)
+
+
+def products(H: int, M: int) -> tuple:
+    """(name, N, K) of a block's four products, in the kernel's order."""
+    return (("qkv", 3 * H, H), ("o", H, H), ("fc0", M, H), ("fc1", H, M))
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """K2's work split: N tiles of ``bn`` rows (``nt`` of them) and the k
+    chunks of each product (qkv, o, fc0, fc1), whose fp32 partial planes the
+    next phase sums in chunk order."""
+
+    bn: int
+    nt: int
+    chunks: tuple
+
+    @property
+    def rp(self) -> int:
+        """Padded token rows of the activations."""
+        return self.bn * self.nt
+
+    def items(self, N: int, K: int, chunks: int, sms: int) -> list:
+        """The kernel's walk of one product: per block, its items as (chunk,
+        channel block, N tile, first k step, end k step); item
+        i = (chunk * N / 128 + channel block) * nt + tile, block b takes
+        [b * total / sms, (b + 1) * total / sms)."""
+        nb, ks = N // _CB, K // _K_STEP
+        total = chunks * nb * self.nt
+        out = []
+        for b in range(sms):
+            walk = []
+            for i in range(b * total // sms, (b + 1) * total // sms):
+                c = i // (self.nt * nb)
+                walk.append((c, (i // self.nt) % nb, i % self.nt, c * ks // chunks,
+                             (c + 1) * ks // chunks))
+            out.append(walk)
+        return out
+
+    def partial_bytes(self, H: int, M: int) -> dict:
+        """fp32 partial bytes a layer writes, per product."""
+        return {name: nc * self.rp * N * 4
+                for (name, N, _), nc in zip(products(H, M), self.chunks)}
+
+    def describe(self, H: int, M: int) -> dict:
+        """Items and partial MB per product, for the record."""
+        part = self.partial_bytes(H, M)
+        return {"rows_per_tile": self.bn, "tiles": self.nt, **{
+            name: {"chunks": nc, "items": nc * (N // _CB) * self.nt, "partial_mb": part[name] / 1e6}
+            for (name, N, _), nc in zip(products(H, M), self.chunks)}}
+
+
+@functools.lru_cache(maxsize=None)
+def plan(rows: int, T: int, H: int, M: int, sms: int = 132) -> Plan:
+    """The N tile: the smallest of BN_TILES that holds the padded tokens, or
+    tiles of 72.  Each product's k chunks: the fewest that reach the least
+    time of the slowest block, rounds x (k steps an item + _ITEM_STEPS) with
+    rounds = ceil(items / sms) (items close under a multiple of the blocks);
+    then, while a layer's partial bytes exceed its bf16 weight bytes, the
+    product whose fewer chunks cost the least time per byte saved takes
+    fewer.  The budget is the bf16 bytes for int8 blocks too: at 272 rows one
+    chunk a product already writes 7.5 MB, more than DiT-B's 7.1 MB of int8
+    weights, and holding int8 to its own bytes (one chunk a product) made K2
+    1.5x slower at B=8 on an H100 (script/probe_dit_sampler_torch.py plans)."""
+    tokens = rows * (T + 1)
+    bn = next((b for b in BN_TILES if tokens <= b), BN_TILES[-1])
+    nt = -(-tokens // bn)
+    prods = products(H, M)
+
+    def cost(N, K, nc):
+        return -(-(N // _CB * nt * nc) // sms) * (-(-(K // _K_STEP) // nc) + _ITEM_STEPS)
+
+    def fits(N, nc):  # the items a block takes stay within the kernel's table
+        return -(-(N // _CB * nt * nc) // sms) <= _MAX_ITEMS
+
+    chunks = [min((nc for nc in range(1, K // _K_STEP + 1) if fits(N, nc)),
+                  key=lambda nc: (cost(N, K, nc), nc)) for _, N, K in prods]
+    budget = sum(N * K for _, N, K in prods) * 2
+
+    def partial(i, nc):
+        return nc * bn * nt * prods[i][1] * 4
+
+    while sum(partial(i, nc) for i, nc in enumerate(chunks)) > budget:
+        moves = [((cost(N, K, nc) - cost(N, K, chunks[i])) / (partial(i, chunks[i]) - partial(i, nc)),
+                  i, nc)
+                 for i, (_, N, K) in enumerate(prods) for nc in range(1, chunks[i])]
+        if not moves:
+            break
+        _, i, nc = min(moves)
+        chunks[i] = nc
+    return Plan(bn, nt, tuple(chunks))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+PROBE_WORDS = 6  # a record of K2's probe: start, end, wait, product, store, issue
+
+
+def probe_words(sms: int, steps: int, depth: int) -> int:
+    """uint64 words of K2's probe buffer (``_launch(probe=...)``): a header
+    of 4 a block, then PROBE_WORDS a (step, phase, block) for 3 + 9 depth
+    phases a step."""
+    return 4 * sms + steps * (3 + 9 * depth) * sms * PROBE_WORDS
+
+
+def _launch(head: DiT, cfg: DiTConfig, z, noise, schedule, steps, cfg_scale, sampler,
+            k2_plan: Plan | None = None, probe: torch.Tensor | None = None):
+    """Launch K2.  ``k2_plan``: a plan other than :func:`plan`'s (the tests
+    run every tile); ``probe``: an int64 buffer of :func:`probe_words` that
+    the kernel fills with its per-phase times (script/probe_dit_sampler_torch.py)."""
     from dexbotic_tpu_torch.kernels import build
 
     cdtype = weight_dtype(head.x_embed)
@@ -179,9 +323,9 @@ def _launch(head: DiT, cfg: DiTConfig, z, noise, schedule, steps, cfg_scale, sam
     B, T, A = noise.shape
     H, M = cfg.hidden_size, cfg.mlp_dim
     rows = (2 if cfg_scale > 1.0 else 1) * B
-    RP = -(-rows * (T + 1) // 16) * 16
-    if RP > 80 or A > 16 or T + 1 > 32 or H % 128 or M % 128 or H % cfg.num_heads:
-        raise ValueError(f"DiT sampler kernel does not serve rows={rows} T={T} A={A} H={H} M={M}")
+    if not k2_serves(rows, T, A, H, M, cfg.num_heads):
+        raise ValueError(f"DiT sampler kernel does not serve rows={rows} T={T} A={A} H={H} M={M} "
+                         f"heads={cfg.num_heads}")
     prep = prepare(head, cfg, z, schedule, steps, cfg_scale, sampler)
     for name, t in prep.items():
         if t.device != noise.device or not t.is_contiguous():
@@ -194,6 +338,14 @@ def _launch(head: DiT, cfg: DiTConfig, z, noise, schedule, steps, cfg_scale, sam
                     for n in _BLOCK_LINEARS):
         raise TypeError(f"int8 block weights need int8 q and scales in {cdtype}")
     dev = noise.device
+    sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    pl = k2_plan or plan(rows, T, H, M, sms)
+    if pl.rp < rows * (T + 1):
+        raise ValueError(f"plan {pl} holds fewer than {rows * (T + 1)} rows")
+    if probe is not None and (probe.device != dev or probe.dtype != torch.int64
+                              or probe.numel() < probe_words(sms, steps, cfg.depth)):
+        raise ValueError("K2's probe is int64 on the noise's device, probe_words() long")
+    RP = pl.rp
     x0 = noise.float().contiguous()
     out = torch.empty_like(x0)
     h = torch.zeros((RP, H), dtype=cdtype, device=dev)
@@ -201,8 +353,8 @@ def _launch(head: DiT, cfg: DiTConfig, z, noise, schedule, steps, cfg_scale, sam
     qkv = torch.zeros((RP, 3 * H), dtype=cdtype, device=dev)
     m = torch.zeros((RP, M), dtype=cdtype, device=dev)
     x, xp = torch.empty_like(x0), torch.empty_like(x0)
-    # fp32 partial products [K / 128, RP, N] of the largest product
-    part = torch.empty(max(3 * H * H, H * M) // 128 * RP, dtype=torch.float32, device=dev)
+    # fp32 partial products [chunks, RP, N] of the largest product
+    part = torch.empty(max(pl.partial_bytes(H, M).values()) // 4, dtype=torch.float32, device=dev)
     p = prep
 
     def scales(name):  # int8 scales of a block linear, or none
@@ -217,8 +369,8 @@ def _launch(head: DiT, cfg: DiTConfig, z, noise, schedule, steps, cfg_scale, sam
         scales("fc1"), p["bfc1"].data_ptr(), out.data_ptr(), h.data_ptr(),
         hn.data_ptr(), qkv.data_ptr(), attn.data_ptr(), m.data_ptr(), x.data_ptr(),
         xp.data_ptr(), part.data_ptr(), B, T, A, H, cfg.num_heads, M, cfg.depth, steps, RP,
-        int(cfg_scale > 1.0), float(cfg_scale), int(sampler == "dpm"),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(cfg_scale > 1.0), float(cfg_scale), int(sampler == "dpm"), pl.bn, pl.nt, *pl.chunks,
+        None if probe is None else probe.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.check(code, "dbx_dit_sample")
     fused_dit_sample.launches += 1
     return out

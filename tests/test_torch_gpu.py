@@ -15,6 +15,7 @@ bit for bit, and the class pre-pass must equal its plain version.
 
 import contextlib
 import copy
+import dataclasses
 
 import pytest
 import torch
@@ -33,6 +34,7 @@ from dexbotic_tpu_torch.ops.attention import (
     flash_tile_classes,
     flash_tile_classes_ref,
 )
+from dexbotic_tpu_torch.ops import dit_fused
 from dexbotic_tpu_torch.ops import quant_matmul as qm
 from dexbotic_tpu_torch.ops.diffusion import DiffusionSchedule
 from dexbotic_tpu_torch.ops.dit_fused import dit_sample_ref, fused_dit_sample
@@ -400,30 +402,39 @@ def test_auto_dispatch_rounds_fp32_to_bf16_at_k1(cuda):
     assert (out - ref).abs().max() <= 2 * (plain_bf16 - ref).abs().max() + 1e-3
 
 
-@pytest.mark.parametrize("dtype,hidden,heads,depth", [
-    (torch.float32, 256, 4, 2), (torch.bfloat16, 256, 4, 2),
-    (torch.bfloat16, 1536, 24, 1),  # more product items than two per block
-])
-def test_dit_kernel_matches_plain(cuda, dtype, hidden, heads, depth):
+def _dit_head(cuda, hidden, heads, depth, seed):
     cfg = DiTConfig(hidden_size=hidden, depth=depth, num_heads=heads, token_size=128)
-    g = torch.Generator(device=cuda).manual_seed(1)
+    g = torch.Generator(device=cuda).manual_seed(seed)
     with torch.device(cuda):
         head = DiT(cfg)
     init_dit_(head, g)
     with torch.no_grad():
         head.final.weight.normal_(0, 0.02, generator=g)
         head.final.bias.normal_(0, 0.02, generator=g)
+    return cfg, head, g
+
+
+@pytest.mark.parametrize("dtype,hidden,heads,depth,B", [
+    (torch.float32, 256, 4, 2, 2), (torch.bfloat16, 256, 4, 2, 2),
+    (torch.bfloat16, 1536, 24, 1, 2),  # more product items than two per block
+    (torch.bfloat16, 256, 4, 2, 8), (torch.float32, 256, 4, 2, 8),  # 16 rows: two N tiles
+    (torch.bfloat16, 256, 4, 12, 1), (torch.bfloat16, 256, 4, 12, 8),  # the ring over 48 products a step
+])
+def test_dit_kernel_matches_plain(cuda, dtype, hidden, heads, depth, B):
+    cfg, head, g = _dit_head(cuda, hidden, heads, depth, 1)
     ref_head = head
     if dtype == torch.bfloat16:
         ref_head = copy.deepcopy(head)
         cast_matrices_(head, dtype)
-    z = torch.randn(2, 1, cfg.token_size, generator=g, device=cuda)
-    noise = torch.randn(2, cfg.chunk_size, cfg.in_channels, generator=g, device=cuda)
+    z = torch.randn(B, 1, cfg.token_size, generator=g, device=cuda)
+    noise = torch.randn(B, cfg.chunk_size, cfg.in_channels, generator=g, device=cuda)
     sched = DiffusionSchedule.create(100)
     for sampler, steps in (("ddim", 10), ("dpm", 5)):
         kw = dict(steps=steps, cfg_scale=1.5, sampler=sampler)
+        n0 = fused_dit_sample.launches
         out = fused_dit_sample(head, cfg, z, noise, sched, **kw)
         torch.cuda.synchronize()
+        assert fused_dit_sample.launches == n0 + 1
         ref = dit_sample_ref(ref_head, cfg, z, noise, sched, **kw)
         err = (out - ref).abs().max().item()
         if dtype == torch.float32:
@@ -431,6 +442,73 @@ def test_dit_kernel_matches_plain(cuda, dtype, hidden, heads, depth):
         else:
             plain = dit_sample_ref(head, cfg, z, noise, sched, **kw)
             assert err <= 2 * (plain - ref).abs().max().item() + 1e-3
+
+
+# (rows of the sampler: B with cfg_scale 1, 2 B with CFG) -> every N tile the
+# planner picks: 17 tokens -> 24, 34 -> 40, 68 -> 72, 136 -> 2 x 72, 272 -> 4 x 72
+_TILE_CASES = [(1, 1.0), (1, 1.5), (2, 1.5), (4, 1.5), (8, 1.5)]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,cfg_scale", _TILE_CASES)
+@pytest.mark.parametrize("chunks", ["planned", "fewest", "most"])
+def test_dit_kernel_every_plan(cuda, int8, B, cfg_scale, chunks):
+    """Every N tile the planner can pick, with its own k chunks and with the
+    extremes: one chunk a product (a block walks up to 16 k steps of fc1,
+    past the ring's 6 stages) and one k step a chunk."""
+    cfg, head, g = _dit_head(cuda, 256, 4, 2, 3)
+    cast_matrices_(head, torch.bfloat16)
+    if int8:
+        quantize_model_(head)
+    ref_head = copy.deepcopy(head)
+    for p in ref_head.parameters():
+        if p.is_floating_point():
+            p.data = p.data.float()
+    z = torch.randn(B, 1, cfg.token_size, generator=g, device=cuda)
+    noise = torch.randn(B, cfg.chunk_size, cfg.in_channels, generator=g, device=cuda)
+    sched = DiffusionSchedule.create(100)
+    rows = B * (2 if cfg_scale > 1.0 else 1)
+    planned = dit_fused.plan(rows, cfg.chunk_size, cfg.hidden_size, cfg.mlp_dim,
+                             torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert (planned.bn, planned.nt) == [(24, 1), (40, 1), (72, 1), (72, 2), (72, 4)][
+        _TILE_CASES.index((B, cfg_scale))]
+    steps = [K // 64 for _, _, K in dit_fused.products(cfg.hidden_size, cfg.mlp_dim)]
+    pl = {"planned": planned, "fewest": dataclasses.replace(planned, chunks=(1, 1, 1, 1)),
+          "most": dataclasses.replace(planned, chunks=tuple(steps))}[chunks]
+    kw = dict(steps=10, cfg_scale=cfg_scale, sampler="ddim")
+    out = dit_fused._launch(head, cfg, z, noise, sched, **kw, k2_plan=pl)
+    torch.cuda.synchronize()
+    with _plain_int8():
+        ref = dit_sample_ref(ref_head, cfg, z, noise, sched, **kw)
+        plain = dit_sample_ref(head, cfg, z, noise, sched, **kw)
+    assert (out - ref).abs().max().item() <= 2 * (plain - ref).abs().max().item() + 1e-3
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_dit_kernel_is_deterministic(cuda, int8):
+    """Two calls give the same chunk bit for bit: the partials are summed in
+    chunk order, whichever block finishes first."""
+    cfg, head, g = _dit_head(cuda, 256, 4, 2, 5)
+    cast_matrices_(head, torch.bfloat16)
+    if int8:
+        quantize_model_(head)
+    z = torch.randn(8, 1, cfg.token_size, generator=g, device=cuda)
+    noise = torch.randn(8, cfg.chunk_size, cfg.in_channels, generator=g, device=cuda)
+    kw = dict(steps=10, cfg_scale=1.5, sampler="dpm")
+    sched = DiffusionSchedule.create(100)
+    a = fused_dit_sample(head, cfg, z, noise, sched, **kw)
+    b = fused_dit_sample(head, cfg, z, noise, sched, **kw)
+    assert torch.equal(a, b)
+
+
+def test_dit_kernel_refuses_what_it_does_not_serve(cuda):
+    cfg, head, g = _dit_head(cuda, 256, 4, 1, 6)
+    cast_matrices_(head, torch.bfloat16)
+    z = torch.randn(9, 1, cfg.token_size, generator=g, device=cuda)
+    noise = torch.randn(9, cfg.chunk_size, cfg.in_channels, generator=g, device=cuda)
+    with pytest.raises(ValueError):  # 18 rows of 17 tokens: past k2_serves
+        fused_dit_sample(head, cfg, z, noise, DiffusionSchedule.create(100), steps=10,
+                         cfg_scale=1.5)
 
 
 @contextlib.contextmanager
@@ -539,18 +617,12 @@ def test_w8a8_int_mm_matches_the_int32_product(cuda):
         qm.w8a8_matmul(x[:16], q, s[:, 0])
 
 
-@pytest.mark.parametrize("min_size", [1 << 16, 0])
-def test_dit_kernel_int8_matches_plain(cuda, min_size):
+@pytest.mark.parametrize("min_size,B,depth", [(1 << 16, 2, 2), (0, 2, 2), (1 << 16, 8, 2),
+                                              (1 << 16, 1, 12), (1 << 16, 8, 12)])
+def test_dit_kernel_int8_matches_plain(cuda, min_size, B, depth):
     """K2 on int8 block weights (min_size 0: x_embed and final too) against the
     plain sampler on the same int8 head, bf16, and on its fp32 copy."""
-    cfg = DiTConfig(hidden_size=256, depth=2, num_heads=4, token_size=128)
-    g = torch.Generator(device=cuda).manual_seed(7)
-    with torch.device(cuda):
-        head = DiT(cfg)
-    init_dit_(head, g)
-    with torch.no_grad():
-        head.final.weight.normal_(0, 0.02, generator=g)
-        head.final.bias.normal_(0, 0.02, generator=g)
+    cfg, head, g = _dit_head(cuda, 256, 4, depth, 7)
     cast_matrices_(head, torch.bfloat16)
     quantize_model_(head, min_size=min_size)
     assert head.blocks[0].attn.qkv.q.dtype == torch.int8
@@ -558,8 +630,8 @@ def test_dit_kernel_int8_matches_plain(cuda, min_size):
     for p in ref_head.parameters():
         if p.is_floating_point():
             p.data = p.data.float()
-    z = torch.randn(2, 1, cfg.token_size, generator=g, device=cuda)
-    noise = torch.randn(2, cfg.chunk_size, cfg.in_channels, generator=g, device=cuda)
+    z = torch.randn(B, 1, cfg.token_size, generator=g, device=cuda)
+    noise = torch.randn(B, cfg.chunk_size, cfg.in_channels, generator=g, device=cuda)
     sched = DiffusionSchedule.create(100)
     for sampler, steps in (("ddim", 10), ("dpm", 5)):
         kw = dict(steps=steps, cfg_scale=1.5, sampler=sampler)

@@ -283,7 +283,7 @@ def test_quantized_sampler_matches_jax_fused(sampler, steps, cfg_scale, B, min_s
 @pytest.mark.parametrize("min_size", [0, MIXED])
 def test_int8_kernel_operands_dequantize_to_the_dense_stacks(min_size):
     """K2's int8 operands ([depth, out, in] int8 + [depth, out] scales) are the
-    dense [depth, in, out] stacks of a head holding q * s, which the dense
+    dense [depth, out, in] stacks of a head holding q * s, which the dense
     operands' emulation test (test_torch_dit_sampler.py) pins to JAX.  With
     some block layers left dense (MIXED), K2 gets dense stacks, the quantized
     layers dequantized once."""
@@ -296,12 +296,12 @@ def test_int8_kernel_operands_dequantize_to_the_dense_stacks(min_size):
             if min_size == MIXED:
                 assert isinstance(mod, tcore.QuantLinear) == (name != "o")
                 want = mod.weight if name == "o" else tquant.dequantize_weight(mod.q, mod.s)
-                torch.testing.assert_close(p["w" + name][j], want.t(), rtol=0, atol=0)
+                torch.testing.assert_close(p["w" + name][j], want, rtol=0, atol=0)
                 continue
             assert p["w" + name].dtype == torch.int8 and p["s" + name].dtype == torch.float32
             torch.testing.assert_close(p["w" + name][j], mod.q, rtol=0, atol=0)
-            dense = (p["w" + name][j].float() * p["s" + name][j][:, None]).t()
-            torch.testing.assert_close(dense, tquant.dequantize_weight(mod.q, mod.s).t())
+            dense = p["w" + name][j].float() * p["s" + name][j][:, None]
+            torch.testing.assert_close(dense, tquant.dequantize_weight(mod.q, mod.s))
     if min_size == 0:  # x_embed and final, quantized, are dequantized once by the wrapper
         torch.testing.assert_close(
             p["xw"], tquant.dequantize_weight(thead.x_embed.q, thead.x_embed.s).t())
