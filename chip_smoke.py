@@ -22,8 +22,10 @@ Phases, any failure exits non-zero without a result line:
      formulation), bf16 and fp32 activations, at the served shapes (z_embed,
      t_mlp), LLaMA-7B's at 1-64 rows and an int8 request's prefill products
      (CLIP-L/336 at 577 rows, the projector at 576, LLaMA-2-7B at 832 and
-     1664); two calls must agree bit for bit, and where the dispatch rule
-     gives K4 the shape it must not be slower than the plain version;
+     1664), and with fp32 activations pi0's int8 prefill (Gemma-2B at 832
+     rows, SigLIP so400m/224 and the projector at 768); two calls must agree
+     bit for bit, and where the dispatch rule gives K4 the shape it must not
+     be slower than the plain version;
   5. the serving slice: CogACT-7B (LLaMA-2-7B + CLIP-L/336 + DiT-B, seeded
      random weights, bf16) served over HTTP by the port's CogActServer:
      single frames, a batch_size=2 request and an 8-frame one (one K2 launch
@@ -31,6 +33,26 @@ Phases, any failure exits non-zero without a result line:
      the served requests, then the same frame, and the 8-frame batch,
      through the plain path (kernels off) for a cosine check, and the device
      path by part at 1 and 8 frames;
+  5d. the same model served with on-device preprocessing
+     (CogActServer(fuse_preprocess=True): raw uint8 frames uploaded, the BGR
+     flip, pad, resize and normalisation on the card) beside the host path:
+     the same 480x640 PNG, 10 single frames and 6 8-frame requests a route;
+     the two routes' pixels within 2 uint8 quanta, their chunks on the same
+     noise at cosine >= 0.99, fused_calls equal to the requests the fused
+     server served, K1 and K2 counted on the fused route, p50/p90 of both
+     routes and the host preprocessing the fused route removes; then 16
+     actions through the robot client (dexbotic_tpu_torch/client.py), which
+     must take 2 requests;
+  5e. the same model exported under the reference's key names (Dexbotic's
+     HF layout, sharded .safetensors in _checkpoints/, deleted after) by
+     this file's writer, then read onto the card and converted by the
+     exp's own release path (``load_for_inference`` with
+     ``model_name_or_path`` the release; the exp built by
+     script/replay_checkpoint_torch.py from the LIBERO CogACT recipe, dims
+     from config.json): every parameter bit for bit, and the chunk on phase
+     5's frame and noise equal to phase 5's; prints the file bytes, load and
+     convert seconds, the host's peak RSS and the device memory the load
+     added (fails above the model's and the files' bytes + 1 GiB);
   5b. the same model quantized (inference_quantize="w8a8": weight-only int8,
      int8 activations from 2048 rows) served over HTTP: single frames, a
      batch_size=2 request and an 8-frame one (one K2 launch), with the K1,
@@ -50,6 +72,16 @@ Phases, any failure exits non-zero without a result line:
      plain path (attn_impl="xla": fp32 throughout) on the same noise for a
      cosine check, the device path by part (``part_calls`` of
      script/profile_pi0_torch.py) and K1's host time a call;
+  5f. that pi0 exported and replayed as in 5e (convert_flow_vla; bit for
+     bit, the same chunk), then served with int8 weights
+     (inference_quantize="int8"): K4's launches a request must equal the
+     products the dispatch rule gives it (counted from the model and by
+     forward hooks), K1 launches 198 a request and no attention call takes
+     the plain path on CUDA; every shape K4 takes there is one phase 4c
+     held against its plain version; the same request with K4 and with the
+     dequantize formulation (K4 off) on the same noise, max |delta| <=
+     PI0_INT8_K4_BOUND; the chunk's cosine to the bf16 chunk on the same
+     noise >= 0.99; p50 and weight bytes beside bf16's;
   6. K3 (flash-attention backward) against its plain version, gradients of
      sum(out * dO) through FlashAttention: at pi0's training shape first (the
      LIBERO recipe's micro-batch: B=4, 867 tokens, 8 query heads on 1 kv head
@@ -97,6 +129,7 @@ registers and spills of every K1, K3, K4 and K2 instance from nvcc's
 ``-Xptxas -v`` (a spill fails) and the HGMMA instructions of every K2
 instance from the library's SASS (``cuobjdump``; a bf16 instance without
 one fails).
+Phases 5d-5f print their numbers as one JSON line (``{"phases": ...}``).
 The last two lines printed are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.
 """
@@ -654,6 +687,28 @@ K4_PREFILL = [("clip q/k/v/o", 577, 1024, 1024), ("clip fc1", 577, 1024, 4096),
     (f"llama prefill {K}->{N}", M, K, N) for M in (832, 1664)
     for K, N in ((4096, 4096), (4096, 11008), (11008, 4096))]
 K4_CASES = K4_SERVED + K4_LLAMA + K4_PREFILL
+# pi0 with int8 weights (phase 5f), fp32 activations only: every product an
+# int8 request gives K4.  Gemma-2B's prefill at the served 832-token prefix
+# (3 views x 256 + the 64-token text bucket), SigLIP so400m/224 over the 3
+# views (768 rows; not fc2, whose K = 4304 is not a multiple of 64: K4 does
+# not take it), the linear projector; then in each Euler step the
+# Gemma-300M expert over the 51-token suffix (the state token and 50
+# actions) and the time MLP over the 50 action tokens (the action
+# projections, K or N = 32, are below inference_quantize_min_size).  Phase
+# 5f fails if its requests give K4 a shape that is not here.
+K4_PI0 = [("gemma prefill q/o 2048->2048", 832, 2048, 2048),
+          ("gemma prefill k/v 2048->256", 832, 2048, 256),
+          ("gemma prefill gate/up 2048->16384", 832, 2048, 16384),
+          ("gemma prefill down 16384->2048", 832, 16384, 2048),
+          ("siglip q/k/v/o 1152->1152", 768, 1152, 1152), ("siglip fc1 1152->4304", 768, 1152, 4304),
+          ("pi0 projector 1152->2048", 768, 1152, 2048),
+          ("expert q 1024->2048", 51, 1024, 2048), ("expert k/v 1024->256", 51, 1024, 256),
+          ("expert o 2048->1024", 51, 2048, 1024), ("expert gate/up 1024->4096", 51, 1024, 4096),
+          ("expert down 4096->1024", 51, 4096, 1024),
+          ("time mlp in 2048->1024", 50, 2048, 1024), ("time mlp out 1024->1024", 50, 1024, 1024)]
+K4_RUNS = ([(torch.bfloat16, c) for c in K4_CASES] + [(torch.float32, c) for c in K4_CASES]
+           + [(torch.float32, c) for c in K4_PI0])
+K4_CHECKED = {(M, K, N, dtype) for dtype, (_, M, K, N) in K4_RUNS}  # (rows, K, N, x dtype)
 
 
 def phase_quant_matmul(failures: list) -> dict:
@@ -676,52 +731,51 @@ def phase_quant_matmul(failures: list) -> dict:
         torch.cuda._sleep(400_000)
 
     worst, main, cases = 0.0, None, []
-    for dtype in (torch.bfloat16, torch.float32):
-        for name, M, K, N in K4_CASES:
-            q, s = quantize_weight((torch.randn(N, K, generator=g, device=dev) * 0.02).bfloat16())
-            s = s[:, 0].to(dtype)  # quant_linear casts the scales to x's dtype
-            x = torch.randn(M, K, generator=g, device=dev).to(dtype)
-            out = quant_matmul(x, q, s)
-            again = quant_matmul(x, q, s)
-            torch.cuda.synchronize()
-            ref = quant_matmul_ref(x.double(), q, s.double())
-            plain = quant_matmul_ref(x, q, s)
-            err = (out.double() - ref).abs().max().item()
-            label = f"{name} M={M} K={K} N={N} {str(dtype)[6:]}"
-            check_bound(label, err, (plain.double() - ref).abs().max().item(), failures)
-            if not torch.equal(out, again):
-                failures.append(f"K4 {label}: two calls differ")
-            del ref, plain, again
-            w = q.to(dtype) * s[:, None]  # the dequantized weight
-            # kernel, plain, kernel, plain: the medians of the pooled calls
-            runs = [times_ms(fn, flush=flush) for fn in (lambda: quant_matmul(x, q, s),
-                                                         lambda: quant_matmul_ref(x, q, s)) * 2]
-            ms = statistics.median(runs[0] + runs[2])
-            plain_ms = statistics.median(runs[1] + runs[3])
-            dev_ms = device_ms(lambda: quant_matmul(x, q, s), K4_KERNELS)
-            lib_ms = median_ms(lambda: torch.matmul(x, w.t()), flush=flush)
-            lib_deq_ms = median_ms(lambda: torch.matmul(x, (q.to(dtype) * s[:, None]).t()),
-                                   flush=flush)
-            bound_ms, bound_by = bound(nbytes(x, q, s, out), 2 * M * N * K, dtype)
-            dispatched = quant_matmul_eligible(M, K, N)
-            p = plan(M, K, N)
-            print(f"    kernel {ms:.4f} ms, alone {dev_ms:.4f} ms ({p.rows} rows x "
-                  f"{p.channels} channels a block, {p.splits} split(s))  plain (dequantize "
-                  f"formulation) {plain_ms:.4f} ms  matmul on the dequantized weight "
-                  f"{lib_ms:.4f} ms, with the dequantize {lib_deq_ms:.4f} ms  bound "
-                  f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of it  "
-                  f"dispatched: {'yes' if dispatched else 'no'}")
-            if dispatched and ms > plain_ms:
-                failures.append(f"K4 {label}: dispatched, but {ms:.4f} ms > the dequantize "
-                                f"formulation's {plain_ms:.4f} ms")
-            worst = max(worst, err)
-            cases.append({"case": label, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                          "library_ms": lib_ms, "library_with_dequantize_ms": lib_deq_ms,
-                          "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-                          "dispatched": dispatched})
-            if main is None:  # z_embed at B=1, bf16: the served call
-                main = {k: v for k, v in cases[0].items() if k not in ("case", "max_abs_err")}
-            del q, s, x, out, w
+    for dtype, (name, M, K, N) in K4_RUNS:
+        q, s = quantize_weight((torch.randn(N, K, generator=g, device=dev) * 0.02).bfloat16())
+        s = s[:, 0].to(dtype)  # quant_linear casts the scales to x's dtype
+        x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+        out = quant_matmul(x, q, s)
+        again = quant_matmul(x, q, s)
+        torch.cuda.synchronize()
+        ref = quant_matmul_ref(x.double(), q, s.double())
+        plain = quant_matmul_ref(x, q, s)
+        err = (out.double() - ref).abs().max().item()
+        label = f"{name} M={M} K={K} N={N} {str(dtype)[6:]}"
+        check_bound(label, err, (plain.double() - ref).abs().max().item(), failures)
+        if not torch.equal(out, again):
+            failures.append(f"K4 {label}: two calls differ")
+        del ref, plain, again
+        w = q.to(dtype) * s[:, None]  # the dequantized weight
+        # kernel, plain, kernel, plain: the medians of the pooled calls
+        runs = [times_ms(fn, flush=flush) for fn in (lambda: quant_matmul(x, q, s),
+                                                     lambda: quant_matmul_ref(x, q, s)) * 2]
+        ms = statistics.median(runs[0] + runs[2])
+        plain_ms = statistics.median(runs[1] + runs[3])
+        dev_ms = device_ms(lambda: quant_matmul(x, q, s), K4_KERNELS)
+        lib_ms = median_ms(lambda: torch.matmul(x, w.t()), flush=flush)
+        lib_deq_ms = median_ms(lambda: torch.matmul(x, (q.to(dtype) * s[:, None]).t()),
+                               flush=flush)
+        bound_ms, bound_by = bound(nbytes(x, q, s, out), 2 * M * N * K, dtype)
+        dispatched = quant_matmul_eligible(M, K, N)
+        p = plan(M, K, N)
+        print(f"    kernel {ms:.4f} ms, alone {dev_ms:.4f} ms ({p.rows} rows x "
+              f"{p.channels} channels a block, {p.splits} split(s))  plain (dequantize "
+              f"formulation) {plain_ms:.4f} ms  matmul on the dequantized weight "
+              f"{lib_ms:.4f} ms, with the dequantize {lib_deq_ms:.4f} ms  bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of it  "
+              f"dispatched: {'yes' if dispatched else 'no'}")
+        if dispatched and ms > plain_ms:
+            failures.append(f"K4 {label}: dispatched, but {ms:.4f} ms > the dequantize "
+                            f"formulation's {plain_ms:.4f} ms")
+        worst = max(worst, err)
+        cases.append({"case": label, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "library_with_dequantize_ms": lib_deq_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+                      "dispatched": dispatched})
+        if main is None:  # z_embed at B=1, bf16: the served call
+            main = {k: v for k, v in cases[0].items() if k not in ("case", "max_abs_err")}
+        del q, s, x, out, w
     del scratch
     free_memory()
     return {"max_abs_err": worst, **main, "cases": cases}
@@ -768,6 +822,195 @@ def _post(port: int, prompt: str, frames: list, batch_size: int = 1, states: str
 PROMPT = "pick up the moka pot"
 
 
+# ---------------------------------------------------------------------------
+# Reference checkpoints: the port's model under the reference's key names
+# (phases 5e and 5f; tests/test_torch_convert.py).  This inverts
+# dexbotic_tpu_torch/utils/convert.py.
+# ---------------------------------------------------------------------------
+
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_checkpoints")
+
+# (port name pattern, reference name) within a decoder, a tower and the DiT
+LLM_RULES = [(r"^layers\.(\d+)\.ln1\.", r"layers.\1.input_layernorm."),
+             (r"^layers\.(\d+)\.ln2\.", r"layers.\1.post_attention_layernorm."),
+             (r"^layers\.(\d+)\.attn\.(q|k|v|o)\.", r"layers.\1.self_attn.\2_proj."),
+             (r"^layers\.(\d+)\.attn\.(q_norm|k_norm)\.", r"layers.\1.self_attn.\2."),
+             (r"^layers\.(\d+)\.mlp\.(gate|up|down)\.", r"layers.\1.mlp.\2_proj."),
+             (r"^norm\.", "norm."), (r"^embed\.weight$", "embed_tokens.weight")]
+VIT_RULES = [(r"^patch_embed\.", "embeddings.patch_embedding."),
+             (r"^pos_embed$", "embeddings.position_embedding.weight"),
+             (r"^cls$", "embeddings.class_embedding"), (r"^pre_ln\.", "pre_layrnorm."),
+             (r"^post_ln\.", "post_layernorm."),
+             (r"^layers\.(\d+)\.ln(1|2)\.", r"encoder.layers.\1.layer_norm\2."),
+             (r"^layers\.(\d+)\.attn\.(q|k|v)\.", r"encoder.layers.\1.self_attn.\2_proj."),
+             (r"^layers\.(\d+)\.attn\.o\.", r"encoder.layers.\1.self_attn.out_proj."),
+             (r"^layers\.(\d+)\.mlp\.", r"encoder.layers.\1.mlp.")]
+DIT_RULES = [(r"^x_embed\.", "x_embedder.linear."), (r"^t_mlp\.fc0\.", "t_embedder.mlp.0."),
+             (r"^t_mlp\.fc1\.", "t_embedder.mlp.2."), (r"^z_embed\.", "z_embedder.linear."),
+             (r"^pos_embed$", "positional_embedding"), (r"^final\.", "final_layer.linear."),
+             (r"^uncondition$", "z_embedder.uncondition"),
+             (r"^blocks\.(\d+)\.attn\.qkv\.", r"blocks.\1.attn.qkv."),
+             (r"^blocks\.(\d+)\.attn\.o\.", r"blocks.\1.attn.proj."),
+             (r"^blocks\.(\d+)\.mlp\.fc0\.", r"blocks.\1.mlp.fc1."),
+             (r"^blocks\.(\d+)\.mlp\.fc1\.", r"blocks.\1.mlp.fc2.")]
+
+
+def _renamed(name: str, rules: list) -> str:
+    import re
+
+    for pat, rep in rules:
+        if re.match(pat, name):
+            return re.sub(pat, rep, name)
+    raise KeyError(f"no reference name for the port parameter {name}")
+
+
+def reference_state_dict(model, cfg) -> dict:
+    """{reference name: tensor} of a CogACT or flow-VLA (pi0, pi0.5, DM0)
+    model: the layout utils/convert.py reads (Dexbotic's ``model.llm.``,
+    ``model.mm_vision_tower.vision_tower.vision_model.``, ``model.mm_projector.``,
+    ``model.action_head.net.``, ``model.action_expert[.model].``; torch
+    Linear layouts; conv patch embeds).  The tensors keep the model's dtypes
+    and device; CLIP's patch embed has no bias (it must be zero)."""
+    import re
+
+    from dexbotic_tpu_torch.utils.convert import VIT_PREFIX
+
+    cogact = hasattr(model, "action_head")
+    vit = cfg.vlm.vit if cogact else cfg.vit
+    out = {}
+    for name, p in model.named_parameters():
+        t = p.detach()
+        if name == "vlm.llm.lm_head.weight":
+            out["lm_head.weight"] = t
+        elif name.startswith("vlm.llm."):
+            out["model.llm." + _renamed(name[8:], LLM_RULES)] = t
+        elif name.startswith("vlm.vit."):
+            sub = name[8:]
+            if sub == "patch_embed.weight":  # [H, p*p*3] (row, col, channel) -> [H, 3, p, p]
+                pp = vit.patch_size
+                t = t.reshape(t.shape[0], pp, pp, 3).permute(0, 3, 1, 2)
+            elif sub == "patch_embed.bias" and vit.use_cls:
+                if t.count_nonzero():
+                    raise ValueError("CLIP's patch embed has no bias, and this one is not zero")
+                continue
+            out[VIT_PREFIX + _renamed(sub, VIT_RULES)] = t
+        elif name.startswith("vlm.projector."):
+            m = re.match(r"^fc(\d*)\.(weight|bias)$", name[14:])
+            ref = m.group(2) if m.group(1) == "" else f"{2 * int(m.group(1))}.{m.group(2)}"
+            out["model.mm_projector." + ref] = t
+        elif name.startswith("action_head."):
+            ref = _renamed(name[12:], DIT_RULES)
+            out["model.action_head.net." + ref] = t[None] if ref.endswith("uncondition") else t
+        elif name.startswith("expert."):
+            prefix = "model.action_expert.model." if cfg.causal_prefix else "model.action_expert."
+            out[prefix + _renamed(name[7:], LLM_RULES)] = t
+        else:
+            head, leaf = name.rsplit(".", 1)
+            ref = {"action_in_proj": "action_in_proj", "action_out_proj": "action_out_proj",
+                   "state_proj": "state_proj",
+                   "time_mlp_in": "action_time_mlp_in" if cfg.time_in_suffix else "time_mlp_in",
+                   "time_mlp_out": "action_time_mlp_out" if cfg.time_in_suffix else "time_mlp_out"}
+            if head not in ref:
+                raise KeyError(f"no reference name for the port parameter {name}")
+            out[f"model.{ref[head]}.{leaf}"] = t
+    return out
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """Write {name: tensor} in the safetensors layout (an 8-byte little-endian
+    header length, a JSON header padded to 8 bytes, the raw little-endian
+    bytes in header order); returns the file's bytes."""
+    import struct
+
+    from dexbotic_tpu_torch.utils.convert import SAFETENSORS_DTYPES
+
+    names = {v: k for k, v in SAFETENSORS_DTYPES.items()}
+    header, off = {}, 0
+    for k in sorted(tensors):
+        t = tensors[k]
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for k in sorted(tensors):
+            t = tensors[k].contiguous().cpu().reshape(-1)
+            f.write(t.view(torch.uint8).numpy().data)
+    return 8 + len(head) + off
+
+
+def write_checkpoint(sd: dict, out_dir: str, fmt: str = "safetensors", dtype=None,
+                     shard_bytes: int = 4 << 30, config: dict | None = None) -> int:
+    """Write a reference state dict as HF shards (``model-0000i-of-0000n.safetensors``
+    or ``pytorch_model-0000i-of-0000n.bin`` with their index, and
+    ``config.json``); ``dtype`` casts the floating tensors.  Returns the
+    weight files' bytes."""
+    os.makedirs(out_dir, exist_ok=True)
+    if dtype is not None:
+        sd = {k: v.to(dtype) if v.is_floating_point() else v for k, v in sd.items()}
+    shards, cur, size = [], {}, 0
+    for k in sorted(sd):
+        n = sd[k].numel() * sd[k].element_size()
+        if cur and size + n > shard_bytes:
+            shards.append(cur)
+            cur, size = {}, 0
+        cur[k] = sd[k]
+        size += n
+    shards.append(cur)
+    stem, ext = ("model", "safetensors") if fmt == "safetensors" else ("pytorch_model", "bin")
+    total, weight_map = 0, {}
+    for i, shard in enumerate(shards):
+        fname = f"{stem}-{i + 1:05d}-of-{len(shards):05d}.{ext}"
+        path = os.path.join(out_dir, fname)
+        if fmt == "safetensors":
+            total += write_safetensors(path, shard)
+        else:
+            torch.save({k: v.contiguous().cpu() for k, v in shard.items()}, path)
+            total += os.path.getsize(path)
+        weight_map.update({k: fname for k in shard})
+    with open(os.path.join(out_dir, f"{stem}.{ext}.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(config or {}, f)
+    return total
+
+
+def host_rss_gib() -> float:
+    """The process's resident set in GiB, from /proc/self/status."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+@contextlib.contextmanager
+def sampled_host_peak(interval_s: float = 0.005):
+    """{"peak_gib": the largest resident set seen while inside}, sampled every
+    ``interval_s`` by a thread (a process may not be allowed to reset the
+    kernel's high-water mark, /proc/self/clear_refs)."""
+    import threading
+
+    out, stop = {"peak_gib": host_rss_gib()}, threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            out["peak_gib"] = max(out["peak_gib"], host_rss_gib())
+            stop.wait(interval_s)
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        t.join()
+        out["peak_gib"] = max(out["peak_gib"], host_rss_gib())
+
+
 def k4_products(model, cfg, llm_rows: int, batch: int = 1) -> dict:
     """{part: the quantized products of one request of ``batch`` frames that
     the dispatch rule gives K4}, counted from the model: every QuantLinear
@@ -776,7 +1019,6 @@ def k4_products(model, cfg, llm_rows: int, batch: int = 1) -> dict:
     frame with CFG) whose (rows, K, N) quant_linear sends to K4.  The DiT's
     other layers run inside K2 or once per process (t_mlp's tables)."""
     from dexbotic_tpu_torch.nn.core import QuantLinear
-    from dexbotic_tpu_torch.ops import quant_matmul as qm
 
     vit = cfg.vlm.vit
     vit_layers = vit.num_layers + (vit.select_layer + 1 if vit.select_layer is not None else 0)
@@ -785,20 +1027,24 @@ def k4_products(model, cfg, llm_rows: int, batch: int = 1) -> dict:
              "vit": (model.vlm.vit.layers[:vit_layers], batch * vit.seq_len),
              "projector": (model.vlm.projector, batch * vit.num_output_tokens),
              "z_embed": (model.action_head.z_embed, rows_z)}
-
-    def to_k4(rows, m):
-        return ((qm.W8A8_MIN_ROWS is None or rows < qm.W8A8_MIN_ROWS)
-                and qm.quant_matmul_eligible(rows, m.in_features, m.out_features))
-
-    return {part: sum(to_k4(rows, m) for m in mod.modules() if isinstance(m, QuantLinear))
+    return {part: sum(k4_takes(rows, m) for m in mod.modules() if isinstance(m, QuantLinear))
             for part, (mod, rows) in parts.items()}
 
 
+def k4_takes(rows: int, m) -> bool:
+    """Does quant_linear send a product of ``rows`` rows through QuantLinear
+    ``m`` to K4 (not to W8A8, not to the dequantize formulation)?"""
+    from dexbotic_tpu_torch.ops import quant_matmul as qm
+
+    return ((qm.W8A8_MIN_ROWS is None or rows < qm.W8A8_MIN_ROWS)
+            and qm.quant_matmul_eligible(rows, m.in_features, m.out_features))
+
+
 @contextlib.contextmanager
-def k4_calls(model):
+def k4_calls(model, shapes: set | None = None):
     """{module prefix: quantized products sent to K4} while inside, from
     forward hooks on every QuantLinear (quant_linear's rule on the rows each
-    call sees)."""
+    call sees); each product's (rows, K, N, x dtype) is added to ``shapes``."""
     from dexbotic_tpu_torch.nn.core import QuantLinear
     from dexbotic_tpu_torch.ops import quant_matmul as qm
 
@@ -813,6 +1059,8 @@ def k4_calls(model):
                         and qm.quant_matmul_eligible(rows, mod.in_features, mod.out_features)):
                     key = ".".join(name.split(".")[:2])
                     seen[key] = seen.get(key, 0) + 1
+                    if shapes is not None:
+                        shapes.add((rows, mod.in_features, mod.out_features, x.dtype))
             handles.append(m.register_forward_pre_hook(hook))
     try:
         yield seen
@@ -978,6 +1226,9 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
     parts8 = cogact_parts_ms(model, cfg, ids8, valid8, imgs8, noise8)
     result = {"launches": launches, "chunk": a, "p50_ms": p50, "weight_bytes": weight_bytes,
               "parts": parts, "parts_b8": parts8, "cos_b8": cos8, "k2_b8_request": k2_batch8}
+    if not quantize:  # the model and one frame's inputs, for phases 5d and 5e
+        result.update(model=model, exp=exp, cfg=cfg, tokenizer=tokenizer,
+                      inputs=(ids, valid, imgs, noise))
     if quantize:
         want = k4_products(model, cfg, L)
         print(f"  K4 launches in one single-frame request: {k4_single}; the rule's products, "
@@ -1130,11 +1381,356 @@ def phase_pi0(failures: list) -> dict:
           f"({cfg.llm.num_layers} layers), {cfg.num_flow_steps} Euler steps "
           f"{parts['euler_steps_ms']:.2f} ms, whole call {t_call:.2f} ms; K1 wrapper host time "
           f"{host_ms:.4f} ms a call (suffix shape)")
-    del model, server, a, b, q, k, v
+    del server, b, q, k, v
     free_memory()
+    # the model, its chunk and one request's inputs, for phase 5f
     return {"launches": launches, "launches_per_call": per_call, "plain_cuda_calls": plain_calls,
             "p50_ms": p50, "p90_ms": p90, "batch2_ms": batch_dt * 1e3, "peak_gib": peak,
-            "cosine": cos, "velocity_cosine": vcos, "k1_host_ms": host_ms, **parts}
+            "cosine": cos, "velocity_cosine": vcos, "k1_host_ms": host_ms, **parts,
+            "model": model, "cfg": cfg, "chunk": a, "inputs": args, "noise": noise,
+            "norms": norms, "state": state, "views": views}
+
+
+def _route_latencies(port: int, png: bytes) -> dict:
+    """Ten single-frame requests and six 8-frame ones; ms of each after the first."""
+    one = [_post(port, PROMPT, [png])[1] * 1e3 for _ in range(10)]
+    eight = [_post(port, ";".join([PROMPT] * 8), [png] * 8, batch_size=8)[1] * 1e3
+             for _ in range(6)]
+    out = {}
+    for label, lat in (("1", one[1:]), ("8", eight[1:])):
+        out[f"p50_{label}_ms"] = statistics.median(lat)
+        out[f"p90_{label}_ms"] = float(np.percentile(lat, 90))
+    return out
+
+
+def phase_fused_preprocess(failures: list, serve: dict) -> dict:
+    """Phase 5d: phase 5's CogACT-7B served with on-device preprocessing
+    (CogActServer(fuse_preprocess=True)) and by the host path on the same
+    480x640 PNG, single frames and 8-frame requests: the two routes' pixels
+    (<= 2 uint8 quanta) and chunks on the same noise (cosine >= 0.99), each
+    route's latency, the host preprocessing the fused route removes, the
+    route counters, and one request sequence through the robot client."""
+    from dexbotic_tpu_torch.client import DexClient
+    from dexbotic_tpu_torch.exp.serve import CogActServer, _cogact_images, _decode_frames
+    from dexbotic_tpu_torch.models.cogact import cogact_inference_action
+    from dexbotic_tpu_torch.ops.attention import attention, flash_attention
+    from dexbotic_tpu_torch.ops.dit_fused import fused_dit_sample
+    from script.profile_pi0_torch import wall_ms
+
+    print("phase 5d: CogACT-7B with on-device preprocessing (fuse_preprocess) beside the host path")
+    exp, cfg, model, tok = serve["exp"], serve["cfg"], serve["model"], serve["tokenizer"]
+    proc = exp.data.build_image_processor()
+    png = _frame_png()
+    servers = {route: CogActServer(exp, cfg, model, tok, None, host="127.0.0.1", port=0,
+                                   fuse_preprocess=route == "fused") for route in ("host", "fused")}
+    fused = servers["fused"]
+    frames, order = _decode_frames([png])
+    dev_imgs = fused.device_images(frames, order, 1)
+    host_imgs = torch.from_numpy(_cogact_images([png], proc))[None].cuda()
+    std = torch.tensor(proc.std, device="cuda")
+    quanta = ((dev_imgs - host_imgs).abs() * std / proc.rescale).max().item()
+    ids, valid, _, noise = serve["inputs"]
+    a = cogact_inference_action(model, cfg, ids, valid, dev_imgs, noise=noise).flatten()
+    b = cogact_inference_action(model, cfg, ids, valid, host_imgs, noise=noise).flatten()
+    cos = _cosine(a, b)
+    print(f"  frame {frames[0].shape[1]}x{frames[0].shape[0]} ({order}) -> {proc.size}: pixels of "
+          f"the two routes within {quanta:.4f} uint8 quanta; chunks on the same noise: max abs "
+          f"diff {(a - b).abs().max().item():.5g}, cosine {cos:.6f}")
+    if not quanta <= 2.0:
+        failures.append(f"5d: device pixels {quanta} quanta from the host path's (> 2)")
+    if not cos >= 0.99:
+        failures.append(f"5d: fused vs host chunk cosine {cos} < 0.99")
+
+    prep = {}
+    for n in (1, 8):
+        pngs = [png] * n
+        prep[f"host_preprocess_{n}_ms"] = wall_ms(lambda: _cogact_images(pngs, proc), reps=10)
+        prep[f"device_preprocess_{n}_ms"] = wall_ms(
+            lambda: fused.device_images(*_decode_frames(pngs), 1), reps=10)
+    print("  preprocessing, median of 10 (decode included; device: CUDA-synchronised): "
+          + "; ".join(f"{n} frame(s) host {prep[f'host_preprocess_{n}_ms']:.2f} ms, on the device "
+                      f"{prep[f'device_preprocess_{n}_ms']:.2f} ms" for n in (1, 8)))
+
+    lat, counts, client = {}, {}, {}
+    for route in ("host", "fused"):
+        server = servers[route]
+        server.fused_calls = server.host_calls = 0
+        httpd = server.serve_background()
+        port = httpd.server_address[1]
+        try:
+            if route == "fused":
+                flash_attention.launches = fused_dit_sample.launches = 0
+                attention.plain_cuda_calls = 0
+            lat[route] = _route_latencies(port, png)
+            if route == "fused":  # one single-frame sequence through the robot client
+                rgb = frames[0][:, :, ::-1].copy() if order == "bgr" else frames[0]
+                c = DexClient(url=f"http://127.0.0.1:{port}/process_frame", execute_steps=8)
+                before, times, acts = server.fused_calls, [], []
+                for _ in range(2 * c.execute_steps):
+                    t0 = time.perf_counter()
+                    acts.append(c.act(rgb, PROMPT))
+                    times.append((time.perf_counter() - t0) * 1e3)
+                client = {"acts": len(acts), "requests": server.fused_calls - before,
+                          "refill_ms": [times[0], times[c.execute_steps]],
+                          "pop_ms": statistics.median(times[1:c.execute_steps])}
+                counts = {"flash_fwd": flash_attention.launches,
+                          "dit_sample": fused_dit_sample.launches,
+                          "plain_cuda_calls": attention.plain_cuda_calls}
+                if (any(np.asarray(x).shape != (cfg.action_dim,) for x in acts)
+                        or not np.isfinite(np.stack(acts)).all()
+                        or client["requests"] != 2):
+                    failures.append(f"5d: the client's {len(acts)} actions took "
+                                    f"{client['requests']} requests (want 2) or are malformed")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+    served = 10 + 6 + client.get("requests", 0)
+    route_calls = {r: (s.fused_calls, s.host_calls) for r, s in servers.items()}
+    print(f"  route counters (fused_calls, host_calls): {route_calls}; requests served by each: "
+          f"host 16, fused {served}; launches on the fused route: {counts}")
+    if route_calls["fused"] != (served, 0) or route_calls["host"] != (0, 16):
+        failures.append(f"5d: route counters {route_calls}, want fused ({served}, 0), host (0, 16)")
+    if counts.get("flash_fwd", 0) <= 0 or counts.get("dit_sample", 0) <= 0:
+        failures.append(f"5d: the fused route launched {counts}")
+    if counts.get("plain_cuda_calls"):
+        failures.append(f"5d: {counts['plain_cuda_calls']} plain attention calls on CUDA")
+    for route in ("host", "fused"):
+        print(f"  {route} route, request ms over HTTP: 1 frame p50 {lat[route]['p50_1_ms']:.2f} "
+              f"p90 {lat[route]['p90_1_ms']:.2f}; 8 frames p50 {lat[route]['p50_8_ms']:.2f} "
+              f"p90 {lat[route]['p90_8_ms']:.2f}")
+    removed = {n: prep[f"host_preprocess_{n}_ms"] - prep[f"device_preprocess_{n}_ms"]
+               for n in (1, 8)}
+    print(f"  host preprocessing the fused route removes: {removed[1]:.2f} ms at 1 frame, "
+          f"{removed[8]:.2f} ms at 8 (host minus device preprocessing); p50 moved "
+          f"{lat['host']['p50_1_ms'] - lat['fused']['p50_1_ms']:.2f} / "
+          f"{lat['host']['p50_8_ms'] - lat['fused']['p50_8_ms']:.2f} ms; client: {client}")
+    return {"max_quanta": quanta, "cosine": cos, "launches": counts, "route_calls": route_calls,
+            "latency": lat, **prep, "client": client}
+
+
+def export_and_replay(failures: list, label: str, policy: str, model, cfg, config: dict) -> tuple:
+    """Write ``model`` under the reference's key names as sharded safetensors
+    in CKPT_DIR, then load and convert it through
+    script/replay_checkpoint_torch.py's functions; the files are deleted.
+    Returns (the exp, cfg and model replayed, a dict of the numbers)."""
+    import shutil
+
+    from script.replay_checkpoint_torch import build_exp, load_converted
+
+    from dexbotic_tpu_torch.ops.quant import quantized_bytes
+
+    out_dir = os.path.join(CKPT_DIR, policy)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    file_bytes = write_checkpoint(reference_state_dict(model, cfg), out_dir, config=config)
+    write_s = time.perf_counter() - t0
+    n_files = len([f for f in os.listdir(out_dir) if f.endswith(".safetensors")])
+    free_memory()
+    try:
+        rss0 = host_rss_gib()
+        torch.cuda.synchronize()
+        dev0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with sampled_host_peak() as rss:
+            exp = build_exp(policy, out_dir)
+            cfg2, model2, _, times = load_converted(exp)
+        peak = rss["peak_gib"]
+        dev_peak = torch.cuda.max_memory_allocated() - dev0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    model_bytes = quantized_bytes(model2)
+    theirs = dict(model.named_parameters())
+    bad = [n for n, p in model2.named_parameters()
+           if n not in theirs or p.dtype != theirs[n].dtype or not torch.equal(p, theirs[n])]
+    bad += sorted(set(theirs) - {n for n, _ in model2.named_parameters()})
+    numbers = {"file_bytes": file_bytes, "files": n_files, "write_s": write_s, **times,
+               "host_rss_before_gib": rss0, "host_peak_rss_gib": peak,
+               "peak_over_file_bytes": peak * 2**30 / file_bytes,
+               "device_peak_added_gib": dev_peak / 2**30, "model_gib": model_bytes / 2**30,
+               "weights_differing": len(bad)}
+    print(f"  {label}: {file_bytes / 2**30:.2f} GiB in {n_files} safetensors files (written in "
+          f"{write_s:.1f} s); loaded onto the card in {times['load_s']:.2f} s, converted into the "
+          f"serving model in {times['convert_s']:.2f} s; host RSS {rss0:.2f} GiB before, peak "
+          f"{peak:.2f} GiB while loading ({numbers['peak_over_file_bytes']:.2f}x the file bytes; "
+          f"the load added {peak - rss0:.2f} GiB); device memory: the load added a peak of "
+          f"{dev_peak / 2**30:.2f} GiB, the model's {model_bytes / 2**30:.2f} GiB and the "
+          f"files' {file_bytes / 2**30:.2f} GiB making {(model_bytes + file_bytes) / 2**30:.2f}; "
+          f"parameters differing from the exported model: {len(bad)} {bad[:3]}")
+    if dev_peak > model_bytes + file_bytes + 2**30:  # a copy of the checkpoint would show here
+        failures.append(f"{label}: loading took {dev_peak / 2**30:.2f} GiB of device memory, "
+                        f"more than the model and the files ({(model_bytes + file_bytes) / 2**30:.2f})")
+    if bad:
+        failures.append(f"{label}: {len(bad)} parameters did not come back bit for bit: {bad[:3]}")
+    if cfg2 != cfg:
+        failures.append(f"{label}: the replayed config differs from the exported model's")
+    return exp, cfg2, model2, numbers
+
+
+def phase_replay_cogact(failures: list, serve: dict) -> dict:
+    """Phase 5e: phase 5's CogACT-7B exported under the reference's key names,
+    replayed through the replay script's functions: the weights bit for bit,
+    and the chunk on phase 5's frame and noise equal to phase 5's."""
+    from dexbotic_tpu_torch.models.cogact import cogact_inference_action
+    from dexbotic_tpu_torch.ops.attention import attention, flash_attention
+    from dexbotic_tpu_torch.ops.dit_fused import fused_dit_sample
+    from script.replay_checkpoint_torch import load_image, replay_cogact
+
+    print("phase 5e: CogACT-7B replayed from a reference-layout checkpoint")
+    cfg = serve["cfg"]
+    exp, cfg2, model2, numbers = export_and_replay(
+        failures, "CogACT-7B", "cogact", serve["model"], cfg,
+        {"action_dim": cfg.action_dim, "chunk_size": cfg.chunk_size,
+         "action_model_type": cfg.action_model_type})
+    ids, valid, imgs, noise = serve["inputs"]
+    flash_attention.launches = fused_dit_sample.launches = attention.plain_cuda_calls = 0
+    a = cogact_inference_action(model2, cfg2, ids, valid, imgs, noise=noise).flatten()
+    torch.cuda.synchronize()
+    counts = {"flash_fwd": flash_attention.launches, "dit_sample": fused_dit_sample.launches,
+              "plain_cuda_calls": attention.plain_cuda_calls}
+    diff = (a - serve["chunk"]).abs().max().item()
+    chunk, _ = replay_cogact(exp, cfg2, model2, None, load_image(None), PROMPT)
+    print(f"  chunk on phase 5's frame and noise: max |delta| against phase 5's {diff:.3g}; "
+          f"launches {counts}; the replay script's own frame and noise (RandomState(0)): first "
+          f"action {np.array2string(chunk[0], precision=4)}")
+    if diff != 0.0:
+        failures.append(f"5e: the replayed chunk differs from phase 5's by {diff}")
+    if counts["flash_fwd"] <= 0 or counts["dit_sample"] != 1 or counts["plain_cuda_calls"]:
+        failures.append(f"5e: the replayed request's launches {counts}")
+    if chunk.shape != (cfg.chunk_size, cfg.action_dim) or not np.isfinite(chunk).all():
+        failures.append(f"5e: the replay script's chunk {chunk.shape}")
+    del model2
+    free_memory()
+    return {**numbers, "chunk_max_abs_diff": diff, "launches": counts}
+
+
+def pi0_k4_products(model, cfg, views: int, text_len: int, batch: int = 1) -> dict:
+    """{part: quantized products a pi0 request of ``batch`` rows gives K4 by
+    the dispatch rule}, counted from the model: the tower's and projector's
+    at every view's tokens, the LLM's at the prefix (views x 256 + the text
+    bucket), and per Euler step the expert's at the suffix, the action
+    projections' and the time MLP's at the action tokens, the state's at one
+    row (where the layers are quantized at all: inference_quantize_min_size)."""
+    from dexbotic_tpu_torch.nn.core import QuantLinear
+
+    T = cfg.vit.num_output_tokens
+    steps = cfg.num_flow_steps
+    actions = torch.nn.ModuleList([model.action_in_proj, model.action_out_proj,
+                                   model.time_mlp_in, model.time_mlp_out])
+    parts = {"vit": (model.vlm.vit.layers, batch * views * cfg.vit.seq_len, 1),
+             "projector": (model.vlm.projector, batch * views * T, 1),
+             "llm": (model.vlm.llm.layers, batch * (views * T + text_len), 1),
+             "expert": (model.expert.layers, batch * cfg.suffix_len, steps),
+             "action_and_time": (actions, batch * cfg.chunk_size, steps),
+             "state_proj": (getattr(model, "state_proj", torch.nn.Identity()), batch, steps)}
+    return {part: calls * sum(k4_takes(rows, m) for m in mod.modules()
+                              if isinstance(m, QuantLinear))
+            for part, (mod, rows, calls) in parts.items()}
+
+
+# Phase 5f: max |delta| between the int8 pi0 chunk with K4 and with the
+# dequantize formulation, same request and noise (fp32 activations, TF32
+# off).  Both paths are deterministic; an H100 (700 W) reads 4.499e-4 on a
+# chunk of max |value| 3.716, and the bound is about twice that.
+PI0_INT8_K4_BOUND = 1e-3
+
+
+def phase_pi0_replay(failures: list, pi0: dict) -> dict:
+    """Phase 5f: phase 5c's pi0 exported and replayed through convert_flow_vla
+    (the weights bit for bit, the chunk equal), then served with int8
+    weights (inference_quantize="int8"): K4's launches per request against
+    the dispatch rule's products, K1's launches, no plain attention call on
+    CUDA, the chunk's cosine to the bf16 chunk on the same noise, p50 and
+    the weight bytes beside bf16's."""
+    from dexbotic_tpu_torch.exp.serve import FlowVLAServer
+    from dexbotic_tpu_torch.models.flow_vla import flow_vla_inference_action
+    from dexbotic_tpu_torch.ops import quant_matmul as qm
+    from dexbotic_tpu_torch.ops.attention import attention, flash_attention
+    from dexbotic_tpu_torch.ops.quant import quantized_bytes
+
+    print("phase 5f: pi0 replayed from a reference-layout checkpoint, then served with int8 weights")
+    cfg, args, noise = pi0["cfg"], pi0["inputs"], pi0["noise"]
+    bf16_bytes = quantized_bytes(pi0["model"])
+    exp, cfg2, model, numbers = export_and_replay(
+        failures, "pi0", "pi0", pi0["model"], cfg,
+        {"action_dim": cfg.action_dim, "chunk_size": cfg.chunk_size})
+    del pi0["model"]
+    free_memory()
+    a = flow_vla_inference_action(model, cfg2, *args, noise=noise)
+    diff = (a - pi0["chunk"]).abs().max().item()
+    print(f"  chunk on phase 5c's request and noise: max |delta| against phase 5c's {diff:.3g}")
+    if diff != 0.0:
+        failures.append(f"5f: the replayed pi0 chunk differs from phase 5c's by {diff}")
+
+    exp.inference_quantize = "int8"
+    exp.quantize_inference_model(model)
+    int8_bytes = quantized_bytes(model)
+    server = FlowVLAServer(exp, cfg2, model, exp.tokenizer.build_tokenizer(), pi0["norms"],
+                           host="127.0.0.1", port=0)
+    httpd = server.serve_background()
+    port = httpd.server_address[1]
+    n_req = 8
+    shapes = set()
+    try:
+        _post(port, PROMPT, pi0["views"], states=pi0["state"])  # warm-up, not counted
+        with k4_calls(model, shapes) as seen:
+            flash_attention.launches = qm.quant_matmul.launches = attention.plain_cuda_calls = 0
+            latencies = [_post(port, PROMPT, pi0["views"], states=pi0["state"])[1] * 1e3
+                         for _ in range(n_req)]
+            counts = {"flash_fwd": flash_attention.launches,
+                      "quant_matmul": qm.quant_matmul.launches,
+                      "plain_cuda_calls": attention.plain_cuda_calls}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    want = pi0_k4_products(model, cfg2, views=len(pi0["views"]), text_len=args[0].shape[1])
+    per_req = counts["quant_matmul"] / n_req
+    hooks = sum(seen.values()) / n_req
+    print(f"  int8 served, {n_req} requests of 3 views + a state: launches {counts}; K4 a request "
+          f"{per_req:g}; the rule's products, from the model: {sum(want.values())} {want}; from "
+          f"forward hooks: {hooks:g} a request")
+    if not per_req == sum(want.values()) == hooks or per_req <= 0:
+        failures.append(f"5f: K4 launched {per_req} times a request; the rule gives "
+                        f"{sum(want.values())} {want}, the hooks saw {hooks}")
+    if counts["flash_fwd"] != n_req * pi0["launches_per_call"] or counts["plain_cuda_calls"]:
+        failures.append(f"5f: K1 {counts['flash_fwd']} launches (want "
+                        f"{n_req * pi0['launches_per_call']}), "
+                        f"{counts['plain_cuda_calls']} plain attention calls on CUDA")
+    unchecked = sorted((M, K, N, str(dt)[6:]) for M, K, N, dt in shapes - K4_CHECKED)
+    print(f"  K4's shapes in these requests: {len(shapes)}, each held against its plain "
+          f"version in phase 4c; not there: {unchecked}")
+    if unchecked or not shapes:
+        failures.append(f"5f: K4 took shapes that phase 4c does not check: {unchecked}")
+    # the same request and noise with K4, then with quant_linear's dequantize
+    # formulation (K4 off): the kernel against its plain version on the model
+    n0 = qm.quant_matmul.launches
+    b = flow_vla_inference_action(model, cfg2, *args, noise=noise)
+    k4_on = qm.quant_matmul.launches - n0
+    with plain_int8():
+        c = flow_vla_inference_action(model, cfg2, *args, noise=noise)
+    k4_off = qm.quant_matmul.launches - n0 - k4_on
+    k4_diff = (b - c).abs().max().item()
+    print(f"  int8 chunk, K4 ({k4_on} launches) vs the dequantize formulation ({k4_off}): max "
+          f"|delta| {k4_diff:.4g} (bound {PI0_INT8_K4_BOUND:g}), |chunk| max "
+          f"{c.abs().max().item():.4g}")
+    if k4_on != per_req or k4_off or not k4_diff <= PI0_INT8_K4_BOUND:
+        failures.append(f"5f: int8 chunk with K4 ({k4_on} launches, want {per_req:g}) vs K4 off "
+                        f"({k4_off}): max |delta| {k4_diff} (bound {PI0_INT8_K4_BOUND})")
+    cos = _cosine(b.flatten(), pi0["chunk"].flatten())
+    vcos = _cosine((b - noise).flatten(), (pi0["chunk"] - noise).flatten())
+    lat = sorted(latencies)
+    p50, p90 = statistics.median(lat), float(np.percentile(lat, 90))
+    print(f"  int8 vs bf16 (phase 5c, same weights, request and noise): chunk cosine {cos:.6f}, "
+          f"integrated velocity {vcos:.6f}; request p50 {p50:.1f} (p90 {p90:.1f}) vs "
+          f"{pi0['p50_ms']:.1f} ms; weights {int8_bytes / 2**30:.2f} vs {bf16_bytes / 2**30:.2f} GiB")
+    if not (cos >= 0.99 and np.isfinite(b.cpu().numpy()).all()):
+        failures.append(f"5f: int8 vs bf16 pi0 chunk cosine {cos} < 0.99")
+    del model, server, a, b, c
+    free_memory()
+    return {**numbers, "chunk_max_abs_diff": diff, "launches": counts,
+            "k4_shapes": len(shapes), "k4_vs_plain_max_abs_diff": k4_diff,
+            "k4_per_request": per_req, "k4_rule": want, "cosine": cos, "velocity_cosine": vcos,
+            "p50_ms": p50, "p90_ms": p90, "bf16_p50_ms": pi0["p50_ms"],
+            "int8_weight_bytes": int8_bytes, "bf16_weight_bytes": bf16_bytes}
 
 
 LIBERO_PROMPT = "put the black bowl in the bottom drawer of the cabinet and close it"
@@ -1602,10 +2198,15 @@ def main() -> int:
     k2q = phase_dit(failures, int8=True)
     k4 = phase_quant_matmul(failures)
     serve = phase_slice(failures)
+    fused = phase_fused_preprocess(failures, serve)
+    replay = phase_replay_cogact(failures, serve)
+    for key in ("model", "exp", "tokenizer", "inputs"):
+        del serve[key]
     free_memory()  # the serving model
     serve_q = phase_slice(failures, quantize="w8a8", bf16=serve)
     free_memory()
     pi0 = phase_pi0(failures)
+    pi0_q = phase_pi0_replay(failures, pi0)
     launches, launches_q = serve["launches"], serve_q["launches"]
     k3 = phase_flash_bwd(failures)
     train = phase_train(failures)
@@ -1614,17 +2215,25 @@ def main() -> int:
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
+    print(json.dumps({"phases": {
+        "5d_fused_preprocess": {k: v for k, v in fused.items() if k != "client"},
+        "5e_replay_cogact": replay,
+        "5f_pi0_replay_int8": {k: v for k, v in pi0_q.items()}}}, default=float))
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "dexbotic_tpu/ops/attention.py:86",
          "also_replaces": "dexbotic_tpu/ops/attention.py:165",
          "launches": launches["flash_fwd"], "train_launches": train["launches"]["flash_fwd"],
          "pi0_launches": pi0["launches"], "pi0_train_launches": pi0_train["launches"]["flash_fwd"],
+         "launches_fused_preprocess": fused["launches"]["flash_fwd"],
+         "launches_replay": replay["launches"]["flash_fwd"],
+         "pi0_int8_launches": pi0_q["launches"]["flash_fwd"],
          **k1, **k1_d256, "build": k1_build},
         {"name": "dit_sample", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/dit_sampler.cu",
          "replaces": "dexbotic_tpu/ops/dit_fused.py:58",
          "launches": launches["dit_sample"], "launches_8_frame_request": serve["k2_b8_request"],
-         **k2, "build": k2_build},
+         "launches_fused_preprocess": fused["launches"]["dit_sample"],
+         "launches_replay": replay["launches"]["dit_sample"], **k2, "build": k2_build},
         {"name": "dit_sample_int8", "route": "cuda",
          "source": "dexbotic_tpu_torch/csrc/dit_sampler.cu",
          "replaces": "dexbotic_tpu/ops/dit_fused.py:58",
@@ -1640,7 +2249,9 @@ def main() -> int:
          "source": "dexbotic_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "dexbotic_tpu/ops/quant_matmul.py:77",
          "launches": launches_q["quant_matmul"],
-         "single_request_launches": serve_q["k4_single_request"], **k4, "build": k4_build},
+         "single_request_launches": serve_q["k4_single_request"],
+         "pi0_int8_launches": pi0_q["launches"]["quant_matmul"],
+         "pi0_int8_request_launches": pi0_q["k4_per_request"], **k4, "build": k4_build},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@ Defaults mirror the JAX package: DiT-B head, action_dim 7, chunk 16,
 CLIP-L-336 tower + mlp2x_gelu projector on LLaMA-2-7B.  The model is laid
 out and initialised from ``seed`` directly on ``device`` (in the serving dtype
 for inference, fp32 for training, where the Trainer casts it), then filled
-from ``model_name_or_path`` (a port ``checkpoint-{step}`` directory) if set.
+from ``model_name_or_path`` if set: a port ``checkpoint-{step}`` directory,
+or a released checkpoint converted by ``utils/convert.py`` (the model then
+holds its load and convert seconds in ``checkpoint_times``).
 """
 
 from __future__ import annotations
@@ -29,11 +31,17 @@ from dexbotic_tpu_torch.models.cogact import (
     denorm_actions,
 )
 from dexbotic_tpu_torch.models.vlm import VLMConfig
+from dexbotic_tpu_torch.utils.convert import (
+    convert_cogact,
+    is_release_checkpoint,
+    load_release_checkpoint,
+)
 
 
 @dataclass
 class CogActModelConfig(base_exp.Config):
-    model_name_or_path: Optional[str] = None  # checkpoint-{step} dir to load
+    # a checkpoint-{step} dir, or a released checkpoint (HF layout) to convert
+    model_name_or_path: Optional[str] = None
     llm_preset: str = "llama2_7b"
     vit_preset: str = "clip_vit_l_336"
     mm_projector_type: str = "mlp2x_gelu"
@@ -69,7 +77,10 @@ class CogActModelConfig(base_exp.Config):
     @torch.no_grad()
     def build_params(self, cfg: CogActConfig, device, prepare=None):
         model = build_cogact(cfg, device, seed=self.seed, prepare=prepare)
-        if self.model_name_or_path:
+        if self.model_name_or_path and is_release_checkpoint(self.model_name_or_path):
+            model.checkpoint_times = load_release_checkpoint(
+                model, self.model_name_or_path, convert_cogact, cfg)
+        elif self.model_name_or_path:
             saved = load_checkpoint_params(self.model_name_or_path)
             params = dict(model.named_parameters())
             missing = sorted(set(params) - set(saved))
@@ -114,13 +125,15 @@ class CogActExp(base_exp.BaseExp):
         cfg = self.model.build_config()
         model = self.model.build_params(cfg, self.device, prepare=self.prepare_inference_params)
         self.quantize_inference_model(model)
-        norms = None
-        if self.model.model_name_or_path:
-            path = os.path.join(self.model.model_name_or_path, "norm_stats.json")
-            if os.path.exists(path):
-                with open(path) as f:
-                    norms = json.load(f)["norm_stats"]["default"]
-        return cfg, model, norms
+        return cfg, model, self.served_norm_stats()
+
+    def served_norm_stats(self):
+        """The checkpoint's ``norm_stats.json`` statistics ({min, max}) or None."""
+        path = os.path.join(self.model.model_name_or_path or "", "norm_stats.json")
+        if not (self.model.model_name_or_path and os.path.exists(path)):
+            return None
+        with open(path) as f:
+            return json.load(f)["norm_stats"]["default"]
 
     def make_infer_fn(self, cfg, model):
         """(ids, valid, images, generator) -> normalised chunk [B, chunk, dim]."""

@@ -8,7 +8,9 @@ denormalises the chunk with the served statistics, then turns it absolute
 against the request's state.  The model is laid out and initialised from
 ``seed`` directly on ``device`` (in the serving dtype for inference, fp32
 for training, where the Trainer casts it), then filled from
-``model_name_or_path`` (a port ``checkpoint-{step}`` directory) if set.
+``model_name_or_path`` if set: a port ``checkpoint-{step}`` directory, or a
+released checkpoint converted by ``utils/convert.py`` (the model then holds
+its load and convert seconds in ``checkpoint_times``).
 Training is ``BaseExp.train`` over :func:`flow_vla_loss` (a full fine-tune:
 the JAX exp freezes nothing either).
 """
@@ -37,11 +39,17 @@ from dexbotic_tpu_torch.models.flow_vla import (
     pi0_config,
     pi05_config,
 )
+from dexbotic_tpu_torch.utils.convert import (
+    convert_flow_vla,
+    is_release_checkpoint,
+    load_release_checkpoint,
+)
 
 
 @dataclass
 class FlowModelConfig(base_exp.Config):
-    model_name_or_path: Optional[str] = None  # checkpoint-{step} dir to load
+    # a checkpoint-{step} dir, or a released checkpoint (HF layout) to convert
+    model_name_or_path: Optional[str] = None
     variant: str = "pi0"  # 'pi0' | 'pi05' | 'dm0'
     llm_preset: str = "gemma_2b"
     expert_preset: str = "gemma_300m"
@@ -69,7 +77,10 @@ class FlowModelConfig(base_exp.Config):
     @torch.no_grad()
     def build_params(self, cfg: FlowVLAConfig, device, prepare=None):
         model = build_flow_vla(cfg, device, seed=self.seed, prepare=prepare)
-        if self.model_name_or_path:
+        if self.model_name_or_path and is_release_checkpoint(self.model_name_or_path):
+            model.checkpoint_times = load_release_checkpoint(
+                model, self.model_name_or_path, convert_flow_vla, cfg)
+        elif self.model_name_or_path:
             saved = load_checkpoint_params(self.model_name_or_path)
             params = dict(model.named_parameters())
             missing = sorted(set(params) - set(saved))
@@ -177,13 +188,15 @@ class Pi0Exp(base_exp.BaseExp):
         cfg = self.model.build_config()
         model = self.model.build_params(cfg, self.device, prepare=self.prepare_inference_params)
         self.quantize_inference_model(model)
-        norms = None
-        if self.model.model_name_or_path:
-            path = os.path.join(self.model.model_name_or_path, "norm_stats.json")
-            if os.path.exists(path):
-                with open(path) as f:
-                    norms = json.load(f)["norm_stats"]
-        return cfg, model, norms
+        return cfg, model, self.served_norm_stats()
+
+    def served_norm_stats(self):
+        """The checkpoint's full ``norm_stats.json`` mapping or None."""
+        path = os.path.join(self.model.model_name_or_path or "", "norm_stats.json")
+        if not (self.model.model_name_or_path and os.path.exists(path)):
+            return None
+        with open(path) as f:
+            return json.load(f)["norm_stats"]
 
     def make_infer_fn(self, cfg, model):
         """(ids, text_mask, images, image_masks, states, generator) ->

@@ -4,8 +4,9 @@ Port of the CogACT and flow-VLA (pi0/pi0.5/DM0) serving paths of
 dexbotic_tpu/exp/serve.py: multipart form with a 'text' prompt, image file
 parts and optional 'batch_size' and 'states' fields; the response is a JSON
 [chunk_size x action_dim] list (a list of those for batch_size > 1).
-Stdlib http.server; host-side image preprocessing; optional micro-batching
-of concurrent single-frame requests.  The device call draws its noise from
+Stdlib http.server; host-side image preprocessing, or for CogACT on the
+device (``fuse_preprocess``); optional micro-batching of concurrent
+single-frame requests.  The device call draws its noise from
 one ``torch.Generator`` seeded from the config and advanced by every
 request.
 """
@@ -289,13 +290,17 @@ class ActionServer:
 
 
 class CogActServer(ActionServer):
-    """CogACT serving on the host preprocessing path."""
+    """CogACT serving.  ``fuse_preprocess=True`` moves pad-to-square, the
+    PIL-parity resize and the normalisation onto the device
+    (``ops/image_ops.py``: two products a frame): the host decodes the frame
+    bytes and uploads raw uint8, the device flips BGR, resizes and runs the
+    policy.  A request whose frames differ in shape takes the host path, as
+    in the JAX server.  ``fused_calls`` and ``host_calls`` count the device
+    calls each route served."""
 
     def __init__(self, exp, cfg, model, tokenizer, norms, host="0.0.0.0", port=7891,
                  micro_batch: int = 0, micro_batch_window_ms: float = 5.0,
                  fuse_preprocess: bool = False):
-        if fuse_preprocess:
-            raise NotImplementedError("on-device preprocessing (fuse_preprocess) is not ported yet")
         super().__init__(host, port, micro_batch=micro_batch,
                          micro_batch_window_ms=micro_batch_window_ms)
         self.exp, self.cfg, self.tokenizer, self.norms = exp, cfg, tokenizer, norms
@@ -303,6 +308,30 @@ class CogActServer(ActionServer):
         self.infer = exp.make_infer_fn(cfg, model)
         self.generator = torch.Generator(device=self.device).manual_seed(exp.model.seed)
         self._prompt_cache: dict = {}
+        self.fuse_preprocess = fuse_preprocess
+        self._device_prep: dict = {}  # (in_hw, order, per) -> uint8 frames -> images
+        self.fused_calls = self.host_calls = 0
+
+    def device_images(self, frames: list, order: str, per: int) -> torch.Tensor:
+        """Decoded uint8 frames of one shape -> [B, per, size, size, 3] fp32
+        images, preprocessed on the device by the plan of this geometry."""
+        key = (tuple(frames[0].shape[:2]), order, per)
+        fn = self._device_prep.get(key)
+        if fn is None:
+            from dexbotic_tpu_torch.ops.image_ops import make_device_preprocess
+
+            proc = self.exp.data.build_image_processor()
+            prep = make_device_preprocess(
+                key[0], proc.size, resample=proc.resample, mean=proc.mean, std=proc.std,
+                rescale=proc.rescale, pad_to_square=True,
+                fill=tuple(int(x * 255) for x in proc.mean), device=self.device)
+
+            def fn(raw: torch.Tensor) -> torch.Tensor:
+                imgs = prep(raw.flip(-1) if order == "bgr" else raw)
+                return imgs.reshape(-1, per, *imgs.shape[1:])
+
+            fn = self._device_prep[key] = fn
+        return fn(torch.from_numpy(np.stack(frames)).to(self.device))
 
     def _prompt_ids(self, prompt: str) -> list:
         ids = self._prompt_cache.get(prompt)
@@ -340,9 +369,17 @@ class CogActServer(ActionServer):
         for b, r in enumerate(rows):
             ids[b, : len(r)] = r
             valid[b, : len(r)] = 1
-        flat = _cogact_images([p for g in payload_groups for p in g],
-                              self.exp.data.build_image_processor())
-        imgs = torch.from_numpy(flat.reshape(Bp, per, *flat.shape[1:])).to(self.device)
+        payloads = [p for g in payload_groups for p in g]
+        imgs = None
+        if self.fuse_preprocess:
+            frames, order = _decode_frames(payloads)
+            if len({f.shape for f in frames}) == 1:
+                imgs = self.device_images(frames, order, per)
+                self.fused_calls += 1
+        if imgs is None:  # the host path, and mixed frame shapes under fuse_preprocess
+            flat = _cogact_images(payloads, self.exp.data.build_image_processor())
+            imgs = torch.from_numpy(flat.reshape(Bp, per, *flat.shape[1:])).to(self.device)
+            self.host_calls += 1
         out = self.infer(torch.from_numpy(ids).to(self.device),
                          torch.from_numpy(valid).to(self.device), imgs, self.generator)
         return self._denorm(out.float().cpu().numpy())[:B]

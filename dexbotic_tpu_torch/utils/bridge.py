@@ -15,6 +15,12 @@ An int8-quantized weight (``ops/quant.py``: ``{"q": [..., in, Np], "s":
 ``QuantEmbedding``: a linear's ``q`` is transposed to [N, in] with the
 zero-padded columns the TPU kernel's tiling added dropped, its ``s`` becomes
 [N]; an embedding's pair keeps its layout.
+
+Leaves may be numpy arrays (a JAX tree) or torch tensors (a converted
+checkpoint, ``utils/convert.py``, on any device and in the file's dtype).
+A converted tree's stacked leaves are lists of the per-layer tensors, not
+stacks.  A torch leaf is transposed as a view and copied straight into its
+parameter, so a converted tree is never copied again.
 """
 
 from __future__ import annotations
@@ -29,17 +35,25 @@ STACKED = ("layers", "blocks")
 _RENAME = {"w": "weight", "b": "bias", "embedding": "weight"}
 
 
+def _leaf(x):
+    """A leaf as numpy, or as it is where it is a tensor or a list of the
+    per-layer tensors of a stack."""
+    if isinstance(x, torch.Tensor) or (isinstance(x, list) and isinstance(x[0], torch.Tensor)):
+        return x
+    return np.asarray(x)
+
+
 def _flatten(tree, prefix=()) -> Iterator[tuple[tuple, np.ndarray]]:
     if isinstance(tree, dict) and set(tree) == {"q", "s"} and prefix[-1:] == ("w",):
         # quantized linear: drop the padded columns, which only q carries
-        s = np.asarray(tree["s"])
-        yield prefix + ("q",), np.asarray(tree["q"])[..., : s.shape[-1]]
+        s = _leaf(tree["s"])
+        yield prefix + ("q",), _leaf(tree["q"])[..., : s.shape[-1]]
         yield prefix + ("s",), s
     elif isinstance(tree, dict):
         for k, v in tree.items():
             yield from _flatten(v, prefix + (k,))
     else:
-        yield prefix, np.asarray(tree)
+        yield prefix, _leaf(tree)
 
 
 def _port_leaves(path: tuple, arr: np.ndarray) -> Iterator[tuple[str, np.ndarray]]:
@@ -47,7 +61,7 @@ def _port_leaves(path: tuple, arr: np.ndarray) -> Iterator[tuple[str, np.ndarray
     stacked = [i for i, k in enumerate(path) if k in STACKED]
     if stacked:
         p = stacked[0]
-        entries = [(path[: p + 1] + (str(i),) + path[p + 1:], arr[i]) for i in range(arr.shape[0])]
+        entries = [(path[: p + 1] + (str(i),) + path[p + 1:], arr[i]) for i in range(len(arr))]
     else:
         entries = [(path, arr)]
     for parts, val in entries:
@@ -70,9 +84,15 @@ def port_arrays(tree) -> Iterator[tuple[str, np.ndarray, tuple]]:
             yield name, val, path
 
 
+def _from_numpy(val: np.ndarray) -> torch.Tensor:
+    if val.dtype.name == "bfloat16":  # ml_dtypes' bf16 (a JAX serving tree): same bits
+        return torch.from_numpy(np.array(val).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(val))
+
+
 @torch.no_grad()
 def load_jax_params(module: nn.Module, tree) -> dict[str, str]:
-    """Fill ``module`` from a JAX parameter tree of numpy arrays.
+    """Fill ``module`` from a JAX parameter tree of numpy arrays or torch tensors.
 
     Every leaf must land in exactly one parameter and every parameter must be
     filled; values are copied into each parameter's own dtype and device.
@@ -85,9 +105,9 @@ def load_jax_params(module: nn.Module, tree) -> dict[str, str]:
         if name in filled:
             raise KeyError(f"port parameter {name} filled twice")
         p = params[name]
-        if tuple(p.shape) != val.shape:
-            raise ValueError(f"{name}: port shape {tuple(p.shape)} != JAX {val.shape}")
-        p.copy_(torch.from_numpy(np.array(val)))
+        if tuple(p.shape) != tuple(val.shape):
+            raise ValueError(f"{name}: port shape {tuple(p.shape)} != JAX {tuple(val.shape)}")
+        p.copy_(val if isinstance(val, torch.Tensor) else _from_numpy(val))
         filled[name] = "/".join(path)
     missing = sorted(set(params) - set(filled))
     if missing:

@@ -643,3 +643,42 @@ def test_dit_kernel_int8_matches_plain(cuda, min_size, B, depth):
             ref = dit_sample_ref(ref_head, cfg, z, noise, sched, **kw)
             plain = dit_sample_ref(head, cfg, z, noise, sched, **kw)
         assert (out - ref).abs().max().item() <= 2 * (plain - ref).abs().max().item() + 1e-3
+
+
+@pytest.mark.parametrize("in_hw,pad,resample", [((480, 640), True, "bicubic"),
+                                                ((48, 64), True, "bilinear"),
+                                                ((336, 336), False, "bicubic")])
+def test_device_preprocess_on_cuda_matches_the_cpu(cuda, in_hw, pad, resample):
+    """ops/image_ops.py on the card against the same function on the CPU:
+    the same clip8 pixels up to the fp32 summation order at a .5 rounding
+    tie (at most one quantum, on few pixels), at 336 px (CLIP-L/336)."""
+    import numpy as np
+
+    from dexbotic_tpu_torch.ops.image_ops import make_device_preprocess
+
+    frames = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, *in_hw, 3),
+                                                                dtype=np.uint8))
+    kw = dict(resample=resample, pad_to_square=pad, fill=(122, 116, 104), rescale=1.0)
+    got = make_device_preprocess(in_hw, 336, device=cuda, **kw)(frames.to(cuda)).cpu()
+    want = make_device_preprocess(in_hw, 336, device="cpu", **kw)(frames)
+    diff = (got - want).abs()
+    assert got.shape == (2, 336, 336, 3) and diff.max().item() <= 1.0
+    assert (diff > 0).float().mean().item() < 1e-3
+
+
+def test_safetensors_parser_reads_to_cuda(cuda, tmp_path):
+    """utils/convert.read_safetensors onto the card: each tensor in its
+    stored dtype and bits, misaligned offsets included."""
+    import chip_smoke
+    from dexbotic_tpu_torch.utils.convert import load_torch_state_dict, read_safetensors
+
+    want = {"a_int8": torch.arange(7, dtype=torch.int8), "b_f32": torch.randn(5),
+            "c_bf16": torch.randn(3, 4).bfloat16(), "d_f16": torch.randn(9).half(),
+            "e_i64": torch.arange(3)}
+    chip_smoke.write_safetensors(str(tmp_path / "m.safetensors"), want)
+    for got in (read_safetensors(str(tmp_path / "m.safetensors"), cuda),
+                load_torch_state_dict(str(tmp_path), cuda)):
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert got[k].device.type == "cuda" and got[k].dtype == v.dtype, k
+            assert torch.equal(got[k].cpu(), v), k

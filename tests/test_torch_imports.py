@@ -13,7 +13,11 @@ PKG = os.path.dirname(dexbotic_tpu_torch.__file__)
 
 
 def _modules():
-    return sorted(m.name for m in pkgutil.walk_packages([PKG], "dexbotic_tpu_torch."))
+    """The port's modules (its playground recipes included) and the port's
+    scripts (``script/*_torch.py``)."""
+    scripts = sorted("script." + f[:-3] for f in os.listdir(os.path.join(REPO, "script"))
+                     if f.endswith("_torch.py"))
+    return sorted(m.name for m in pkgutil.walk_packages([PKG], "dexbotic_tpu_torch.")) + scripts
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -35,17 +39,28 @@ def test_every_module_imports_with_jax_blocked():
 
 def test_no_jax_in_the_sources():
     pat = re.compile(r"^\s*(import jax|from jax)\b", re.M)
-    for root, _, files in os.walk(PKG):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(root, f)) as fh:
-                    assert not pat.search(fh.read()), f
+    for path in _sources():
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
 
 
 def _sources():
     for root, _, files in os.walk(PKG):
         yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
     yield os.path.join(REPO, "chip_smoke.py")
+    script = os.path.join(REPO, "script")
+    yield from (os.path.join(script, f) for f in sorted(os.listdir(script))
+                if f.endswith("_torch.py"))
+
+
+def test_new_entry_points_are_covered():
+    """The LIBERO recipe twins and the replay script are among the modules
+    imported with JAX blocked and scanned above."""
+    names = _modules()
+    for recipe in ("cogact", "pi0", "pi05", "dm0"):
+        assert f"dexbotic_tpu_torch.playground.benchmarks.libero.libero_{recipe}" in names
+    assert "script.replay_checkpoint_torch" in names
+    assert os.path.join(REPO, "script", "replay_checkpoint_torch.py") in set(_sources())
 
 
 def test_no_jax_package_in_the_sources():

@@ -361,3 +361,76 @@ def test_exp_inference_quantize_on_both_packages(mode):
         assert tquant.quantized_bytes(model) < 0.6 * tquant.quantized_bytes(bf16)
     finally:
         jqm.W8A8_MIN_ROWS, tqm.W8A8_MIN_ROWS = old
+
+
+W8A8_TEST_ROWS = 16  # tiny prefixes (>= 16 rows) take W8A8, the 5-6 suffix rows do not
+
+
+@pytest.mark.parametrize("padded", [True, False])
+@pytest.mark.parametrize("mode", ["int8", "w8a8"])
+@pytest.mark.parametrize("variant", ["pi0", "pi05", "dm0"])
+def test_flow_exp_inference_quantize_matches_jax(variant, mode, padded, monkeypatch):
+    """Pi0Exp / Pi05Exp / DM0Exp(inference_quantize=...) against the JAX exps'
+    inference_single on one seeded JAX tree: JAX's serving dtype rule and
+    quantization (out-dims padded to 128 for the TPU kernel, or not), the int8 tree
+    copied into the port's quantized model, the same frame, state and
+    injected noise; W8A8 from 16 rows in both packages, so that the prefix
+    takes int8 activations and the suffix does not (mode "w8a8")."""
+    from dexbotic_tpu.exp import pi0_exp as jpi0
+    from dexbotic_tpu.models import flow_vla as jflow
+    from dexbotic_tpu.ops import quant as jquant_mod
+    from dexbotic_tpu_torch.exp import pi0_exp as tpi0
+    from dexbotic_tpu_torch.models import flow_vla as tflow
+
+    monkeypatch.setattr(jquant_mod, "quantize_params",
+                        functools.partial(jquant_mod.quantize_params, pad_cols=padded))
+    from dexbotic_tpu.models import presets as jpresets
+    from dexbotic_tpu_torch.models import presets as tpresets
+
+    name = {"pi0": "Pi0Exp", "pi05": "Pi05Exp", "dm0": "DM0Exp"}[variant]
+    exps = {}
+    for side, mod, base, presets in (("jax", jpi0, jbase, jpresets),
+                                     ("port", tpi0, tbase, tpresets)):
+        # an FFN width of 160: padded to 256 columns for the TPU kernel (a width < 128 is not)
+        monkeypatch.setitem(presets.LLM_PRESETS, "test_ffn160",
+                            dataclasses.replace(presets.LLM_TEST, intermediate_size=160))
+        cls = getattr(mod, name)
+        model = dataclasses.replace(cls().model, llm_preset="test_ffn160", vit_preset="test",
+                                    expert_preset="test_adarms" if variant == "pi05" else "test",
+                                    action_dim=8, chunk_size=5)
+        kw = dict(device="cpu") if side == "port" else {}
+        exps[side] = cls(model=model, data=base.DataConfig(
+            num_images=2, image_processor="28", image_pad_mode="zero", image_aspect_ratio=None),
+            inference_quantize=mode, inference_quantize_min_size=0, **kw)
+    old = (jqm.W8A8_MIN_ROWS, tqm.W8A8_MIN_ROWS)
+    try:
+        jcfg, jq, _ = exps["jax"].load_for_inference()
+        tcfg, model, _ = exps["port"].load_for_inference()
+        load_jax_params(model, jax.device_get(jq))
+        assert isinstance(model.expert.layers[0].mlp.gate, tcore.QuantLinear)
+        gate = jq["vlm"]["llm"]["layers"]["mlp"]["gate"]["w"]
+        assert gate["q"].shape[-1] == (256 if padded else 160) and gate["s"].shape[-1] == 160
+        if mode == "w8a8":
+            assert jqm.W8A8_MIN_ROWS == tqm.W8A8_MIN_ROWS == 2048
+            jqm.W8A8_MIN_ROWS = tqm.W8A8_MIN_ROWS = W8A8_TEST_ROWS
+        noise = np.random.default_rng(4).standard_normal((1, 5, 8)).astype(np.float32)
+        monkeypatch.setattr(exps["jax"], "load_for_inference", lambda: (jcfg, jq, None),
+                            raising=False)
+        monkeypatch.setattr(exps["jax"], "make_infer_fn", lambda cfg, params: (
+            lambda *a: jflow.flow_vla_inference_action(params, cfg, *a[:5], a[5],
+                                                       noise=jnp.asarray(noise))), raising=False)
+        monkeypatch.setattr(exps["port"], "load_for_inference", lambda: (tcfg, model, None),
+                            raising=False)
+        monkeypatch.setattr(exps["port"], "make_infer_fn", lambda cfg, m: (
+            lambda *a: tflow.flow_vla_inference_action(m, cfg, *a[:5],
+                                                       noise=torch.from_numpy(noise))),
+            raising=False)
+        frame = np.random.default_rng(5).integers(0, 256, (28, 28, 3), dtype=np.uint8)
+        state = np.random.default_rng(6).standard_normal(8)
+        outs = {side: np.asarray(e.inference_single(images=[frame], prompt="stack the bowls",
+                                                    states=state))
+                for side, e in exps.items()}
+    finally:
+        jqm.W8A8_MIN_ROWS, tqm.W8A8_MIN_ROWS = old
+    assert outs["port"].shape == (5, 8) and np.abs(outs["jax"] - noise[0]).max() > 0.05
+    np.testing.assert_allclose(outs["port"], outs["jax"], atol=1e-3, rtol=0)

@@ -2,7 +2,9 @@
 
 A multipart POST to /process_frame must return exactly what a direct call of
 cogact_inference_action returns from the same generator state; batched and
-micro-batched requests and ``--task inference_single`` must run.
+micro-batched requests and ``--task inference_single`` must run.  On-device
+preprocessing (``fuse_preprocess``, ops/image_ops.py) against the JAX
+functions and the host path; the robot client against the JAX client.
 """
 
 import concurrent.futures
@@ -116,8 +118,6 @@ def test_task_inference_single(monkeypatch, capsys):
 
 
 def test_unported_options_raise(served):
-    with pytest.raises(NotImplementedError):
-        _serve(served, fuse_preprocess=True)
     e = _exp()
     e.inference_quantize = "int4"
     with pytest.raises(ValueError):
@@ -136,3 +136,180 @@ def test_norm_stats_denormalise_served_chunks(served):
     want = -2.0 + (np.clip(raw[:, :6], -1, 1) + 1.0) * 0.5 * 5.0
     np.testing.assert_allclose(got[:, :6], want, rtol=1e-6)
     np.testing.assert_array_equal(got[:, 6], raw[:, 6])
+
+
+# ---------------------------------------------------------------------------
+# On-device preprocessing (ops/image_ops.py, CogActServer(fuse_preprocess=True))
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("out_n,in_n", [(28, 64), (28, 48), (336, 640), (40, 20), (28, 28)])
+@pytest.mark.parametrize("resample", ["bicubic", "bilinear"])
+def test_resize_matrix_matches_jax(out_n, in_n, resample):
+    from dexbotic_tpu.ops.image_ops import resize_matrix as jax_resize_matrix
+    from dexbotic_tpu_torch.ops.image_ops import resize_matrix
+
+    np.testing.assert_array_equal(resize_matrix(out_n, in_n, resample),
+                                  jax_resize_matrix(out_n, in_n, resample))
+
+
+def _clip8_reference(frames, in_hw, size, resample, pad, fill):
+    """(pixels, tie-affected mask) of the two clip8 passes in float64: a
+    pixel is tie-affected where a pass's exact value lies within 1e-4 of a
+    .5 rounding tie, in its own vertical pass or in a horizontal value that
+    feeds it; there fp32 sums in another order may round the other way."""
+    from dexbotic_tpu_torch.ops.image_ops import resize_matrix
+
+    x = frames.astype(np.float64)
+    H, W = in_hw
+    if pad and H != W:
+        side = max(H, W)
+        canvas = np.broadcast_to(np.asarray(fill, np.float64), (len(x), side, side, 3)).copy()
+        top, left = (side - H) // 2, (side - W) // 2
+        canvas[:, top:top + H, left:left + W] = x
+        x = canvas
+    tx = resize_matrix(size, x.shape[2], resample)
+    ty = resize_matrix(size, x.shape[1], resample)
+
+    def tie(v):
+        return np.abs(v - np.floor(v) - 0.5) < 1e-4
+
+    h = np.einsum("jx,byxc->byjc", tx, x)
+    h_tie = tie(h)
+    h = np.clip(np.round(h), 0, 255)
+    v = np.einsum("iy,byxc->bixc", ty, h)
+    affected = tie(v) | (np.einsum("iy,byxc->bixc", (ty != 0).astype(np.float64),
+                                   h_tie.astype(np.float64)) > 0)
+    return np.clip(np.round(v), 0, 255), affected
+
+
+@pytest.mark.parametrize("in_hw,pad", [((48, 64), True), ((64, 40), True), ((40, 40), True),
+                                       ((48, 64), False)])
+@pytest.mark.parametrize("resample", ["bicubic", "bilinear"])
+def test_device_preprocess_matches_jax(in_hw, pad, resample):
+    """Square and non-square frames, with and without the pad: after each
+    clip8 pass the port's pixels and JAX's equal the exact (float64) ones,
+    but where an exact value is a .5 rounding tie, which fp32 sums in
+    another order may break either way (one quantum); the normalisation is
+    the same ops, so equal pixels give equal values."""
+    import jax.numpy as jnp
+
+    from dexbotic_tpu.ops.image_ops import make_device_preprocess as jax_prep
+    from dexbotic_tpu_torch.ops.image_ops import make_device_preprocess
+
+    frames = np.random.default_rng(5).integers(0, 256, (2, *in_hw, 3), dtype=np.uint8)
+    fill = (122, 116, 104)
+    raw = dict(resample=resample, pad_to_square=pad, fill=fill, rescale=1.0)
+    want_px = np.asarray(jax_prep(in_hw, 28, **raw)(jnp.asarray(frames)))
+    got_px = make_device_preprocess(in_hw, 28, device="cpu", **raw)(torch.from_numpy(frames))
+    got_px = got_px.numpy()
+    exact, affected = _clip8_reference(frames, in_hw, 28, resample, pad, fill)
+    assert got_px.shape == want_px.shape == exact.shape == (2, 28, 28, 3)
+    assert affected.mean() < 0.25  # bilinear 40 -> 28: ~20 % on or below a tie, others <= 2.4 %
+    for px in (got_px, want_px):
+        np.testing.assert_array_equal(px[~affected], exact[~affected])
+        assert np.abs(px - exact).max() <= 1.0
+    kw = dict(resample=resample, mean=(0.48145466, 0.4578275, 0.40821073),
+              std=(0.26862954, 0.26130258, 0.27577711), pad_to_square=pad, fill=fill)
+    want = np.asarray(jax_prep(in_hw, 28, **kw)(jnp.asarray(frames)))
+    got = make_device_preprocess(in_hw, 28, device="cpu", **kw)(torch.from_numpy(frames)).numpy()
+    same = got_px == want_px
+    np.testing.assert_array_equal(got[same], want[same])
+
+
+def _frame_png(hw, seed) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(np.random.default_rng(seed).integers(0, 256, (*hw, 3), dtype=np.uint8)).save(
+        buf, "PNG")
+    return buf.getvalue()
+
+
+def test_fused_preprocess_matches_host_path(served):
+    """Raw uint8 upload + the device's flip, pad, resize and normalisation
+    give the host path's chunk (the JAX test's 2e-2), the pixels within
+    float noise of each other; one cached plan per camera geometry."""
+    exp, cfg, model, tok, norms = served
+    host = CogActServer(exp, cfg, model, tok, norms, host="127.0.0.1", port=0)
+    fused = CogActServer(exp, cfg, model, tok, norms, host="127.0.0.1", port=0,
+                         fuse_preprocess=True)
+    fields = {"text": "pick up the cube"}
+    for seed in range(2):
+        frames = [("image", _frame_png((48, 64), seed))]
+        a_host = np.asarray(host.get_response(fields, frames))
+        a_fused = np.asarray(fused.get_response(fields, frames))
+        assert a_fused.shape == a_host.shape == (cfg.chunk_size, cfg.action_dim)
+        np.testing.assert_allclose(a_fused, a_host, atol=2e-2)
+    assert (fused.fused_calls, fused.host_calls, host.fused_calls, host.host_calls) == (2, 0, 0, 2)
+    assert len(fused._device_prep) == 1
+    from dexbotic_tpu_torch.exp.serve import _decode_frames
+
+    pngs = [_frame_png((48, 64), 7), _frame_png((48, 64), 8)]
+    frames, order = _decode_frames(pngs)
+    dev = fused.device_images(frames, order, 2)[0].numpy()
+    hst = _cogact_images(pngs, exp.data.build_image_processor())
+    proc = exp.data.build_image_processor()
+    quanta = np.abs(dev - hst) * np.asarray(proc.std) / proc.rescale
+    assert dev.shape == hst.shape and quanta.max() <= 2.0
+    assert len(fused._device_prep) == 2  # a second geometry: two views a row
+
+
+def test_fused_preprocess_mixed_shapes_take_the_host_route(served):
+    """A batch_size=2 request whose frames differ in shape is served by the
+    host path, as in the JAX server, and counted there; the HTTP route
+    serves fused requests too."""
+    server, httpd = _serve(served, fuse_preprocess=True)
+    port = httpd.server_address[1]
+    try:
+        mixed = _post(port, "a;b", [_png((1, 2, 3)), _frame_png((30, 50), 1)], batch_size=2)
+        same = _post(port, "a;b", [_png((1, 2, 3)), _png((200, 9, 9))], batch_size=2)
+        one = _post(port, "go", [_png((9, 9, 9))])
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert mixed.shape == same.shape == (2, 4, 7) and one.shape == (4, 7)
+    assert np.isfinite(mixed).all() and np.isfinite(same).all()
+    assert (server.fused_calls, server.host_calls) == (2, 1)
+    assert len(server._device_prep) == 1  # both fused requests: 48x64 frames, one view
+
+
+# ---------------------------------------------------------------------------
+# The robot client
+# ---------------------------------------------------------------------------
+
+
+def test_dex_client_matches_the_jax_client(served):
+    """The port's DexClient and the JAX one against one port server: the same
+    requests (a refill every ``execute_steps`` actions), the same actions
+    from the same generator state, the same delta -> absolute with +-pi
+    wrapping of the angle dims."""
+    pytest.importorskip("requests")
+    from dexbotic_tpu.client import DexClient as JaxClient
+    from dexbotic_tpu_torch.client import DexClient
+
+    exp, cfg, model, tok, norms = served
+    server, httpd = _serve(served)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/process_frame"
+    frame = np.random.default_rng(3).integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    state = np.array([0.1, -0.2, 0.3, 3.1, -3.1, 0.5, 1.0], np.float64)
+    runs = []
+    try:
+        for cls in (DexClient, JaxClient):
+            server.generator.manual_seed(exp.model.seed)
+            calls = server.host_calls
+            client = cls(url=url, execute_steps=3, delta_action=True)
+            acts = [client.act(frame, "pick up the cube", state=state) for _ in range(7)]
+            runs.append((np.stack(acts), server.host_calls - calls, len(client.queue)))
+            client.reset()
+            assert not client.queue
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    (port_acts, port_calls, port_left), (jax_acts, jax_calls, jax_left) = runs
+    assert port_calls == jax_calls == 3 and port_left == jax_left == 2
+    np.testing.assert_array_equal(port_acts, jax_acts)
+    assert port_acts.shape == (7, cfg.action_dim)
+    assert np.all(np.abs(port_acts[:, 3:6]) <= np.pi)
+    delta = np.array([0.0, 0.0, 0.0, 0.2, -0.3, 7.0, 0.1])
+    for d in (delta, -delta):
+        np.testing.assert_allclose(DexClient(delta_action=True)._integrate(d, state),
+                                   JaxClient(delta_action=True)._integrate(d, state))
