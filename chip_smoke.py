@@ -6,7 +6,9 @@ Phases, any failure exits non-zero without a result line:
   1. card, power limit and versions; TF32 off for the reference comparisons;
   2. build the hand-written kernels from ``dexbotic_tpu_torch/csrc``;
   3. K1 (flash-attention forward) against its plain version at the served
-     prompt's shape, the training step's shape and three more;
+     prompt's shape, the training step's shape, three more and OFT's three
+     (the prompt's pads mid-row, before the appended segment: the joint
+     1 x 944 rows, the cached 113 x 945 segment, training's 8 x 2105);
   3b. K1 at head_dim 256 against its plain version at pi0's prefix (8 query
      heads on 1 kv head, the text's padded tail masked) and its suffix
      against the cached prefix: 1 x 816 and 51 x 867 (inference_single),
@@ -23,7 +25,10 @@ Phases, any failure exits non-zero without a result line:
      t_mlp), LLaMA-7B's at 1-64 rows and an int8 request's prefill products
      (CLIP-L/336 at 577 rows, the projector at 576, LLaMA-2-7B at 832 and
      1664), and with fp32 activations pi0's int8 prefill (Gemma-2B at 832
-     rows, SigLIP so400m/224 and the projector at 768); two calls must agree
+     rows, SigLIP so400m/224 and the projector at 768), and int8 OFT's
+     (the joint 944 rows and the DDIM segment's 113 at LLaMA's widths, the
+     noisy-action projector and lm_head at 112, the MLPResNet at 16 fp32
+     rows from K = 28672); two calls must agree
      bit for bit, and where the dispatch rule gives K4 the shape it must not
      be slower than the plain version;
   5. the serving slice: CogACT-7B (LLaMA-2-7B + CLIP-L/336 + DiT-B, seeded
@@ -82,13 +87,32 @@ Phases, any failure exits non-zero without a result line:
      dequantize formulation (K4 off) on the same noise, max |delta| <=
      PI0_INT8_K4_BOUND; the chunk's cosine to the bf16 chunk on the same
      noise >= 0.99; p50 and weight bytes beside bf16's;
+  5g. OFT-7B (OFTModelConfig's default: LLaMA-2-7B + CLIP-L/336 +
+     mlp2x_gelu, seeded random bf16 weights) built once, its head swapped
+     for L1 (chunk 16), the LIBERO recipe's L1 (chunk 8, a proprio token and
+     the client's state), Diffusion (DDIM-10 over a 113-token segment
+     against the 832-token prompt cache) and Discrete (lm_head's last 255
+     vocab slots), each served through OFTServer's /process_frame: 8 single
+     frames after a warm-up and a batch_size=2 request (L1: also 4
+     concurrent frames, micro-batched), K1 launching 32 times a request (352
+     for Diffusion) and no attention call taking the plain path on CUDA; the
+     chunk through the kernel path and the plain path on the same weights
+     and noise (cosine >= 0.99; Discrete: the bins agree on >= 99 %); p50,
+     p90 and the device call by part (tower, decoder, head or DDIM) with the
+     device's idle share;
+  5h. that OFT-7B with inference_quantize="w8a8", the L1, Diffusion and
+     Discrete routes served: K4's launches a request equal the products the
+     dispatch rule gives it (counted from the model and by forward hooks),
+     every shape K4 takes is one phase 4c holds, K1 as in 5g, no plain
+     attention call; the chunk's cosine to 5g's bf16 chunk on the same
+     inputs and noise >= 0.99 (Discrete: the bin logits'), weight bytes;
   6. K3 (flash-attention backward) against its plain version, gradients of
      sum(out * dO) through FlashAttention: at pi0's training shape first (the
      LIBERO recipe's micro-batch: B=4, 867 tokens, 8 query heads on 1 kv head
      of 256), then at K1's shapes, CogACT training's (B=8, S=2048, 32 heads
-     of 128) first; the plain version gets K3's own inputs, the out and lse
-     K1 saved; two K3 calls must give bitwise-equal gradients (K1's
-     determinism is checked there too);
+     of 128) first, OFT's last; the plain version gets K3's own inputs, the
+     out and lse K1 saved; two K3 calls must give bitwise-equal gradients
+     (K1's determinism is checked there too);
   7. the training slice, CogACT-7B on the LIBERO recipe with a frozen LLM
      (rows padded to the recipe's 2048 tokens), on a synthetic Dexdata suite
      of 480x640 frames written to a temp dir:
@@ -110,7 +134,15 @@ Phases, any failure exits non-zero without a result line:
      (micro-batch 4, accumulation 4) through Pi0Exp.train() with the K1/K3
      launches and plain CUDA attention calls counted, a finite loss at each
      step, checkpoint-3 holding norm_stats.json and a peak below 80 GiB;
-     prints the step time, samples/s and peak memory.
+     prints the step time, samples/s and peak memory;
+  9. the OFT training slice: OFT-7B on the LIBERO OFT recipe (L1, chunk 8,
+     proprio, remat) with a frozen LLM and the suite's 7-dof states as the
+     proprio input, rows of 2048 + 57 tokens: (a) one step (micro-batch 2),
+     kernel path vs plain path as in 7a (the projector's, the tower's and
+     the head's gradients); (b) four steps of micro-batch 8 through
+     OFTExp.train() with 4 forked decode processes, then the same in line:
+     K1/K3 launches, no plain attention call, the step time, samples/s,
+     peak memory and the seconds a step waited on its batch.
 
 Error rule for a kernel: its max error against the plain version run in
 fp32 on the same bf16 inputs must not exceed 2x the plain bf16 version's
@@ -129,7 +161,7 @@ registers and spills of every K1, K3, K4 and K2 instance from nvcc's
 ``-Xptxas -v`` (a spill fails) and the HGMMA instructions of every K2
 instance from the library's SASS (``cuobjdump``; a bf16 instance without
 one fails).
-Phases 5d-5f print their numbers as one JSON line (``{"phases": ...}``).
+Phases 5d-5h and 9 print their numbers as one JSON line (``{"phases": ...}``).
 The last two lines printed are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.
 """
@@ -144,6 +176,7 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -173,6 +206,77 @@ TRAIN_CASE = (8, TRAIN_SEQ_LEN, 32, 32, 128, TRAIN_SEQ_LEN - TRAIN_TOKENS, False
 SERVE_CASE = (1, 832, 32, 32, 128, 59, False)
 OTHER_CASES = [(8, 832, 32, 32, 128, 59, False), (1, 1408, 32, 8, 128, 59, True),
                (2, 832, 14, 2, 64, 59, True)]
+
+
+# OFT (phases 5g, 5h and 9): phase 5's prompt is 811 tokens, served in the
+# 832 bucket; the segment appended after the padded prompt is 112 action
+# tokens (L1, Discrete), 113 with Diffusion's timestep token (run against the
+# 832-token prompt cache), 57 for LIBERO (a proprio token and 8 x 7 actions);
+# training rows are the recipe's 2048 tokens + 57.  The prompt's pads sit
+# mid-row, between the prompt and the segment.  OFT_CASES: (result key, B,
+# valid prompt tokens, padded prompt, segment, segment against the cache).
+OFT_PROMPT_TOKENS, OFT_BUCKET = 811, 832
+OFT_TRAIN_MICRO = 8  # LiberoOFTExp's per_device_batch_size (TrainerConfig's default)
+OFT_CASES = [("oft_joint", 1, OFT_PROMPT_TOKENS, OFT_BUCKET, 112, False),
+             ("oft_cached", 1, OFT_PROMPT_TOKENS, OFT_BUCKET, 113, True),
+             ("oft_train", OFT_TRAIN_MICRO, TRAIN_TOKENS, TRAIN_SEQ_LEN, 57, False)]
+# The other K1 calls of 5g and 5h, held by phase 3 alone (K3 is training's):
+# LIBERO's 57-token segment, Diffusion's prefill of the prompt (its pads
+# trail), and each at the batch_size=2 request's 2 rows and the 4-frame
+# micro-batch's 4.  5g and 5h fail on a K1 shape that is in neither list.
+OFT_SERVED_CASES = [
+    (f"oft_{part}{'' if B == 1 else f'_b{B}'}", B, OFT_PROMPT_TOKENS, OFT_BUCKET, seg, cached)
+    for B in (1, 2, 4)
+    for part, seg, cached in (("joint", 112, False), ("libero_joint", 57, False),
+                              ("prefill", 0, False), ("cached", 113, True))
+    if (part, B) not in (("joint", 1), ("cached", 1))]
+
+
+def oft_k1_shape(B: int, n_valid: int, padded: int, seg: int, cached: bool) -> tuple:
+    """(B, query rows, key rows) of an OFT K1 call: OFT_CASES' fields."""
+    return B, seg if cached else padded + seg, padded + seg
+
+
+K1_OFT_CHECKED = {oft_k1_shape(*c) for _, *c in OFT_CASES + OFT_SERVED_CASES}
+
+
+@contextlib.contextmanager
+def k1_calls(shapes: set):
+    """Adds each K1 launch's (B, query rows, key rows) to ``shapes`` while
+    inside (a wrapper on the launch; no device synchronisation)."""
+    from dexbotic_tpu_torch.ops import attention as attn
+
+    launch = attn._flash_cuda
+
+    def recorded(q, k, *args, **kw):
+        shapes.add((q.shape[0], q.shape[1], k.shape[1]))
+        return launch(q, k, *args, **kw)
+
+    attn._flash_cuda = recorded
+    try:
+        yield shapes
+    finally:
+        attn._flash_cuda = launch
+
+
+def oft_attn_inputs(B: int, n_valid: int, padded: int, seg: int, cached: bool, gen):
+    """(name, q, k, v, (q_grp, kv_grp, kv_valid), None) of an OFT decoder
+    call (LLaMA-2: 32 heads of 128): the padded prompt then the segment,
+    groups cumsum(valid); with ``cached`` the segment's queries alone against
+    the prompt's cache and the segment."""
+    dev = torch.device("cuda")
+    S = padded + seg
+    valid = torch.ones(B, S, dtype=torch.int32, device=dev)
+    valid[:, n_valid:padded] = 0
+    grp = torch.cumsum(valid, 1, dtype=torch.int32)
+    Sq = seg if cached else S
+    q = torch.randn(B, Sq, 32, 128, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(B, S, 32, 128, generator=gen, device=dev).bfloat16() for _ in range(2))
+    q_grp = grp[:, padded:].contiguous() if cached else grp.clone()
+    part = "cached segment" if cached else "joint rows" if seg else "prompt prefill"
+    name = (f"OFT {part} B={B} Sq={Sq} Skv={S} ({padded - n_valid} pads "
+            f"{'mid-row' if seg else 'trailing'}) H=32/32 D=128")
+    return name, q, k, v, (q_grp, grp, valid), None
 
 
 def card_line() -> str:
@@ -345,9 +449,14 @@ def phase_flash(failures: list) -> dict:
 
     print("phase 3: K1 flash_fwd vs plain")
     g = torch.Generator(device="cuda").manual_seed(1)
-    worst, times = 0.0, []
-    for case in [SERVE_CASE, TRAIN_CASE, *OTHER_CASES]:
-        name, q, k, v, (q_grp, grp, valid), seg = attn_inputs(case, g)
+    worst, times = 0.0, {}
+    # the main paths' shapes carry a key: the library's time and the kernels' own
+    cases = [("serve" if c == SERVE_CASE else "train" if c == TRAIN_CASE else None,
+              lambda c=c: attn_inputs(c, g)) for c in [SERVE_CASE, TRAIN_CASE, *OTHER_CASES]]
+    cases += [(key, lambda c=c: oft_attn_inputs(*c, g)) for key, *c in OFT_CASES]
+    cases += [(key, lambda c=c: oft_attn_inputs(*c, g)) for key, *c in OFT_SERVED_CASES]
+    for key, make in cases:
+        name, q, k, v, (q_grp, grp, valid), seg = make()
         args = (grp, valid, None, seg, seg)
         out, lse = flash_attention_fwd(q, k, v, q_grp, *args)
         torch.cuda.synchronize()
@@ -365,7 +474,7 @@ def phase_flash(failures: list) -> dict:
         line = (f"    lse err {lse_err:.3g}  kernel {ms:.4f} ms  plain bf16 {plain_ms:.4f} ms  "
                 f"bound {bound_ms:.4f} ms ({bound_by})")
         lib = {"library_ms": None}
-        if case in (SERVE_CASE, TRAIN_CASE):  # the main paths' shapes: the library's time
+        if key is not None:  # a main path's shape: the library's time
             mask = _allowed(q_grp, grp, valid, seg, seg)
             backend, _, call = sdpa(q, k, v, mask)
             with torch.no_grad():
@@ -377,13 +486,18 @@ def phase_flash(failures: list) -> dict:
                      f"{lib['library_ms']:.4f} ms, err {lib_err:.3g}")
         print(line)
         worst = max(worst, err)
-        times.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                      **lib})
+        if key is not None:
+            times[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, **lib}
+            if key.startswith("oft"):
+                times[key].update(max_abs_err=err, B_Sq_Skv=[q.shape[0], q.shape[1], k.shape[1]])
         del q, k, v, out, lse, ref, ref_lse, plain
         free_memory()
-    # serving's shape, then training's
-    return {"max_abs_err": worst, **times[0],
-            **{f"train_{key}": val for key, val in times[1].items()}}
+    # serving's shape, training's, then OFT's
+    return {"max_abs_err": worst, **times["serve"],
+            **{f"train_{key}": val for key, val in times["train"].items()},
+            **{key: times[key] for key, *_ in OFT_CASES},
+            "oft_served": {key: times[key] for key, *_ in OFT_SERVED_CASES}}
 
 
 # pi0's K1 calls (Gemma-2B and its expert: 8 query heads on 1 kv head of 256):
@@ -507,6 +621,7 @@ def phase_flash_bwd(failures: list) -> dict:
     cases = [("pi0_train", lambda: pi0_train_attn_inputs(PI0_TRAIN_MICRO, g))]
     cases += [("main" if case == TRAIN_CASE else None, lambda case=case: attn_inputs(case, g))
               for case in [TRAIN_CASE, SERVE_CASE, *OTHER_CASES]]
+    cases += [(key, lambda c=c: oft_attn_inputs(*c, g)) for key, *c in OFT_CASES]
     for key, make in cases:
         name, q, k, v, ints, seg = make()
         q, k, v = (t.requires_grad_(True) for t in (q, k, v))
@@ -559,12 +674,16 @@ def phase_flash_bwd(failures: list) -> dict:
                          "sdpa_backend": backend}
             if key == "pi0_train":
                 rows[key]["B_S_Hq_Hkv_D"] = [q.shape[0], q.shape[1], 8, 1, 256]
+            if key != "main":
                 rows[key]["max_abs_err"] = max((a.float() - r).abs().max().item()
                                                for a, r in zip(got, ref))
+            if key.startswith("oft"):
+                rows[key]["B_Sq_Skv"] = [q.shape[0], q.shape[1], k.shape[1]]
         print(line)
         del q, k, v, dout, out, got, again, ref, plain, out_k, lse_k, bwd_args
         free_memory()
-    return {"max_abs_err": worst, **rows["main"], "pi0_train": rows["pi0_train"]}
+    return {"max_abs_err": worst, **rows["main"], "pi0_train": rows["pi0_train"],
+            **{key: rows[key] for key, *_ in OFT_CASES}}
 
 
 def dit_bound(head, cfg, B: int, steps: int, cfg_scale: float) -> tuple[float, str]:
@@ -706,8 +825,23 @@ K4_PI0 = [("gemma prefill q/o 2048->2048", 832, 2048, 2048),
           ("expert o 2048->1024", 51, 2048, 1024), ("expert gate/up 1024->4096", 51, 1024, 4096),
           ("expert down 4096->1024", 51, 4096, 1024),
           ("time mlp in 2048->1024", 50, 2048, 1024), ("time mlp out 1024->1024", 50, 1024, 1024)]
+# OFT-7B with int8 weights (phase 5h; the tower, projector and the Diffusion
+# head's 832-row prefill are K4_PREFILL's): the L1 and Discrete joint
+# forward over 832 + 112 rows, the DDIM segment's 113 rows, the noisy-action
+# projector's fc2 over the 112 action tokens, Discrete's lm_head over them,
+# in bf16; the MLPResNet (L1's head, Diffusion's noise predictor) over the
+# chunk's 16 rows in fp32: fc1 from the 7 x 4096 concatenated hidden states,
+# then its two 4096-wide blocks (its fc2, 4096 -> 7, is below
+# inference_quantize_min_size).  Phase 5h fails if its requests give K4 a
+# shape that is not here.
+K4_OFT = [(f"oft {part} {K}->{N}", M, K, N)
+          for part, M in (("joint", OFT_BUCKET + 112), ("ddim segment", 113))
+          for K, N in ((4096, 4096), (4096, 11008), (11008, 4096))] + [
+    ("oft noisy-action projector fc2", 112, 4096, 4096), ("oft lm_head", 112, 4096, 32000)]
+K4_OFT_F32 = [("oft mlp_resnet fc1", 16, 7 * 4096, 4096), ("oft mlp_resnet block", 16, 4096, 4096)]
 K4_RUNS = ([(torch.bfloat16, c) for c in K4_CASES] + [(torch.float32, c) for c in K4_CASES]
-           + [(torch.float32, c) for c in K4_PI0])
+           + [(torch.float32, c) for c in K4_PI0] + [(torch.bfloat16, c) for c in K4_OFT]
+           + [(torch.float32, c) for c in K4_OFT_F32])
 K4_CHECKED = {(M, K, N, dtype) for dtype, (_, M, K, N) in K4_RUNS}  # (rows, K, N, x dtype)
 
 
@@ -855,6 +989,25 @@ DIT_RULES = [(r"^x_embed\.", "x_embedder.linear."), (r"^t_mlp\.fc0\.", "t_embedd
              (r"^blocks\.(\d+)\.mlp\.fc1\.", r"blocks.\1.mlp.fc2.")]
 
 
+# OFT's heads: the MLPResNet (L1's ``model.``, Diffusion's ``noise_predictor.mlp_resnet.``)
+MLP_RESNET_RULES = [(r"^ln(1|2)\.", r"layer_norm\1."), (r"^fc(1|2)\.", r"fc\1."),
+                    (r"^blocks\.(\d+)\.ln\.", r"mlp_resnet_blocks.\1.ffn.0."),
+                    (r"^blocks\.(\d+)\.fc\.", r"mlp_resnet_blocks.\1.ffn.1.")]
+
+
+def _oft_head_name(name: str) -> str:
+    """The reference name of an OFT head parameter, under ``model.action_head.``."""
+    import re
+
+    m = re.match(r"^(mlp|noise_predictor)\.(.*)$", name)
+    if m:
+        inner = _renamed(m.group(2), MLP_RESNET_RULES)
+        return ("model." if m.group(1) == "mlp" else "noise_predictor.mlp_resnet.") + inner
+    if re.match(r"^(noisy_action_projector|proprio_projector)\.fc(1|2)\.(weight|bias)$", name):
+        return name
+    raise KeyError(f"no reference name for the OFT head parameter {name}")
+
+
 def _renamed(name: str, rules: list) -> str:
     import re
 
@@ -865,18 +1018,18 @@ def _renamed(name: str, rules: list) -> str:
 
 
 def reference_state_dict(model, cfg) -> dict:
-    """{reference name: tensor} of a CogACT or flow-VLA (pi0, pi0.5, DM0)
-    model: the layout utils/convert.py reads (Dexbotic's ``model.llm.``,
+    """{reference name: tensor} of a CogACT, flow-VLA (pi0, pi0.5, DM0) or
+    OFT model: the layout utils/convert.py reads (Dexbotic's ``model.llm.``,
     ``model.mm_vision_tower.vision_tower.vision_model.``, ``model.mm_projector.``,
-    ``model.action_head.net.``, ``model.action_expert[.model].``; torch
+    ``model.action_head.net.`` (the DiT), ``model.action_head.`` (OFT's heads),
+    ``model.action_expert[.model].``; torch
     Linear layouts; conv patch embeds).  The tensors keep the model's dtypes
     and device; CLIP's patch embed has no bias (it must be zero)."""
     import re
 
     from dexbotic_tpu_torch.utils.convert import VIT_PREFIX
 
-    cogact = hasattr(model, "action_head")
-    vit = cfg.vlm.vit if cogact else cfg.vit
+    vit = cfg.vlm.vit
     out = {}
     for name, p in model.named_parameters():
         t = p.detach()
@@ -898,6 +1051,10 @@ def reference_state_dict(model, cfg) -> dict:
             m = re.match(r"^fc(\d*)\.(weight|bias)$", name[14:])
             ref = m.group(2) if m.group(1) == "" else f"{2 * int(m.group(1))}.{m.group(2)}"
             out["model.mm_projector." + ref] = t
+        elif name == "action_head.action_query":  # OFT-L1: [1, tokens, H] in the reference
+            out["model.action_head.action_query"] = t[None]
+        elif name.startswith("action_head.") and not hasattr(cfg, "dit"):
+            out["model.action_head." + _oft_head_name(name[12:])] = t
         elif name.startswith("action_head."):
             ref = _renamed(name[12:], DIT_RULES)
             out["model.action_head.net." + ref] = t[None] if ref.endswith("uncondition") else t
@@ -1733,6 +1890,423 @@ def phase_pi0_replay(failures: list, pi0: dict) -> dict:
             "int8_weight_bytes": int8_bytes, "bf16_weight_bytes": bf16_bytes}
 
 
+# ---------------------------------------------------------------------------
+# OFT-7B (phases 5g and 5h): one LLaMA-2-7B + CLIP-L/336 VLM, the heads in turn
+# ---------------------------------------------------------------------------
+
+# (route, OFTModelConfig fields): OFTModelConfig's default (L1, chunk 16), the
+# LIBERO recipe's L1 (chunk 8, an 8-dim proprio token, the client's state),
+# Diffusion (DDIM-10 over the segment against the prompt's cache), Discrete
+OFT_ROUTES = [("l1", {}), ("libero_l1", {"chunk_size": 8, "use_proprio": True, "proprio_dim": 8}),
+              ("diffusion", {"action_model_type": "Diffusion"}),
+              ("discrete", {"action_model_type": "Discrete"})]
+OFT_REQUESTS = 8  # timed single-frame requests a route, after one warm-up
+
+
+def oft_k1_per_request(cfg) -> int:
+    """K1 launches of one OFT request: a decoder pass of one attention call a
+    layer, and Diffusion's ddim_steps segment passes after its prefill."""
+    return cfg.vlm.llm.num_layers * (1 + (cfg.ddim_steps if "Diffusion" in cfg.action_model_type
+                                          else 0))
+
+
+def oft_k4_products(model, cfg, prompt_len: int) -> dict:
+    """{part: quantized products one OFT request of one frame gives K4 by the
+    dispatch rule}, counted from the model: the tower's, the projector's, the
+    LLM's (one pass over prompt + segment; Diffusion: the prompt's prefill,
+    then the segment at each DDIM step), the head's (the MLPResNet at the
+    chunk's rows, the noisy-action projector at the action tokens, Discrete's
+    lm_head at the action tokens, the proprio projector at one row)."""
+    from dexbotic_tpu_torch.nn.core import QuantLinear
+
+    vit = cfg.vlm.vit
+    vit_layers = vit.num_layers + (vit.select_layer + 1 if vit.select_layer is not None else 0)
+    head, llm = model.action_head, model.vlm.llm
+    diffusion = "Diffusion" in cfg.action_model_type
+    calls = cfg.ddim_steps if diffusion else 1
+    parts = {"vit": (model.vlm.vit.layers[:vit_layers], vit.seq_len, 1),
+             "projector": (model.vlm.projector, vit.num_output_tokens, 1)}
+    if diffusion:
+        parts["llm_prefill"] = (llm.layers, prompt_len, 1)
+        parts["llm_segment"] = (llm.layers, cfg.segment_len, calls)
+        parts["noisy_action_projector"] = (head.noisy_action_projector, cfg.num_action_tokens,
+                                           calls)
+        parts["noise_predictor"] = (head.noise_predictor, cfg.chunk_size, calls)
+    else:
+        parts["llm"] = (llm.layers, prompt_len + cfg.segment_len, 1)
+    if "L1" in cfg.action_model_type:
+        parts["mlp"] = (head.mlp, cfg.chunk_size, 1)
+    if "Discrete" in cfg.action_model_type:
+        parts["lm_head"] = (llm.lm_head, cfg.num_action_tokens, 1)
+    if cfg.use_proprio:
+        parts["proprio_projector"] = (head.proprio_projector, 1, calls)
+    return {part: n * sum(k4_takes(rows, m) for m in mod.modules() if isinstance(m, QuantLinear))
+            for part, (mod, rows, n) in parts.items()}
+
+
+@torch.no_grad()
+def oft_parts_ms(model, cfg, ids, valid, imgs, states, noise) -> dict:
+    """One OFT request's device call by part, each a CUDA-synchronised median
+    of 5 (``wall_ms``): the tower and projector, the decoder (L1/Discrete: the
+    joint pass over prompt + segment; Diffusion: the prompt's prefill into
+    the cache), the head (L1: the MLPResNet; Discrete: lm_head and the argmax;
+    Diffusion: the DDIM steps over the segment against the cache) and the
+    whole call, with the device's idle share in the whole call (the union of
+    the kernels' intervals in a torch.profiler trace)."""
+    from dexbotic_tpu_torch.models import oft as om
+    from dexbotic_tpu_torch.nn.transformer import lm_logits
+    from script.profile_pi0_torch import trace, wall_ms
+
+    B = ids.shape[0]
+    prompt = om.prompt_embeds(model, cfg, ids, imgs)
+    t = cfg.action_model_type
+    skip = int(cfg.use_proprio)
+    if "Diffusion" in t:
+        cache = om.prefill_prompt(model, cfg, prompt, valid)
+        sched = om.schedule(cfg)
+
+        def eps_fn(x, ts):
+            seg = om.action_segment(model, cfg, B, prompt.dtype, states, x,
+                                    om.sinusoidal_time_encoding(ts, cfg.hidden))
+            hid = om.run_with_segment(model, cfg, None, valid, seg, cache=cache)
+            return model.action_head.noise_predictor(om._head_input(hid, cfg, skip + 1))
+
+        decoder = lambda: om.prefill_prompt(model, cfg, prompt, valid)  # noqa: E731
+        head = lambda: sched.ddim_sample(eps_fn, noise, cfg.ddim_steps)  # noqa: E731
+    else:
+        seg = om.action_segment(model, cfg, B, prompt.dtype, states)
+        decoder = lambda: om.run_with_segment(model, cfg, prompt, valid, seg)  # noqa: E731
+        hid = decoder()
+        if "L1" in t:
+            head = lambda: model.action_head.mlp(om._head_input(hid, cfg, skip))  # noqa: E731
+        else:
+            head = lambda: lm_logits(model.vlm.llm, cfg.vlm.llm, hid[:, skip:])[  # noqa: E731
+                ..., -om.decode_slots(cfg):].argmax(-1)
+
+    def call():
+        return om.oft_inference_action(model, cfg, ids, valid, imgs, states=states, noise=noise)
+
+    parts = {"tower_projector_ms": wall_ms(lambda: om.encode_images(model.vlm, cfg.vlm, imgs)),
+             "decoder_ms": wall_ms(decoder), "head_ms": wall_ms(head),
+             "device_call_ms": wall_ms(call)}
+    busy, n_kernels, _ = trace(call)
+    parts.update(device_busy_ms=busy, idle_share=1 - busy / parts["device_call_ms"],
+                 kernels=n_kernels)
+    return parts
+
+
+def oft_inputs(exp, cfg, tokenizer, png: bytes, state: list | None):
+    """(ids, valid, images, states or None) of one served frame, as OFTServer
+    builds them: the prompt in its 64-token bucket, the host-preprocessed frame."""
+    from dexbotic_tpu_torch.exp.serve import _cogact_images, _cogact_prompt_ids
+
+    row = _cogact_prompt_ids(exp, cfg, tokenizer, PROMPT)
+    L = -(-len(row) // 64) * 64
+    ids = torch.zeros((1, L), dtype=torch.int32, device="cuda")
+    ids[0, : len(row)] = torch.tensor(row, device="cuda")
+    valid = (torch.arange(L, device="cuda") < len(row)).int()[None]
+    imgs = torch.from_numpy(_cogact_images([png], exp.data.build_image_processor()))[None].cuda()
+    states = None
+    if cfg.use_proprio:
+        states = torch.zeros((1, cfg.proprio_dim), device="cuda")
+        states[0, : len(state)] = torch.tensor(state, device="cuda")
+    return ids, valid, imgs, states
+
+
+def _chunk_agreement(route: str, a: np.ndarray, b: np.ndarray) -> float:
+    """Two served chunks' agreement: Discrete's share of equal actions (equal
+    bins decode to equal values), the other heads' cosine."""
+    if route == "discrete":
+        return float(np.mean(a == b))
+    return _cosine(torch.from_numpy(a.astype(np.float64)).flatten(),
+                   torch.from_numpy(b.astype(np.float64)).flatten())
+
+
+def _oft_serve(port: int, cfg, png: bytes, state_json: str, n: int) -> tuple[list, list]:
+    """(chunks, ms) of ``n`` single-frame requests (a state where the route
+    reads one)."""
+    outs, lat = [], []
+    for _ in range(n):
+        out, dt = _post(port, PROMPT, [png], states=state_json if cfg.use_proprio else None)
+        outs.append(out)
+        lat.append(dt * 1e3)
+    return outs, lat
+
+
+def phase_oft(failures: list) -> dict:
+    """Phase 5g: OFT-7B (OFTModelConfig's default: LLaMA-2-7B + CLIP-L/336 +
+    mlp2x_gelu, seeded random bf16 weights) built once through
+    OFTExp.load_for_inference, its head swapped for each route of
+    OFT_ROUTES; each route served through OFTServer's /process_frame (a
+    warm-up, OFT_REQUESTS single frames, a batch_size=2 request, four
+    concurrent requests micro-batched) with K1's, K3's and K4's launches, K1's
+    shapes and the plain attention calls on CUDA counted around them; each
+    batched row of a deterministic head (L1, LIBERO L1, Discrete) against the
+    single frame's chunk; then the request's chunk through the kernel path
+    and the plain path (attn_impl="xla") on the same weights and noise, and
+    the device call by part with its idle share."""
+    import concurrent.futures
+
+    from dexbotic_tpu_torch.exp import base_exp
+    from dexbotic_tpu_torch.exp.oft_exp import OFTExp, OFTModelConfig
+    from dexbotic_tpu_torch.exp.serve import OFTServer, _cogact_prompt_ids
+    from dexbotic_tpu_torch.models import oft as om
+    from dexbotic_tpu_torch.ops import quant_matmul as qm
+    from dexbotic_tpu_torch.ops.attention import attention, flash_attention, flash_attention_bwd
+    from dexbotic_tpu_torch.ops.quant import quantized_bytes
+
+    print("phase 5g: OFT-7B (LLaMA-2-7B + CLIP-L/336, bf16 weights) served through /process_frame, "
+          "the L1, LIBERO L1, Diffusion and Discrete heads in turn")
+    exp = OFTExp(model=OFTModelConfig(), data=base_exp.DataConfig(image_processor="clip_336"),
+                 device="cuda")
+    t0 = time.perf_counter()
+    cfg, model, _ = exp.load_for_inference()
+    tokenizer = exp.tokenizer.build_tokenizer()
+    heads, gen = {}, torch.Generator(device="cuda").manual_seed(21)
+    for route, fields in OFT_ROUTES:
+        rcfg = dataclasses.replace(exp.model, **fields).build_config()
+        head = model.action_head if route == "l1" else om.build_oft_head(
+            rcfg, "cuda", seed=22, prepare=exp.prepare_inference_params)
+        if hasattr(head, "action_query"):  # zero at init: every query token alike
+            with torch.no_grad():
+                head.action_query.normal_(0.0, 0.02, generator=gen)
+        heads[route] = (rcfg, head)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    head_params = {r: sum(p.numel() for p in h.parameters()) for r, (_, h) in heads.items()}
+    print(f"  built {n_params / 1e9:.3f}B params (L1) on the card in {time.perf_counter() - t0:.1f} "
+          f"s, heads {head_params}; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    n_tok = len(_cogact_prompt_ids(exp, cfg, tokenizer, PROMPT))
+    if n_tok != OFT_PROMPT_TOKENS:
+        failures.append(f"5g: the prompt is {n_tok} tokens; phases 3 and 6 hold K1 and K3 at "
+                        f"{OFT_PROMPT_TOKENS}")
+    png = _frame_png()
+    state = [round(float(x), 4) for x in np.random.default_rng(23).normal(0, 0.5, 8)]
+    state_json = json.dumps(state)
+    bf16_bytes = quantized_bytes(model)
+    results = {"prompt_tokens": n_tok, "bf16_weight_bytes": bf16_bytes, "head_params": head_params}
+    total = {"flash_fwd": 0, "flash_bwd": 0, "quant_matmul": 0}
+    k1_shapes: set = set()
+    for route, _ in OFT_ROUTES:
+        rcfg, head = heads[route]
+        model.action_head = head
+        per_req = oft_k1_per_request(rcfg)
+        state_arg = state_json if rcfg.use_proprio else None
+        server = OFTServer(exp, rcfg, model, tokenizer, None, host="127.0.0.1", port=0)
+        httpd = server.serve_background()
+        port = httpd.server_address[1]
+        try:
+            _oft_serve(port, rcfg, png, state_json, 1)  # warm-up, not counted
+            flash_attention.launches = flash_attention_bwd.launches = 0
+            qm.quant_matmul.launches = attention.plain_cuda_calls = 0
+            with k1_calls(k1_shapes):
+                outs, lat = _oft_serve(port, rcfg, png, state_json, OFT_REQUESTS)
+                states2 = f"{state_json};{state_json}" if rcfg.use_proprio else None
+                batch, batch_dt = _post(port, f"{PROMPT};{PROMPT}", [png, png], batch_size=2,
+                                        states=states2)
+            launches, plain = flash_attention.launches, attention.plain_cuda_calls
+            total["flash_fwd"] += launches
+            total["flash_bwd"] += flash_attention_bwd.launches
+            total["quant_matmul"] += qm.quant_matmul.launches
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        want = (OFT_REQUESTS + 1) * per_req
+        shape = (rcfg.chunk_size, rcfg.action_dim)
+        ok = (all(o.shape == shape and np.isfinite(o).all() for o in outs)
+              and batch.shape == (2, *shape) and np.isfinite(batch).all())
+        if not ok:
+            failures.append(f"5g {route}: response shapes {[o.shape for o in outs]}, {batch.shape}")
+        if launches != want or plain:
+            failures.append(f"5g {route}: K1 launched {launches} times (want {want}: "
+                            f"{OFT_REQUESTS + 1} device calls x {per_req}), {plain} plain "
+                            f"attention calls on CUDA")
+        lat = sorted(lat)
+        row = {"p50_ms": statistics.median(lat), "p90_ms": float(np.percentile(lat, 90)),
+               "batch2_ms": batch_dt * 1e3, "k1_per_request": launches / (OFT_REQUESTS + 1),
+               "plain_cuda_calls": plain, "segment_tokens": rcfg.segment_len}
+        # four concurrent single frames, micro-batched into one padded device call
+        mb = OFTServer(exp, rcfg, model, tokenizer, None, host="127.0.0.1", port=0,
+                       micro_batch=4, micro_batch_window_ms=50.0)
+        httpd = mb.serve_background()
+        try:
+            attention.plain_cuda_calls = 0
+            with k1_calls(k1_shapes), concurrent.futures.ThreadPoolExecutor(max_workers=4) as ex:
+                mb_outs = list(ex.map(lambda _: _post(httpd.server_address[1], PROMPT, [png],
+                                                      states=state_arg), range(4)))
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        row["micro_batched_calls"] = mb.batched_calls
+        row["micro_batch_ms"] = [dt * 1e3 for _, dt in mb_outs]
+        if (mb.batched_calls < 1 or attention.plain_cuda_calls
+                or not all(o.shape == shape and np.isfinite(o).all() for o, _ in mb_outs)):
+            failures.append(f"5g {route}: micro-batching: {mb.batched_calls} coalesced calls, "
+                            f"{attention.plain_cuda_calls} plain attention calls, shapes "
+                            f"{[o.shape for o, _ in mb_outs]}")
+        if route != "diffusion":  # deterministic: each row of a batch is the single frame's chunk
+            rows_ = [*batch, *(o for o, _ in mb_outs)]
+            agree = [_chunk_agreement(route, r, outs[0]) for r in rows_]
+            row["batch_rows_vs_single"] = agree
+            print(f"  {route}: the batch_size=2 and micro-batched rows vs the single frame's "
+                  f"chunk: {'bins agree on' if route == 'discrete' else 'cosine'} "
+                  f"{min(agree):.6f} at worst over {len(agree)} rows")
+            if not min(agree) >= 0.99:
+                failures.append(f"5g {route}: a batched row disagrees with the single frame's "
+                                f"chunk: {agree} (want >= 0.99)")
+        # the same frame through the kernel path and the plain path, same noise
+        ids, valid, imgs, states = oft_inputs(exp, rcfg, tokenizer, png, state)
+        noise = torch.randn((1, rcfg.chunk_size, rcfg.action_dim),
+                            generator=torch.Generator(device="cuda").manual_seed(24), device="cuda")
+        llm_plain = dataclasses.replace(rcfg.vlm.llm, attn_impl="xla")
+        plain_cfg = dataclasses.replace(rcfg, vlm=dataclasses.replace(rcfg.vlm, llm=llm_plain))
+        n0 = flash_attention.launches
+        a = om.oft_inference_action(model, rcfg, ids, valid, imgs, states=states, noise=noise)
+        b = om.oft_inference_action(model, plain_cfg, ids, valid, imgs, states=states, noise=noise)
+        if flash_attention.launches - n0 != per_req:
+            failures.append(f"5g {route}: the kernel path launched K1 "
+                            f"{flash_attention.launches - n0} times, the plain path must not")
+        if route == "discrete":
+            agree = (a == b).float().mean().item()
+            row["bin_agreement"] = agree
+            row["logits"] = om.discrete_bin_logits(model, rcfg, ids, valid, imgs, states)
+            print(f"  {route}: kernel vs plain path, bins agree on {agree:.2%} of the "
+                  f"{a.numel()} tokens")
+            if not agree >= 0.99:
+                failures.append(f"5g discrete: bins agree on {agree:.2%} < 99 %")
+        else:
+            cos = _cosine(a.flatten(), b.flatten())
+            row["cosine"] = cos
+            print(f"  {route}: kernel vs plain path: max abs diff {(a - b).abs().max().item():.5g}, "
+                  f"cosine {cos:.6f}, |chunk| max {b.abs().max().item():.4g}")
+            if not cos >= 0.99:
+                failures.append(f"5g {route}: chunk cosine {cos} < 0.99")
+        row.update(oft_parts_ms(model, rcfg, ids, valid, imgs, states, noise))
+        row.update(chunk=a, inputs=(ids, valid, imgs, states), noise=noise)
+        print(f"  {route}: {OFT_REQUESTS} requests p50 {row['p50_ms']:.1f} ms, p90 "
+              f"{row['p90_ms']:.1f} ms, batch_size=2 {row['batch2_ms']:.1f} ms; K1 {launches} "
+              f"launches ({row['k1_per_request']:g} a request, segment {rcfg.segment_len} "
+              f"tokens), plain attention calls on CUDA {plain}; device call "
+              f"{row['device_call_ms']:.2f} ms = tower {row['tower_projector_ms']:.2f} + decoder "
+              f"{row['decoder_ms']:.2f} + head {row['head_ms']:.2f} (medians of 5), device idle "
+              f"{row['idle_share']:.1%} of it over {row['kernels']} kernels")
+        results[route] = row
+    if total["flash_bwd"] or total["quant_matmul"]:
+        failures.append(f"5g: bf16 serving launched K3 {total['flash_bwd']} times, K4 "
+                        f"{total['quant_matmul']} times")
+    unchecked = sorted(k1_shapes - K1_OFT_CHECKED)
+    print(f"  K1 shapes served (B, query rows, key rows): {sorted(k1_shapes)}; not held by "
+          f"phase 3: {unchecked}")
+    if unchecked or not k1_shapes:
+        failures.append(f"5g: K1 took shapes that phase 3 does not check: {unchecked}")
+    results["launches"] = total
+    results["k1_shapes"] = sorted(k1_shapes)
+    return {**results, "model": model, "heads": heads, "exp": exp, "tokenizer": tokenizer,
+            "png": png, "state_json": state_json}
+
+
+def phase_oft_int8(failures: list, oft: dict) -> dict:
+    """Phase 5h: phase 5g's OFT-7B quantized (inference_quantize="w8a8": int8
+    weights, int8 activations from 2048 rows) with each head quantized alike;
+    the L1, Diffusion and Discrete routes served (a warm-up, OFT_REQUESTS
+    single frames) with K1's, K3's and K4's launches, K1's shapes and the
+    plain attention calls counted; K4's launches a request against the dispatch rule's products
+    (from the model and from forward hooks); every (rows, K, N, dtype) K4 took
+    among phase 4c's cases; the chunk's cosine to 5g's bf16 chunk on the same
+    inputs and noise (Discrete: the bin logits' cosine, and the bins' agreement)."""
+    from dexbotic_tpu_torch.exp.serve import OFTServer
+    from dexbotic_tpu_torch.models import oft as om
+    from dexbotic_tpu_torch.ops import quant_matmul as qm
+    from dexbotic_tpu_torch.ops.attention import attention, flash_attention, flash_attention_bwd
+    from dexbotic_tpu_torch.ops.quant import quantize_model_, quantized_bytes
+
+    print("phase 5h: OFT-7B with inference_quantize='w8a8' (L1, Diffusion, Discrete)")
+    exp, model, heads = oft["exp"], oft["model"], oft["heads"]
+    exp.inference_quantize = "w8a8"
+    model.action_head = heads["l1"][1]
+    exp.quantize_inference_model(model)
+    for route in ("diffusion", "discrete"):
+        quantize_model_(heads[route][1], min_size=exp.inference_quantize_min_size)
+    int8_bytes = quantized_bytes(model)
+    results = {"int8_weight_bytes": int8_bytes, "bf16_weight_bytes": oft["bf16_weight_bytes"]}
+    total = {"flash_fwd": 0, "flash_bwd": 0, "quant_matmul": 0}
+    k1_shapes: set = set()
+    for route in ("l1", "diffusion", "discrete"):
+        rcfg, head = heads[route]
+        model.action_head = head
+        bf16 = oft[route]
+        ids, valid, imgs, states = bf16["inputs"]
+        server = OFTServer(exp, rcfg, model, oft["tokenizer"], None, host="127.0.0.1", port=0)
+        httpd = server.serve_background()
+        port = httpd.server_address[1]
+        shapes = set()
+        try:
+            _oft_serve(port, rcfg, oft["png"], oft["state_json"], 1)  # warm-up, not counted
+            with k4_calls(model, shapes) as seen, k1_calls(k1_shapes):
+                flash_attention.launches = flash_attention_bwd.launches = 0
+                qm.quant_matmul.launches = attention.plain_cuda_calls = 0
+                outs, lat = _oft_serve(port, rcfg, oft["png"], oft["state_json"], OFT_REQUESTS)
+                counts = {"flash_fwd": flash_attention.launches,
+                          "flash_bwd": flash_attention_bwd.launches,
+                          "quant_matmul": qm.quant_matmul.launches,
+                          "plain_cuda_calls": attention.plain_cuda_calls}
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        for k in total:
+            total[k] += counts[k]
+        want = oft_k4_products(model, rcfg, ids.shape[1])
+        per_req = counts["quant_matmul"] / OFT_REQUESTS
+        hooks = sum(seen.values()) / OFT_REQUESTS
+        k1_want = OFT_REQUESTS * oft_k1_per_request(rcfg)
+        unchecked = sorted((M, K, N, str(dt)[6:]) for M, K, N, dt in shapes - K4_CHECKED)
+        if not all(o.shape == (rcfg.chunk_size, rcfg.action_dim) and np.isfinite(o).all()
+                   for o in outs):
+            failures.append(f"5h {route}: response shapes {[o.shape for o in outs]}")
+        if not per_req == sum(want.values()) == hooks or per_req <= 0:
+            failures.append(f"5h {route}: K4 launched {per_req} times a request; the rule gives "
+                            f"{sum(want.values())} {want}, the hooks saw {hooks}")
+        if counts["flash_fwd"] != k1_want or counts["plain_cuda_calls"] or counts["flash_bwd"]:
+            failures.append(f"5h {route}: K1 {counts['flash_fwd']} launches (want {k1_want}), "
+                            f"K3 {counts['flash_bwd']} (want 0), {counts['plain_cuda_calls']} "
+                            f"plain attention calls on CUDA")
+        if unchecked or not shapes:
+            failures.append(f"5h {route}: K4 took shapes that phase 4c does not check: {unchecked}")
+        a = om.oft_inference_action(model, rcfg, ids, valid, imgs, states=states,
+                                    noise=bf16["noise"])
+        lat = sorted(lat)
+        row = {"p50_ms": statistics.median(lat), "p90_ms": float(np.percentile(lat, 90)),
+               "bf16_p50_ms": bf16["p50_ms"], "launches": counts, "k4_per_request": per_req,
+               "k4_rule": want, "k4_shapes": len(shapes)}
+        if route == "discrete":
+            logits = om.discrete_bin_logits(model, rcfg, ids, valid, imgs, states)
+            row["logits_cosine"] = _cosine(logits.flatten(), bf16["logits"].flatten())
+            row["bin_agreement_with_bf16"] = (a == bf16["chunk"]).float().mean().item()
+            cos_label = (f"bin logits cosine {row['logits_cosine']:.6f}, bins agree on "
+                         f"{row['bin_agreement_with_bf16']:.2%}")
+            cos = row["logits_cosine"]
+        else:
+            cos = row["cosine"] = _cosine(a.flatten(), bf16["chunk"].flatten())
+            cos_label = f"chunk cosine {cos:.6f}"
+        if not cos >= 0.99:
+            failures.append(f"5h {route}: int8 vs bf16 {cos_label} (want >= 0.99)")
+        print(f"  {route}: {OFT_REQUESTS} requests p50 {row['p50_ms']:.1f} ms (bf16 "
+              f"{bf16['p50_ms']:.1f}), p90 {row['p90_ms']:.1f} ms; launches {counts}; K4 "
+              f"{per_req:g} a request (the rule's products {sum(want.values())} {want}, the hooks "
+              f"{hooks:g}); {len(shapes)} K4 shapes, not in 4c: {unchecked}; int8 vs bf16 "
+              f"(same inputs and noise): {cos_label}")
+        results[route] = row
+    print(f"  weights {int8_bytes / 2**30:.2f} GiB int8 (L1 head) vs "
+          f"{oft['bf16_weight_bytes'] / 2**30:.2f} GiB bf16")
+    qm.W8A8_MIN_ROWS = None  # "w8a8" set it for this process
+    unchecked = sorted(k1_shapes - K1_OFT_CHECKED)
+    if unchecked or not k1_shapes:
+        failures.append(f"5h: K1 took shapes that phase 3 does not check: {unchecked}")
+    results["launches"] = total
+    results["k1_shapes"] = sorted(k1_shapes)
+    return results
+
+
 LIBERO_PROMPT = "put the black bowl in the bottom drawer of the cabinet and close it"
 
 
@@ -2077,6 +2651,182 @@ def phase_pi0_train(failures: list) -> dict:
         return {"compare": compare, **phase_pi0_train_steps(failures, dataset, stats)}
 
 
+def oft_train_exp(dataset: str, out: str, micro: int, steps: int, workers: int = 0):
+    """OFT-7B on the LIBERO OFT recipe
+    (playground/benchmarks/libero/libero_oft.py: L1, chunk 8, proprio, remat)
+    with a frozen LLM (freeze_llm=True; the full fine-tune of 7B waits on
+    the parallel layer) and the suite's 7-dof states as its proprio input
+    (proprio_dim 7: the recipe's 8 is LIBERO's state width, and the action
+    pipeline derives the 7-dof actions from the states); rows of the
+    recipe's TRAIN_SEQ_LEN tokens + 57.  ``workers`` > 0 decodes in that many
+    forked processes."""
+    from dexbotic_tpu_torch.playground.benchmarks.libero.libero_oft import LiberoOFTExp
+
+    exp = LiberoOFTExp(device="cuda")
+    exp.model = dataclasses.replace(exp.model, proprio_dim=7)
+    exp.data = dataclasses.replace(exp.data, dataset_name=dataset, num_workers=workers,
+                                   worker_mode="process")
+    exp.trainer = dataclasses.replace(exp.trainer, output_dir=out, max_steps=steps,
+                                      per_device_batch_size=micro, logging_steps=1,
+                                      save_steps=steps, resume=False, save_optimizer=False)
+    exp.optimizer = dataclasses.replace(exp.optimizer, freeze_llm=True)
+    return exp
+
+
+def phase_oft_train_compare(failures: list, dataset: str) -> dict:
+    """Phase 9a: one OFT training step (micro-batch 2), kernel path vs plain
+    path (attn_impl="xla") on the same weights and batch: loss, grad_norm and
+    the cosine of the projector's, the tower's and the head's gradients.
+    Then an fp32 witness: the plain path in fp32 on the same weights (the
+    bf16 values, exactly) and batch, and each bf16 path's distance from it."""
+    from dexbotic_tpu_torch.data.collator import Collator
+    from dexbotic_tpu_torch.exp.trainer import Trainer
+    from dexbotic_tpu_torch.models.oft import oft_loss
+    from dexbotic_tpu_torch.ops.attention import flash_attention_bwd
+
+    print("phase 9a: one OFT training step, kernel path vs plain path (micro-batch 2)")
+    exp = oft_train_exp(dataset, "out_oft_compare", 2, 1)
+    exp._auto_compute_norm_stats()
+    tok = exp.tokenizer.build_tokenizer()
+    cfg, model, _ = exp.build_model(tok)
+    with torch.no_grad():  # zero at init: every query token alike
+        model.action_head.action_query.normal_(
+            0.0, 0.02, generator=torch.Generator(device="cuda").manual_seed(25))
+    ds = exp.data.build_data(exp.build_tokenization(tok), exp.action.build_action_process_func())
+    n_tok = max(len(ds[i]["input_ids"]) for i in range(len(ds)))
+    seq_len = exp.tokenizer.model_max_length
+    batch = Collator(pad_token_id=tok.pad_token_id, max_length=seq_len)([ds[0], ds[5]])
+    print(f"  samples of up to {n_tok} tokens, padded to {seq_len}, then the {cfg.segment_len}-"
+          f"token segment: rows of {seq_len + cfg.segment_len}")
+    if (n_tok, seq_len, cfg.segment_len) != (TRAIN_TOKENS, TRAIN_SEQ_LEN, OFT_CASES[2][4]):
+        failures.append(f"9a: samples of {n_tok} tokens padded to {seq_len} + {cfg.segment_len}: "
+                        f"phases 3 and 6 hold K1 and K3 at {OFT_CASES[2][2:5]}")
+    llm_plain = dataclasses.replace(cfg.vlm.llm, attn_impl="xla")
+    cfg_plain = dataclasses.replace(cfg, vlm=dataclasses.replace(cfg.vlm, llm=llm_plain))
+    watched = {"projector": "vlm.projector.", "vit": "vlm.vit.", "head": "action_head."}
+    results = {}
+    for label, c in (("plain", cfg_plain), ("kernel", cfg)):
+        def loss_fn(m, b, gen, c=c):
+            return oft_loss(m, c, b, gen, remat=True)
+
+        trainer = Trainer(loss_fn, model, exp.trainer, exp.optimizer)
+        start = {n: trainer.params[n].detach().clone() for n in trainer.optimizer.mu}
+        flash_attention_bwd.launches = 0
+        loss, _ = trainer.accumulate_grads(batch)
+        grads = {k: torch.cat([p.grad.float().flatten() for n, p in trainer.params.items()
+                               if n.startswith(prefix) and p.grad is not None])
+                 for k, prefix in watched.items()}
+        norm = trainer.apply_gradients()
+        with torch.no_grad():
+            for n, value in start.items():
+                trainer.params[n].copy_(value)
+        results[label] = (float(loss), float(norm), grads, flash_attention_bwd.launches)
+        del trainer, start
+    # the fp32 witness (the plain path: K1 and K3 take bf16 alone)
+    model.float()
+    trainer = Trainer(lambda m, b, gen: oft_loss(m, cfg_plain, b, gen, remat=True), model,
+                      dataclasses.replace(exp.trainer, bf16=False), exp.optimizer)
+    loss, _ = trainer.accumulate_grads(batch)
+    g32 = {k: torch.cat([p.grad.float().flatten() for n, p in trainer.params.items()
+                         if n.startswith(prefix) and p.grad is not None])
+           for k, prefix in watched.items()}
+    l32, n32 = float(loss), float(trainer.apply_gradients())
+    del trainer
+    (lp, np_, gp, kp), (lk, nk, gk, kk) = results["plain"], results["kernel"]
+    rel_loss, rel_norm = abs(lk - lp) / abs(lp), abs(nk - np_) / abs(np_)
+    cos = {k: _cosine(gk[k], gp[k]) for k in watched}
+    witness = {label: {"loss_rel": abs(lx - l32) / abs(l32), "grad_norm_rel": abs(nx - n32) / n32,
+                       "grad_cosine": {k: _cosine(gx[k], g32[k]) for k in watched}}
+               for label, (lx, nx, gx, _) in results.items()}
+    print(f"  loss kernel {lk:.6g} plain {lp:.6g} (rel {rel_loss:.3g}); grad_norm kernel {nk:.6g} "
+          f"plain {np_:.6g} (rel {rel_norm:.3g}); gradient cosine {cos}; K3 launches kernel "
+          f"path {kk}, plain path {kp}")
+    print(f"  fp32 witness: loss {l32:.6g}, grad_norm {n32:.6g}; each bf16 path's distance from "
+          f"it: {witness}")
+    checks = [(math.isfinite(lk) and rel_loss <= 1e-2, f"9a: loss rel diff {rel_loss} > 1e-2"),
+              (math.isfinite(nk) and rel_norm <= 2e-2, f"9a: grad_norm rel diff {rel_norm} > 2e-2"),
+              (min(cos.values()) >= 0.99, f"9a: gradient cosine {cos} < 0.99"),
+              (kk >= cfg.vlm.llm.num_layers and kp == 0, f"9a: K3 launches {kk} / plain {kp}")]
+    # the kernel path sits no further from the fp32 witness than phase 3's
+    # error rule allows beside the plain bf16 path
+    distances = {label: (w["loss_rel"], w["grad_norm_rel"], 1 - min(w["grad_cosine"].values()))
+                 for label, w in witness.items()}
+    for what, dk, dp in zip(("loss rel", "grad_norm rel", "1 - gradient cosine"),
+                            distances["kernel"], distances["plain"]):
+        checks.append((dk <= 2.0 * dp + 1e-3, f"9a: the kernel path's {what} from the fp32 "
+                                               f"witness {dk} > 2 x the plain path's {dp} + 1e-3"))
+    failures.extend(msg for ok, msg in checks if not ok)
+    del model, results, gp, gk, g32
+    free_memory()
+    return {"loss_rel": rel_loss, "grad_norm_rel": rel_norm, "grad_cosine": cos,
+            "k3_launches": kk, "prompt_tokens": n_tok, "fp32_loss": l32, "fp32_grad_norm": n32,
+            "vs_fp32": witness}
+
+
+def phase_oft_train_steps(failures: list, dataset: str, workers: int) -> dict:
+    """Phase 9b: OFT_TRAIN_STEPS steps through OFTExp.train() at the recipe's
+    micro-batch, host decode in ``workers`` forked processes (0: in line),
+    K1/K3 launches and plain CUDA attention calls counted around them; the
+    step time, samples/s, peak memory and the seconds a step waited on its
+    batch (the Trainer's data_wait_s), medians of steps 2 on."""
+    from dexbotic_tpu_torch.ops import quant_matmul as qm
+    from dexbotic_tpu_torch.ops.attention import attention, flash_attention, flash_attention_bwd
+
+    steps, micro = OFT_TRAIN_STEPS, OFT_TRAIN_MICRO
+    how = f"{workers} decode processes" if workers else "decode in line"
+    print(f"phase 9b: {steps} OFT training steps through OFTExp.train() (micro-batch {micro}, "
+          f"{how})")
+    out = f"out_oft_{workers}"
+    exp = oft_train_exp(dataset, out, micro, steps, workers)
+    n_layers = exp.model.build_config().vlm.llm.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention_bwd.launches = attention.plain_cuda_calls = 0
+    qm.quant_matmul.launches = 0
+    t0 = time.perf_counter()
+    log = exp.train()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": flash_attention.launches, "flash_bwd": flash_attention_bwd.launches,
+                "quant_matmul": qm.quant_matmul.launches,
+                "plain_cuda_calls": attention.plain_cuda_calls}
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    for r in rows:
+        print(f"  step {r['step']}: loss {r['loss']:.6g} grad_norm {r['grad_norm']:.6g} step time "
+              f"{1 / r['steps_per_sec']:.4f} s, waited {r['data_wait_s']:.4f} s on its batch")
+    step_s = statistics.median(1 / r["steps_per_sec"] for r in rows[1:])
+    wait_s = statistics.median(r["data_wait_s"] for r in rows[1:])
+    rate = micro / step_s
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  train() wall {wall:.1f} s; step {step_s:.4f} s (median of steps 2-{steps}), "
+          f"{rate:.3f} samples/s, data wait {wait_s:.4f} s a step; peak memory allocated "
+          f"{peak:.2f} GiB; launches {launches}")
+    checks = [(log.get("step") == steps and len(rows) == steps,
+               f"9b: ran {len(rows)} of {steps} steps"),
+              (all(math.isfinite(r["loss"]) for r in rows), "9b: non-finite loss"),
+              (launches["flash_bwd"] >= n_layers * steps and not launches["plain_cuda_calls"]
+               and not launches["quant_matmul"],
+               f"9b: launches {launches}, want K3 >= {n_layers * steps}, no K4 launch and no "
+               f"plain call")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    shutil.rmtree(out, ignore_errors=True)  # the checkpoint's ~14 GB
+    return {"launches": launches, "step_s": step_s, "samples_per_s": rate,
+            "data_wait_s": wait_s, "peak_gib": peak, "workers": workers, "train_wall_s": wall}
+
+
+OFT_TRAIN_STEPS = 4
+
+
+def phase_oft_train(failures: list) -> dict:
+    """Phase 9 in a temp dir (suite, norm stats, checkpoints), removed after."""
+    with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
+        dataset = write_suite(os.path.join(tmp, "suite"), name="oft")
+        compare = phase_oft_train_compare(failures, dataset)
+        workers = phase_oft_train_steps(failures, dataset, 4)
+        free_memory()
+        inline = phase_oft_train_steps(failures, dataset, 0)
+        return {"compare": compare, "workers": workers, "inline": inline}
+
+
 # K4's instances: (x dtype, x rows a block, consumer warpgroups), as
 # csrc/quant_matmul.cu:launch_rows builds them
 K4_INSTANCES = [(t, r, 1 if r <= 64 else 2) for t in ("bf16", "f32")
@@ -2208,17 +2958,40 @@ def main() -> int:
     pi0 = phase_pi0(failures)
     pi0_q = phase_pi0_replay(failures, pi0)
     launches, launches_q = serve["launches"], serve_q["launches"]
+    oft = phase_oft(failures)
+    oft_q = phase_oft_int8(failures, oft)
+    for key in ("model", "heads", "exp", "tokenizer"):
+        del oft[key]
+    free_memory()
     k3 = phase_flash_bwd(failures)
     train = phase_train(failures)
     free_memory()
     pi0_train = phase_pi0_train(failures)
+    free_memory()
+    oft_train = phase_oft_train(failures)
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
+    oft_routes = {route: {k: v for k, v in oft[route].items()
+                          if k not in ("chunk", "inputs", "noise", "logits")}
+                  for route, _ in OFT_ROUTES}
     print(json.dumps({"phases": {
         "5d_fused_preprocess": {k: v for k, v in fused.items() if k != "client"},
         "5e_replay_cogact": replay,
-        "5f_pi0_replay_int8": {k: v for k, v in pi0_q.items()}}}, default=float))
+        "5f_pi0_replay_int8": {k: v for k, v in pi0_q.items()},
+        "5g_oft": {**{k: v for k, v in oft.items() if k in ("prompt_tokens", "bf16_weight_bytes",
+                                                            "head_params", "launches")},
+                   **oft_routes},
+        "5h_oft_int8": oft_q, "9_oft_train": oft_train}}, default=float))
+    oft_counts = {  # each kernel's launches on OFT's three paths: served bf16, int8, trained
+        "flash_fwd": (oft["launches"]["flash_fwd"], oft_q["launches"]["flash_fwd"],
+                      oft_train["workers"]["launches"]["flash_fwd"]),
+        "flash_bwd": (oft["launches"]["flash_bwd"], oft_q["launches"]["flash_bwd"],
+                      oft_train["workers"]["launches"]["flash_bwd"]),
+        "quant_matmul": (oft["launches"]["quant_matmul"], oft_q["launches"]["quant_matmul"],
+                         oft_train["workers"]["launches"]["quant_matmul"])}
+    oft_keys = {name: dict(zip(("oft_launches", "oft_int8_launches", "oft_train_launches"), n))
+                for name, n in oft_counts.items()}
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "dexbotic_tpu/ops/attention.py:86",
@@ -2227,7 +3000,7 @@ def main() -> int:
          "pi0_launches": pi0["launches"], "pi0_train_launches": pi0_train["launches"]["flash_fwd"],
          "launches_fused_preprocess": fused["launches"]["flash_fwd"],
          "launches_replay": replay["launches"]["flash_fwd"],
-         "pi0_int8_launches": pi0_q["launches"]["flash_fwd"],
+         "pi0_int8_launches": pi0_q["launches"]["flash_fwd"], **oft_keys["flash_fwd"],
          **k1, **k1_d256, "build": k1_build},
         {"name": "dit_sample", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/dit_sampler.cu",
          "replaces": "dexbotic_tpu/ops/dit_fused.py:58",
@@ -2244,14 +3017,16 @@ def main() -> int:
          "also_replaces": ["dexbotic_tpu/ops/attention.py:498", "dexbotic_tpu/ops/attention.py:400",
                            "dexbotic_tpu/ops/attention.py:446"],
          "launches": train["launches"]["flash_bwd"],
-         "pi0_train_launches": pi0_train["launches"]["flash_bwd"], **k3, "build": k3_build},
+         "pi0_train_launches": pi0_train["launches"]["flash_bwd"], **oft_keys["flash_bwd"],
+         **k3, "build": k3_build},
         {"name": "quant_matmul", "route": "cuda",
          "source": "dexbotic_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "dexbotic_tpu/ops/quant_matmul.py:77",
          "launches": launches_q["quant_matmul"],
          "single_request_launches": serve_q["k4_single_request"],
          "pi0_int8_launches": pi0_q["launches"]["quant_matmul"],
-         "pi0_int8_request_launches": pi0_q["k4_per_request"], **k4, "build": k4_build},
+         "pi0_int8_request_launches": pi0_q["k4_per_request"], **oft_keys["quant_matmul"],
+         **k4, "build": k4_build},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,10 @@ Layered dataclass configs that users subclass and override, and
 compute_norm_stats}`` dispatch (``train`` by default).  The data pipeline,
 tokenization and norm statistics are the port's copies of the JAX package's
 (``data/``, ``tokenization/``).  Serving may quantize the weights to int8
-(``inference_quantize``).  Not ported: host decode workers
-(``num_workers > 0``: ``data/loader.py`` imports JAX), multi-process norm
-statistics.
+(``inference_quantize``).  Training fetches its batches in line, or with
+``num_workers > 0`` through ``data/loader.py``'s workers (``worker_mode``
+'thread' or 'process') and a device prefetch.  Not ported: multi-process
+norm statistics (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from dexbotic_tpu_torch.data import normalize
 from dexbotic_tpu_torch.data import transforms as T
 from dexbotic_tpu_torch.data.collator import Collator
 from dexbotic_tpu_torch.data.dexdata import DexDataset
+from dexbotic_tpu_torch.data.loader import DataLoader, device_prefetch
 from dexbotic_tpu_torch.data.image_processing import (
     DummyRGBProcessor,
     ImageProcessorConfig,
@@ -39,10 +41,11 @@ from dexbotic_tpu_torch.data.multimodal import LoadMultiModal
 from dexbotic_tpu_torch.data.transforms import DEFAULT_PROMPT_TEMPLATE
 from dexbotic_tpu_torch.tokenization.tokenize import DummyTokenization, LLMTokenization, SimpleTokenizer
 from dexbotic_tpu_torch.exp.optim import OptimizerConfig
-from dexbotic_tpu_torch.exp.trainer import Trainer, TrainerConfig
+from dexbotic_tpu_torch.exp.trainer import Trainer, TrainerConfig, load_checkpoint_params
 from dexbotic_tpu_torch.nn.core import cast_matrices_
 from dexbotic_tpu_torch.ops import quant_matmul
 from dexbotic_tpu_torch.ops.quant import quantize_model_
+from dexbotic_tpu_torch.utils.convert import is_release_checkpoint, load_release_checkpoint
 
 
 @dataclass
@@ -195,8 +198,10 @@ class DataConfig(Config):
     data_keys: list = field(default_factory=lambda: ["input_ids", "labels", "action", "image"])
     images_keys: Optional[list] = None
     shuffle: bool = True  # the order is seeded by TrainerConfig.seed, as in JAX
-    # host decode workers: not ported (data/loader.py imports JAX); 0 fetches in line
+    # host decode (data/loader.py): 0 fetches in line; > 0 runs that many
+    # workers, 'thread' or 'process' (forked), and prefetches onto the device
     num_workers: int = 0
+    worker_mode: str = "thread"
 
     _PROCESSORS = {
         "clip_336": ImageProcessorConfig.clip_336(),
@@ -222,6 +227,25 @@ class DataConfig(Config):
                           action_process_func=action_process_func, image_process_func=img_fns,
                           num_images=self.num_images, data_keys=self.data_keys,
                           images_keys=self.images_keys)
+
+
+@torch.no_grad()
+def fill_weights_(model: nn.Module, path: Optional[str], convert_fn: Callable, cfg) -> nn.Module:
+    """Fill a built model from ``path``, if set: a released checkpoint is
+    converted by ``convert_fn`` (the model then holds its load and convert
+    seconds in ``checkpoint_times``), a port ``checkpoint-{step}`` directory
+    is copied in by parameter name."""
+    if path and is_release_checkpoint(path):
+        model.checkpoint_times = load_release_checkpoint(model, path, convert_fn, cfg)
+    elif path:
+        saved = load_checkpoint_params(path)
+        params = dict(model.named_parameters())
+        missing = sorted(set(params) - set(saved))
+        if missing:
+            raise KeyError(f"{path} lacks parameters {missing[:5]}")
+        for name, p in params.items():
+            p.copy_(saved[name].to(p.dtype))
+    return model
 
 
 def data_iterator(dataset, collator, batch_size: int, seed: int = 42, epochs: int = 10 ** 6,
@@ -276,6 +300,24 @@ class BaseExp:
                 quant_matmul.W8A8_MIN_ROWS = 2048
         return model
 
+    def load_for_inference(self):
+        """(config, model in the serving dtype on ``device``, norm stats or None).
+
+        With ``inference_quantize`` the model is quantized once its weights
+        hold their values (initialised, then filled from the checkpoint)."""
+        cfg = self.model.build_config()
+        model = self.model.build_params(cfg, self.device, prepare=self.prepare_inference_params)
+        self.quantize_inference_model(model)
+        return cfg, model, self.served_norm_stats()
+
+    def served_norm_stats(self):
+        """The checkpoint's ``norm_stats.json`` statistics ({min, max}) or None."""
+        path = os.path.join(self.model.model_name_or_path or "", "norm_stats.json")
+        if not (self.model.model_name_or_path and os.path.exists(path)):
+            return None
+        with open(path) as f:
+            return json.load(f)["norm_stats"]["default"]
+
     # ---- hooks each policy exp implements --------------------------------
 
     def build_model(self, tokenizer):  # -> (config, model, loss_fn)
@@ -305,9 +347,6 @@ class BaseExp:
     # ---- tasks -----------------------------------------------------------
 
     def train(self) -> dict:
-        if self.data.num_workers > 0:
-            raise NotImplementedError("host decode workers are not ported (data/loader.py "
-                                      "imports JAX); use num_workers=0")
         self._auto_compute_norm_stats()
         tokenizer = self.tokenizer.build_tokenizer()
         _, model, loss_fn = self.build_model(tokenizer)
@@ -321,10 +360,18 @@ class BaseExp:
                           norm_stats_json=norm_stats_json)
         # per-step batch = micro-batch x accumulation (one device)
         batch_size = self.trainer.per_device_batch_size * self.trainer.gradient_accumulation_steps
+        if self.data.num_workers > 0:
+            batches = device_prefetch(iter(DataLoader(
+                dataset, collator, batch_size, shuffle=self.data.shuffle,
+                num_workers=self.data.num_workers, worker_mode=self.data.worker_mode,
+                seed=self.trainer.seed)), self.device)
+        else:
+            batches = data_iterator(dataset, collator, batch_size, seed=self.trainer.seed,
+                                    shuffle=self.data.shuffle)
         try:
-            return trainer.train(data_iterator(dataset, collator, batch_size,
-                                               seed=self.trainer.seed, shuffle=self.data.shuffle))
+            return trainer.train(batches)
         finally:
+            batches.close()  # a process-mode loader stops its workers
             trainer.close()
 
     def compute_norm_stats(self) -> str:

@@ -12,8 +12,6 @@ holds its load and convert seconds in ``checkpoint_times``).
 from __future__ import annotations
 
 import dataclasses
-import json
-import os
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -21,7 +19,6 @@ import numpy as np
 import torch
 
 from dexbotic_tpu_torch.exp import base_exp
-from dexbotic_tpu_torch.exp.trainer import load_checkpoint_params
 from dexbotic_tpu_torch.models import presets
 from dexbotic_tpu_torch.models.cogact import (
     CogActConfig,
@@ -31,11 +28,7 @@ from dexbotic_tpu_torch.models.cogact import (
     denorm_actions,
 )
 from dexbotic_tpu_torch.models.vlm import VLMConfig
-from dexbotic_tpu_torch.utils.convert import (
-    convert_cogact,
-    is_release_checkpoint,
-    load_release_checkpoint,
-)
+from dexbotic_tpu_torch.utils.convert import convert_cogact
 
 
 @dataclass
@@ -77,18 +70,7 @@ class CogActModelConfig(base_exp.Config):
     @torch.no_grad()
     def build_params(self, cfg: CogActConfig, device, prepare=None):
         model = build_cogact(cfg, device, seed=self.seed, prepare=prepare)
-        if self.model_name_or_path and is_release_checkpoint(self.model_name_or_path):
-            model.checkpoint_times = load_release_checkpoint(
-                model, self.model_name_or_path, convert_cogact, cfg)
-        elif self.model_name_or_path:
-            saved = load_checkpoint_params(self.model_name_or_path)
-            params = dict(model.named_parameters())
-            missing = sorted(set(params) - set(saved))
-            if missing:
-                raise KeyError(f"{self.model_name_or_path} lacks parameters {missing[:5]}")
-            for name, p in params.items():
-                p.copy_(saved[name].to(p.dtype))
-        return model
+        return base_exp.fill_weights_(model, self.model_name_or_path, convert_cogact, cfg)
 
 
 @dataclass
@@ -116,24 +98,6 @@ class CogActExp(base_exp.BaseExp):
             return cogact_loss(model, cfg, batch, generator, remat=remat)
 
         return cfg, model, loss_fn
-
-    def load_for_inference(self):
-        """(config, model in the serving dtype on ``device``, norm stats or None).
-
-        With ``inference_quantize`` the model is quantized once its weights
-        hold their values (initialised, then filled from the checkpoint)."""
-        cfg = self.model.build_config()
-        model = self.model.build_params(cfg, self.device, prepare=self.prepare_inference_params)
-        self.quantize_inference_model(model)
-        return cfg, model, self.served_norm_stats()
-
-    def served_norm_stats(self):
-        """The checkpoint's ``norm_stats.json`` statistics ({min, max}) or None."""
-        path = os.path.join(self.model.model_name_or_path or "", "norm_stats.json")
-        if not (self.model.model_name_or_path and os.path.exists(path)):
-            return None
-        with open(path) as f:
-            return json.load(f)["norm_stats"]["default"]
 
     def make_infer_fn(self, cfg, model):
         """(ids, valid, images, generator) -> normalised chunk [B, chunk, dim]."""

@@ -28,7 +28,6 @@ import torch
 from dexbotic_tpu_torch.data import transforms as T
 from dexbotic_tpu_torch.data.multimodal import LoadMultiModal
 from dexbotic_tpu_torch.exp import base_exp
-from dexbotic_tpu_torch.exp.trainer import load_checkpoint_params
 from dexbotic_tpu_torch.models import presets
 from dexbotic_tpu_torch.models.flow_vla import (
     FlowVLAConfig,
@@ -39,11 +38,7 @@ from dexbotic_tpu_torch.models.flow_vla import (
     pi0_config,
     pi05_config,
 )
-from dexbotic_tpu_torch.utils.convert import (
-    convert_flow_vla,
-    is_release_checkpoint,
-    load_release_checkpoint,
-)
+from dexbotic_tpu_torch.utils.convert import convert_flow_vla
 
 
 @dataclass
@@ -77,18 +72,7 @@ class FlowModelConfig(base_exp.Config):
     @torch.no_grad()
     def build_params(self, cfg: FlowVLAConfig, device, prepare=None):
         model = build_flow_vla(cfg, device, seed=self.seed, prepare=prepare)
-        if self.model_name_or_path and is_release_checkpoint(self.model_name_or_path):
-            model.checkpoint_times = load_release_checkpoint(
-                model, self.model_name_or_path, convert_flow_vla, cfg)
-        elif self.model_name_or_path:
-            saved = load_checkpoint_params(self.model_name_or_path)
-            params = dict(model.named_parameters())
-            missing = sorted(set(params) - set(saved))
-            if missing:
-                raise KeyError(f"{self.model_name_or_path} lacks parameters {missing[:5]}")
-            for name, p in params.items():
-                p.copy_(saved[name].to(p.dtype))
-        return model
+        return base_exp.fill_weights_(model, self.model_name_or_path, convert_flow_vla, cfg)
 
 
 @dataclass
@@ -181,14 +165,6 @@ class Pi0Exp(base_exp.BaseExp):
             return flow_vla_loss(model, cfg, batch, generator, remat=remat)
 
         return cfg, model, loss_fn
-
-    def load_for_inference(self):
-        """(config, model in the serving dtype on ``device``, the full norm
-        stats mapping or None)."""
-        cfg = self.model.build_config()
-        model = self.model.build_params(cfg, self.device, prepare=self.prepare_inference_params)
-        self.quantize_inference_model(model)
-        return cfg, model, self.served_norm_stats()
 
     def served_norm_stats(self):
         """The checkpoint's full ``norm_stats.json`` mapping or None."""

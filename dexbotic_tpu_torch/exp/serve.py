@@ -1,10 +1,10 @@
 """HTTP action server: POST /process_frame -> JSON action chunk.
 
-Port of the CogACT and flow-VLA (pi0/pi0.5/DM0) serving paths of
+Port of the CogACT, OFT and flow-VLA (pi0/pi0.5/DM0) serving paths of
 dexbotic_tpu/exp/serve.py: multipart form with a 'text' prompt, image file
 parts and optional 'batch_size' and 'states' fields; the response is a JSON
 [chunk_size x action_dim] list (a list of those for batch_size > 1).
-Stdlib http.server; host-side image preprocessing, or for CogACT on the
+Stdlib http.server; host-side image preprocessing, or for CogACT and OFT on the
 device (``fuse_preprocess``); optional micro-batching of concurrent
 single-frame requests.  The device call draws its noise from
 one ``torch.Generator`` seeded from the config and advanced by every
@@ -349,8 +349,16 @@ class CogActServer(ActionServer):
         a = np.clip(out[..., : len(lo)], -1.0, 1.0)
         return np.concatenate([lo + (a + 1.0) * 0.5 * (hi - lo), out[..., len(lo):]], axis=-1)
 
-    def _infer_rows(self, prompts, payload_groups, pad_to=None) -> np.ndarray:
-        """One batched device call over B rows (prompt + view group each).
+    def _states(self, raws: list, B: int):
+        """The rows' states from the requests' raw fields: CogACT reads none."""
+        return None
+
+    def _device_call(self, ids, valid, imgs, states):
+        return self.infer(ids, valid, imgs, self.generator)
+
+    def _infer_rows(self, prompts, payload_groups, pad_to=None, states=None) -> np.ndarray:
+        """One batched device call over B rows (prompt + view group, and a
+        state row where the policy reads one).
 
         ``pad_to`` pads the batch by repeating row 0; padded rows are sliced
         off.  Token length is padded to a multiple of 64."""
@@ -359,6 +367,8 @@ class CogActServer(ActionServer):
         if Bp > B:
             prompts = list(prompts) + [prompts[0]] * (Bp - B)
             payload_groups = list(payload_groups) + [payload_groups[0]] * (Bp - B)
+            if states is not None:
+                states = np.concatenate([states, np.repeat(states[:1], Bp - B, axis=0)])
         per = len(payload_groups[0])
         if any(len(g) != per for g in payload_groups):
             raise ValueError("ragged view groups")
@@ -380,8 +390,8 @@ class CogActServer(ActionServer):
             flat = _cogact_images(payloads, self.exp.data.build_image_processor())
             imgs = torch.from_numpy(flat.reshape(Bp, per, *flat.shape[1:])).to(self.device)
             self.host_calls += 1
-        out = self.infer(torch.from_numpy(ids).to(self.device),
-                         torch.from_numpy(valid).to(self.device), imgs, self.generator)
+        out = self._device_call(torch.from_numpy(ids).to(self.device),
+                                torch.from_numpy(valid).to(self.device), imgs, states)
         return self._denorm(out.float().cpu().numpy())[:B]
 
     def get_response(self, fields, files):
@@ -395,7 +405,10 @@ class CogActServer(ActionServer):
             raise ValueError(f"{len(prompts)} prompts and {len(payloads)} images "
                              f"for batch_size {B}")
         per = len(payloads) // B
-        out = self._infer_rows(prompts, [payloads[i * per: (i + 1) * per] for i in range(B)])
+        raw = (fields.get("states") or "").split(";")
+        out = self._infer_rows(prompts, [payloads[i * per: (i + 1) * per] for i in range(B)],
+                               states=self._states([raw[b] if b < len(raw) else None
+                                                    for b in range(B)], B))
         return out[0].tolist() if B == 1 else out.tolist()
 
     def get_batched_response(self, requests):
@@ -407,10 +420,36 @@ class CogActServer(ActionServer):
         for items in by_per.values():
             out = self._infer_rows([f.get("text", "") for _, f, _ in items],
                                    [g for _, _, g in items],
-                                   pad_to=self.micro_batch if len(items) > 1 else None)
+                                   pad_to=self.micro_batch if len(items) > 1 else None,
+                                   states=self._states([f.get("states") for _, f, _ in items],
+                                                       len(items)))
             for k, (i, _, _) in enumerate(items):
                 results[i] = out[k].tolist()
         return results
+
+
+class OFTServer(CogActServer):
+    """OFT serving: the CogACT request contract (64-token prompt buckets,
+    micro-batches padded with their first row, ``fuse_preprocess``) plus an
+    optional 'states' form field, a JSON proprio vector for each row (B
+    semicolon-separated vectors with 'batch_size'=B), zero-filled or cut to
+    the config's proprio_dim; a policy without proprio reads none."""
+
+    def _states(self, raws: list, B: int) -> np.ndarray | None:
+        if not self.cfg.use_proprio:
+            return None
+        dim = self.cfg.proprio_dim
+        s = np.zeros((B, dim), np.float32)
+        for b, raw in enumerate(raws[:B]):
+            if raw:
+                vals = np.asarray(json.loads(raw), np.float32).reshape(-1)
+                s[b, : min(len(vals), dim)] = vals[:dim]
+        return s
+
+    def _device_call(self, ids, valid, imgs, states):
+        if states is not None:
+            states = torch.from_numpy(states).to(self.device)
+        return self.infer(ids, valid, imgs, states, self.generator)
 
 
 class FlowVLAServer(ActionServer):

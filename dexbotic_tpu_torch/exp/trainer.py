@@ -16,7 +16,9 @@ Each step draws its randomness from a ``torch.Generator`` seeded from
 training was resumed before it.  Checkpoints are ``checkpoint-{step}/``
 directories holding ``trainer_state.json``, ``norm_stats.json`` and, in
 torch's format, ``params.pt`` and ``opt_state.pt`` (or ``adapter.pt`` alone
-under ``adapter_save``).
+under ``adapter_save``).  Every log line also goes to Weights & Biases when
+``wandb_project`` (or WANDB_PROJECT) is set and ``wandb`` is installed, and
+carries ``data_wait_s``, the seconds a step waited on its batch.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ class TrainerConfig:
     save_optimizer: bool = True  # persist moments for an exact resume
     # adapter-only checkpoints: just the projector (+ norm stats)
     adapter_save: bool = False
+    wandb_project: Optional[str] = None  # uses the WANDB_PROJECT env var if unset
 
 
 def step_generator(seed: int, step: int, micro: int, device) -> torch.Generator:
@@ -117,6 +120,7 @@ class Trainer:
         self.optimizer = Optimizer(optimizer_config, self.params.items(), trainer_config.max_steps)
         self.step = 0
         self._metrics_file = None
+        self._wandb = self._init_wandb()
 
     # ------------------------------------------------------------------
 
@@ -172,15 +176,24 @@ class Trainer:
             self.maybe_resume()
         t0 = time.time()
         log = {}
-        for batch in data_iter:
-            if self.step >= max_steps:
+        data_iter = iter(data_iter)
+        wait, waited_steps = 0.0, 0
+        while self.step < max_steps:
+            t_wait = time.perf_counter()
+            batch = next(data_iter, None)
+            if batch is None:
                 break
+            wait += time.perf_counter() - t_wait
+            waited_steps += 1
             metrics = self.train_step(batch)
             self.step += 1
             if self.step % self.cfg.logging_steps == 0 or self.step == max_steps:
                 log = dict(metrics, step=self.step)
                 log["steps_per_sec"] = self.cfg.logging_steps / max(1e-9, time.time() - t0)
+                # seconds a step waited on its batch (host decode not hidden), since the last log
+                log["data_wait_s"] = wait / waited_steps
                 t0 = time.time()
+                wait, waited_steps = 0.0, 0
                 print(json.dumps(log))
                 self._log_metrics(log)
             if self.step % self.cfg.save_steps == 0 or self.step == max_steps:
@@ -189,12 +202,28 @@ class Trainer:
 
     # ------------------------------------------------------------------
 
+    def _init_wandb(self):
+        """A W&B run when ``wandb_project`` (or WANDB_PROJECT) is set and
+        ``wandb`` imports and starts (offline, it may not), else None;
+        metrics.jsonl is written either way."""
+        project = self.cfg.wandb_project or os.environ.get("WANDB_PROJECT")
+        if not project:
+            return None
+        try:
+            import wandb
+
+            return wandb.init(project=project, dir=self.cfg.output_dir)
+        except Exception:  # noqa: BLE001 (not installed, or no network)
+            return None
+
     def _log_metrics(self, log: dict) -> None:
         if self._metrics_file is None:
             os.makedirs(self.cfg.output_dir, exist_ok=True)
             self._metrics_file = open(os.path.join(self.cfg.output_dir, "metrics.jsonl"), "a")
         self._metrics_file.write(json.dumps(log) + "\n")
         self._metrics_file.flush()
+        if self._wandb is not None:
+            self._wandb.log(log, step=self.step)
 
     def close(self) -> None:
         if self._metrics_file is not None:

@@ -64,11 +64,13 @@ def quantized_bytes(model: nn.Module) -> int:
 
 def _stack_depth(model: nn.Module, name: str) -> int:
     """Layers stacked with the module ``name`` in the JAX tree: the length of
-    the first ``layers``/``blocks`` ModuleList on its path, else 1."""
+    the first ``layers``/``blocks`` ModuleList on its path, else 1 (also for
+    a list the JAX tree holds as a Python list: ``jax_stacked = False``)."""
     parts = name.split(".")
     for i, part in enumerate(parts[:-1]):
         if part in STACKED and parts[i + 1].isdigit():
-            return len(model.get_submodule(".".join(parts[: i + 1])))
+            stack = model.get_submodule(".".join(parts[: i + 1]))
+            return len(stack) if getattr(stack, "jax_stacked", True) else 1
     return 1
 
 

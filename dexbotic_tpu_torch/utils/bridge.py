@@ -20,7 +20,9 @@ Leaves may be numpy arrays (a JAX tree) or torch tensors (a converted
 checkpoint, ``utils/convert.py``, on any device and in the file's dtype).
 A converted tree's stacked leaves are lists of the per-layer tensors, not
 stacks.  A torch leaf is transposed as a view and copied straight into its
-parameter, so a converted tree is never copied again.
+parameter, so a converted tree is never copied again.  A Python list of layer
+dicts (OFT's MLPResNet ``blocks``) is no stack: its items map onto
+``<name>.<i>`` as they are.
 """
 
 from __future__ import annotations
@@ -52,13 +54,17 @@ def _flatten(tree, prefix=()) -> Iterator[tuple[tuple, np.ndarray]]:
     elif isinstance(tree, dict):
         for k, v in tree.items():
             yield from _flatten(v, prefix + (k,))
+    elif isinstance(tree, (list, tuple)) and tree and isinstance(tree[0], dict):
+        for i, v in enumerate(tree):  # a Python list of layers (OFT's MLPResNet blocks)
+            yield from _flatten(v, prefix + (str(i),))
     else:
         yield prefix, _leaf(tree)
 
 
 def _port_leaves(path: tuple, arr: np.ndarray) -> Iterator[tuple[str, np.ndarray]]:
     """(port parameter name, value in the port's layout) for one JAX leaf."""
-    stacked = [i for i, k in enumerate(path) if k in STACKED]
+    stacked = [i for i, k in enumerate(path)
+               if k in STACKED and not (i + 1 < len(path) and path[i + 1].isdigit())]
     if stacked:
         p = stacked[0]
         entries = [(path[: p + 1] + (str(i),) + path[p + 1:], arr[i]) for i in range(len(arr))]

@@ -22,7 +22,7 @@ a private file mapping, so neither the ``safetensors`` package nor numpy
 takes part and bf16 reads as bf16; ``.bin`` / ``.pt`` files go through
 ``torch.load(weights_only=True)``.
 
-Not ported yet: the OFT, MemVLA (the DiT's memory cross-attention) and MUVLA
+Not ported yet: the MemVLA (the DiT's memory cross-attention) and MUVLA
 converters, which wait for their models.
 """
 
@@ -325,10 +325,54 @@ def convert_flow_vla(sd: dict, cfg) -> dict:
     return params
 
 
+# ---------------------------------------------------------------------------
+# OFT heads (the reference's oft/action_model/model.py)
+# ---------------------------------------------------------------------------
+
+
+def _convert_mlp_resnet(sd: dict, prefix: str) -> dict:
+    """The reference's MLPResNet (two residual blocks) -> ``models/oft.MLPResNet``'s
+    tree (its ``blocks`` a Python list, as in JAX)."""
+    sd = _strip(sd, prefix)
+
+    def ln(name):
+        return {"w": sd[f"{name}.weight"], "b": sd[f"{name}.bias"]}
+
+    return {"ln1": ln("layer_norm1"), "fc1": _lin(sd, "fc1"), "ln2": ln("layer_norm2"),
+            "fc2": _lin(sd, "fc2"),
+            "blocks": [{"ln": ln(f"mlp_resnet_blocks.{i}.ffn.0"),
+                        "fc": _lin(sd, f"mlp_resnet_blocks.{i}.ffn.1")}
+                       for i in range(2)]}
+
+
+def convert_oft(sd: dict, cfg) -> dict:
+    """DB-OFT checkpoint (L1 / Diffusion / Discrete head) -> OFT params:
+    ``model.action_head.{action_query, model.*, noisy_action_projector.*,
+    noise_predictor.mlp_resnet.*, proprio_projector.*}``; the Discrete head
+    has no parameters of its own (its bins are ``lm_head``'s logits)."""
+    llm = attach_lm_head(convert_llm(sd, cfg.vlm.llm, prefix="model.llm."), sd, cfg.vlm.llm)
+    vit = convert_vit(sd, cfg.vlm.vit, prefix=VIT_PREFIX)
+    proj = convert_projector(sd, cfg.vlm.projector_type, prefix="model.mm_projector.")
+    head: dict = {}
+    t = cfg.action_model_type
+    if "L1" in t:
+        head["action_query"] = sd["model.action_head.action_query"][0]
+        head["mlp"] = _convert_mlp_resnet(sd, "model.action_head.model.")
+    elif "Diffusion" in t:
+        head["noisy_action_projector"] = {
+            n: _lin(sd, f"model.action_head.noisy_action_projector.{n}") for n in ("fc1", "fc2")}
+        head["noise_predictor"] = _convert_mlp_resnet(
+            sd, "model.action_head.noise_predictor.mlp_resnet.")
+    if cfg.use_proprio:
+        head["proprio_projector"] = {
+            n: _lin(sd, f"model.action_head.proprio_projector.{n}") for n in ("fc1", "fc2")}
+    return {"vlm": {"llm": llm, "vit": vit, "projector": proj}, "action_head": head}
+
+
 def load_release_checkpoint(model, path: str, convert_fn, cfg) -> dict:
     """Fill ``model`` from a released checkpoint: its tensors are read onto
     the model's device in their stored dtype, converted by ``convert_fn``
-    (``convert_cogact`` / ``convert_flow_vla``) and copied into the
+    (``convert_cogact`` / ``convert_flow_vla`` / ``convert_oft``) and copied into the
     parameters, each cast to its parameter's dtype (utils/bridge.py).
     Returns {"load_s": seconds reading the files onto the device,
     "convert_s": seconds converting and copying}."""

@@ -11,6 +11,7 @@ with a ``norm_stats.json`` beside the weights, the denormalised one.
     python script/replay_checkpoint_torch.py --checkpoint /path/to/DB-CogACT-7B
     python script/replay_checkpoint_torch.py --checkpoint DIR --policy pi0 \\
         --image frame.png --prompt 'pick up the cube' --quantize int8
+    python script/replay_checkpoint_torch.py --checkpoint /path/to/DB-OFT --policy oft
 
 Without ``--image`` the frame is a seeded random 480x640 image.  Not ported:
 the JAX script's ``--compare-torch`` (it runs the reference's own torch code).
@@ -30,7 +31,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 DEFAULT_PROMPT = "What action should the robot take to put both moka pots on the stove?"
-POLICIES = ("cogact", "pi0", "pi05", "dm0")
+POLICIES = ("cogact", "pi0", "pi05", "dm0", "oft", "oft_discrete")
 
 
 def load_image(path: str | None) -> np.ndarray:
@@ -54,14 +55,17 @@ def build_exp(policy: str, ckpt: str, device: str = "cuda"):
     """The policy's LIBERO exp (the port's recipe twin), its model dims taken
     from the checkpoint's config.json where they differ."""
     from dexbotic_tpu_torch.playground.benchmarks.libero import (libero_cogact, libero_dm0,
+                                                                 libero_oft, libero_oft_discrete,
                                                                  libero_pi0, libero_pi05)
 
     exp = {"cogact": libero_cogact.LiberoCogActExp, "pi0": libero_pi0.LiberoPi0Exp,
-           "pi05": libero_pi05.LiberoPi05Exp, "dm0": libero_dm0.LiberoDM0Exp}[policy]()
+           "pi05": libero_pi05.LiberoPi05Exp, "dm0": libero_dm0.LiberoDM0Exp,
+           "oft": libero_oft.LiberoOFTExp,
+           "oft_discrete": libero_oft_discrete.LiberoOFTDiscreteExp}[policy]()
     exp.device = device
     hf = read_hf_config(ckpt)
     m = exp.model
-    for key in ("action_dim", "chunk_size", "action_model_type"):
+    for key in ("action_dim", "chunk_size", "action_model_type", "use_proprio", "proprio_dim"):
         if key in hf and hasattr(m, key):
             m = dataclasses.replace(m, **{key: hf[key]})
     exp.model = dataclasses.replace(m, model_name_or_path=ckpt)
@@ -131,6 +135,29 @@ def replay_flow(exp, cfg, model, norms, image: np.ndarray, prompt: str, state=No
     return chunk, den
 
 
+@torch.no_grad()
+def replay_oft(exp, cfg, model, norms, image: np.ndarray, prompt: str, state=None, noise=None):
+    """(normalised chunk, denormalised chunk or None) of one frame and, with
+    proprio, a state (zeros by default); the noise is read by the Diffusion
+    head only."""
+    from dexbotic_tpu_torch.exp.serve import prepare_cogact_inputs
+    from dexbotic_tpu_torch.models.cogact import denorm_actions
+    from dexbotic_tpu_torch.models.oft import oft_inference_action
+
+    ids, valid, imgs = prepare_cogact_inputs(exp, cfg, exp.tokenizer.build_tokenizer(), [image],
+                                             prompt, exp.device)
+    states = None
+    if cfg.use_proprio:
+        states = torch.zeros((1, cfg.proprio_dim), device=exp.device)
+        if state is not None:
+            vals = torch.as_tensor(np.asarray(state, np.float32).ravel()[: cfg.proprio_dim])
+            states[0, : len(vals)] = vals.to(exp.device)
+    noise = replay_noise(cfg, exp.device) if noise is None else noise
+    chunk = oft_inference_action(model, cfg, ids, valid, imgs, states=states,
+                                 noise=noise)[0].float().cpu().numpy()
+    return chunk, (denorm_actions(chunk, norms["min"], norms["max"]) if norms else None)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--checkpoint", required=True, help="released checkpoint dir or file")
@@ -146,7 +173,8 @@ def main():
     exp.inference_quantize = args.quantize
     cfg, model, norms, times = load_converted(exp)
     print(f"loaded in {times['load_s']:.2f} s, converted in {times['convert_s']:.2f} s")
-    replay = replay_cogact if args.policy == "cogact" else replay_flow
+    replay = (replay_cogact if args.policy == "cogact" else
+              replay_oft if args.policy.startswith("oft") else replay_flow)
     chunk, den = replay(exp, cfg, model, norms, load_image(args.image), args.prompt)
     print("normalized chunk:")
     print(np.array2string(chunk, precision=5))

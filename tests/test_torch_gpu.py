@@ -169,6 +169,53 @@ def test_flash_kernels_at_tile_edges(cuda, S):
     _check_k3(cuda, case)
 
 
+def _oft_case(cuda, B, n_valid, padded, seg, cached, seed):
+    """OFT's decoder call at head_dim 128: the padded prompt (its pads
+    mid-row, with the group of the last prompt token), then the appended
+    segment; ``cached``: the segment's queries alone against the prompt."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    S = padded + seg
+    Sq = seg if cached else S
+    q, k, v, dout = (torch.randn(B, n, 32, 128, generator=g, device=cuda).bfloat16()
+                     for n in (Sq, S, S, Sq))
+    valid = torch.ones(B, S, dtype=torch.int32, device=cuda)
+    valid[:, n_valid:padded] = 0
+    grp = torch.cumsum(valid, 1, dtype=torch.int32)
+    q_grp = grp[:, padded:].contiguous() if cached else grp.clone()
+    return q, k, v, dout, (q_grp, grp, valid), None, None
+
+
+@pytest.mark.parametrize("cached", [False, True])
+def test_flash_kernels_at_oft_shapes(cuda, cached):
+    """K1 (both block shapes) and K3 at OFT's joint 1 x 944 rows (21 pads
+    mid-row) and its cached 113 x 945 segment; the kv tiles holding the pads
+    must be classed partial, never wholly visible."""
+    case = _oft_case(cuda, 1, 811, 832, 113 if cached else 112, cached, seed=11)
+    q, k = case[0], case[1]
+    assert (q.shape[1], k.shape[1]) == ((113, 945) if cached else (944, 944))
+    for rows in (64, 128):
+        _check_k1(cuda, case, rows)
+    _check_k3(cuda, case)
+    cls = flash_tile_classes(*case[4])
+    assert torch.equal(cls, flash_tile_classes_ref(*case[4]))
+    assert not (cls[:, :, 811 // 64: (832 - 1) // 64 + 1] == 2).any()  # the pads' kv tiles
+
+
+@pytest.mark.parametrize("B,seg,cached", [(1, 57, False), (1, 0, False), (2, 112, False),
+                                          (4, 112, False), (2, 57, False), (2, 113, True),
+                                          (4, 113, True)])
+def test_flash_forward_at_oft_served_shapes(cuda, B, seg, cached):
+    """K1 (both block shapes) at the other calls OFT's server gives it: the
+    LIBERO segment (1 x 889), Diffusion's prompt prefill (1 x 832, its pads
+    trailing), and the batch_size=2 and 4-frame micro-batch rows."""
+    case = _oft_case(cuda, B, 811, 832, seg, cached, seed=12 + B + seg)
+    for rows in (64, 128):
+        _check_k1(cuda, case, rows)
+    if seg:
+        cls = flash_tile_classes(*case[4])
+        assert not (cls[:, :, 811 // 64: (832 - 1) // 64 + 1] == 2).any()
+
+
 @pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D", [(2, 129, 129, 8, 2, 64), (2, 65, 300, 4, 1, 128),
                                               (1, 200, 520, 4, 4, 64)])
 def test_flash_kernels_d64_and_cross_lengths(cuda, B, Sq, Skv, Hq, Hkv, D):
@@ -544,6 +591,19 @@ def _check_quant(out, x, q, s):
                                    (16, 768, 768), (65, 256, 200)])
 def test_quant_matmul_kernel_matches_plain(cuda, dtype, M, K, N):
     x, q, s = _quant_case(cuda, dtype, M, K, N)
+    n0 = qm.quant_matmul.launches
+    out = qm.quant_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert qm.quant_matmul.launches == n0 + 1
+    _check_quant(out, x, q, s)
+
+
+@pytest.mark.parametrize("M,K,N", [(16, 7 * 4096, 4096), (16, 4096, 4096)])
+def test_quant_matmul_kernel_at_oft_mlp_resnet(cuda, M, K, N):
+    """K4 with fp32 activations at OFT's MLPResNet: fc1 over the chunk's 16
+    rows of 7 x 4096 concatenated hidden states, then a block."""
+    x, q, s = _quant_case(cuda, torch.float32, M, K, N)
+    assert qm.quant_matmul_eligible(M, K, N)
     n0 = qm.quant_matmul.launches
     out = qm.quant_matmul(x, q, s)
     torch.cuda.synchronize()

@@ -54,11 +54,14 @@ def _sources():
 
 
 def test_new_entry_points_are_covered():
-    """The LIBERO recipe twins and the replay script are among the modules
-    imported with JAX blocked and scanned above."""
+    """The LIBERO recipe twins, the OFT, hybrid and loader modules and the
+    replay script are among the modules imported with JAX blocked and
+    scanned above."""
     names = _modules()
-    for recipe in ("cogact", "pi0", "pi05", "dm0"):
+    for recipe in ("cogact", "pi0", "pi05", "dm0", "oft", "oft_discrete"):
         assert f"dexbotic_tpu_torch.playground.benchmarks.libero.libero_{recipe}" in names
+    for module in ("models.oft", "exp.oft_exp", "exp.hybrid_cogact_exp", "data.loader"):
+        assert f"dexbotic_tpu_torch.{module}" in names
     assert "script.replay_checkpoint_torch" in names
     assert os.path.join(REPO, "script", "replay_checkpoint_torch.py") in set(_sources())
 
