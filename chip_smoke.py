@@ -8,7 +8,9 @@ Phases, any failure exits non-zero without a result line:
   3. K1 (flash-attention forward) against its plain version at the served
      prompt's shape, the training step's shape, three more and OFT's three
      (the prompt's pads mid-row, before the appended segment: the joint
-     1 x 944 rows, the cached 113 x 945 segment, training's 8 x 2105);
+     1 x 944 rows, the cached 113 x 945 segment, training's 8 x 2105), the
+     shapes OFT's server and MemVLA's prefill give it, and GRPO's 8 x 648
+     rollout and update rows (K3 there too, in phase 6);
   3b. K1 at head_dim 256 against its plain version at pi0's prefix (8 query
      heads on 1 kv head, the text's padded tail masked) and its suffix
      against the cached prefix: 1 x 816 and 51 x 867 (inference_single),
@@ -28,7 +30,9 @@ Phases, any failure exits non-zero without a result line:
      rows, SigLIP so400m/224 and the projector at 768), and int8 OFT's
      (the joint 944 rows and the DDIM segment's 113 at LLaMA's widths, the
      noisy-action projector and lm_head at 112, the MLPResNet at 16 fp32
-     rows from K = 28672); two calls must agree
+     rows from K = 28672), and int8 MemVLA's (the SE bottleneck, the
+     bank's two roles, the per-token embedder and the DiT with its memory
+     keys and values, fp32 and bf16 activations); two calls must agree
      bit for bit, and where the dispatch rule gives K4 the shape it must not
      be slower than the plain version;
   5. the serving slice: CogACT-7B (LLaMA-2-7B + CLIP-L/336 + DiT-B, seeded
@@ -142,7 +146,30 @@ Phases, any failure exits non-zero without a result line:
      the head's gradients); (b) four steps of micro-batch 8 through
      OFTExp.train() with 4 forked decode processes, then the same in line:
      K1/K3 launches, no plain attention call, the step time, samples/s,
-     peak memory and the seconds a step waited on its batch.
+     peak memory and the seconds a step waited on its batch;
+  10. GRPO post-training (SimpleVLA-RL) of the LIBERO OFT-Discrete actor
+     (LLaMA-2-7B and CLIP-L/336 widths, chunk 8 x 7 bins, temperature 1.6)
+     on 8 mock envs: (a) one GRPOUpdater micro-step at RL_LAYERS of 32
+     decoder layers in fp32 on a rollout batch, kernel path vs plain bf16
+     path vs an fp32 witness (loss, pg_loss, entropy, grad_norm, gradient
+     cosine; the update must move the fp32 weights); (b) train_rl() end to
+     end at that depth, two steps of schedule "random" and one of "epoch",
+     with each step's gen / filter / update seconds, rollouts, chunks and
+     peak, K1/K3 launches and shapes around it and the metrics' keys held
+     to the JAX loop's; (c) the 32-layer bf16 actor's chunk call at B=8
+     through K1 against the plain path (bin logits, argmax bins against an
+     fp32 witness, the drawn bins' log-probs), ms a chunk;
+  11. MemVLA-7B (CogACT-7B + an SE bottleneck, a memory bank of 16 with ToMe
+     consolidation, DiT-B with memory cross-attention; seeded bf16
+     weights) served over HTTP by MemVLAServer: (a) an episode of 18
+     frames and the first frame of a new one (episode_first_frame), the
+     bank's count after each request, K1 launches a request, no K2 launch
+     and no plain attention call, every chunk's cosine between the kernel
+     path and the plain path on the same noise, the new episode's first
+     chunk equal to the first episode's, p50/p90 and the device call by
+     part; (b) the same model with inference_quantize="w8a8": K4's launches
+     a request against the forward hooks, every K4 shape among 4c's, the
+     weight bytes and the chunk's cosine to bf16's.
 
 Error rule for a kernel: its max error against the plain version run in
 fp32 on the same bf16 inputs must not exceed 2x the plain bf16 version's
@@ -161,7 +188,7 @@ registers and spills of every K1, K3, K4 and K2 instance from nvcc's
 ``-Xptxas -v`` (a spill fails) and the HGMMA instructions of every K2
 instance from the library's SASS (``cuobjdump``; a bf16 instance without
 one fails).
-Phases 5d-5h and 9 print their numbers as one JSON line (``{"phases": ...}``).
+Phases 5d-5h and 9-11 print their numbers as one JSON line (``{"phases": ...}``).
 The last two lines printed are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.
 """
@@ -182,6 +209,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 import warnings
 
@@ -232,49 +260,74 @@ OFT_SERVED_CASES = [
     if (part, B) not in (("joint", 1), ("cached", 1))]
 
 
-def oft_k1_shape(B: int, n_valid: int, padded: int, seg: int, cached: bool) -> tuple:
+def oft_k1_shape(B: int, n_valid, padded: int, seg: int, cached: bool) -> tuple:
     """(B, query rows, key rows) of an OFT K1 call: OFT_CASES' fields."""
     return B, seg if cached else padded + seg, padded + seg
 
 
 K1_OFT_CHECKED = {oft_k1_shape(*c) for _, *c in OFT_CASES + OFT_SERVED_CASES}
 
+# GRPO post-training of the LIBERO OFT-Discrete actor (phases 10a-10c): each
+# rollout row is a prompt of num_image_tokens + prompt_text_len = 576 + 16
+# slots and the 56-slot Discrete segment (chunk 8 x 7 actions); the rollouts
+# run the 8 envs' rows at once, the update micro-batches of 8.  The mock
+# env's instruction fills the 16 text slots ("rl"); LIBERO's shorter ones
+# leave each row's own number of pads mid-row ("rl_padded": RL_PADS).
+# Phases 3 and 6 hold K1 and K3 at both; 10b and 10c fail on a K1 shape
+# outside K1_RL_CHECKED.
+RL_PROMPT_TOKENS, RL_SEGMENT, RL_ENVS = 576 + 16, 8 * 7, 8
+RL_PADS = (0, 3, 0, 7, 1, 0, 12, 5)
+RL_CASES = [("rl", RL_ENVS, RL_PROMPT_TOKENS, RL_PROMPT_TOKENS, RL_SEGMENT, False),
+            ("rl_padded", RL_ENVS, tuple(RL_PROMPT_TOKENS - p for p in RL_PADS),
+             RL_PROMPT_TOKENS, RL_SEGMENT, False)]
+K1_RL_CHECKED = {oft_k1_shape(*c) for _, *c in RL_CASES}
+# MemVLA (phase 11): phase 5's prompt (811 tokens) in its 832-token bucket,
+# the pads trailing, as OFT-Diffusion's prefill: phase 3 holds it as
+# "oft_prefill"; 11a and 11b fail on another K1 shape
+MEMVLA_PREFILL_CASE = next(c for c in OFT_SERVED_CASES if c[0] == "oft_prefill")
+K1_MEMVLA_CHECKED = {oft_k1_shape(*MEMVLA_PREFILL_CASE[1:])}
+
 
 @contextlib.contextmanager
-def k1_calls(shapes: set):
+def k1_calls(shapes: set, launch_name: str = "_flash_cuda"):
     """Adds each K1 launch's (B, query rows, key rows) to ``shapes`` while
-    inside (a wrapper on the launch; no device synchronisation)."""
+    inside (a wrapper on the launch; no device synchronisation); with
+    ``launch_name="_flash_bwd_cuda"``, each K3 launch's."""
     from dexbotic_tpu_torch.ops import attention as attn
 
-    launch = attn._flash_cuda
+    launch = getattr(attn, launch_name)
 
     def recorded(q, k, *args, **kw):
         shapes.add((q.shape[0], q.shape[1], k.shape[1]))
         return launch(q, k, *args, **kw)
 
-    attn._flash_cuda = recorded
+    setattr(attn, launch_name, recorded)
     try:
         yield shapes
     finally:
-        attn._flash_cuda = launch
+        setattr(attn, launch_name, launch)
 
 
-def oft_attn_inputs(B: int, n_valid: int, padded: int, seg: int, cached: bool, gen):
+def oft_attn_inputs(B: int, n_valid, padded: int, seg: int, cached: bool, gen):
     """(name, q, k, v, (q_grp, kv_grp, kv_valid), None) of an OFT decoder
     call (LLaMA-2: 32 heads of 128): the padded prompt then the segment,
     groups cumsum(valid); with ``cached`` the segment's queries alone against
-    the prompt's cache and the segment."""
+    the prompt's cache and the segment.  ``n_valid``: the valid prompt
+    tokens of every row, or a tuple of each row's."""
     dev = torch.device("cuda")
     S = padded + seg
     valid = torch.ones(B, S, dtype=torch.int32, device=dev)
-    valid[:, n_valid:padded] = 0
+    rows = n_valid if isinstance(n_valid, tuple) else (n_valid,) * B
+    for b, n in enumerate(rows):
+        valid[b, n:padded] = 0
     grp = torch.cumsum(valid, 1, dtype=torch.int32)
     Sq = seg if cached else S
     q = torch.randn(B, Sq, 32, 128, generator=gen, device=dev).bfloat16()
     k, v = (torch.randn(B, S, 32, 128, generator=gen, device=dev).bfloat16() for _ in range(2))
     q_grp = grp[:, padded:].contiguous() if cached else grp.clone()
     part = "cached segment" if cached else "joint rows" if seg else "prompt prefill"
-    name = (f"OFT {part} B={B} Sq={Sq} Skv={S} ({padded - n_valid} pads "
+    pads = tuple(padded - n for n in rows) if len(set(rows)) > 1 else padded - rows[0]
+    name = (f"OFT {part} B={B} Sq={Sq} Skv={S} ({pads} pads "
             f"{'mid-row' if seg else 'trailing'}) H=32/32 D=128")
     return name, q, k, v, (q_grp, grp, valid), None
 
@@ -380,6 +433,12 @@ def plain_int8():
         quant_matmul.KERNEL_DISPATCH = True
 
 
+def plain_config(cfg):
+    """``cfg`` with its decoder on the plain attention (K1 and K3 off)."""
+    llm = dataclasses.replace(cfg.vlm.llm, attn_impl="xla")
+    return dataclasses.replace(cfg, vlm=dataclasses.replace(cfg.vlm, llm=llm))
+
+
 def sdpa(q, k, v, mask, backward: bool = False):
     """(backend name, q, k, v as [B, H, S, D] leaves, call) of
     scaled_dot_product_attention on the same inputs and mask: the first of
@@ -455,6 +514,7 @@ def phase_flash(failures: list) -> dict:
               lambda c=c: attn_inputs(c, g)) for c in [SERVE_CASE, TRAIN_CASE, *OTHER_CASES]]
     cases += [(key, lambda c=c: oft_attn_inputs(*c, g)) for key, *c in OFT_CASES]
     cases += [(key, lambda c=c: oft_attn_inputs(*c, g)) for key, *c in OFT_SERVED_CASES]
+    cases += [(key, lambda c=c: oft_attn_inputs(*c, g)) for key, *c in RL_CASES]
     for key, make in cases:
         name, q, k, v, (q_grp, grp, valid), seg = make()
         args = (grp, valid, None, seg, seg)
@@ -489,14 +549,14 @@ def phase_flash(failures: list) -> dict:
         if key is not None:
             times[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                           "bound_by": bound_by, **lib}
-            if key.startswith("oft"):
+            if key.startswith(("oft", "rl")):
                 times[key].update(max_abs_err=err, B_Sq_Skv=[q.shape[0], q.shape[1], k.shape[1]])
         del q, k, v, out, lse, ref, ref_lse, plain
         free_memory()
     # serving's shape, training's, then OFT's
     return {"max_abs_err": worst, **times["serve"],
             **{f"train_{key}": val for key, val in times["train"].items()},
-            **{key: times[key] for key, *_ in OFT_CASES},
+            **{key: times[key] for key, *_ in OFT_CASES + RL_CASES},
             "oft_served": {key: times[key] for key, *_ in OFT_SERVED_CASES}}
 
 
@@ -621,7 +681,7 @@ def phase_flash_bwd(failures: list) -> dict:
     cases = [("pi0_train", lambda: pi0_train_attn_inputs(PI0_TRAIN_MICRO, g))]
     cases += [("main" if case == TRAIN_CASE else None, lambda case=case: attn_inputs(case, g))
               for case in [TRAIN_CASE, SERVE_CASE, *OTHER_CASES]]
-    cases += [(key, lambda c=c: oft_attn_inputs(*c, g)) for key, *c in OFT_CASES]
+    cases += [(key, lambda c=c: oft_attn_inputs(*c, g)) for key, *c in OFT_CASES + RL_CASES]
     for key, make in cases:
         name, q, k, v, ints, seg = make()
         q, k, v = (t.requires_grad_(True) for t in (q, k, v))
@@ -677,13 +737,13 @@ def phase_flash_bwd(failures: list) -> dict:
             if key != "main":
                 rows[key]["max_abs_err"] = max((a.float() - r).abs().max().item()
                                                for a, r in zip(got, ref))
-            if key.startswith("oft"):
+            if key.startswith(("oft", "rl")):
                 rows[key]["B_Sq_Skv"] = [q.shape[0], q.shape[1], k.shape[1]]
         print(line)
         del q, k, v, dout, out, got, again, ref, plain, out_k, lse_k, bwd_args
         free_memory()
     return {"max_abs_err": worst, **rows["main"], "pi0_train": rows["pi0_train"],
-            **{key: rows[key] for key, *_ in OFT_CASES}}
+            **{key: rows[key] for key, *_ in OFT_CASES + RL_CASES}}
 
 
 def dit_bound(head, cfg, B: int, steps: int, cfg_scale: float) -> tuple[float, str]:
@@ -839,9 +899,36 @@ K4_OFT = [(f"oft {part} {K}->{N}", M, K, N)
           for K, N in ((4096, 4096), (4096, 11008), (11008, 4096))] + [
     ("oft noisy-action projector fc2", 112, 4096, 4096), ("oft lm_head", 112, 4096, 32000)]
 K4_OFT_F32 = [("oft mlp_resnet fc1", 16, 7 * 4096, 4096), ("oft mlp_resnet block", 16, 4096, 4096)]
+# MemVLA-7B with int8 weights (phase 11b; the tower, projector and the
+# LLaMA prefill at 832 are K4_PREFILL's, z_embed at 2 rows K4_SERVED's):
+# the SE bottleneck on the projector's fp32 tokens (its excitation at one
+# pooled row), the per role's bank at 256 channels over the 576 per tokens
+# (timestep embedder at the 16 bank slots and the frame, query and FFN,
+# gate; its keys and values at 17 x 576 rows are past K4's rows) in fp32,
+# the cog role's at 4096 channels over one token (its keys and values over
+# the 16 slots and the token) in bf16, its timestep embedder in fp32; then
+# in each DDIM step the DiT over 2 x 17 rows (CFG) in bf16 with its memory
+# keys and values over 2 x 576 per tokens, the per-token embedder in fp32.
+# Phase 11b fails if its requests give K4 a shape that is not here.
+K4_MEMVLA_F32 = [("memvla se excite fc1", 1, 4096, 256), ("memvla se excite fc2", 1, 256, 4096),
+                 ("memvla se reduce fc1", 576, 4096, 2048), ("memvla se reduce fc2", 576, 2048, 256),
+                 ("memvla per time fc0/fc1", 16, 256, 256), ("memvla per time now", 1, 256, 256),
+                 ("memvla per q", 576, 256, 256), ("memvla per ffn fc1", 576, 256, 1024),
+                 ("memvla per ffn fc2", 576, 1024, 256), ("memvla per gate", 576, 512, 256),
+                 ("memvla cog time fc0", 16, 256, 4096), ("memvla cog time fc1", 16, 4096, 4096),
+                 ("memvla cog time now fc1", 1, 4096, 4096),
+                 ("memvla per_token_embedder", 576, 256, 768)]
+K4_MEMVLA_BF16 = [("memvla cog q", 1, 4096, 4096), ("memvla cog k/v", 17, 4096, 4096),
+                  ("memvla cog ffn fc1", 1, 4096, 16384), ("memvla cog ffn fc2", 1, 16384, 4096),
+                  ("memvla cog gate", 1, 8192, 4096), ("memvla dit t_mlp fc0", 2, 256, 768),
+                  ("memvla dit t_mlp fc1", 2, 768, 768), ("memvla dit qkv", 34, 768, 2304),
+                  ("memvla dit o / xattn q, o", 34, 768, 768),
+                  ("memvla dit xattn k/v", 1152, 768, 768), ("memvla dit fc0", 34, 768, 3072),
+                  ("memvla dit fc1", 34, 3072, 768)]
 K4_RUNS = ([(torch.bfloat16, c) for c in K4_CASES] + [(torch.float32, c) for c in K4_CASES]
            + [(torch.float32, c) for c in K4_PI0] + [(torch.bfloat16, c) for c in K4_OFT]
-           + [(torch.float32, c) for c in K4_OFT_F32])
+           + [(torch.float32, c) for c in K4_OFT_F32] + [(torch.float32, c) for c in K4_MEMVLA_F32]
+           + [(torch.bfloat16, c) for c in K4_MEMVLA_BF16])
 K4_CHECKED = {(M, K, N, dtype) for dtype, (_, M, K, N) in K4_RUNS}  # (rows, K, N, x dtype)
 
 
@@ -932,9 +1019,10 @@ def _frame_png(seed: int = 0) -> bytes:
     return buf.getvalue()
 
 
-def _post(port: int, prompt: str, frames: list, batch_size: int = 1, states: str | None = None):
+def _post(port: int, prompt: str, frames: list, batch_size: int = 1, states: str | None = None,
+          extra: dict | None = None):
     boundary = "dexboticsmoke"
-    fields = {"text": prompt, "batch_size": batch_size}
+    fields = {"text": prompt, "batch_size": batch_size, **(extra or {})}
     if states is not None:
         fields["states"] = states
     body = "".join(f"--{boundary}\r\nContent-Disposition: form-data; name=\"{k}\"\r\n\r\n{v}\r\n"
@@ -995,6 +1083,27 @@ MLP_RESNET_RULES = [(r"^ln(1|2)\.", r"layer_norm\1."), (r"^fc(1|2)\.", r"fc\1.")
                     (r"^blocks\.(\d+)\.fc\.", r"mlp_resnet_blocks.\1.ffn.1.")]
 
 
+# MemVLA's own modules (models/memvla.py) under the reference's names
+MEM_RULES = [(r"^per_compr\.excite\.fc1\.", "per_compr.excite.1."),
+             (r"^per_compr\.excite\.fc2\.", "per_compr.excite.3."),
+             (r"^per_compr\.reduce\.fc1\.", "per_compr.reduce.0."),
+             (r"^per_compr\.reduce\.fc2\.", "per_compr.reduce.2."),
+             (r"^mem_bank\.(per|cog)\.retrieval\.(\d+)\.(q|k|v)\.",
+              r"per_cog_mem_bank.retrieval_blocks.\1.\2.\3_proj."),
+             (r"^mem_bank\.(per|cog)\.retrieval\.(\d+)\.(attn|ffn)_ln\.",
+              r"per_cog_mem_bank.retrieval_blocks.\1.\2.\3_norm."),
+             (r"^mem_bank\.(per|cog)\.retrieval\.(\d+)\.ffn\.fc1\.",
+              r"per_cog_mem_bank.retrieval_blocks.\1.\2.ffn.0."),
+             (r"^mem_bank\.(per|cog)\.retrieval\.(\d+)\.ffn\.fc2\.",
+              r"per_cog_mem_bank.retrieval_blocks.\1.\2.ffn.3."),
+             (r"^mem_bank\.(per|cog)\.gate\.proj\.", r"per_cog_mem_bank.gate_fusion_blocks.\1.proj."),
+             (r"^mem_bank\.(per|cog)\.time\.fc0\.", r"per_cog_mem_bank.timestep_embedders.\1.mlp.0."),
+             (r"^mem_bank\.(per|cog)\.time\.fc1\.", r"per_cog_mem_bank.timestep_embedders.\1.mlp.2.")]
+MEM_DIT_RULES = [(r"^per_token_embedder\.", "per_token_embedder.linear."),
+                 (r"^blocks\.(\d+)\.xattn\.o\.", r"blocks.\1.per_attn.out_proj."),
+                 (r"^blocks\.(\d+)\.xattn\.ln\.", r"blocks.\1.norm3.")]
+
+
 def _oft_head_name(name: str) -> str:
     """The reference name of an OFT head parameter, under ``model.action_head.``."""
     import re
@@ -1018,22 +1127,36 @@ def _renamed(name: str, rules: list) -> str:
 
 
 def reference_state_dict(model, cfg) -> dict:
-    """{reference name: tensor} of a CogACT, flow-VLA (pi0, pi0.5, DM0) or
-    OFT model: the layout utils/convert.py reads (Dexbotic's ``model.llm.``,
-    ``model.mm_vision_tower.vision_tower.vision_model.``, ``model.mm_projector.``,
-    ``model.action_head.net.`` (the DiT), ``model.action_head.`` (OFT's heads),
-    ``model.action_expert[.model].``; torch
-    Linear layouts; conv patch embeds).  The tensors keep the model's dtypes
-    and device; CLIP's patch embed has no bias (it must be zero)."""
+    """{reference name: tensor} of a CogACT, MemVLA, flow-VLA (pi0, pi0.5,
+    DM0) or OFT model: the layout utils/convert.py reads (Dexbotic's
+    ``model.llm.``, ``model.mm_vision_tower.vision_tower.vision_model.``,
+    ``model.mm_projector.``, ``model.action_head.net.`` (the DiT),
+    ``model.action_head.`` (OFT's heads), ``model.per_compr.`` and
+    ``model.per_cog_mem_bank.`` (MemVLA's), ``model.action_expert[.model].``;
+    torch Linear layouts; conv patch embeds, MemVLA's 1x1 convs and the
+    DiT's packed ``per_attn.in_proj``).  The tensors keep the model's dtypes
+    and device (a packed in_proj is a new tensor); CLIP's patch embed has no
+    bias (it must be zero)."""
     import re
 
     from dexbotic_tpu_torch.utils.convert import VIT_PREFIX
 
     vit = cfg.vlm.vit
-    out = {}
+    out, packed = {}, {}
     for name, p in model.named_parameters():
         t = p.detach()
-        if name == "vlm.llm.lm_head.weight":
+        m = re.match(r"^action_head\.blocks\.(\d+)\.xattn\.(q|k|v)\.(weight|bias)$", name)
+        if m:  # MemVLA's per_attn: q, k and v packed into one in_proj, after the loop
+            packed.setdefault((m.group(1), m.group(3)), {})[m.group(2)] = t
+            continue
+        if name.startswith(("per_compr.", "mem_bank.")):
+            ref = _renamed(name, MEM_RULES)
+            out["model." + ref] = t[:, :, None, None] if ref.startswith("per_compr.") and \
+                ref.endswith("weight") else t
+        elif name.startswith("action_head.") and re.match(
+                r"^(per_token_embedder|blocks\.\d+\.xattn)\.", name[12:]):
+            out["model.action_head.net." + _renamed(name[12:], MEM_DIT_RULES)] = t
+        elif name == "vlm.llm.lm_head.weight":
             out["lm_head.weight"] = t
         elif name.startswith("vlm.llm."):
             out["model.llm." + _renamed(name[8:], LLM_RULES)] = t
@@ -1070,6 +1193,9 @@ def reference_state_dict(model, cfg) -> dict:
             if head not in ref:
                 raise KeyError(f"no reference name for the port parameter {name}")
             out[f"model.{ref[head]}.{leaf}"] = t
+    for (block, leaf), qkv in packed.items():
+        out[f"model.action_head.net.blocks.{block}.per_attn.in_proj_{leaf}"] = torch.cat(
+            [qkv["q"], qkv["k"], qkv["v"]])
     return out
 
 
@@ -1352,9 +1478,7 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
     imgs = torch.from_numpy(_cogact_images([png], exp.data.build_image_processor()))[None].cuda()
     noise = torch.randn((1, cfg.chunk_size, cfg.action_dim),
                         generator=torch.Generator(device="cuda").manual_seed(4), device="cuda")
-    llm_plain = dataclasses.replace(cfg.vlm.llm, attn_impl="xla")
-    cfg_plain = dataclasses.replace(cfg, fused_sampler=False,
-                                    vlm=dataclasses.replace(cfg.vlm, llm=llm_plain))
+    cfg_plain = dataclasses.replace(plain_config(cfg), fused_sampler=False)
     a = cogact_inference_action(model, cfg, ids, valid, imgs, noise=noise).flatten()
     with plain_int8():
         b = cogact_inference_action(model, cfg_plain, ids, valid, imgs, noise=noise).flatten()
@@ -2137,6 +2261,7 @@ def phase_oft(failures: list) -> dict:
         finally:
             httpd.shutdown()
             httpd.server_close()
+            mb.close()  # its worker holds the model
         row["micro_batched_calls"] = mb.batched_calls
         row["micro_batch_ms"] = [dt * 1e3 for _, dt in mb_outs]
         if (mb.batched_calls < 1 or attention.plain_cuda_calls
@@ -2158,8 +2283,7 @@ def phase_oft(failures: list) -> dict:
         ids, valid, imgs, states = oft_inputs(exp, rcfg, tokenizer, png, state)
         noise = torch.randn((1, rcfg.chunk_size, rcfg.action_dim),
                             generator=torch.Generator(device="cuda").manual_seed(24), device="cuda")
-        llm_plain = dataclasses.replace(rcfg.vlm.llm, attn_impl="xla")
-        plain_cfg = dataclasses.replace(rcfg, vlm=dataclasses.replace(rcfg.vlm, llm=llm_plain))
+        plain_cfg = plain_config(rcfg)
         n0 = flash_attention.launches
         a = om.oft_inference_action(model, rcfg, ids, valid, imgs, states=states, noise=noise)
         b = om.oft_inference_action(model, plain_cfg, ids, valid, imgs, states=states, noise=noise)
@@ -2407,8 +2531,7 @@ def phase_train_compare(failures: list, dataset: str) -> None:
     rows = cfg.repeated_diffusion_steps * 2
     t = torch.randint(0, cfg.diffusion_steps, (rows,), generator=g, device="cuda")
     noise = torch.randn((rows, cfg.chunk_size, cfg.action_dim), generator=g, device="cuda")
-    llm_plain = dataclasses.replace(cfg.vlm.llm, attn_impl="xla")
-    cfg_plain = dataclasses.replace(cfg, vlm=dataclasses.replace(cfg.vlm, llm=llm_plain))
+    cfg_plain = plain_config(cfg)
     watched = {"projector": "vlm.projector.", "dit": "action_head."}
     results = {}
     for label, c in (("plain", cfg_plain), ("kernel", cfg)):
@@ -2701,8 +2824,7 @@ def phase_oft_train_compare(failures: list, dataset: str) -> dict:
     if (n_tok, seq_len, cfg.segment_len) != (TRAIN_TOKENS, TRAIN_SEQ_LEN, OFT_CASES[2][4]):
         failures.append(f"9a: samples of {n_tok} tokens padded to {seq_len} + {cfg.segment_len}: "
                         f"phases 3 and 6 hold K1 and K3 at {OFT_CASES[2][2:5]}")
-    llm_plain = dataclasses.replace(cfg.vlm.llm, attn_impl="xla")
-    cfg_plain = dataclasses.replace(cfg, vlm=dataclasses.replace(cfg.vlm, llm=llm_plain))
+    cfg_plain = plain_config(cfg)
     watched = {"projector": "vlm.projector.", "vit": "vlm.vit.", "head": "action_head."}
     results = {}
     for label, c in (("plain", cfg_plain), ("kernel", cfg)):
@@ -2825,6 +2947,691 @@ def phase_oft_train(failures: list) -> dict:
         free_memory()
         inline = phase_oft_train_steps(failures, dataset, 0)
         return {"compare": compare, "workers": workers, "inline": inline}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: GRPO post-training (SimpleVLA-RL) of the LIBERO OFT-Discrete actor
+# ---------------------------------------------------------------------------
+
+# The decoder depth of phases 10a and 10b.  The actor trains in fp32: its
+# weights, gradients and Adam's two moments take 16 bytes a parameter.  A
+# LLaMA-2-7B layer holds 202.4M parameters; the embedding, lm_head,
+# CLIP-L/336 and the projector 0.59B; so N layers take (0.59 + 0.2024 N) x 16
+# GB before activations: 16 layers 61.3 GB (57.1 GiB), all 32 would take
+# 113 GB, more than one card.
+RL_LAYERS = 16
+RL_EPISODE_STEPS = 64  # the mock envs' episode and the rollout budget: 8 chunks of 8 steps
+# the metrics of one step of train_rl(), as the JAX package's loop reports them
+RL_METRICS = {"pg_loss", "clip_frac", "approx_kl", "entropy", "loss", "grad_norm",
+              "success_rate", "truncated_frac", "num_rollouts", "mean_chunks_per_episode",
+              "timing/gen_s", "timing/filter_s", "timing/update_s", "epoch", "step"}
+
+
+def rl_exp(layers: int, **rl_data):
+    """The LIBERO SimpleVLA-RL twin (OFT-Discrete at LLaMA-2-7B and
+    CLIP-L/336 widths, chunk 8 x 7 actions, rollout temperature 1.6, lr 1e-6)
+    with ``layers`` decoder layers, on RL_ENVS mock envs (LIBERO's 256 x 256
+    camera) in groups of 4, RL_EPISODE_STEPS steps an episode."""
+    from dexbotic_tpu_torch.exp.simplevla_rl_exp import RLDataLoaderConfig
+    from dexbotic_tpu_torch.models import presets
+    from dexbotic_tpu_torch.playground.benchmarks.libero.libero_simplevla_rl import (
+        LiberoSimpleVLARLExp,
+    )
+
+    exp = LiberoSimpleVLARLExp(device="cuda")
+    if layers != presets.LLM_PRESETS[exp.model.llm_preset].num_layers:
+        name = f"{exp.model.llm_preset}_{layers}_layers"
+        presets.LLM_PRESETS[name] = dataclasses.replace(
+            presets.LLM_PRESETS[exp.model.llm_preset], num_layers=layers)
+        exp.model = dataclasses.replace(exp.model, llm_preset=name)
+    exp.env = dataclasses.replace(exp.env, env_type="mock", num_envs=RL_ENVS,
+                                  max_episode_steps=RL_EPISODE_STEPS, obs_dim=(256, 256, 3))
+    exp.rl_data = RLDataLoaderConfig(n_samples=4, **rl_data)
+    exp.rollout = dataclasses.replace(exp.rollout, max_env_steps=RL_EPISODE_STEPS)
+    return exp
+
+
+def rl_rollout_batch(exp, cfg, model, tokenizer) -> dict:
+    """One rollout chunk of RL_ENVS mock envs through the actor (its bins and
+    log-probs drawn on the kernel path), as the update's batch on the card:
+    the episodes' outcomes set to mixed successes in each group of 4, so that
+    every row carries an advantage."""
+    from dexbotic_tpu_torch.exp.rl.rl_trainer import (
+        collect_rollouts,
+        flatten_rollouts,
+        prepare_update_batch,
+    )
+    from dexbotic_tpu_torch.sim_envs.factory import create_env_batch
+
+    envs = create_env_batch("mock", exp.env.task_suite_name, ["task_0"] * RL_ENVS,
+                            list(range(RL_ENVS)), list(range(70, 70 + RL_ENVS)), exp.env,
+                            threaded=False)
+    groups = np.repeat(np.arange(RL_ENVS // 4), 4)
+    buf = collect_rollouts(envs, exp._make_actor(cfg, model, tokenizer),
+                           dataclasses.replace(exp.rollout, max_env_steps=exp.rollout.chunk_steps),
+                           torch.Generator(device="cuda").manual_seed(71), group_index=groups)
+    success = np.tile(np.array([1, 0, 1, 0], np.float32), RL_ENVS // 4)
+    batch = prepare_update_batch(flatten_rollouts(buf), exp.grpo, RL_ENVS // 4,
+                                 episode_success=success, episode_group=groups)
+    return {k: v.cuda() for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def decoder_plain_on_bf16():
+    """The decoder's plain attention (``impl="xla"``) of an fp32 model as K1
+    and K3 take it there: the plain version of K1 (``flash_attention_ref``,
+    its backward by autograd) on q, k, v rounded to bf16, the output rounded
+    to bf16 and returned in fp32; the rest of the model, and the vision
+    tower's attention, stay fp32."""
+    from dexbotic_tpu_torch.nn import transformer
+    from dexbotic_tpu_torch.ops.attention import flash_attention_ref
+
+    call = transformer.attention
+
+    def rounded(q, k, v, q_grp, kv_grp, kv_valid, scale=None, impl="auto", q_seg=None,
+                kv_seg=None):
+        if impl != "xla" or q.dtype != torch.float32:
+            return call(q, k, v, q_grp, kv_grp, kv_valid, scale, impl, q_seg, kv_seg)
+        out, _ = flash_attention_ref(q.bfloat16(), k.bfloat16(), v.bfloat16(), q_grp, kv_grp,
+                                     kv_valid, scale, q_seg, kv_seg)
+        return out.float()
+
+    transformer.attention = rounded
+    try:
+        yield
+    finally:
+        transformer.attention = call
+
+
+def phase_rl_update_compare(failures: list) -> dict:
+    """Phase 10a: one GRPOUpdater micro-step on a rollout batch of the 8 envs
+    and the same fp32 weights, through the kernel path (K1, K3 on q, k, v
+    rounded to bf16) and the plain path (their plain version on the same
+    rounded q, k, v: decoder_plain_on_bf16), each against an fp32 witness
+    (the plain attention in fp32): loss, pg_loss, entropy, grad_norm, the
+    gradient cosine of the projector, the tower's last layer, lm_head and
+    the decoder's last layer.  The kernel path's distance from the witness
+    is held to 2x the plain path's + a quarter of the distance that bf16
+    matrices cost the same step (a bf16 copy of the weights on the plain
+    attention, a reading).  Then the update, which must move the fp32
+    weights."""
+    from dexbotic_tpu_torch.exp.optim import global_norm
+    from dexbotic_tpu_torch.exp.rl.rl_trainer import GRPOUpdater, rl_policy_loss
+    from dexbotic_tpu_torch.models.oft import build_oft
+    from dexbotic_tpu_torch.nn.core import cast_matrices_
+    from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+
+    exp = rl_exp(RL_LAYERS)
+    cfg = exp.model.build_config()
+    print(f"phase 10a: one GRPO micro-step of the LIBERO OFT-Discrete actor at full width, "
+          f"{cfg.vlm.llm.num_layers} of 32 decoder layers, fp32 weights: kernel path vs plain "
+          f"path (both on bf16 q, k, v) vs fp32 witness; bf16 matrices as a reading")
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30  # left by earlier phases
+    tok = exp.tokenizer.build_tokenizer()
+    model = exp.model.build_params(cfg, "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    mb = rl_rollout_batch(exp, cfg, model, tok)
+    L, vit = cfg.vlm.llm.num_layers, cfg.vlm.vit
+    nv = vit.num_layers + (vit.select_layer + 1 if vit.select_layer is not None else 0)
+    watched = {"projector": "vlm.projector.", "vit_last_layer": f"vlm.vit.layers.{nv - 1}.",
+               "lm_head": "vlm.llm.lm_head.", "llm_last_layer": f"vlm.llm.layers.{L - 1}."}
+
+    def grab(named_grads):
+        return {k: torch.cat([g.float().flatten() for n, g in named_grads
+                              if n.startswith(prefix) and g is not None])
+                for k, prefix in watched.items()}
+
+    def run(m, c):  # one micro-batch's metrics and watched gradients, no update
+        m.requires_grad_(True)
+        n0 = (flash_attention.launches, flash_attention_bwd.launches)
+        with torch.enable_grad():
+            loss, metrics = rl_policy_loss(m, c, exp.grpo, mb, exp.rollout.temperature)
+            loss.backward()
+        named = [(n, p.grad) for n, p in m.named_parameters()]
+        out = {k: float(v.detach()) for k, v in metrics.items()}
+        out["grad_norm"] = float(global_norm([g for _, g in named if g is not None]))
+        out["launches"] = (flash_attention.launches - n0[0], flash_attention_bwd.launches - n0[1])
+        g = grab(named)
+        for p in m.parameters():
+            p.grad = None
+        m.requires_grad_(False)
+        return out, g
+
+    plain = plain_config(cfg)
+    w32, g32 = run(model, plain)
+    with decoder_plain_on_bf16():
+        wpl, gpl = run(model, plain)
+    bf = build_oft(plain, "cuda", prepare=lambda m: cast_matrices_(m, torch.bfloat16))
+    with torch.no_grad():
+        for p, q in zip(bf.parameters(), model.parameters()):
+            p.copy_(q)
+    wbf, gbf = run(bf, plain)
+    del bf
+    free_memory()
+    updater = GRPOUpdater(cfg, exp.grpo, model, learning_rate=exp.rl_learning_rate,
+                          temperature=exp.rollout.temperature)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.startswith(tuple(watched.values()))}
+    n0 = (flash_attention.launches, flash_attention_bwd.launches)
+    metrics, grads = updater.grads(model, mb)
+    wk = {k: float(v) for k, v in metrics.items()}
+    wk["launches"] = (flash_attention.launches - n0[0], flash_attention_bwd.launches - n0[1])
+    gk = grab(grads.items())
+    wk["grad_norm"] = float(updater.apply(model, grads))
+    del grads
+    with torch.no_grad():
+        moved = max(float((p - before[n]).abs().max()) for n, p in model.named_parameters()
+                    if n in before)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    paths = {"kernel": (wk, gk), "plain": (wpl, gpl), "bf16_matrices": (wbf, gbf)}
+    witness = {label: {"loss_abs": abs(w["loss"] - w32["loss"]),
+                       "entropy_rel": abs(w["entropy"] - w32["entropy"]) / abs(w32["entropy"]),
+                       "grad_norm_rel": abs(w["grad_norm"] - w32["grad_norm"]) / w32["grad_norm"],
+                       "grad_cosine": {k: _cosine(g[k], g32[k]) for k in watched}}
+               for label, (w, g) in paths.items()}
+    for label, w in (("kernel", wk), ("plain", wpl), ("bf16 matrices", wbf),
+                     ("fp32 witness", w32)):
+        print(f"  {label}: loss {w['loss']:.6g} pg_loss {w['pg_loss']:.6g} entropy "
+              f"{w['entropy']:.6g} grad_norm {w['grad_norm']:.6g} clip_frac {w['clip_frac']:.4g} "
+              f"approx_kl {w['approx_kl']:.4g}; K1/K3 launches {w['launches']}")
+    print(f"  distance from the fp32 witness: {witness}")
+    print(f"  {n_params / 1e9:.3f}B parameters; the update moved the watched fp32 weights by "
+          f"{moved:.3g} at most (lr {exp.rl_learning_rate}); peak memory allocated {peak:.2f} GiB "
+          f"({held:.2f} GiB of it allocated before the phase)")
+    checks = [(all(math.isfinite(v) for k, v in wk.items() if k != "launches"),
+               f"10a: non-finite kernel-path metrics {wk}"),
+              (moved > 0, "10a: the update left the fp32 weights where they were"),
+              (wk["launches"][1] >= L and w32["launches"] == wpl["launches"] == (0, 0)
+               == wbf["launches"], f"10a: K1/K3 launches kernel path {wk['launches']}, plain "
+                                   f"paths {wpl['launches']} {w32['launches']} {wbf['launches']}")]
+    # the kernel path sits no further from the fp32 witness than twice its
+    # plain version does on the same rounded inputs, + a quarter of what
+    # bf16 matrices cost: a margin for the one draw each scalar is
+    bounds = {}
+    for what in ("loss_abs", "entropy_rel", "grad_norm_rel", "grad_cosine"):
+        dk, dp, db = (witness[p][what] for p in paths)
+        if what == "grad_cosine":
+            dk, dp, db = (1 - min(d.values()) for d in (dk, dp, db))
+        bounds[what] = 2.0 * dp + 0.25 * db
+        print(f"  {what}: kernel {dk:.4g}  plain {dp:.4g}  bf16 matrices {db:.4g}  bound "
+              f"{bounds[what]:.4g}  {'ok' if dk <= bounds[what] else 'FAIL'}")
+        checks.append((dk <= bounds[what], f"10a: the kernel path's {what} from the fp32 witness "
+                                           f"{dk} > 2 x the plain path's {dp} + 0.25 x the bf16 "
+                                           f"matrices' {db}"))
+    failures.extend(msg for ok, msg in checks if not ok)
+    del model, updater, before, g32, gpl, gbf, gk, mb
+    free_memory()
+    return {"layers": L, "params": n_params, "peak_gib": peak, "held_before_gib": held,
+            "max_weight_change": moved, "kernel": wk, "plain": wpl, "bf16_matrices": wbf,
+            "fp32_witness": w32, "vs_fp32": witness, "bounds": bounds}
+
+
+def phase_rl_train(failures: list) -> dict:
+    """Phase 10b: SimpleVLARLExp.train_rl() end to end on the card (the
+    LIBERO twin at phase 10a's depth, RL_ENVS mock envs, 2 groups of 4, 8
+    chunks an episode): two steps of schedule="random", then one of
+    "epoch".  Per step the loop's timings, rollouts, chunks and the peak
+    memory of the step (GRPOUpdater.update wrapped to read it); K1 and K3
+    launches, their shapes and the plain attention calls on CUDA read around
+    each run; the metrics' keys against the JAX loop's (RL_METRICS)."""
+    from dexbotic_tpu_torch.exp.rl import rl_trainer
+    from dexbotic_tpu_torch.ops.attention import attention, flash_attention, flash_attention_bwd
+
+    peaks: list = []
+    update = rl_trainer.GRPOUpdater.update
+
+    def recorded(self, *args, **kw):
+        out = update(self, *args, **kw)
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    runs = {}
+    rl_trainer.GRPOUpdater.update = recorded
+    try:
+        for schedule, steps in (("random", 2), ("epoch", 1)):
+            exp = rl_exp(RL_LAYERS, schedule=schedule)
+            exp.rl_steps_per_epoch = steps
+            print(f"phase 10b: SimpleVLARLExp.train_rl(), schedule={schedule!r}, {steps} step(s) "
+                  f"of {exp.env.num_envs} mock envs x {exp.rollout.max_env_steps // exp.rollout.chunk_steps} "
+                  f"chunks, {exp.model.build_config().vlm.llm.num_layers} decoder layers")
+            free_memory()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() / 2 ** 30  # left by earlier phases
+            peaks.clear()
+            shapes, k3_shapes = set(), set()
+            flash_attention.launches = flash_attention_bwd.launches = 0
+            attention.plain_cuda_calls = 0
+            t0 = time.perf_counter()
+            with k1_calls(shapes), k1_calls(k3_shapes, "_flash_bwd_cuda"):
+                model, hist = exp.train_rl()
+            wall = time.perf_counter() - t0
+            launches = {"flash_fwd": flash_attention.launches,
+                        "flash_bwd": flash_attention_bwd.launches,
+                        "plain_cuda_calls": attention.plain_cuda_calls}
+            del model
+            free_memory()
+            rows = [{**{k: h[k] for k in ("timing/gen_s", "timing/filter_s", "timing/update_s",
+                                          "loss", "pg_loss", "entropy", "grad_norm",
+                                          "success_rate", "num_rollouts")},
+                     "chunks": int(round(h["mean_chunks_per_episode"] * h["num_rollouts"])),
+                     "peak_gib": p} for h, p in zip(hist, peaks)]
+            for i, r in enumerate(rows):
+                print(f"  step {i}: gen {r['timing/gen_s']:.3f} s, filter {r['timing/filter_s']:.3f} "
+                      f"s, update {r['timing/update_s']:.3f} s; {r['num_rollouts']} rollouts, "
+                      f"{r['chunks']} chunks; loss {r['loss']:.5g}, success {r['success_rate']:.3g}; "
+                      f"peak {r['peak_gib']:.2f} GiB")
+            print(f"  train_rl() wall {wall:.1f} s; launches {launches}; K1 shapes {sorted(shapes)}, "
+                  f"K3 shapes {sorted(k3_shapes)}; {held:.2f} GiB allocated before the run")
+            unchecked = sorted((shapes | k3_shapes) - K1_RL_CHECKED)
+            checks = [(len(hist) == steps == len(peaks), f"10b {schedule}: ran {len(hist)} of "
+                                                          f"{steps} steps"),
+                      (all(set(h) == RL_METRICS for h in hist),
+                       f"10b {schedule}: metric keys {[sorted(set(h) ^ RL_METRICS) for h in hist]} "
+                       f"differ from the JAX loop's"),
+                      (all(math.isfinite(v) for h in hist for v in h.values()),
+                       f"10b {schedule}: non-finite metrics"),
+                      (launches["flash_fwd"] > 0 and launches["flash_bwd"] > 0
+                       and launches["plain_cuda_calls"] == 0, f"10b {schedule}: launches {launches}"),
+                      (not unchecked and shapes and k3_shapes,
+                       f"10b {schedule}: K1 or K3 took shapes phases 3 and 6 do not hold: "
+                       f"{unchecked}")]
+            failures.extend(msg for ok, msg in checks if not ok)
+            runs[schedule] = {"steps": rows, "launches": launches, "wall_s": wall,
+                              "held_before_gib": held,
+                              "k1_shapes": sorted(shapes), "k3_shapes": sorted(k3_shapes)}
+    finally:
+        rl_trainer.GRPOUpdater.update = update
+    return runs
+
+
+@torch.no_grad()
+def phase_rl_rollouts(failures: list) -> dict:
+    """Phase 10c: the rollout actor (SimpleVLARLExp._make_actor) of the
+    32-layer LIBERO OFT-Discrete in bf16 serving weights over RL_ENVS mock
+    envs' frames: one chunk call through K1 with its launches and shapes
+    counted; the bin logits through the kernel path and the plain path on
+    the same inputs (cosine >= 0.999), and each against an fp32 witness
+    (the plain path in fp32 on the bf16 weights' values): the kernel path's
+    largest logit error no more than 2x the plain path's + 1e-3 (phase 3's
+    rule), and every bin where the kernel path's argmax differs from the
+    plain path's a near-tie: on the plain path the two bins' logits lie
+    within 2x the plain path's own largest logit error of each other, a gap
+    its rounding alone can close.  (With random weights 10 % of the
+    witness's top-2 gaps are below 0.009 logits, so both bf16 paths flip
+    ~3 % of the bins against fp32 and each other: a share of agreement
+    cannot tell a kernel fault from rounding.)  The plain path's log-probs
+    of the bins the kernel path drew against the drawn log-probs (each
+    within 2^-7 of its magnitude + 1e-3: two bf16 ulps); the actor call and
+    its device call alone, ms a chunk."""
+    from dexbotic_tpu_torch.models import oft as om
+    from dexbotic_tpu_torch.ops.attention import attention, flash_attention
+    from dexbotic_tpu_torch.sim_envs.factory import create_env_batch
+    from script.profile_pi0_torch import wall_ms
+
+    exp = rl_exp(32)
+    cfg = exp.model.build_config()
+    print(f"phase 10c: GRPO rollouts at full depth ({cfg.vlm.llm.num_layers} layers, bf16 serving "
+          f"weights), {RL_ENVS} envs a chunk call")
+    model = exp.model.build_params(cfg, "cuda", prepare=exp.prepare_inference_params)
+    tok = exp.tokenizer.build_tokenizer()
+    envs = create_env_batch("mock", exp.env.task_suite_name, ["task_0"] * RL_ENVS,
+                            list(range(RL_ENVS)), list(range(80, 80 + RL_ENVS)), exp.env,
+                            threaded=False)
+    obs, inst = [e.get_obs() for e in envs], [e.get_instruction() for e in envs]
+    actor = exp._make_actor(cfg, model, tok)
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    shapes: set = set()
+    flash_attention.launches = attention.plain_cuda_calls = 0
+    with k1_calls(shapes):
+        actions, bins, logp, ids, valid, imgs = actor(obs, inst, gen)
+        torch.cuda.synchronize()
+    launches, plain_calls = flash_attention.launches, attention.plain_cuda_calls
+    dev = torch.device("cuda")
+    ids_t, valid_t = torch.from_numpy(ids).to(dev), torch.from_numpy(valid).to(dev)
+    imgs_t = torch.from_numpy(imgs).to(dev)[:, None]
+    T = exp.rollout.temperature
+    plain = plain_config(cfg)
+    lk = om.discrete_bin_logits(model, cfg, ids_t, valid_t, imgs_t, None, T)
+    lp = om.discrete_bin_logits(model, plain, ids_t, valid_t, imgs_t, None, T)
+    cos = _cosine(lk.flatten().double(), lp.flatten().double())
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    plain_logp, _ = om.oft_action_log_probs(model, plain, ids_t, valid_t, imgs_t, None, bins,
+                                            temperature=T)
+    dl = (logp - plain_logp).abs()
+    logp_ok = bool((dl <= 2.0 ** -7 * plain_logp.abs() + 1e-3).all())
+    actor_ms = wall_ms(lambda: actor(obs, inst, gen))
+    device_call_ms = wall_ms(lambda: om.oft_generate_action(model, cfg, ids_t, valid_t, imgs_t,
+                                                            None, gen, temperature=T))
+    model.float()  # the fp32 witness
+    lw = om.discrete_bin_logits(model, plain, ids_t, valid_t, imgs_t, None, T)
+    off = {label: (x.argmax(-1) != lw.argmax(-1)).float().mean().item()
+           for label, x in (("kernel", lk), ("plain", lp))}
+    err = {label: (x.float() - lw).abs().max().item() for label, x in (("kernel", lk), ("plain", lp))}
+    # each bin the kernel path decides otherwise than the plain path: the
+    # plain path's logit of its own choice over the kernel path's choice
+    ak, ap = lk.argmax(-1), lp.argmax(-1)
+    flips = ak != ap
+    flip_gaps = (lp.gather(-1, ap[..., None]) - lp.gather(-1, ak[..., None]))[..., 0][flips].float()
+    widest = flip_gaps.max().item() if flips.any() else 0.0
+    near_tie = 2.0 * err["plain"]
+    top2 = lw.topk(2, dim=-1).values
+    gaps = torch.quantile((top2[..., 0] - top2[..., 1]).flatten(),
+                          torch.tensor([0.05, 0.1, 0.5], device=dev)).tolist()
+    print(f"  prompt {ids.shape[1]} tokens ({int(valid.sum(1).min())} to {int(valid.sum(1).max())} "
+          f"valid) + {cfg.segment_len}-slot segment; K1 {launches} launches, shapes "
+          f"{sorted(shapes)}, plain attention calls on CUDA {plain_calls}")
+    print(f"  kernel vs plain path: bin-logit cosine {cos:.6f}, argmax bins agree on {agree:.2%}, "
+          f"log-probs of the drawn bins max |diff| {dl.max().item():.4g} "
+          f"({'within' if logp_ok else 'OUTSIDE'} two bf16 ulps); argmax bins off the fp32 "
+          f"witness's: kernel {off['kernel']:.2%}, plain {off['plain']:.2%}; the witness's "
+          f"top-2 logit gap at its 5 / 10 / 50 % quantiles {[round(x, 5) for x in gaps]}")
+    print(f"  largest bin-logit error from the fp32 witness: kernel {err['kernel']:.5g}, plain "
+          f"{err['plain']:.5g}; {int(flips.sum())} bins decided otherwise than the plain path, "
+          f"their plain-path gaps at most {widest:.5g} (near-tie bound {near_tie:.5g})")
+    print(f"  a chunk call: actor {actor_ms:.2f} ms (host preprocessing of {RL_ENVS} frames "
+          f"included), device call {device_call_ms:.2f} ms (medians of 5)")
+    unchecked = sorted(shapes - K1_RL_CHECKED)
+    checks = [(cos >= 0.999, f"10c: bin-logit cosine {cos} < 0.999"),
+              (err["kernel"] <= 2.0 * err["plain"] + 1e-3,
+               f"10c: the kernel path's bin logits lie {err['kernel']} from the fp32 witness's, "
+               f"> 2 x the plain path's {err['plain']} + 1e-3"),
+              (widest <= near_tie, f"10c: the kernel path decided a bin otherwise than the plain "
+                                   f"path across a gap of {widest} > {near_tie}, not a near-tie"),
+              (logp_ok, f"10c: log-probs differ by {dl.max().item()}, past two bf16 ulps"),
+              (launches == cfg.vlm.llm.num_layers and plain_calls == 0,
+               f"10c: K1 launched {launches} times (want {cfg.vlm.llm.num_layers}), "
+               f"{plain_calls} plain calls"),
+              (not unchecked and shapes, f"10c: K1 took shapes phase 3 does not hold: {unchecked}"),
+              (actions.shape == (RL_ENVS, 8, 7) and bool(torch.isfinite(actions).all()),
+               f"10c: actions {tuple(actions.shape)}")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    del model, lk, lp, lw
+    free_memory()
+    return {"layers": cfg.vlm.llm.num_layers, "launches": launches, "k1_shapes": sorted(shapes),
+            "logit_cosine": cos, "argmax_agreement": agree, "argmax_off_fp32": off,
+            "logit_err_fp32": err, "flips": int(flips.sum()), "widest_flip_gap": widest,
+            "near_tie_bound": near_tie,
+            "fp32_top2_gap_quantiles": gaps, "logp_max_abs_diff": dl.max().item(),
+            "actor_ms": actor_ms, "device_call_ms": device_call_ms,
+            "prompt_tokens": int(ids.shape[1])}
+
+
+def phase_rl(failures: list) -> dict:
+    compare = phase_rl_update_compare(failures)
+    train = phase_rl_train(failures)
+    rollouts = phase_rl_rollouts(failures)
+    return {"10a_update_compare": compare, "10b_train_rl": train, "10c_rollouts": rollouts}
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: MemVLA-7B served with its memory bank
+# ---------------------------------------------------------------------------
+
+# One episode of 18 frames (the bank of 16 fills, then consolidates twice),
+# then a new episode whose first frame is the first episode's first frame
+MEMVLA_EPISODE = ["True"] + ["False"] * 17 + ["True"]
+MEMVLA_INT8_REQUESTS = ["True", "False", "False", "False"]
+
+
+def memvla_inputs(exp, cfg, tokenizer, png: bytes):
+    """(ids, valid, images) of one served frame, as MemVLAServer builds them:
+    the prompt in its 64-token bucket, the host-preprocessed frame."""
+    from dexbotic_tpu_torch.exp.serve import _cogact_images, _cogact_prompt_ids
+
+    row = _cogact_prompt_ids(exp, cfg, tokenizer, PROMPT)
+    L = -(-len(row) // 64) * 64
+    ids = torch.zeros((1, L), dtype=torch.int32, device="cuda")
+    ids[0, : len(row)] = torch.tensor(row, device="cuda")
+    valid = (torch.arange(L, device="cuda") < len(row)).int()[None]
+    imgs = torch.from_numpy(_cogact_images([png], exp.data.build_image_processor()))[None].cuda()
+    return ids, valid, imgs
+
+
+@torch.no_grad()
+def memvla_parts_ms(model, cfg, ids, valid, imgs, state, noise) -> dict:
+    """One MemVLA request's device call by part (CUDA-synchronised medians of
+    5): the tower and projector, the LLaMA prefill with the SE bottleneck,
+    the bank step (both roles' retrieval, fusion and consolidation), the DiT
+    sampler (the plain loop of ddim_steps x CFG) and the whole call, with
+    the device's idle share in the whole call."""
+    from dexbotic_tpu_torch.models import memvla as mm
+    from dexbotic_tpu_torch.models.vlm import encode_images
+    from script.profile_pi0_torch import trace, wall_ms
+
+    t = torch.full((1,), 5.0, device="cuda")
+    per, cog = mm.encode(model, cfg, ids, valid, imgs)
+    per_f, cog_f, _ = mm.bank_step(model, cfg, state, per, cog, t)
+
+    def call():
+        return mm.memvla_inference_action(model, cfg, ids, valid, imgs, state, t, noise=noise)
+
+    tower = wall_ms(lambda: encode_images(model.vlm, cfg.vlm, imgs))
+    parts = {"tower_projector_ms": tower,
+             "prefill_se_ms": wall_ms(lambda: mm.encode(model, cfg, ids, valid, imgs)) - tower,
+             "bank_step_ms": wall_ms(lambda: mm.bank_step(model, cfg, state, per, cog, t)),
+             "dit_sampler_ms": wall_ms(lambda: mm.sample_actions(model, cfg, cog_f, per_f, noise,
+                                                                 cfg.cfg_scale)),
+             "device_call_ms": wall_ms(call)}
+    busy, n_kernels, _ = trace(call)
+    parts.update(device_busy_ms=busy, idle_share=1 - busy / parts["device_call_ms"],
+                 kernels=n_kernels)
+    return parts
+
+
+def _memvla_episode(port: int, pngs: list, firsts: list, server) -> tuple[list, list, list]:
+    """(chunks, ms, bank counts) of one episode of requests; the server's
+    noise is reseeded at each 'True', so that an episode's first frame
+    always draws the same noise."""
+    chunks, lat, counts = [], [], []
+    for i, first in enumerate(firsts):
+        if first == "True":
+            server.generator.manual_seed(91)
+        out, dt = _post(port, PROMPT, [pngs[i]], extra={"episode_first_frame": first})
+        chunks.append(out)
+        lat.append(dt * 1e3)
+        counts.append(int(server.session.state["per"]["count"][0]))
+    return chunks, lat, counts
+
+
+@torch.no_grad()
+def memvla_direct(model, cfg, inputs: list, firsts: list, noises: list) -> list:
+    """The chunks of an episode through memvla_inference_action, the bank
+    carried and reset at each 'True'."""
+    from dexbotic_tpu_torch.models import memvla as mm
+
+    state, t, out = mm.init_mem_state(cfg, 1, device="cuda"), 0, []
+    for (ids, valid, imgs), first, noise in zip(inputs, firsts, noises):
+        if first == "True":
+            state, t = mm.reset_mem_rows(state, torch.ones(1, dtype=torch.bool)), 0
+        chunk, state = mm.memvla_inference_action(model, cfg, ids, valid, imgs, state,
+                                                  torch.full((1,), float(t), device="cuda"),
+                                                  noise=noise)
+        out.append(chunk)
+        t += 1
+    return out
+
+
+def phase_memvla(failures: list) -> dict:
+    """Phase 11a: MemVLA-7B (the LIBERO twin: LLaMA-2-7B + CLIP-L/336 +
+    DiT-B with memory cross-attention, a bank of 16 consolidated by ToMe,
+    seeded bf16 weights, the DiT's zero-initialised final layer and
+    cross-attention out-projections redrawn) served over HTTP by
+    MemVLAServer: one episode of 18 frames, then a new one (MEMVLA_EPISODE),
+    with K1's and K2's launches, K1's shapes and the plain attention calls
+    on CUDA read around it; the bank's count after each request; the new
+    episode's first chunk against the first episode's (the same frame and
+    noise); every chunk of the episode through the kernel path and the plain
+    path on the same injected noise; p50/p90 and the device call by part."""
+    from dexbotic_tpu_torch.exp.serve import MemVLAServer, _cogact_prompt_ids
+    from dexbotic_tpu_torch.ops.attention import attention, flash_attention
+    from dexbotic_tpu_torch.ops.dit_fused import fused_dit_sample
+    from dexbotic_tpu_torch.ops.quant import quantized_bytes
+    from dexbotic_tpu_torch.playground.benchmarks.libero.libero_memvla import LiberoMemVLAExp
+
+    exp = LiberoMemVLAExp(device="cuda")
+    t0 = time.perf_counter()
+    cfg, model, _ = exp.load_for_inference()
+    gen = torch.Generator(device="cuda").manual_seed(90)
+    redraw_final_(model.action_head, gen)
+    with torch.no_grad():  # zero at init: the memory tokens would not reach the chunk
+        for blk in model.action_head.blocks:
+            blk.xattn.o.weight.normal_(0.0, 0.02, generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phase 11a: MemVLA-7B ({n_params / 1e9:.3f}B params, bf16, built in "
+          f"{time.perf_counter() - t0:.1f} s) served through MemVLAServer: an episode of "
+          f"{len(MEMVLA_EPISODE) - 1} frames with a bank of {cfg.mem_length}, then a new one")
+    tok = exp.tokenizer.build_tokenizer()
+    n_tok = len(_cogact_prompt_ids(exp, cfg, tok, PROMPT))
+    if n_tok != MEMVLA_PREFILL_CASE[2]:
+        failures.append(f"11a: the prompt is {n_tok} tokens; phase 3 holds K1 at "
+                        f"{MEMVLA_PREFILL_CASE[2]}")
+    pngs = [_frame_png(100 + i) for i in range(len(MEMVLA_EPISODE) - 1)]
+    pngs.append(pngs[0])  # the new episode starts on the first episode's first frame
+    server = MemVLAServer(exp, cfg, model, tok, None, host="127.0.0.1", port=0)
+    httpd = server.serve_background()
+    port = httpd.server_address[1]
+    try:
+        _post(port, PROMPT, [pngs[0]], extra={"episode_first_frame": "True"})  # warm-up
+        try:
+            _post(port, PROMPT, [pngs[0]])
+            failures.append("11a: a request without episode_first_frame was served")
+        except urllib.error.HTTPError as e:
+            if e.code != 500:
+                failures.append(f"11a: a request without episode_first_frame gave {e.code}")
+        shapes: set = set()
+        flash_attention.launches = fused_dit_sample.launches = attention.plain_cuda_calls = 0
+        with k1_calls(shapes):
+            chunks, lat, counts = _memvla_episode(port, pngs, MEMVLA_EPISODE, server)
+        launches = {"flash_fwd": flash_attention.launches,
+                    "dit_sample": fused_dit_sample.launches,
+                    "plain_cuda_calls": attention.plain_cuda_calls}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    n = len(MEMVLA_EPISODE)
+    want_counts = [min(i + 1, cfg.mem_length) for i in range(n - 1)] + [1]
+    reset_diff = float(np.abs(chunks[-1] - chunks[0]).max())
+    per_req = launches["flash_fwd"] / n
+    lat_sorted = sorted(lat)
+    print(f"  bank counts {counts}; the new episode's first chunk vs the first episode's: max "
+          f"|diff| {reset_diff:.3g}; K1 {launches['flash_fwd']} launches ({per_req:g} a request), "
+          f"K2 {launches['dit_sample']}, plain attention calls on CUDA "
+          f"{launches['plain_cuda_calls']}; K1 shapes {sorted(shapes)}")
+    # every chunk of the episode, kernel path vs plain path, on the same injected noise
+    inputs = [memvla_inputs(exp, cfg, tok, png) for png in pngs]
+    ng = torch.Generator(device="cuda").manual_seed(92)
+    noises = [torch.randn((1, cfg.chunk_size, cfg.action_dim), generator=ng, device="cuda")
+              for _ in range(n)]
+    kernel = memvla_direct(model, cfg, inputs, MEMVLA_EPISODE, noises)
+    plain = memvla_direct(model, plain_config(cfg), inputs, MEMVLA_EPISODE, noises)
+    cos = [_cosine(a.flatten().double(), b.flatten().double()) for a, b in zip(kernel, plain)]
+    print(f"  kernel vs plain path over the episode: chunk cosine {min(cos):.6f} at worst")
+    from dexbotic_tpu_torch.models import memvla as mm
+
+    state = mm.init_mem_state(cfg, 1, device="cuda")
+    for (ids, valid, imgs), noise in zip(inputs[:cfg.mem_length], noises):  # a full bank
+        _, state = mm.memvla_inference_action(model, cfg, ids, valid, imgs, state,
+                                              torch.zeros(1, device="cuda"), noise=noise)
+    parts = memvla_parts_ms(model, cfg, *inputs[0], state, noises[0])
+    row = {"p50_ms": statistics.median(lat_sorted), "p90_ms": float(np.percentile(lat_sorted, 90)),
+           "k1_per_request": per_req, "launches": launches, "bank_counts": counts,
+           "reset_chunk_max_abs_diff": reset_diff, "kernel_vs_plain_cosine_min": min(cos),
+           "prompt_tokens": n_tok, "params": n_params, "bf16_weight_bytes": quantized_bytes(model),
+           "k1_shapes": sorted(shapes), **parts}
+    print(f"  {n} requests p50 {row['p50_ms']:.1f} ms, p90 {row['p90_ms']:.1f} ms; device call "
+          f"{parts['device_call_ms']:.2f} ms = tower {parts['tower_projector_ms']:.2f} + prefill "
+          f"and SE {parts['prefill_se_ms']:.2f} + bank step {parts['bank_step_ms']:.2f} + DiT "
+          f"sampler {parts['dit_sampler_ms']:.2f} (medians of 5), device idle "
+          f"{parts['idle_share']:.1%} of it over {parts['kernels']} kernels")
+    unchecked = sorted(shapes - K1_MEMVLA_CHECKED)
+    checks = [(counts == want_counts, f"11a: bank counts {counts}, want {want_counts}"),
+              (reset_diff <= 1e-6, f"11a: the reset episode's first chunk differs by {reset_diff}"),
+              (all(c.shape == (cfg.chunk_size, cfg.action_dim) and np.isfinite(c).all()
+                   for c in chunks), "11a: a chunk of another shape or not finite"),
+              (launches["flash_fwd"] == n * cfg.vlm.llm.num_layers
+               and launches["dit_sample"] == 0 and launches["plain_cuda_calls"] == 0,
+               f"11a: launches {launches}, want K1 {n} x {cfg.vlm.llm.num_layers}, no K2 and "
+               f"no plain call"),
+              (min(cos) >= 0.99, f"11a: kernel vs plain chunk cosine {cos} < 0.99"),
+              (not unchecked and shapes, f"11a: K1 took shapes phase 3 does not hold: {unchecked}")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    return {**row, "model": model, "exp": exp, "cfg": cfg, "tokenizer": tok, "pngs": pngs,
+            "inputs": inputs, "noises": noises, "kernel_chunks": kernel}
+
+
+def phase_memvla_int8(failures: list, mem: dict) -> dict:
+    """Phase 11b: phase 11a's MemVLA-7B quantized (inference_quantize="w8a8")
+    served the first frames of the same episode (MEMVLA_INT8_REQUESTS): K1's,
+    K2's and K4's launches, K4's (rows, K, N, dtype) and the plain attention
+    calls read around them, K4's launches against the quantized products
+    the forward hooks saw; every K4 shape must be one phase 4c holds; the
+    weight bytes; the chunks on 11a's inputs and noise against 11a's bf16
+    kernel-path chunks (cosine >= 0.99)."""
+    from dexbotic_tpu_torch.exp.serve import MemVLAServer
+    from dexbotic_tpu_torch.ops import quant_matmul as qm
+    from dexbotic_tpu_torch.ops.attention import attention, flash_attention
+    from dexbotic_tpu_torch.ops.dit_fused import fused_dit_sample
+    from dexbotic_tpu_torch.ops.quant import quantized_bytes
+
+    exp, cfg, model, tok = mem["exp"], mem["cfg"], mem["model"], mem["tokenizer"]
+    print('phase 11b: MemVLA-7B with inference_quantize="w8a8" served through MemVLAServer')
+    old_rows = qm.W8A8_MIN_ROWS
+    exp.inference_quantize = "w8a8"
+    exp.quantize_inference_model(model)
+    int8_bytes = quantized_bytes(model)
+    server = MemVLAServer(exp, cfg, model, tok, None, host="127.0.0.1", port=0)
+    httpd = server.serve_background()
+    port = httpd.server_address[1]
+    n = len(MEMVLA_INT8_REQUESTS)
+    try:
+        _post(port, PROMPT, [mem["pngs"][0]], extra={"episode_first_frame": "True"})  # warm-up
+        k1s, k4s = set(), set()
+        flash_attention.launches = fused_dit_sample.launches = attention.plain_cuda_calls = 0
+        qm.quant_matmul.launches = 0
+        with k1_calls(k1s), k4_calls(model, k4s) as seen:
+            chunks, lat, counts = _memvla_episode(port, mem["pngs"], MEMVLA_INT8_REQUESTS, server)
+        launches = {"flash_fwd": flash_attention.launches, "quant_matmul": qm.quant_matmul.launches,
+                    "dit_sample": fused_dit_sample.launches,
+                    "plain_cuda_calls": attention.plain_cuda_calls}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    q = memvla_direct(model, cfg, mem["inputs"][:n], MEMVLA_INT8_REQUESTS, mem["noises"][:n])
+    qm.W8A8_MIN_ROWS = old_rows
+    cos = [_cosine(a.flatten().double(), b.flatten().double())
+           for a, b in zip(q, mem["kernel_chunks"][:n])]
+    hooks = sum(seen.values())
+    unchecked = sorted(k4s - K4_CHECKED, key=str)
+    lat = sorted(lat)
+    row = {"p50_ms": statistics.median(lat), "launches": launches,
+           "k4_per_request": launches["quant_matmul"] / n, "k4_hook_products": hooks,
+           "k4_by_module": seen, "int8_weight_bytes": int8_bytes,
+           "bf16_weight_bytes": mem["bf16_weight_bytes"], "cosine_to_bf16_min": min(cos),
+           "bank_counts": counts, "k4_shapes": sorted([list(s[:3]) + [str(s[3])] for s in k4s])}
+    print(f"  K4 {launches['quant_matmul']} launches ({row['k4_per_request']:g} a request; the "
+          f"hooks saw {hooks} products: {seen}), K1 {launches['flash_fwd']}, K2 "
+          f"{launches['dit_sample']}, plain attention calls {launches['plain_cuda_calls']}; weight "
+          f"bytes {mem['bf16_weight_bytes'] / 1e9:.3f} GB bf16 -> {int8_bytes / 1e9:.3f} GB; chunk "
+          f"cosine to bf16 {min(cos):.6f} at worst; p50 {row['p50_ms']:.1f} ms; K4 shapes not "
+          f"held by phase 4c: {unchecked}")
+    checks = [(launches["quant_matmul"] == hooks > 0, f"11b: K4 launched "
+                                                       f"{launches['quant_matmul']} times, the "
+                                                       f"hooks saw {hooks} products"),
+              (not unchecked, f"11b: K4 took shapes phase 4c does not hold: {unchecked}"),
+              (launches["flash_fwd"] == n * cfg.vlm.llm.num_layers and launches["dit_sample"] == 0
+               and launches["plain_cuda_calls"] == 0, f"11b: launches {launches}"),
+              (int8_bytes < 0.6 * mem["bf16_weight_bytes"],
+               f"11b: {int8_bytes} weight bytes int8 vs {mem['bf16_weight_bytes']} bf16"),
+              (min(cos) >= 0.99, f"11b: int8 vs bf16 chunk cosine {cos} < 0.99"),
+              (counts == [1, 2, 3, 4], f"11b: bank counts {counts}"),
+              (all(np.isfinite(c).all() for c in chunks), "11b: a chunk is not finite"),
+              (not sorted(k1s - K1_MEMVLA_CHECKED), f"11b: K1 shapes {sorted(k1s)}")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    return row
 
 
 # K4's instances: (x dtype, x rows a block, consumer warpgroups), as
@@ -2969,6 +3776,14 @@ def main() -> int:
     pi0_train = phase_pi0_train(failures)
     free_memory()
     oft_train = phase_oft_train(failures)
+    free_memory()
+    rl = phase_rl(failures)
+    free_memory()
+    mem = phase_memvla(failures)
+    mem_q = phase_memvla_int8(failures, mem)
+    for key in ("model", "exp", "cfg", "tokenizer", "pngs", "inputs", "noises", "kernel_chunks"):
+        del mem[key]
+    free_memory()
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
@@ -2982,7 +3797,18 @@ def main() -> int:
         "5g_oft": {**{k: v for k, v in oft.items() if k in ("prompt_tokens", "bf16_weight_bytes",
                                                             "head_params", "launches")},
                    **oft_routes},
-        "5h_oft_int8": oft_q, "9_oft_train": oft_train}}, default=float))
+        "5h_oft_int8": oft_q, "9_oft_train": oft_train, "10_rl": rl, "11a_memvla": mem,
+        "11b_memvla_int8": mem_q}}, default=float))
+    rl_train = rl["10b_train_rl"]
+    rl_keys = {  # each kernel's launches on the GRPO paths: 10b's runs, 10c's rollout call
+        "flash_fwd": {"rl_train_launches": sum(r["launches"]["flash_fwd"] for r in rl_train.values()),
+                      "rl_rollout_launches": rl["10c_rollouts"]["launches"],
+                      "memvla_launches": mem["launches"]["flash_fwd"],
+                      "memvla_int8_launches": mem_q["launches"]["flash_fwd"]},
+        "flash_bwd": {"rl_train_launches": sum(r["launches"]["flash_bwd"]
+                                               for r in rl_train.values())},
+        "quant_matmul": {"memvla_int8_launches": mem_q["launches"]["quant_matmul"],
+                         "memvla_int8_request_launches": mem_q["k4_per_request"]}}
     oft_counts = {  # each kernel's launches on OFT's three paths: served bf16, int8, trained
         "flash_fwd": (oft["launches"]["flash_fwd"], oft_q["launches"]["flash_fwd"],
                       oft_train["workers"]["launches"]["flash_fwd"]),
@@ -3001,7 +3827,7 @@ def main() -> int:
          "launches_fused_preprocess": fused["launches"]["flash_fwd"],
          "launches_replay": replay["launches"]["flash_fwd"],
          "pi0_int8_launches": pi0_q["launches"]["flash_fwd"], **oft_keys["flash_fwd"],
-         **k1, **k1_d256, "build": k1_build},
+         **rl_keys["flash_fwd"], **k1, **k1_d256, "build": k1_build},
         {"name": "dit_sample", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/dit_sampler.cu",
          "replaces": "dexbotic_tpu/ops/dit_fused.py:58",
          "launches": launches["dit_sample"], "launches_8_frame_request": serve["k2_b8_request"],
@@ -3018,7 +3844,7 @@ def main() -> int:
                            "dexbotic_tpu/ops/attention.py:446"],
          "launches": train["launches"]["flash_bwd"],
          "pi0_train_launches": pi0_train["launches"]["flash_bwd"], **oft_keys["flash_bwd"],
-         **k3, "build": k3_build},
+         **rl_keys["flash_bwd"], **k3, "build": k3_build},
         {"name": "quant_matmul", "route": "cuda",
          "source": "dexbotic_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "dexbotic_tpu/ops/quant_matmul.py:77",
@@ -3026,7 +3852,7 @@ def main() -> int:
          "single_request_launches": serve_q["k4_single_request"],
          "pi0_int8_launches": pi0_q["launches"]["quant_matmul"],
          "pi0_int8_request_launches": pi0_q["k4_per_request"], **oft_keys["quant_matmul"],
-         **k4, "build": k4_build},
+         **rl_keys["quant_matmul"], **k4, "build": k4_build},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

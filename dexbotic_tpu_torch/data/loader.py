@@ -139,10 +139,12 @@ class DataLoader:
                     return
                 while next_yield not in reorder:
                     batch_id, batch, err = result_q.get()
-                    if err is not None:
-                        raise RuntimeError(f"loader worker failed: {err}")
-                    reorder[batch_id] = batch
-                yield reorder.pop(next_yield)
+                    reorder[batch_id] = (batch, err)
+                # a worker's error is raised in batch order, after every batch before it
+                batch, err = reorder.pop(next_yield)
+                if err is not None:
+                    raise RuntimeError(f"loader worker failed: {err}")
+                yield batch
                 next_yield += 1
         finally:
             # the batches still in flight are discarded: a worker blocked on

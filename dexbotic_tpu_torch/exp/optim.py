@@ -32,7 +32,9 @@ class OptimizerConfig:
     adam_eps: float = 1e-8
     max_grad_norm: float = 1.0
     warmup_ratio: float = 0.03
-    lr_scheduler_type: str = "cosine"  # 'cosine' | 'constant' | 'linear'
+    # 'cosine' | 'constant' | 'linear' (each after a linear warmup), or 'fixed':
+    # learning_rate from the first update on (a float given to optax.adamw)
+    lr_scheduler_type: str = "cosine"
     # frozen subtrees take no update and allocate no moments
     freeze_llm: bool = False  # decoder stack (lm_head stays trainable)
     freeze_mm_projector: bool = False
@@ -86,7 +88,9 @@ def _join(schedules: list, boundaries: list[int]) -> Callable[[int], float]:
 
 def make_schedule(cfg: OptimizerConfig, base_lr: float, total_steps: int) -> Callable[[int], float]:
     """optax's warmup schedules as a function of the update count before the
-    update, so step 0 has lr 0."""
+    update, so step 0 has lr 0 ('fixed': ``base_lr`` at every count)."""
+    if cfg.lr_scheduler_type == "fixed":
+        return lambda count: base_lr
     warmup = max(1, int(cfg.warmup_ratio * total_steps))
     if cfg.lr_scheduler_type == "cosine":
         decay_steps = max(total_steps, warmup + 1) - warmup

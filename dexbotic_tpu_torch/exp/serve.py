@@ -1,6 +1,6 @@
 """HTTP action server: POST /process_frame -> JSON action chunk.
 
-Port of the CogACT, OFT and flow-VLA (pi0/pi0.5/DM0) serving paths of
+Port of the CogACT, OFT, MemVLA and flow-VLA (pi0/pi0.5/DM0) serving paths of
 dexbotic_tpu/exp/serve.py: multipart form with a 'text' prompt, image file
 parts and optional 'batch_size' and 'states' fields; the response is a JSON
 [chunk_size x action_dim] list (a list of those for batch_size > 1).
@@ -191,10 +191,17 @@ class ActionServer:
         self.micro_batch_window_ms = float(micro_batch_window_ms)
         self.micro_batch_timeout_s = float(micro_batch_timeout_s)
         self.batched_calls = 0  # coalesced device calls
-        self._mb_queue = None
+        self._mb_queue = self._mb_thread = None
         if self.micro_batch > 1:
             self._mb_queue = queue.Queue()
-            threading.Thread(target=self._micro_batch_worker, daemon=True).start()
+            self._mb_thread = threading.Thread(target=self._micro_batch_worker, daemon=True)
+            self._mb_thread.start()
+
+    def close(self) -> None:
+        """Stop the micro-batch worker once the requests queued before it are
+        served: the worker holds the server, and so its model, until then."""
+        if self._mb_queue is not None:
+            self._mb_queue.put(None)
 
     def get_response(self, fields: dict, files: list):
         raise NotImplementedError
@@ -205,17 +212,25 @@ class ActionServer:
 
     def _micro_batch_worker(self):
         window = self.micro_batch_window_ms / 1e3
-        while True:
-            batch = [self._mb_queue.get()]
+        closing = False
+        while not closing:
+            first = self._mb_queue.get()
+            if first is None:  # close()
+                return
+            batch = [first]
             deadline = time.monotonic() + window
             while len(batch) < self.micro_batch:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     break
                 try:
-                    batch.append(self._mb_queue.get(timeout=remaining))
+                    item = self._mb_queue.get(timeout=remaining)
                 except queue.Empty:
                     break
+                if item is None:  # close(): serve this batch, then stop
+                    closing = True
+                    break
+                batch.append(item)
             with self._lock:
                 try:
                     if len(batch) > 1:
@@ -283,7 +298,8 @@ class ActionServer:
         httpd.serve_forever()
 
     def serve_background(self) -> ThreadingHTTPServer:
-        """Serve from a daemon thread; the caller ends it with shutdown() and server_close()."""
+        """Serve from a daemon thread; the caller ends it with shutdown() and
+        server_close(), then this server's close()."""
         httpd = ThreadingHTTPServer((self.host, self.port), self.make_handler())
         threading.Thread(target=httpd.serve_forever, daemon=True).start()
         return httpd
@@ -450,6 +466,44 @@ class OFTServer(CogActServer):
         if states is not None:
             states = torch.from_numpy(states).to(self.device)
         return self.infer(ids, valid, imgs, states, self.generator)
+
+
+class MemVLAServer(ActionServer):
+    """Stateful MemVLA serving: the CogACT request contract plus a required
+    'episode_first_frame' field, 'True' or 'False'; 'True' empties the
+    memory bank and restarts the frame counter.  The bank is state across
+    requests, so requests are served one at a time (the base class's lock)
+    and never micro-batched.  The prompt takes CogACT's 64-token bucket; the
+    noise comes from the server's ``torch.Generator``."""
+
+    def __init__(self, exp, cfg, model, tokenizer, norms, host="0.0.0.0", port=7891):
+        super().__init__(host, port)
+        from dexbotic_tpu_torch.exp.memvla_exp import MemVLAInferenceSession
+
+        self.exp, self.cfg, self.tokenizer, self.norms = exp, cfg, tokenizer, norms
+        self.device = torch.device(exp.device)
+        self.session = MemVLAInferenceSession(exp, cfg, model, batch_size=1)
+        self.generator = torch.Generator(device=self.device).manual_seed(exp.model.seed)
+        self._prompt_cache: dict = {}
+
+    _prompt_ids = CogActServer._prompt_ids
+    _denorm = CogActServer._denorm
+
+    def get_response(self, fields, files):
+        first = fields.get("episode_first_frame")
+        if first not in ("True", "False"):
+            raise ValueError(f"episode_first_frame must be 'True' or 'False', got {first!r}")
+        if first == "True":
+            self.session.reset()
+        row = self._prompt_ids(fields.get("text", ""))
+        L = -(-len(row) // 64) * 64
+        ids = torch.zeros((1, L), dtype=torch.int32)
+        ids[0, : len(row)] = torch.tensor(row, dtype=torch.int32)
+        valid = (torch.arange(L) < len(row)).int()[None]
+        imgs = _cogact_images([p for _, p in files], self.exp.data.build_image_processor())
+        out = self.session.step(ids.to(self.device), valid.to(self.device),
+                                torch.from_numpy(imgs)[None].to(self.device), self.generator)
+        return self._denorm(out.float().cpu().numpy())[0].tolist()
 
 
 class FlowVLAServer(ActionServer):

@@ -381,6 +381,9 @@ def fused_dit_sample(head: DiT, cfg: DiTConfig, z: torch.Tensor, noise: torch.Te
                      schedule: DiffusionSchedule, *, steps: int, cfg_scale: float,
                      sampler: str = "ddim") -> torch.Tensor:
     """Sample an action chunk [B, T, A] fp32 from condition z [B, 1, token]."""
+    if cfg.mem_cross_attn:
+        raise NotImplementedError("K2 does not serve a DiT with memory cross-attention "
+                                  "(MemVLA); its sampler runs the plain loop")
     if sampler not in ("ddim", "dpm"):
         raise ValueError(f"unknown sampler {sampler!r}")
     if noise.device.type == "cuda":

@@ -21,8 +21,10 @@ checkpoint, ``utils/convert.py``, on any device and in the file's dtype).
 A converted tree's stacked leaves are lists of the per-layer tensors, not
 stacks.  A torch leaf is transposed as a view and copied straight into its
 parameter, so a converted tree is never copied again.  A Python list of layer
-dicts (OFT's MLPResNet ``blocks``) is no stack: its items map onto
-``<name>.<i>`` as they are.
+dicts (OFT's MLPResNet ``blocks``, MemVLA's ``retrieval`` blocks) is no
+stack: its items map onto ``<name>.<i>`` as they are.  MemVLA's tree needs
+no rule of its own: the bank's roles, gates and timestep embedders and the
+DiT's ``xattn`` (a stacked subtree of ``blocks``) follow these.
 """
 
 from __future__ import annotations

@@ -22,8 +22,7 @@ a private file mapping, so neither the ``safetensors`` package nor numpy
 takes part and bf16 reads as bf16; ``.bin`` / ``.pt`` files go through
 ``torch.load(weights_only=True)``.
 
-Not ported yet: the MemVLA (the DiT's memory cross-attention) and MUVLA
-converters, which wait for their models.
+Not ported yet: the MUVLA converter, which waits for its model.
 """
 
 from __future__ import annotations
@@ -258,11 +257,12 @@ def convert_projector(sd: dict, projector_type: str, prefix: str = "mm_projector
 
 
 def convert_dit(sd: dict, cfg, prefix: str = "action_head.net.") -> dict:
-    """CogACT's DiT head -> DiT params (models/dit.py layout)."""
+    """CogACT's or MemVLA's DiT head -> DiT params (models/dit.py layout).
+
+    MemVLA's blocks add ``per_attn`` (torch ``MultiheadAttention``: the
+    packed in_proj rows are [q; k; v]) and the affine ``norm3``; its head
+    adds ``per_token_embedder``."""
     sd = _strip(sd, prefix)
-    if any(".per_attn." in k for k in sd) or "per_token_embedder.linear.weight" in sd:
-        raise NotImplementedError("MemVLA's memory cross-attention is not ported yet "
-                                  "(ROADMAP Queue 1 item 7)")
     params = {
         "x_embed": _lin(sd, "x_embedder.linear"),
         "t_mlp": {"fc0": _lin(sd, "t_embedder.mlp.0"), "fc1": _lin(sd, "t_embedder.mlp.2")},
@@ -272,11 +272,24 @@ def convert_dit(sd: dict, cfg, prefix: str = "action_head.net.") -> dict:
     }
     if "z_embedder.uncondition" in sd:
         params["uncondition"] = sd["z_embedder.uncondition"].reshape(-1)
-    blocks = [{
-        "attn": {"qkv": _lin(sd, f"blocks.{i}.attn.qkv"), "o": _lin(sd, f"blocks.{i}.attn.proj")},
-        "mlp": {"fc0": _lin(sd, f"blocks.{i}.mlp.fc1"), "fc1": _lin(sd, f"blocks.{i}.mlp.fc2")},
-    } for i in range(cfg.depth)]
+    blocks = []
+    for i in range(cfg.depth):
+        pre = f"blocks.{i}."
+        blk = {"attn": {"qkv": _lin(sd, pre + "attn.qkv"), "o": _lin(sd, pre + "attn.proj")},
+               "mlp": {"fc0": _lin(sd, pre + "mlp.fc1"), "fc1": _lin(sd, pre + "mlp.fc2")}}
+        if f"{pre}per_attn.in_proj_weight" in sd:
+            w, b = sd[pre + "per_attn.in_proj_weight"], sd[pre + "per_attn.in_proj_bias"]
+            h = w.shape[1]
+            blk["xattn"] = {
+                **{n: {"w": w[j * h: (j + 1) * h].t(), "b": b[j * h: (j + 1) * h]}
+                   for j, n in enumerate("qkv")},
+                "o": _lin(sd, pre + "per_attn.out_proj"),
+                "ln": {"w": sd[pre + "norm3.weight"], "b": sd[pre + "norm3.bias"]},
+            }
+        blocks.append(blk)
     params["blocks"] = _stack(blocks)
+    if "per_token_embedder.linear.weight" in sd:
+        params["per_token_embedder"] = _lin(sd, "per_token_embedder.linear")
     return params
 
 
@@ -369,10 +382,62 @@ def convert_oft(sd: dict, cfg) -> dict:
     return {"vlm": {"llm": llm, "vit": vit, "projector": proj}, "action_head": head}
 
 
+# ---------------------------------------------------------------------------
+# MemVLA (the reference's memvla/memvla_arch.py)
+# ---------------------------------------------------------------------------
+
+
+def _conv1x1(sd: dict, name: str) -> dict:
+    """A 1x1 Conv2d [out, in, 1, 1] -> a per-token linear."""
+    return {"w": sd[f"{name}.weight"][:, :, 0, 0].t(), "b": sd[f"{name}.bias"]}
+
+
+def _convert_cross_block(sd: dict, prefix: str) -> dict:
+    """A CrossTransformerBlock -> ``models/memvla.CrossBlock``'s tree."""
+    sd = _strip(sd, prefix)
+
+    def ln(name):
+        return {"w": sd[f"{name}.weight"], "b": sd[f"{name}.bias"]}
+
+    return {"q": _lin(sd, "q_proj"), "k": _lin(sd, "k_proj"), "v": _lin(sd, "v_proj"),
+            "attn_ln": ln("attn_norm"),
+            "ffn": {"fc1": _lin(sd, "ffn.0"), "fc2": _lin(sd, "ffn.3")},
+            "ffn_ln": ln("ffn_norm")}
+
+
+def convert_memvla(sd: dict, cfg) -> dict:
+    """DB-MemVLA checkpoint -> MemVLA params: the CogACT policy plus the SE
+    bottleneck (``model.per_compr``, 1x1 convs), each role's retrieval
+    blocks, fusion gate and timestep embedder
+    (``model.per_cog_mem_bank.*``) and the DiT with per-token
+    cross-attention."""
+    llm = attach_lm_head(convert_llm(sd, cfg.vlm.llm, prefix="model.llm."), sd, cfg.vlm.llm)
+    vit = convert_vit(sd, cfg.vlm.vit, prefix=VIT_PREFIX)
+    proj = convert_projector(sd, cfg.vlm.projector_type, prefix="model.mm_projector.")
+    per_compr = {"excite": {"fc1": _conv1x1(sd, "model.per_compr.excite.1"),
+                            "fc2": _conv1x1(sd, "model.per_compr.excite.3")},
+                 "reduce": {"fc1": _conv1x1(sd, "model.per_compr.reduce.0"),
+                            "fc2": _conv1x1(sd, "model.per_compr.reduce.2")}}
+    bank = {}
+    for role in ("per", "cog"):
+        pre = "model.per_cog_mem_bank."
+        role_p = {"retrieval": [_convert_cross_block(sd, f"{pre}retrieval_blocks.{role}.{i}.")
+                                for i in range(cfg.retrieval_layers)]}
+        gate = f"{pre}gate_fusion_blocks.{role}.proj"
+        if f"{gate}.weight" in sd:
+            role_p["gate"] = {"proj": _lin(sd, gate)}
+        time = f"{pre}timestep_embedders.{role}.mlp"
+        if f"{time}.0.weight" in sd:
+            role_p["time"] = {"fc0": _lin(sd, f"{time}.0"), "fc1": _lin(sd, f"{time}.2")}
+        bank[role] = role_p
+    return {"vlm": {"llm": llm, "vit": vit, "projector": proj}, "per_compr": per_compr,
+            "mem_bank": bank, "action_head": convert_dit(sd, cfg.dit, prefix="model.action_head.net.")}
+
+
 def load_release_checkpoint(model, path: str, convert_fn, cfg) -> dict:
     """Fill ``model`` from a released checkpoint: its tensors are read onto
     the model's device in their stored dtype, converted by ``convert_fn``
-    (``convert_cogact`` / ``convert_flow_vla`` / ``convert_oft``) and copied into the
+    (``convert_cogact`` / ``convert_flow_vla`` / ``convert_oft`` / ``convert_memvla``) and copied into the
     parameters, each cast to its parameter's dtype (utils/bridge.py).
     Returns {"load_s": seconds reading the files onto the device,
     "convert_s": seconds converting and copying}."""

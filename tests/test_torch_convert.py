@@ -221,9 +221,44 @@ def test_projector_layouts_match_jax(projector_type, keys):
 
 
 def test_memvla_dit_raises():
-    sd = {"action_head.net.blocks.0.per_attn.in_proj_weight": torch.zeros(3, 1)}
-    with pytest.raises(NotImplementedError):
-        tconvert.convert_dit(sd, None)
+    """MemVLA's DiT (each block's packed per_attn and norm3, the head's
+    per_token_embedder) converts to JAX's tree, and kernel K2 raises on the
+    DiT it fills: its memory cross-attention takes the plain sampler."""
+    from dexbotic_tpu.models import dit as jdit
+    from dexbotic_tpu_torch.models import dit as tdit
+    from dexbotic_tpu_torch.ops.diffusion import DiffusionSchedule
+    from dexbotic_tpu_torch.ops.dit_fused import fused_dit_sample
+
+    kw = dict(hidden_size=32, depth=2, num_heads=4, in_channels=3, token_size=16, chunk_size=4,
+              mem_cross_attn=True)
+    jcfg, tcfg = jdit.DiTConfig(**kw), tdit.DiTConfig(**kw)
+    rng = np.random.default_rng(0)
+    shapes = {"x_embedder.linear": (32, 3), "t_embedder.mlp.0": (32, 256),
+              "t_embedder.mlp.2": (32, 32), "z_embedder.linear": (32, 16),
+              "final_layer.linear": (3, 32), "per_token_embedder.linear": (32, 8)}
+    for i in range(2):
+        shapes.update({f"blocks.{i}.attn.qkv": (96, 32), f"blocks.{i}.attn.proj": (32, 32),
+                       f"blocks.{i}.mlp.fc1": (128, 32), f"blocks.{i}.mlp.fc2": (32, 128),
+                       f"blocks.{i}.per_attn.out_proj": (32, 32)})
+    sd = {}
+    for name, (o, i) in shapes.items():
+        sd[name + ".weight"], sd[name + ".bias"] = rng.normal(size=(o, i)), rng.normal(size=o)
+    for i in range(2):
+        sd[f"blocks.{i}.per_attn.in_proj_weight"] = rng.normal(size=(96, 32))
+        sd[f"blocks.{i}.per_attn.in_proj_bias"] = rng.normal(size=96)
+        sd[f"blocks.{i}.norm3.weight"], sd[f"blocks.{i}.norm3.bias"] = rng.normal(size=(2, 32))
+    sd["positional_embedding"] = rng.normal(size=(5, 32))
+    sd["z_embedder.uncondition"] = rng.normal(size=(1, 16))
+    sd = {"action_head.net." + k: np.asarray(v, np.float32) for k, v in sd.items()}
+    want = jconvert.convert_dit(sd, jcfg)
+    got = tconvert.convert_dit({k: torch.from_numpy(v) for k, v in sd.items()}, tcfg)
+    _assert_trees_equal(got, want)
+    head = tdit.DiT(tcfg)
+    head.per_token_embedder = tdit.core.Linear(8, 32)
+    load_jax_params(head, got)
+    with pytest.raises(NotImplementedError, match="K2"):
+        fused_dit_sample(head, tcfg, torch.zeros(1, 1, 16), torch.zeros(1, 4, 3),
+                         DiffusionSchedule.create(100), steps=2, cfg_scale=1.5)
 
 
 # ---------------------------------------------------------------------------

@@ -207,13 +207,41 @@ def test_flash_kernels_at_oft_shapes(cuda, cached):
 def test_flash_forward_at_oft_served_shapes(cuda, B, seg, cached):
     """K1 (both block shapes) at the other calls OFT's server gives it: the
     LIBERO segment (1 x 889), Diffusion's prompt prefill (1 x 832, its pads
-    trailing), and the batch_size=2 and 4-frame micro-batch rows."""
+    trailing: also MemVLA's served prefill), and the batch_size=2 and
+    4-frame micro-batch rows."""
     case = _oft_case(cuda, B, 811, 832, seg, cached, seed=12 + B + seg)
     for rows in (64, 128):
         _check_k1(cuda, case, rows)
     if seg:
         cls = flash_tile_classes(*case[4])
         assert not (cls[:, :, 811 // 64: (832 - 1) // 64 + 1] == 2).any()
+
+
+def _rl_case(cuda, B, pads, seed):
+    """The OFT-Discrete actor's decoder call in GRPO (head_dim 128): each row
+    a 592-token prompt (576 image tokens + 16 of text) with ``pads[b]``
+    right-padded slots left mid-row, then the 56-slot Discrete segment."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    S = 592 + 56
+    q, k, v, dout = (torch.randn(B, S, 32, 128, generator=g, device=cuda).bfloat16()
+                     for _ in range(4))
+    valid = torch.ones(B, S, dtype=torch.int32, device=cuda)
+    for b, pad in enumerate(pads):
+        valid[b, 592 - pad: 592] = 0
+    grp = torch.cumsum(valid, 1, dtype=torch.int32)
+    return q, k, v, dout, (grp.clone(), grp, valid), None, None
+
+
+@pytest.mark.parametrize("pads", [(0,) * 8, (0, 3, 0, 7, 1, 0, 12, 5)])
+def test_flash_kernels_at_rl_shapes(cuda, pads):
+    """K1 (both block shapes) and K3 at the GRPO rollouts' and update's 8 x
+    648 rows: prompts that fill their 592 slots (the mock env's
+    instructions) and prompts padded mid-row."""
+    case = _rl_case(cuda, 8, pads, seed=31 + sum(pads))
+    for rows in (64, 128):
+        _check_k1(cuda, case, rows)
+    _check_k3(cuda, case)
+    assert torch.equal(flash_tile_classes(*case[4]), flash_tile_classes_ref(*case[4]))
 
 
 @pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D", [(2, 129, 129, 8, 2, 64), (2, 65, 300, 4, 1, 128),

@@ -23,6 +23,7 @@ import json
 import os
 import random
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -125,6 +126,37 @@ def test_worker_error_surfaces(mode):
                                  worker_mode=mode))
     for _ in range(bad_batch):
         next(it)
+    with pytest.raises((RuntimeError, ValueError), match="bad item 4"):
+        next(it)
+
+
+class _SlowItems(_Items):
+    """Items that take ``delay`` seconds each, but for those of ``fast``."""
+
+    def __init__(self, n, fail_at, fast, delay=0.3):
+        super().__init__(n, fail_at)
+        self.fast, self.delay = set(fast), delay
+
+    def __getitem__(self, i):
+        if i not in self.fast:
+            time.sleep(self.delay)
+        return super().__getitem__(i)
+
+
+@pytest.mark.parametrize("mode", ["thread", "process"])
+def test_worker_error_surfaces_in_batch_order(mode):
+    """A worker's error that arrives before the batches ahead of it (their
+    items slow, the failing batch fast) is raised only once those batches
+    are yielded."""
+    order = list(range(10))
+    random.Random(7).shuffle(order)
+    bad_batch = order.index(4) // 2
+    assert bad_batch >= 1
+    ds = _SlowItems(10, fail_at=4, fast=order[2 * bad_batch: 2 * bad_batch + 2])
+    it = iter(tloader.DataLoader(ds, TCollator(0, 12), 2, num_workers=2, seed=7,
+                                 worker_mode=mode))
+    for _ in range(bad_batch):
+        assert next(it)["input_ids"].shape[0] == 2
     with pytest.raises((RuntimeError, ValueError), match="bad item 4"):
         next(it)
 

@@ -108,6 +108,34 @@ def test_batched_and_micro_batched_requests(served):
     assert server.batched_calls >= 1
 
 
+def test_close_stops_the_micro_batch_worker():
+    """close() ends a micro-batched server's worker thread once the queued
+    requests are served, and with it the worker's hold on the server and
+    its model."""
+    import gc
+    import weakref
+
+    from dexbotic_tpu_torch.exp.serve import ActionServer
+
+    class Echo(ActionServer):
+        def __init__(self):
+            super().__init__(micro_batch=2, micro_batch_window_ms=1.0)
+            self.model = torch.nn.Linear(2, 2)
+
+        def get_response(self, fields, files):
+            return fields["x"]
+
+    server = Echo()
+    assert server._submit_single({"x": 1}, []) == 1
+    thread, model = server._mb_thread, weakref.ref(server.model)
+    server.close()
+    thread.join(timeout=10)
+    assert not thread.is_alive()
+    del server
+    gc.collect()
+    assert model() is None
+
+
 def test_task_inference_single(monkeypatch, capsys):
     monkeypatch.setattr(sys, "argv", ["cogact_exp", "--task", "inference_single"])
     e = _exp()
