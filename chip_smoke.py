@@ -9,8 +9,12 @@ Phases, any failure exits non-zero without a result line:
      prompt's shape, the training step's shape, three more and OFT's three
      (the prompt's pads mid-row, before the appended segment: the joint
      1 x 944 rows, the cached 113 x 945 segment, training's 8 x 2105), the
-     shapes OFT's server and MemVLA's prefill give it, and GRPO's 8 x 648
-     rollout and update rows (K3 there too, in phase 6);
+     shapes OFT's server and MemVLA's prefill give it, GRPO's 8 x 648
+     rollout and update rows, MemVLA training's 2 x 2048 (K3 there too, in
+     phase 6), and NaVILA's: the 2195-token prefill against its 2227-column
+     bf16 cache, one decode row against that cache, and packed training
+     rows of 4096 with two segments each at 2 and 4 rows (K3 too), with the
+     share of dead tiles;
   3b. K1 at head_dim 256 against its plain version at pi0's prefix (8 query
      heads on 1 kv head, the text's padded tail masked) and its suffix
      against the cached prefix: 1 x 816 and 51 x 867 (inference_single),
@@ -169,7 +173,30 @@ Phases, any failure exits non-zero without a result line:
      chunk equal to the first episode's, p50/p90 and the device call by
      part; (b) the same model with inference_quantize="w8a8": K4's launches
      a request against the forward hooks, every K4 shape among 4c's, the
-     weight bytes and the chunk's cosine to bf16's.
+     weight bytes and the chunk's cosine to bf16's;
+  12. MemVLA-7B trained (the LIBERO twin, parallel_stream, the LLM frozen,
+     on a synthetic suite of 8 episodes of 17 frames): (a) one step at
+     micro-batch 2 in fp32 on the bank the first two batches filled: the
+     kernel path, the plain path (K1's plain version on the same bf16 q, k,
+     v) and bf16 matrices against an fp32 witness (loss, grad_norm, the
+     gradient 1-cosine of the projector, the DiT and the bank's modules),
+     10a's rule; then one 'stream' step against the single shared bank;
+     (b) three steps of MemVLAExp.train() at the recipe's micro-batch 8:
+     each row's bank count after each step (one more, 1 at an episode
+     start), K1/K3 launches and shapes, no K2, K4 or plain call, the peak;
+  13. NaVILA-7B (the example recipe: LLaMA-2-7B + SigLIP-so400m/384 +
+     mlp_downsample, 8 frames of 196 tokens): (a) served by NaVILAServer
+     built by hand, bf16, greedy, 32 new tokens: frames with
+     run_model=False (reply []), model requests (parse_nav_action's ints),
+     a reset; K1 launches a request and shapes, no K2, K3, K4 or plain
+     call; one request's decode teacher-forced through the plain path
+     (logit cosine >= 0.999 a step, argmax flips only across 10c's
+     near-ties); p50/p90 and the device call by part; (b) one packed step
+     (4 samples in 2 rows of 4096, soft CE over the digits) on (a)'s
+     weights in fp32, held as 12a, and the packed loss against navila_loss
+     on the same samples unpacked; (c) three packed steps of
+     NaVILAExp.train() at 4 rows of 4096 (remat, the LLM frozen): step
+     time, tokens/s, pack fill, dead-tile share, peak, K1/K3 launches.
 
 Error rule for a kernel: its max error against the plain version run in
 fp32 on the same bf16 inputs must not exceed 2x the plain bf16 version's
@@ -188,7 +215,7 @@ registers and spills of every K1, K3, K4 and K2 instance from nvcc's
 ``-Xptxas -v`` (a spill fails) and the HGMMA instructions of every K2
 instance from the library's SASS (``cuobjdump``; a bf16 instance without
 one fails).
-Phases 5d-5h and 9-11 print their numbers as one JSON line (``{"phases": ...}``).
+Phases 5d-5h and 9-13 print their numbers as one JSON line (``{"phases": ...}``).
 The last two lines printed are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.
 """
@@ -467,12 +494,17 @@ def sdpa(q, k, v, mask, backward: bool = False):
     raise RuntimeError("no SDPA backend takes these inputs")
 
 
+def seg_pair(seg) -> tuple:
+    """(q_seg, kv_seg) of a case's segments: one tensor for both, a pair, or None."""
+    return seg if isinstance(seg, tuple) else (seg, seg)
+
+
 def attn_counts(q, k, ints, seg, out_tensors) -> tuple[int, int]:
     """(bytes, live query-key pairs x query heads) of one attention call."""
     from dexbotic_tpu_torch.ops.attention import _allowed
 
-    pairs = int(_allowed(*ints, seg, seg).sum().item()) * q.shape[2]
-    return nbytes(*ints, seg, seg, *out_tensors), pairs
+    pairs = int(_allowed(*ints, *seg_pair(seg)).sum().item()) * q.shape[2]
+    return nbytes(*ints, *seg_pair(seg), *out_tensors), pairs
 
 
 def check_bound(name: str, err: float, plain_err: float, failures: list) -> None:
@@ -515,9 +547,11 @@ def phase_flash(failures: list) -> dict:
     cases += [(key, lambda c=c: oft_attn_inputs(*c, g)) for key, *c in OFT_CASES]
     cases += [(key, lambda c=c: oft_attn_inputs(*c, g)) for key, *c in OFT_SERVED_CASES]
     cases += [(key, lambda c=c: oft_attn_inputs(*c, g)) for key, *c in RL_CASES]
+    cases += [("memvla_train", lambda: attn_inputs(MEMVLA_TRAIN_CASE, g))]
+    cases += [(key, lambda c=c: navila_attn_inputs(*c, g)) for key, *c in NAVILA_CASES]
     for key, make in cases:
         name, q, k, v, (q_grp, grp, valid), seg = make()
-        args = (grp, valid, None, seg, seg)
+        args = (grp, valid, None, *seg_pair(seg))
         out, lse = flash_attention_fwd(q, k, v, q_grp, *args)
         torch.cuda.synchronize()
         ref, ref_lse = flash_attention_ref(q.float(), k.float(), v.float(), q_grp, *args)
@@ -535,7 +569,7 @@ def phase_flash(failures: list) -> dict:
                 f"bound {bound_ms:.4f} ms ({bound_by})")
         lib = {"library_ms": None}
         if key is not None:  # a main path's shape: the library's time
-            mask = _allowed(q_grp, grp, valid, seg, seg)
+            mask = _allowed(q_grp, grp, valid, *seg_pair(seg))
             backend, _, call = sdpa(q, k, v, mask)
             with torch.no_grad():
                 lib_err = (call().transpose(1, 2).float() - ref).abs().max().item()
@@ -549,14 +583,19 @@ def phase_flash(failures: list) -> dict:
         if key is not None:
             times[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                           "bound_by": bound_by, **lib}
-            if key.startswith(("oft", "rl")):
+            if key.startswith(("oft", "rl", "memvla", "navila")):
                 times[key].update(max_abs_err=err, B_Sq_Skv=[q.shape[0], q.shape[1], k.shape[1]])
+            if key.startswith("navila"):
+                times[key]["dead_tile_share"] = dead_tile_share(q_grp, grp, valid, seg)
+                print(f"    dead tiles {times[key]['dead_tile_share']:.1%} of the call's 64 x 64 "
+                      f"tiles; the bound counts the visible pairs only")
         del q, k, v, out, lse, ref, ref_lse, plain
         free_memory()
     # serving's shape, training's, then OFT's
     return {"max_abs_err": worst, **times["serve"],
             **{f"train_{key}": val for key, val in times["train"].items()},
-            **{key: times[key] for key, *_ in OFT_CASES + RL_CASES},
+            **{key: times[key] for key, *_ in OFT_CASES + RL_CASES}, "memvla_train": times["memvla_train"],
+            **{key: times[key] for key, *_ in NAVILA_CASES},
             "oft_served": {key: times[key] for key, *_ in OFT_SERVED_CASES}}
 
 
@@ -682,6 +721,9 @@ def phase_flash_bwd(failures: list) -> dict:
     cases += [("main" if case == TRAIN_CASE else None, lambda case=case: attn_inputs(case, g))
               for case in [TRAIN_CASE, SERVE_CASE, *OTHER_CASES]]
     cases += [(key, lambda c=c: oft_attn_inputs(*c, g)) for key, *c in OFT_CASES + RL_CASES]
+    cases += [("memvla_train", lambda: attn_inputs(MEMVLA_TRAIN_CASE, g))]
+    cases += [(key, lambda c=c: navila_attn_inputs(*c, g)) for key, *c in NAVILA_CASES
+              if c[0] == "packed"]
     for key, make in cases:
         name, q, k, v, ints, seg = make()
         q, k, v = (t.requires_grad_(True) for t in (q, k, v))
@@ -706,7 +748,7 @@ def phase_flash_bwd(failures: list) -> dict:
                 worst = max(worst, err)
                 if not torch.isfinite(a).all():
                     failures.append(f"{name} {label}: non-finite gradient")
-            if seg is not None and not (q.grad[:, 5] == 0).all():
+            if "masked row" in name and not (q.grad[:, 5] == 0).all():
                 failures.append(f"{name}: a row that sees no key got a gradient")
             bwd_args = (q, k, v, *ints, out_k, lse_k, dout, None, seg, seg)
             again = flash_attention_bwd(*bwd_args)
@@ -737,13 +779,16 @@ def phase_flash_bwd(failures: list) -> dict:
             if key != "main":
                 rows[key]["max_abs_err"] = max((a.float() - r).abs().max().item()
                                                for a, r in zip(got, ref))
-            if key.startswith(("oft", "rl")):
+            if key.startswith(("oft", "rl", "memvla", "navila")):
                 rows[key]["B_Sq_Skv"] = [q.shape[0], q.shape[1], k.shape[1]]
+            if key.startswith("navila"):
+                rows[key]["dead_tile_share"] = dead_tile_share(*ints, seg)
         print(line)
         del q, k, v, dout, out, got, again, ref, plain, out_k, lse_k, bwd_args
         free_memory()
     return {"max_abs_err": worst, **rows["main"], "pi0_train": rows["pi0_train"],
-            **{key: rows[key] for key, *_ in OFT_CASES + RL_CASES}}
+            **{key: rows[key] for key, *_ in OFT_CASES + RL_CASES}, "memvla_train": rows["memvla_train"],
+            **{key: rows[key] for key, kind, *_ in NAVILA_CASES if kind == "packed"}}
 
 
 def dit_bound(head, cfg, B: int, steps: int, cfg_scale: float) -> tuple[float, str]:
@@ -2434,15 +2479,15 @@ def phase_oft_int8(failures: list, oft: dict) -> dict:
 LIBERO_PROMPT = "put the black bowl in the bottom drawer of the cabinet and close it"
 
 
-def write_suite(root: str, views: int = 1, name: str = "train", frames: int = 24) -> str:
+def write_suite(root: str, views: int = 1, name: str = "train", frames: int = 24,
+                episodes: int = 3) -> str:
     """A synthetic Dexdata suite of 480x640 PNG frames (``views`` cameras)
-    and 7-dof states (3 episodes of ``frames`` frames; past the 24th the
-    images repeat); returns its name."""
+    and 7-dof states (``episodes`` episodes of ``frames`` frames; past the
+    24th the images repeat); returns its name."""
     from PIL import Image
 
     from dexbotic_tpu_torch.data.registry import register_dataset
 
-    episodes = 3
     rng = np.random.default_rng(6)
     os.makedirs(root, exist_ok=True)
     yy, xx = np.mgrid[0:480, 0:640]
@@ -2957,9 +3002,10 @@ def phase_oft_train(failures: list) -> dict:
 # weights, gradients and Adam's two moments take 16 bytes a parameter.  A
 # LLaMA-2-7B layer holds 202.4M parameters; the embedding, lm_head,
 # CLIP-L/336 and the projector 0.59B; so N layers take (0.59 + 0.2024 N) x 16
-# GB before activations: 16 layers 61.3 GB (57.1 GiB), all 32 would take
-# 113 GB, more than one card.
-RL_LAYERS = 16
+# GB before activations: 8 layers 35.3 GB, 16 layers 61.3 GB (57.1 GiB), all
+# 32 would take 113 GB, more than one card.  8 keep the whole script within
+# its time with phases 12 and 13 (16 took ~1 min more).
+RL_LAYERS = 8
 RL_EPISODE_STEPS = 64  # the mock envs' episode and the rollout budget: 8 chunks of 8 steps
 # the metrics of one step of train_rl(), as the JAX package's loop reports them
 RL_METRICS = {"pg_loss", "clip_frac", "approx_kl", "entropy", "loss", "grad_norm",
@@ -3041,6 +3087,92 @@ def decoder_plain_on_bf16():
         yield
     finally:
         transformer.attention = call
+
+
+STEP_PATHS = ("kernel", "plain", "bf16_matrices")
+
+
+def hold_step(label: str, paths: dict, ref: tuple, scalars: dict, checks: list) -> tuple[dict, dict]:
+    """10a's rule for one training step.  ``paths`` maps STEP_PATHS to a
+    path's (metrics, watched gradients), ``ref`` is the fp32 witness's.
+    Each path's distance from the witness: every metric of ``scalars``
+    ("abs" or "rel" difference) and the 1-cosine of the worst watched
+    gradient.  The kernel path's distance must be <= 2x the plain path's (its
+    plain version on the same rounded q, k, v) + 0.25x the bf16 matrices' (a
+    reading of the same step: the margin for the one draw each scalar is).
+    Appends a check for each to ``checks``; returns (distances, bounds)."""
+    w32, g32 = ref
+
+    def dist(w, k, how):
+        d = abs(w[k] - w32[k])
+        return d if how == "abs" else d / abs(w32[k])
+
+    witness = {p: {**{f"{k}_{how}": dist(w, k, how) for k, how in scalars.items()},
+                   "grad_cosine": {k: _cosine(g[k], g32[k]) for k in g32}}
+               for p, (w, g) in paths.items()}
+    print(f"  distance from the fp32 witness: {witness}")
+    bounds = {}
+    for what in witness["kernel"]:
+        dk, dp, db = (witness[p][what] for p in STEP_PATHS)
+        if what == "grad_cosine":
+            dk, dp, db = (1 - min(d.values()) for d in (dk, dp, db))
+        bounds[what] = 2.0 * dp + 0.25 * db
+        print(f"  {what}: kernel {dk:.4g}  plain {dp:.4g}  bf16 matrices {db:.4g}  bound "
+              f"{bounds[what]:.4g} (margin 0.25 x {db:.4g})  "
+              f"{'ok' if dk <= bounds[what] else 'FAIL'}")
+        checks.append((dk <= bounds[what], f"{label}: the kernel path's {what} from the fp32 "
+                                           f"witness {dk} > 2 x the plain path's {dp} + 0.25 x "
+                                           f"the bf16 matrices' {db}"))
+    return witness, bounds
+
+
+def recorded_train(exp, out_dir: str, before=None, after=None) -> dict:
+    """``exp.train()`` with Trainer.train_step wrapped: ``before(trainer,
+    batch)`` gives each step's record, ``after(trainer, batch, record)``
+    completes it after the step, and the record gains the step's peak
+    memory.  The counts of K1-K4 and of plain CUDA attention calls are set
+    to 0 just before the run and read just after, with K1's and K3's shapes.
+    Returns the log, the records, the rows of ``out_dir``'s metrics.jsonl
+    (the directory is removed after), the launches, the shapes and the
+    wall time."""
+    from dexbotic_tpu_torch.exp import trainer as trainer_mod
+    from dexbotic_tpu_torch.ops import quant_matmul as qm
+    from dexbotic_tpu_torch.ops.attention import attention, flash_attention, flash_attention_bwd
+    from dexbotic_tpu_torch.ops.dit_fused import fused_dit_sample
+
+    seen = []
+    step = trainer_mod.Trainer.train_step
+
+    def recorded(self, batch):
+        torch.cuda.reset_peak_memory_stats()
+        row = {} if before is None else before(self, batch)
+        out = step(self, batch)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if after is not None:
+            after(self, batch, row)
+        seen.append({**row, "peak_gib": peak})
+        return out
+
+    shapes: set = set()
+    bwd_shapes: set = set()
+    flash_attention.launches = flash_attention_bwd.launches = attention.plain_cuda_calls = 0
+    fused_dit_sample.launches = qm.quant_matmul.launches = 0
+    trainer_mod.Trainer.train_step = recorded
+    t0 = time.perf_counter()
+    try:
+        with k1_calls(shapes), k1_calls(bwd_shapes, "_flash_bwd_cuda"):
+            log = exp.train()
+    finally:
+        trainer_mod.Trainer.train_step = step
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": flash_attention.launches, "flash_bwd": flash_attention_bwd.launches,
+                "dit_sample": fused_dit_sample.launches, "quant_matmul": qm.quant_matmul.launches,
+                "plain_cuda_calls": attention.plain_cuda_calls}
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"log": log, "seen": seen, "rows": rows, "launches": launches,
+            "k1_shapes": shapes, "k3_shapes": bwd_shapes, "wall": wall}
 
 
 def phase_rl_update_compare(failures: list) -> dict:
@@ -3125,18 +3257,11 @@ def phase_rl_update_compare(failures: list) -> dict:
         moved = max(float((p - before[n]).abs().max()) for n, p in model.named_parameters()
                     if n in before)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    paths = {"kernel": (wk, gk), "plain": (wpl, gpl), "bf16_matrices": (wbf, gbf)}
-    witness = {label: {"loss_abs": abs(w["loss"] - w32["loss"]),
-                       "entropy_rel": abs(w["entropy"] - w32["entropy"]) / abs(w32["entropy"]),
-                       "grad_norm_rel": abs(w["grad_norm"] - w32["grad_norm"]) / w32["grad_norm"],
-                       "grad_cosine": {k: _cosine(g[k], g32[k]) for k in watched}}
-               for label, (w, g) in paths.items()}
     for label, w in (("kernel", wk), ("plain", wpl), ("bf16 matrices", wbf),
                      ("fp32 witness", w32)):
         print(f"  {label}: loss {w['loss']:.6g} pg_loss {w['pg_loss']:.6g} entropy "
               f"{w['entropy']:.6g} grad_norm {w['grad_norm']:.6g} clip_frac {w['clip_frac']:.4g} "
               f"approx_kl {w['approx_kl']:.4g}; K1/K3 launches {w['launches']}")
-    print(f"  distance from the fp32 witness: {witness}")
     print(f"  {n_params / 1e9:.3f}B parameters; the update moved the watched fp32 weights by "
           f"{moved:.3g} at most (lr {exp.rl_learning_rate}); peak memory allocated {peak:.2f} GiB "
           f"({held:.2f} GiB of it allocated before the phase)")
@@ -3146,20 +3271,9 @@ def phase_rl_update_compare(failures: list) -> dict:
               (wk["launches"][1] >= L and w32["launches"] == wpl["launches"] == (0, 0)
                == wbf["launches"], f"10a: K1/K3 launches kernel path {wk['launches']}, plain "
                                    f"paths {wpl['launches']} {w32['launches']} {wbf['launches']}")]
-    # the kernel path sits no further from the fp32 witness than twice its
-    # plain version does on the same rounded inputs, + a quarter of what
-    # bf16 matrices cost: a margin for the one draw each scalar is
-    bounds = {}
-    for what in ("loss_abs", "entropy_rel", "grad_norm_rel", "grad_cosine"):
-        dk, dp, db = (witness[p][what] for p in paths)
-        if what == "grad_cosine":
-            dk, dp, db = (1 - min(d.values()) for d in (dk, dp, db))
-        bounds[what] = 2.0 * dp + 0.25 * db
-        print(f"  {what}: kernel {dk:.4g}  plain {dp:.4g}  bf16 matrices {db:.4g}  bound "
-              f"{bounds[what]:.4g}  {'ok' if dk <= bounds[what] else 'FAIL'}")
-        checks.append((dk <= bounds[what], f"10a: the kernel path's {what} from the fp32 witness "
-                                           f"{dk} > 2 x the plain path's {dp} + 0.25 x the bf16 "
-                                           f"matrices' {db}"))
+    witness, bounds = hold_step("10a", {"kernel": (wk, gk), "plain": (wpl, gpl),
+                                        "bf16_matrices": (wbf, gbf)}, (w32, g32),
+                                {"loss": "abs", "entropy": "rel", "grad_norm": "rel"}, checks)
     failures.extend(msg for ok, msg in checks if not ok)
     del model, updater, before, g32, gpl, gbf, gk, mb
     free_memory()
@@ -3640,6 +3754,780 @@ K4_INSTANCES = [(t, r, 1 if r <= 64 else 2) for t in ("bf16", "f32")
                 for r in (8, 16, 32, 64, 128, 192, 256)]
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: MemVLA-7B trained with its memory bank
+# ---------------------------------------------------------------------------
+
+# 12a's micro-batch, and the K1/K3 shapes MemVLA training gives: rows of the
+# collator's TRAIN_SEQ_LEN tokens, at 12a's 2 rows (MEMVLA_TRAIN_CASE, held
+# by phases 3 and 6) and the recipe's 8 (TRAIN_CASE).  The samples are
+# CogACT's template on this suite's own states, so their byte-level answers
+# differ in length: 12a's six samples are up to MEMVLA_TRAIN_TOKENS.  The
+# suite: 8 episodes (one a parallel stream at B=8) of 17 frames (16 actions:
+# the action pipeline's trajectory length).
+MEMVLA_TRAIN_MICRO, MEMVLA_TRAIN_STEPS, MEMVLA_TRAIN_TOKENS = 2, 3, 1279
+MEMVLA_TRAIN_CASE = (MEMVLA_TRAIN_MICRO, TRAIN_SEQ_LEN, 32, 32, 128,
+                     TRAIN_SEQ_LEN - MEMVLA_TRAIN_TOKENS, False)
+K1_MEMVLA_TRAIN_CHECKED = {(c[0], c[1], c[1]) for c in (MEMVLA_TRAIN_CASE, TRAIN_CASE)}
+MEMVLA_SUITE_EPISODES, MEMVLA_SUITE_FRAMES = 8, 17
+
+
+def memvla_train_exp(dataset: str, out: str, micro: int, steps: int,
+                     mode: str = "parallel_stream"):
+    """The LIBERO MemVLA twin (playground/benchmarks/libero/libero_memvla.py:
+    CogACT-7B widths, DiT-B with memory, a bank of 16, 'parallel_stream',
+    remat) with one change, a frozen LLM, on ``dataset``."""
+    from dexbotic_tpu_torch.playground.benchmarks.libero.libero_memvla import LiberoMemVLAExp
+
+    exp = LiberoMemVLAExp(device="cuda")
+    exp.model = dataclasses.replace(exp.model, dataloader_type=mode)
+    exp.data = dataclasses.replace(exp.data, dataset_name=dataset)
+    exp.trainer = dataclasses.replace(exp.trainer, output_dir=out, max_steps=steps,
+                                      per_device_batch_size=micro, logging_steps=1,
+                                      save_steps=steps, resume=False, save_optimizer=False)
+    exp.optimizer = dataclasses.replace(exp.optimizer, freeze_llm=True)
+    return exp
+
+
+def redraw_memvla_(model, gen) -> None:
+    """The DiT's final layer and its cross-attention out-projections are zero
+    at init, the fusion gates ~0 (N(0, 1e-3)): redrawn, so that the loss and
+    its gradients see the memory and the bank."""
+    redraw_final_(model.action_head, gen)
+    with torch.no_grad():
+        for blk in model.action_head.blocks:
+            blk.xattn.o.weight.normal_(0.0, 0.02, generator=gen)
+        for role in model.mem_bank.values():
+            role.gate.proj.weight.normal_(0.0, 0.02, generator=gen)
+
+
+def _memvla_batches(exp, tok, n: int, micro: int) -> tuple[list, int]:
+    """The schedule's first ``n`` batches on the card, and the longest sample's tokens."""
+    from dexbotic_tpu_torch.data.collator import Collator
+
+    ds = exp.data.build_data(exp.build_tokenization(tok), exp.action.build_action_process_func())
+    collator = Collator(pad_token_id=tok.pad_token_id, max_length=exp.tokenizer.model_max_length)
+    it = exp.schedule_batches(ds, collator, micro)
+    host = [next(it) for _ in range(n)]
+    n_tok = max(int(b["attention_mask"].sum(1).max()) for b in host)
+    return [{k: torch.as_tensor(v).cuda() for k, v in b.items()} for b in host], n_tok
+
+
+def phase_memvla_train_compare(failures: list, dataset: str) -> dict:
+    """Phase 12a: one MemVLA-7B training step (micro-batch 2, the third
+    'parallel_stream' batch against the bank the first two filled) at full
+    width and depth in fp32, the LLM frozen (it takes no gradient), the
+    diffusion draws injected: the kernel path (K1, K3 on q, k, v rounded to
+    bf16), the plain path (K1's plain version with autograd on the same
+    rounded q, k, v: decoder_plain_on_bf16) and bf16 matrices (a bf16 copy
+    of the weights on the plain attention, a reading), each against an fp32
+    witness (the plain attention in fp32): loss, grad_norm and the gradient
+    1-cosine of the projector, the DiT and the bank's modules (the SE
+    bottleneck, retrieval, gates, timestep embedders).  10a's rule: the
+    kernel path's distance <= 2 x the plain path's + 0.25 x the bf16
+    matrices' (the margin, a reading of the same step).  Then one step in
+    'stream' mode (the sequential single bank) on the kernel path."""
+    from dexbotic_tpu_torch.exp.optim import global_norm, is_frozen
+    from dexbotic_tpu_torch.models.memvla import build_memvla, init_mem_state, memvla_loss
+    from dexbotic_tpu_torch.nn.core import cast_matrices_
+    from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+
+    B = MEMVLA_TRAIN_MICRO
+    exp = memvla_train_exp(dataset, "out_mem_compare", B, 1)
+    exp._auto_compute_norm_stats()
+    tok = exp.tokenizer.build_tokenizer()
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, _ = exp.build_model(tok)
+    redraw_memvla_(model, torch.Generator(device="cuda").manual_seed(120))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phase 12a: one MemVLA-7B training step ({n_params / 1e9:.3f}B parameters, fp32, "
+          f"LLM frozen, micro-batch {B}, parallel_stream): kernel path vs plain path (both on "
+          f"bf16 q, k, v) vs fp32 witness; bf16 matrices as a reading")
+    batches, n_tok = _memvla_batches(exp, tok, 3, B)
+    if n_tok != MEMVLA_TRAIN_TOKENS or exp.tokenizer.model_max_length != TRAIN_SEQ_LEN:
+        failures.append(f"12a: samples of {n_tok} tokens padded to "
+                        f"{exp.tokenizer.model_max_length}: phases 3 and 6 hold K1 and K3 at "
+                        f"{MEMVLA_TRAIN_TOKENS} of {TRAIN_SEQ_LEN}")
+    plain = plain_config(cfg)
+    state = exp.build_aux_state(B)
+    with torch.no_grad():  # the bank after the first two batches' frames
+        for b in batches[:2]:
+            _, _, state = memvla_loss(model, plain, b, state)
+    batch = batches[2]
+    g = torch.Generator(device="cuda").manual_seed(121)
+    rows = cfg.repeated_diffusion_steps * B
+    t = torch.randint(0, cfg.diffusion_steps, (rows,), generator=g, device="cuda")
+    noise = torch.randn((rows, cfg.chunk_size, cfg.action_dim), generator=g, device="cuda")
+    watched = {"projector": ("vlm.projector.",), "dit": ("action_head.",),
+               "bank": ("mem_bank.", "per_compr.")}
+    trainable = {n for n, _ in model.named_parameters() if not is_frozen(n, exp.optimizer)}
+
+    def run(m, c, sequential=False, b=batch, st=state):
+        for n, p in m.named_parameters():
+            p.requires_grad_(n in trainable)
+        n0 = (flash_attention.launches, flash_attention_bwd.launches)
+        with torch.enable_grad():
+            loss, _, new = memvla_loss(m, c, b, st, sequential_bank=sequential, remat=True,
+                                       diffusion_t=t, diffusion_noise=noise)
+            loss.backward()
+        named = [(n, p.grad) for n, p in m.named_parameters() if p.grad is not None]
+        out = {"loss": float(loss.detach()), "grad_norm": float(global_norm([x for _, x in named])),
+               "launches": (flash_attention.launches - n0[0], flash_attention_bwd.launches - n0[1]),
+               "counts": new["per"]["count"].tolist()}
+        grads = {k: torch.cat([x.float().flatten() for n, x in named if n.startswith(prefixes)])
+                 for k, prefixes in watched.items()}
+        for p in m.parameters():
+            p.grad = None
+        m.requires_grad_(False)
+        return out, grads
+
+    w32, g32 = run(model, plain)
+    with decoder_plain_on_bf16():
+        wpl, gpl = run(model, plain)
+    wk, gk = run(model, cfg)
+    bf = build_memvla(plain, "cuda", prepare=lambda m: cast_matrices_(m, torch.bfloat16))
+    with torch.no_grad():
+        for p, q in zip(bf.parameters(), model.parameters()):
+            p.copy_(q)
+    wbf, gbf = run(bf, plain)
+    del bf
+    free_memory()
+    for label, w in (("kernel", wk), ("plain", wpl), ("bf16 matrices", wbf),
+                     ("fp32 witness", w32)):
+        print(f"  {label}: loss {w['loss']:.6g} grad_norm {w['grad_norm']:.6g}; K1/K3 launches "
+              f"{w['launches']}; bank counts after {w['counts']}")
+    checks = [(all(math.isfinite(wk[k]) for k in ("loss", "grad_norm")),
+               f"12a: non-finite kernel-path metrics {wk}"),
+              (wk["launches"][1] >= cfg.vlm.llm.num_layers
+               and w32["launches"] == wpl["launches"] == wbf["launches"] == (0, 0),
+               f"12a: K1/K3 launches kernel path {wk['launches']}, plain paths "
+               f"{wpl['launches']} {w32['launches']} {wbf['launches']}"),
+              (wk["counts"] == [3] * B, f"12a: bank counts {wk['counts']} after the third frame")]
+    witness, bounds = hold_step("12a", {"kernel": (wk, gk), "plain": (wpl, gpl),
+                                        "bf16_matrices": (wbf, gbf)}, (w32, g32),
+                                {"loss": "rel", "grad_norm": "rel"}, checks)
+    # one step in 'stream' mode: two consecutive frames of one episode against one bank
+    stream = memvla_train_exp(dataset, "out_mem_stream", B, 1, mode="stream")
+    stream._auto_compute_norm_stats()  # the statistics phase 12a computed, from their cache
+    sb, _ = _memvla_batches(stream, tok, 1, B)
+    ws, gs = run(model, cfg, sequential=True, b=sb[0], st=init_mem_state(cfg, 1, device="cuda"))
+    print(f"  stream mode (resets {sb[0]['episode_reset'].tolist()}, frames "
+          f"{sb[0]['timesteps'].tolist()}): loss {ws['loss']:.6g} grad_norm {ws['grad_norm']:.6g}; "
+          f"K1/K3 launches {ws['launches']}; the shared bank's count after {ws['counts']}")
+    checks += [(math.isfinite(ws["loss"]) and math.isfinite(ws["grad_norm"])
+                and all(bool(torch.isfinite(x).all()) for x in gs.values()),
+                f"12a stream: non-finite {ws}"),
+               (ws["counts"] == [B] and ws["launches"][1] >= cfg.vlm.llm.num_layers,
+                f"12a stream: bank counts {ws['counts']}, launches {ws['launches']}")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, g32, gpl, gk, gbf, gs, batches, batch, state
+    free_memory()
+    return {"params": n_params, "prompt_tokens": n_tok, "peak_gib": peak, "kernel": wk,
+            "plain": wpl, "bf16_matrices": wbf, "fp32_witness": w32, "vs_fp32": witness,
+            "bounds": bounds, "stream_step": ws}
+
+
+def phase_memvla_train_steps(failures: list, dataset: str) -> dict:
+    """Phase 12b: MEMVLA_TRAIN_STEPS steps of MemVLAExp.train() at the
+    recipe's micro-batch of 8 ('parallel_stream', the LLM frozen, bf16,
+    remat), the bank carried by the Trainer: after each step the bank's
+    count of each row (one more, or 1 where the schedule started an
+    episode), the step's peak; K1/K3 launches and shapes, K2/K4 launches and
+    plain CUDA attention calls read around the run."""
+    steps, micro = MEMVLA_TRAIN_STEPS, TRAIN_CASE[0]
+    print(f"phase 12b: {steps} MemVLA-7B training steps through MemVLAExp.train() "
+          f"(micro-batch {micro}, parallel_stream, LLM frozen)")
+    exp = memvla_train_exp(dataset, "out_mem_train", micro, steps)
+    cfg = exp.model.build_config()
+
+    def before(trainer, batch):
+        return {"resets": np.asarray(batch["episode_reset"]).tolist(),
+                "before": trainer.aux_state["per"]["count"].tolist()}
+
+    def after(trainer, batch, row):
+        row["after"] = trainer.aux_state["per"]["count"].tolist()
+
+    run = recorded_train(exp, "out_mem_train", before, after)
+    log, seen, rows, launches, wall = (run[k] for k in ("log", "seen", "rows", "launches", "wall"))
+    shapes, bwd_shapes = run["k1_shapes"], run["k3_shapes"]
+    for r, s_ in zip(rows, seen):
+        print(f"  step {r['step']}: loss {r['loss']:.6g} grad_norm {r['grad_norm']:.6g} step time "
+              f"{1 / r['steps_per_sec']:.4f} s; resets {s_['resets']}; bank counts "
+              f"{s_['before']} -> {s_['after']}; peak {s_['peak_gib']:.2f} GiB")
+    step_s = statistics.median(1 / r["steps_per_sec"] for r in rows[1:])
+    peak = max(s_["peak_gib"] for s_ in seen) if seen else float("nan")
+    print(f"  train() wall {wall:.1f} s; step {step_s:.4f} s (median of steps 2-{steps}), "
+          f"{micro / step_s:.3f} samples/s; peak {peak:.2f} GiB; launches {launches}; K1 shapes "
+          f"{sorted(shapes)}, K3 shapes {sorted(bwd_shapes)}")
+    want = [[1 if r else min(b + 1, cfg.mem_length) for r, b in zip(s_["resets"], s_["before"])]
+            for s_ in seen]
+    unchecked = sorted((shapes | bwd_shapes) - K1_MEMVLA_TRAIN_CHECKED)
+    L = cfg.vlm.llm.num_layers
+    checks = [(log.get("step") == steps and len(rows) == steps == len(seen),
+               f"12b: ran {len(rows)} of {steps} steps"),
+              (all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows),
+               "12b: non-finite loss or grad_norm"),
+              ([s_["after"] for s_ in seen] == want and all(seen[0]["resets"]),
+               f"12b: bank counts {[s_['after'] for s_ in seen]}, want {want}"),
+              (launches["flash_bwd"] >= L * steps and launches["flash_fwd"] >= L * steps
+               and launches["plain_cuda_calls"] == launches["dit_sample"]
+               == launches["quant_matmul"] == 0,
+               f"12b: launches {launches}, want K1 and K3 >= {L * steps}, no K2, K4 or plain call"),
+              (not unchecked, f"12b: K1/K3 took shapes phases 3 and 6 do not hold: {unchecked}")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    return {"launches": launches, "step_s": step_s, "samples_per_s": micro / step_s,
+            "peak_gib": peak, "train_wall_s": wall, "bank_counts": [s_["after"] for s_ in seen],
+            "k1_shapes": sorted(shapes), "k3_shapes": sorted(bwd_shapes)}
+
+
+def phase_memvla_train(failures: list) -> dict:
+    """Phase 12 in a temp dir (the suite, norm stats, checkpoints), removed after."""
+    with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
+        dataset = write_suite(os.path.join(tmp, "suite"), name="mem",
+                              frames=MEMVLA_SUITE_FRAMES, episodes=MEMVLA_SUITE_EPISODES)
+        compare = phase_memvla_train_compare(failures, dataset)
+        free_memory()
+        steps = phase_memvla_train_steps(failures, dataset)
+        return {"12a_compare": compare, "12b_train": steps}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: NaVILA-7B served and trained (packed rows, segment-isolated attention)
+# ---------------------------------------------------------------------------
+
+# Serving (13a): the llama_3 prompt of NAVILA_INSTRUCTION over 8 frames of
+# 196 tokens is NAVILA_PROMPT_TOKENS; generate's bf16 cache holds it and the
+# NAVILA_NEW_TOKENS tokens, and K1 takes the prefill (the prompt against
+# every cache column) and each decode step (one query row).  Training
+# (13b, 13c): a sample of the synthetic suite is 1792-1931 tokens (8 x 196
+# image tokens, the dexbotic template, the prompt and the answer), so
+# pack_batch puts two a row of the recipe's 4096; NAVILA_SEGMENTS are two
+# such lengths.  13b packs 4 samples into 2 rows, 13c 8 into the example
+# recipe's 4.  NAVILA_CASES: (result key, kind, rows); phase 3 holds all
+# four, phase 6 the packed ones.
+NAVILA_INSTRUCTION = "walk past the sofa and stop at the kitchen door"
+NAVILA_PROMPT_TOKENS, NAVILA_NEW_TOKENS = 2195, 32
+NAVILA_CACHE = NAVILA_PROMPT_TOKENS + NAVILA_NEW_TOKENS
+NAVILA_ROW, NAVILA_SEGMENTS = 4096, (1931, 1850)
+NAVILA_COMPARE_ROWS, NAVILA_TRAIN_ROWS, NAVILA_TRAIN_STEPS = 2, 4, 3
+NAVILA_DECODE_STEP = 15  # the decode call phase 3 holds: 16 tokens in the cache
+NAVILA_CASES = [("navila_prefill", "prefill", 1), ("navila_decode", "decode", 1),
+                ("navila_compare", "packed", NAVILA_COMPARE_ROWS),
+                ("navila_train", "packed", NAVILA_TRAIN_ROWS)]
+K1_NAVILA_SERVE_CHECKED = {(1, NAVILA_PROMPT_TOKENS, NAVILA_CACHE), (1, 1, NAVILA_CACHE)}
+K1_NAVILA_TRAIN_CHECKED = {(r, NAVILA_ROW, NAVILA_ROW)
+                           for r in (NAVILA_COMPARE_ROWS, NAVILA_TRAIN_ROWS)}
+
+
+def navila_attn_inputs(kind: str, B: int, gen):
+    """(name, q, k, v, (q_grp, kv_grp, kv_valid), segments) of a NaVILA K1/K3
+    call (LLaMA-2: 32 heads of 128).  'prefill': the prompt against the
+    empty bf16 cache of NAVILA_CACHE columns; 'decode': one query row at
+    NAVILA_DECODE_STEP against the prompt and the tokens before it (both
+    with the cache's all-zero segment ids, (q_seg, kv_seg)); 'packed': B rows
+    of NAVILA_ROW, each two segments (NAVILA_SEGMENTS) whose positions
+    restart, groups = positions + 1, the tail padding (segment -1)."""
+    dev = torch.device("cuda")
+    if kind == "packed":
+        S = NAVILA_ROW
+        pos = torch.zeros(B, S, dtype=torch.int32, device=dev)
+        seg = torch.full((B, S), -1, dtype=torch.int32, device=dev)
+        valid = torch.zeros(B, S, dtype=torch.int32, device=dev)
+        for r in range(B):
+            s = 0
+            for j, n in enumerate(NAVILA_SEGMENTS):
+                pos[r, s: s + n] = torch.arange(n, device=dev, dtype=torch.int32)
+                seg[r, s: s + n] = 2 * r + j
+                valid[r, s: s + n] = 1
+                s += n
+        grp = pos + 1
+        q = torch.randn(B, S, 32, 128, generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn(B, S, 32, 128, generator=gen, device=dev).bfloat16() for _ in range(2))
+        name = (f"NaVILA packed B={B} S={S} (segments {NAVILA_SEGMENTS} a row, "
+                f"{S - sum(NAVILA_SEGMENTS)} pads) H=32/32 D=128")
+        return name, q, k, v, (grp, grp.clone(), valid), seg
+    P, C = NAVILA_PROMPT_TOKENS, NAVILA_CACHE
+    filled = P if kind == "prefill" else P + NAVILA_DECODE_STEP + 1
+    valid = torch.zeros(B, C, dtype=torch.int32, device=dev)
+    valid[:, :filled] = 1
+    grp = torch.zeros(B, C, dtype=torch.int32, device=dev)
+    grp[:, :filled] = torch.arange(1, filled + 1, dtype=torch.int32, device=dev)
+    Sq = P if kind == "prefill" else 1
+    q_grp = grp[:, :P].clone() if kind == "prefill" else grp[:, filled - 1: filled].clone()
+    q = torch.randn(B, Sq, 32, 128, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(B, C, 32, 128, generator=gen, device=dev).bfloat16() for _ in range(2))
+    zeros = (torch.zeros(B, Sq, dtype=torch.int32, device=dev),
+             torch.zeros(B, C, dtype=torch.int32, device=dev))
+    name = (f"NaVILA {kind} B={B} Sq={Sq} Skv={C} ({filled} cache columns filled) "
+            f"H=32/32 D=128")
+    return name, q, k, v, (q_grp, grp, valid), zeros
+
+
+def dead_tile_share(q_grp, kv_grp, kv_valid, seg) -> float:
+    """The share of a call's (64-row q tile, 64-row kv tile) pairs K1 and K3
+    skip as dead (``flash_tile_classes``: no query row sees a key of it)."""
+    from dexbotic_tpu_torch.ops.attention import DEAD, flash_tile_classes
+
+    classes = flash_tile_classes(q_grp, kv_grp, kv_valid, *seg_pair(seg))
+    return (classes == DEAD).float().mean().item()
+
+
+NAVILA_ANSWERS = ["The next action is move forward 75 cm.", "The next action is turn left 30 degree.",
+                  "The next action is turn right 15 degree.", "The next action is stop.",
+                  "The next action is move forward 50 cm."]
+
+
+def write_nav_suite(root: str, name: str = "nav", episodes: int = 4, frames: int = 12) -> str:
+    """A synthetic navigation suite (seeded): episodes of 240x320 PNG
+    frames, each with the instruction (its length varying with the frame)
+    and an answer in parse_nav_action's words; returns its name."""
+    from PIL import Image
+
+    from dexbotic_tpu_torch.data.registry import register_dataset
+
+    rng = np.random.default_rng(13)
+    os.makedirs(root, exist_ok=True)
+    yy, xx = np.mgrid[0:240, 0:320]
+    for e in range(episodes):
+        lines = []
+        for t in range(frames):
+            img = np.stack([(xx + 11 * t) % 256, (yy + 50 * e) % 256, (xx * yy) // 97 % 256], -1)
+            img = (img + rng.integers(0, 24, img.shape)).clip(0, 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(root, f"e{e}f{t}.png"))
+            prompt = NAVILA_INSTRUCTION + ", then look around the room" * int(rng.integers(0, 4))
+            lines.append(json.dumps({"images_1": {"type": "image", "url": f"e{e}f{t}.png"},
+                                     "prompt": prompt,
+                                     "answer": NAVILA_ANSWERS[int(rng.integers(0, 5))]}))
+        with open(os.path.join(root, f"e{e}.jsonl"), "w") as f:
+            f.write("\n".join(lines))
+    register_dataset({name: {"data_path_prefix": root, "annotations": root, "frequency": 1}},
+                     prefix="smoke", meta_data={})
+    return f"smoke_{name}"
+
+
+def navila_exp(dataset: str = "", out: str = "", rows: int = NAVILA_TRAIN_ROWS, steps: int = 1,
+               train: bool = False):
+    """The example NaVILA recipe (dexbotic_tpu_torch/playground/example_navila_exp.py:
+    LLaMA-2-7B + SigLIP-so400m/384 + mlp_downsample, 8 frames, 4096-token
+    packed rows, 4 rows a step) on ``dataset``.  Training takes a frozen LLM
+    (the full fine-tune of 7.2B waits on the parallel layer), remat, and the
+    dexbotic chat template: the training tokenization (tokenize_dexbotic, as
+    in the JAX package) refuses llama_3, which serving keeps."""
+    from dexbotic_tpu_torch.exp import base_exp
+    from dexbotic_tpu_torch.playground.example_navila_exp import MyNaVILAExp
+
+    exp = MyNaVILAExp(device="cuda")
+    exp.data = dataclasses.replace(exp.data, dataset_name=dataset)
+    if train:
+        exp.tokenizer = base_exp.TokenizerConfig(model_max_length=NAVILA_ROW)
+    exp.trainer = dataclasses.replace(exp.trainer, output_dir=out, max_steps=steps,
+                                      per_device_batch_size=rows, logging_steps=1,
+                                      save_steps=steps, resume=False, save_optimizer=False,
+                                      gradient_checkpointing=True)
+    exp.optimizer = dataclasses.replace(exp.optimizer, freeze_llm=True)
+    return exp
+
+
+@contextlib.contextmanager
+def decode_logits(out: list):
+    """Appends the logits of every step of ``models/generate.generate`` to
+    ``out`` while inside (a wrapper on its lm_logits)."""
+    from dexbotic_tpu_torch.models import generate as gen_mod
+
+    call = gen_mod.lm_logits
+
+    def recorded(*args, **kw):
+        logits = call(*args, **kw)
+        out.append(logits.float())
+        return logits
+
+    gen_mod.lm_logits = recorded
+    try:
+        yield out
+    finally:
+        gen_mod.lm_logits = call
+
+
+def _nav_post(port: int, png: bytes, first: bool, run_model: bool) -> tuple:
+    """(the reply as a list, seconds) of one NaVILAServer request."""
+    extra = {"episode_first_frame": str(first), "run_model": str(run_model)}
+    out, dt = _post(port, NAVILA_INSTRUCTION, [png], extra=extra)
+    return out.tolist(), dt
+
+
+def phase_navila_serve(failures: list) -> dict:
+    """Phase 13a: NaVILA-7B (the example recipe: LLaMA-2-7B, SigLIP-so400m/384,
+    mlp_downsample, 8 frames; seeded bf16 weights by prepare_inference_params)
+    served over HTTP by NaVILAServer built by hand (NaVILAExp has no
+    inference()), greedy, NAVILA_NEW_TOKENS new tokens: an episode of 3
+    frames with run_model=False (each reply []), then model requests (the
+    replies parse_nav_action's ints), then a reset.  K1's launches and
+    shapes, K2/K3/K4 and plain CUDA attention calls read around the model
+    requests.  Then one request's decode teacher-forced: the plain path runs
+    the kernel path's prompt and generated tokens in one forward, each step's
+    logits at cosine >= 0.999 to the kernel path's, the kernel path's largest
+    logit error from an fp32 witness (the plain path on the weights in fp32)
+    <= 2x the plain path's + 1e-3, and every step whose argmax differs a
+    near-tie by 10c's rule (the plain path's gap <= 2x its largest logit
+    error).  K1's launches in one request's prefill and decode, measured.
+    p50/p90 of a request and the device call by part.  Returns
+    the model, in fp32 after the witness, for phase 13b."""
+    from dexbotic_tpu_torch.exp.navila_exp import NaVILAInferenceSession
+    from dexbotic_tpu_torch.exp.serve import NaVILAServer
+    from dexbotic_tpu_torch.models.generate import generate
+    from dexbotic_tpu_torch.models.vlm import encode_images, vlm_forward
+    from dexbotic_tpu_torch.nn.transformer import init_kv_cache, lm_logits
+    from dexbotic_tpu_torch.ops import quant_matmul as qm
+    from dexbotic_tpu_torch.ops.attention import attention, flash_attention, flash_attention_bwd
+    from dexbotic_tpu_torch.ops.dit_fused import fused_dit_sample
+    from script.profile_pi0_torch import trace, wall_ms
+
+    exp = navila_exp()
+    t0 = time.perf_counter()
+    cfg, model, _ = exp.load_for_inference()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    L = cfg.vlm.llm.num_layers
+    print(f"phase 13a: NaVILA-7B ({n_params / 1e9:.3f}B params, bf16, built in "
+          f"{time.perf_counter() - t0:.1f} s) served through NaVILAServer: greedy, "
+          f"{NAVILA_NEW_TOKENS} new tokens, {cfg.num_video_frames} frames of "
+          f"{cfg.vlm.num_image_tokens} tokens")
+    tok = exp.tokenizer.build_tokenizer()
+    server = NaVILAServer(exp, cfg, model, tok, host="127.0.0.1", port=0,
+                          max_new_tokens=NAVILA_NEW_TOKENS)
+    n_prompt = len(server.session.prompt_ids(NAVILA_INSTRUCTION, cfg.num_video_frames))
+    if n_prompt != NAVILA_PROMPT_TOKENS:
+        failures.append(f"13a: the prompt is {n_prompt} tokens; phase 3 holds K1 at "
+                        f"{NAVILA_PROMPT_TOKENS}")
+    pngs = [_frame_png(130 + i) for i in range(10)]
+    observed, served = pngs[:3], pngs[3:]
+    httpd = server.serve_background()
+    port = httpd.server_address[1]
+    try:
+        silent = [_nav_post(port, png, i == 0, False)[0] for i, png in enumerate(observed)]
+        _nav_post(port, served[0], False, True)  # warm-up
+        shapes: set = set()
+        flash_attention.launches = flash_attention_bwd.launches = attention.plain_cuda_calls = 0
+        fused_dit_sample.launches = qm.quant_matmul.launches = 0
+        replies, lat = [], []
+        with k1_calls(shapes):
+            for png in served[1:]:
+                out, dt = _nav_post(port, png, False, True)
+                replies.append(out)
+                lat.append(dt * 1e3)
+        launches = {"flash_fwd": flash_attention.launches,
+                    "flash_bwd": flash_attention_bwd.launches,
+                    "dit_sample": fused_dit_sample.launches,
+                    "quant_matmul": qm.quant_matmul.launches,
+                    "plain_cuda_calls": attention.plain_cuda_calls}
+        history = len(server.session.buffer.frames)
+        reset_reply, _ = _nav_post(port, pngs[0], True, False)
+        after_reset = len(server.session.buffer.frames)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    n_req = len(replies)
+    per_req = launches["flash_fwd"] / n_req
+    want_k1 = L * NAVILA_NEW_TOKENS  # the prefill and the 31 steps fed back
+    lat_sorted = sorted(lat)
+    print(f"  replies {replies}; run_model=False replies {silent} and {reset_reply} after the "
+          f"reset; history {history} frames, {after_reset} after the reset")
+    print(f"  K1 {launches['flash_fwd']} launches ({per_req:g} a request), K2 "
+          f"{launches['dit_sample']}, K3 {launches['flash_bwd']}, K4 {launches['quant_matmul']}, "
+          f"plain attention calls on CUDA {launches['plain_cuda_calls']}; K1 shapes {sorted(shapes)}")
+
+    # one request teacher-forced: kernel path's decode vs the plain path's one forward
+    sess = NaVILAInferenceSession(exp, cfg, model, tok, max_new_tokens=NAVILA_NEW_TOKENS)
+    for png in observed:
+        sess.observe(server.frame([("f", png)]))
+    ids, valid, imgs = sess.inputs(server.frame([("f", served[0])]), NAVILA_INSTRUCTION)
+    eos = sess.eos_token_id
+    logits_k: list = []
+    n0 = flash_attention.launches
+    with decode_logits(logits_k):
+        toks, _ = generate(model.vlm, cfg.vlm, ids, valid, imgs, NAVILA_NEW_TOKENS, eos)
+    k1_generate = flash_attention.launches - n0
+    lk = torch.cat(logits_k)  # [steps, V]
+    n_steps = NAVILA_NEW_TOKENS
+    hit = (toks[0] == eos).nonzero()
+    if len(hit):
+        n_steps = int(hit[0, 0]) + 1  # the steps up to the EOS; after it the rows are pads
+    full = torch.cat([ids, toks[:, :-1]], 1)
+    plain = plain_config(cfg)
+
+    def teacher_forced():
+        hidden = vlm_forward(model.vlm, plain.vlm, full, torch.ones_like(full), images=imgs)
+        return lm_logits(model.vlm.llm, cfg.vlm.llm,
+                         hidden[0, n_prompt - 1: n_prompt - 1 + n_steps]).float()
+
+    with torch.no_grad():
+        lp = teacher_forced()
+        lk = lk[:n_steps]
+        cos = [_cosine(a.double(), b.double()) for a, b in zip(lk, lp)]
+
+        # the device call by part, before the witness turns the weights to fp32
+        def prefill():
+            cache = init_kv_cache(cfg.vlm.llm, 1, NAVILA_CACHE, device="cuda")
+            return vlm_forward(model.vlm, cfg.vlm, ids, valid, images=imgs, cache=cache,
+                               update_cache=True)
+
+        def call():
+            return generate(model.vlm, cfg.vlm, ids, valid, imgs, NAVILA_NEW_TOKENS, eos)
+
+        n0 = flash_attention.launches
+        prefill()
+        k1_prefill = flash_attention.launches - n0
+
+        host = []  # a request's host work: the PNG decoded, 8 frames preprocessed, the prompt
+        for _ in range(5):  # tokenized, the inputs uploaded (the frame joins the history)
+            t0 = time.perf_counter()
+            sess.inputs(server.frame([("f", served[0])]), NAVILA_INSTRUCTION)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        tower = wall_ms(lambda: encode_images(model.vlm, cfg.vlm, imgs))
+        pre = wall_ms(prefill)
+        whole = wall_ms(call)
+        busy, n_kernels, _ = trace(call)
+        decode = whole - pre
+        parts = {"tower_projector_ms": tower, "prefill_ms": pre - tower, "decode_ms": decode,
+                 "decode_ms_per_token": decode / NAVILA_NEW_TOKENS, "device_call_ms": whole,
+                 "host_preprocess_ms": statistics.median(host),
+                 "p50_less_device_call_ms": statistics.median(lat_sorted) - whole,
+                 "device_busy_ms": busy,
+                 "idle_share": 1 - busy / whole, "kernels": n_kernels,
+                 "k1_prefill_launches": k1_prefill,
+                 "k1_decode_launches": k1_generate - k1_prefill}
+        model.float()  # the fp32 witness: the plain path on the same weights' values
+        lw = teacher_forced()
+    err_p = (lp - lw).abs().max().item()
+    err_k = (lk - lw).abs().max().item()
+    ak, ap = lk.argmax(-1), lp.argmax(-1)
+    flips = ak != ap
+    gaps = (lp.gather(-1, ap[:, None]) - lp.gather(-1, ak[:, None]))[:, 0][flips]
+    widest = gaps.max().item() if flips.any() else 0.0
+    near_tie = 2.0 * err_p
+    err_bound = 2.0 * err_p + 1e-3
+    row = {"p50_ms": statistics.median(lat_sorted), "p90_ms": float(np.percentile(lat_sorted, 90)),
+           "requests": n_req, "k1_per_request": per_req, "launches": launches,
+           "prompt_tokens": n_prompt, "params": n_params, "k1_shapes": sorted(shapes),
+           "replies": replies, "teacher_forced_steps": n_steps,
+           "logit_cosine_min": min(cos), "argmax_flips": int(flips.sum()),
+           "flip_gap_max": widest, "near_tie_bound": near_tie, "logit_err_bound": err_bound,
+           "logit_err_vs_fp32": {"kernel": err_k, "plain": err_p}, **parts}
+    print(f"  teacher-forced over {n_steps} steps: logit cosine {min(cos):.6f} at worst; argmax "
+          f"differs at {int(flips.sum())} steps, plain-path gaps there at most {widest:.4g} "
+          f"(near-tie bound {near_tie:.4g}); largest logit error from the fp32 witness: kernel "
+          f"{err_k:.4g}, plain {err_p:.4g} (bound {err_bound:.4g})")
+    print(f"  {n_req} requests p50 {row['p50_ms']:.1f} ms, p90 {row['p90_ms']:.1f} ms; device call "
+          f"{whole:.1f} ms = tower {tower:.1f} + prefill {pre - tower:.1f} + {NAVILA_NEW_TOKENS} "
+          f"decode steps {decode:.1f} ({decode / NAVILA_NEW_TOKENS:.2f} a token); K1 launches "
+          f"prefill {k1_prefill}, decode {k1_generate - k1_prefill}; host "
+          f"preprocessing {parts['host_preprocess_ms']:.1f} ms a request (p50 less the device "
+          f"call {parts['p50_less_device_call_ms']:.1f}); device idle {parts['idle_share']:.1%} "
+          f"of the call over {n_kernels} kernels")
+    unchecked = sorted(shapes - K1_NAVILA_SERVE_CHECKED)
+    checks = [(silent == [[]] * len(observed) and reset_reply == [] and after_reset == 1
+               and history == len(observed) + len(served), f"13a: run_model=False replies "
+               f"{silent} / {reset_reply}, history {history}, {after_reset} after the reset"),
+              (all(isinstance(r, list) and r and all(a in (0, 1, 2, 3) for a in r)
+                   for r in replies), f"13a: replies {replies}"),
+              (launches["flash_fwd"] == n_req * want_k1 and launches["flash_bwd"]
+               == launches["dit_sample"] == launches["quant_matmul"]
+               == launches["plain_cuda_calls"] == 0,
+               f"13a: launches {launches}, want K1 {n_req} x {want_k1} and nothing else"),
+              (not unchecked and shapes, f"13a: K1 took shapes phase 3 does not hold: {unchecked}"),
+              (k1_prefill == L and k1_generate - k1_prefill == L * (NAVILA_NEW_TOKENS - 1),
+               f"13a: K1 launches prefill {k1_prefill}, decode {k1_generate - k1_prefill}, want "
+               f"{L} and {L} x {NAVILA_NEW_TOKENS - 1}"),
+              (min(cos) >= 0.999, f"13a: teacher-forced logit cosine {min(cos)} < 0.999"),
+              (err_k <= err_bound, f"13a: the kernel path's largest logit error from the fp32 "
+                                   f"witness {err_k} > 2 x the plain path's {err_p} + 1e-3"),
+              (widest <= near_tie, f"13a: the kernel path decided a step otherwise than the plain "
+                                   f"path across a gap of {widest} > {near_tie}, not a near-tie")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    del server, sess
+    return {**row, "model": model, "cfg": cfg, "tokenizer": tok}
+
+
+def phase_navila_train_compare(failures: list, dataset: str, model, cfg) -> dict:
+    """Phase 13b: one packed NaVILA-7B training step (4 samples in 2 rows of
+    4096, the soft CE over the digit ids) on 13a's weights in fp32, the LLM
+    frozen: kernel path, plain path (K1's plain version with autograd on the
+    same bf16-rounded q, k, v) and bf16 matrices (the weights cast to bf16
+    in place: the fp32 values are bf16 values), each against the fp32
+    witness: loss, grad_norm and the gradient 1-cosine of the projector,
+    the tower and lm_head, held by 12a's rule.  The packed loss (kernel
+    path) against navila_loss on the same 4 samples unpacked, a forward:
+    within 2 x the kernel-vs-plain loss distance + 1e-3, relative."""
+    from dexbotic_tpu_torch.data.collator import Collator
+    from dexbotic_tpu_torch.exp.optim import global_norm, is_frozen
+    from dexbotic_tpu_torch.models.navila import navila_loss, navila_packed_loss
+    from dexbotic_tpu_torch.nn.core import cast_matrices_
+    from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+
+    R = NAVILA_COMPARE_ROWS
+    exp = navila_exp(dataset, "out_nav_compare", rows=R, train=True)
+    tok = exp.tokenizer.build_tokenizer()
+    ds = exp.data.build_data(exp.build_tokenization(tok))
+    collator = Collator(pad_token_id=tok.pad_token_id, max_length=exp.tokenizer.model_max_length)
+    lens = sorted(len(ds[i]["input_ids"]) for i in range(0, len(ds), 5))
+    it = exp.packed_batches(ds, collator, tok.pad_token_id, R)
+    host = next(it)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in host.items()}
+    segs = [len(set(r[r >= 0].tolist())) for r in host["segments"]]
+    print(f"phase 13b: one packed NaVILA-7B training step ({len(host['images'])} samples in {R} "
+          f"rows of {host['input_ids'].shape[1]}: {segs} segments a row; samples of "
+          f"{lens[0]}-{lens[-1]} tokens), fp32 weights, LLM frozen: kernel path vs plain path vs "
+          f"fp32 witness; bf16 matrices as a reading")
+    soft = exp._digit_ids(tok)
+    watched = {"projector": ("vlm.projector.",), "vit": ("vlm.vit.",),
+               "lm_head": ("vlm.llm.lm_head.",)}
+    trainable = {n for n, _ in model.named_parameters() if not is_frozen(n, exp.optimizer)}
+    plain = plain_config(cfg)
+
+    def run(c):
+        for n, p in model.named_parameters():
+            p.requires_grad_(n in trainable)
+        n0 = (flash_attention.launches, flash_attention_bwd.launches)
+        with torch.enable_grad():
+            loss, _ = navila_packed_loss(model, c, batch, soft, remat=True)
+            loss.backward()
+        named = [(n, p.grad) for n, p in model.named_parameters() if p.grad is not None]
+        out = {"loss": float(loss.detach()), "grad_norm": float(global_norm([x for _, x in named])),
+               "launches": (flash_attention.launches - n0[0], flash_attention_bwd.launches - n0[1])}
+        grads = {k: torch.cat([x.float().flatten() for n, x in named if n.startswith(prefixes)])
+                 for k, prefixes in watched.items()}
+        for p in model.parameters():
+            p.grad = None
+        model.requires_grad_(False)
+        free_memory()
+        return out, grads
+
+    torch.cuda.reset_peak_memory_stats()
+    w32, g32 = run(plain)
+    with decoder_plain_on_bf16():
+        wpl, gpl = run(plain)
+    wk, gk = run(cfg)
+    unpacked = collator([ds[i] for i in first_pack_indices(exp, ds)])
+    with torch.no_grad():
+        ub = {k: torch.as_tensor(v).cuda() for k, v in unpacked.items()
+              if k in ("input_ids", "labels", "attention_mask", "images")}
+        lu = float(navila_loss(model, cfg, ub, soft)[0])
+    del ub
+    cast_matrices_(model, torch.bfloat16)
+    wbf, gbf = run(plain)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for label, w in (("kernel", wk), ("plain", wpl), ("bf16 matrices", wbf),
+                     ("fp32 witness", w32)):
+        print(f"  {label}: loss {w['loss']:.6g} grad_norm {w['grad_norm']:.6g}; K1/K3 launches "
+              f"{w['launches']}")
+    L = cfg.vlm.llm.num_layers
+    checks = [(all(math.isfinite(wk[k]) for k in ("loss", "grad_norm")),
+               f"13b: non-finite kernel-path metrics {wk}"),
+              (min(segs) >= 2, f"13b: rows of {segs} segments; the suite must pack 2 or more"),
+              (wk["launches"][1] >= L
+               and w32["launches"] == wpl["launches"] == wbf["launches"] == (0, 0),
+               f"13b: K1/K3 launches kernel path {wk['launches']}, plain paths "
+               f"{wpl['launches']} {w32['launches']} {wbf['launches']}")]
+    witness, bounds = hold_step("13b", {"kernel": (wk, gk), "plain": (wpl, gpl),
+                                        "bf16_matrices": (wbf, gbf)}, (w32, g32),
+                                {"loss": "rel", "grad_norm": "rel"}, checks)
+    kp_rel = abs(wk["loss"] - wpl["loss"]) / abs(wpl["loss"])
+    pu_rel = abs(wk["loss"] - lu) / abs(lu)
+    pu_bound = 2.0 * kp_rel + 1e-3
+    print(f"  packed loss {wk['loss']:.6g} vs navila_loss on the same samples unpacked {lu:.6g}: "
+          f"rel {pu_rel:.3g} (bound {pu_bound:.3g}); peak {peak:.2f} GiB")
+    checks.append((pu_rel <= pu_bound, f"13b: packed vs unpacked loss rel {pu_rel} > {pu_bound}"))
+    failures.extend(msg for ok, msg in checks if not ok)
+    return {"rows": R, "samples": len(host["images"]), "segments": segs, "sample_tokens": lens,
+            "peak_gib": peak, "kernel": wk, "plain": wpl, "bf16_matrices": wbf,
+            "fp32_witness": w32, "vs_fp32": witness, "bounds": bounds, "unpacked_loss": lu,
+            "packed_vs_unpacked_rel": pu_rel}
+
+
+def first_pack_indices(exp, ds) -> list:
+    """The sample indices of the first packed step of ``exp.packed_batches``."""
+    from dexbotic_tpu_torch.exp.mem_trainer import length_grouped_batches
+
+    R = exp.trainer.per_device_batch_size
+    K = exp.model.samples_per_pack or 2 * R
+    return next(b for b in length_grouped_batches(ds.length_hints(), K, seed=exp.trainer.seed)
+                if len(b) == K)
+
+
+def phase_navila_train_steps(failures: list, dataset: str) -> dict:
+    """Phase 13c: NAVILA_TRAIN_STEPS packed steps of NaVILAExp.train() at full
+    depth (the example recipe's 4 rows of 4096, 8 samples a step, remat, the
+    LLM frozen, bf16): each step's non-pad tokens, pack fill, segments and
+    dead-tile share (flash_tile_classes of its masks) and peak; K1/K3
+    launches and shapes, K2/K4 and plain CUDA attention calls around it."""
+    steps, R = NAVILA_TRAIN_STEPS, NAVILA_TRAIN_ROWS
+    print(f"phase 13c: {steps} packed NaVILA-7B training steps through NaVILAExp.train() "
+          f"({R} rows of {NAVILA_ROW}, LLM frozen, remat)")
+    exp = navila_exp(dataset, "out_nav_train", rows=R, steps=steps, train=True)
+    L = exp.model.build_config().vlm.llm.num_layers
+
+    def after(trainer, batch, row):  # the step's masks, read after it
+        valid = torch.as_tensor(batch["attention_mask"]).cuda().int()
+        pos = torch.as_tensor(batch["positions"]).cuda().int()
+        seg = torch.as_tensor(batch["segments"]).cuda().int()
+        row.update(tokens=int(valid.sum()), fill=valid.float().mean().item(),
+                   segments=[len(set(r[r >= 0].tolist())) for r in batch["segments"]],
+                   dead_tile_share=dead_tile_share(pos + 1, pos + 1, valid, seg))
+
+    run = recorded_train(exp, "out_nav_train", after=after)
+    log, seen, rows, launches, wall = (run[k] for k in ("log", "seen", "rows", "launches", "wall"))
+    shapes, bwd_shapes = run["k1_shapes"], run["k3_shapes"]
+    for r, s_ in zip(rows, seen):
+        print(f"  step {r['step']}: loss {r['loss']:.6g} grad_norm {r['grad_norm']:.6g} step time "
+              f"{1 / r['steps_per_sec']:.4f} s; {s_['tokens']} tokens (fill {s_['fill']:.1%}), "
+              f"segments {s_['segments']}, dead tiles {s_['dead_tile_share']:.1%}; peak "
+              f"{s_['peak_gib']:.2f} GiB")
+    step_s = statistics.median(1 / r["steps_per_sec"] for r in rows[1:])
+    tokens = statistics.median(s_["tokens"] for s_ in seen[1:])
+    peak = max(s_["peak_gib"] for s_ in seen) if seen else float("nan")
+    print(f"  train() wall {wall:.1f} s; step {step_s:.4f} s (median of steps 2-{steps}), "
+          f"{tokens / step_s:.1f} tokens/s; peak {peak:.2f} GiB; launches {launches}; K1 shapes "
+          f"{sorted(shapes)}, K3 shapes {sorted(bwd_shapes)}")
+    unchecked = sorted((shapes | bwd_shapes) - K1_NAVILA_TRAIN_CHECKED)
+    checks = [(log.get("step") == steps and len(rows) == steps == len(seen),
+               f"13c: ran {len(rows)} of {steps} steps"),
+              (all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows),
+               "13c: non-finite loss or grad_norm"),
+              (all(min(s_["segments"]) >= 2 for s_ in seen), "13c: a row of one segment"),
+              (launches["flash_fwd"] > 0 and launches["flash_bwd"] >= L * steps
+               and launches["plain_cuda_calls"] == launches["dit_sample"]
+               == launches["quant_matmul"] == 0,
+               f"13c: launches {launches}, want K1 > 0, K3 >= {L * steps}, no K2, K4 or plain "
+               f"call"),
+              (not unchecked, f"13c: K1/K3 took shapes phases 3 and 6 do not hold: {unchecked}")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    return {"launches": launches, "step_s": step_s, "tokens_per_s": tokens / step_s,
+            "tokens_per_step": tokens, "fill": statistics.median(s_["fill"] for s_ in seen),
+            "dead_tile_share": statistics.median(s_["dead_tile_share"] for s_ in seen),
+            "peak_gib": peak, "train_wall_s": wall, "rows": R, "k1_shapes": sorted(shapes),
+            "k3_shapes": sorted(bwd_shapes)}
+
+
+def phase_navila(failures: list) -> dict:
+    """Phase 13: serving (13a) builds the bf16 model, whose weights 13b
+    trains in fp32; 13c runs the exp's own train().  In a temp dir (the
+    suite, checkpoints), removed after."""
+    serve = phase_navila_serve(failures)
+    model, cfg = serve.pop("model"), serve.pop("cfg")
+    serve.pop("tokenizer")
+    free_memory()
+    with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
+        dataset = write_nav_suite(os.path.join(tmp, "nav"))
+        compare = phase_navila_train_compare(failures, dataset, model, cfg)
+        del model
+        free_memory()
+        steps = phase_navila_train_steps(failures, dataset)
+    return {"13a_serve": serve, "13b_compare": compare, "13c_train": steps}
+
+
 def build_report(log: str, failures: list) -> tuple[dict, dict, dict, dict]:
     """Registers and spills of every K1 instance ("flash_fwd_kernel<D, NWG,
     BK>"), every K3 instance ("dkv_kernel<D, NWG, stages, split>",
@@ -3784,6 +4672,10 @@ def main() -> int:
     for key in ("model", "exp", "cfg", "tokenizer", "pngs", "inputs", "noises", "kernel_chunks"):
         del mem[key]
     free_memory()
+    mem_train = phase_memvla_train(failures)
+    free_memory()
+    nav = phase_navila(failures)
+    free_memory()
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
@@ -3798,15 +4690,21 @@ def main() -> int:
                                                             "head_params", "launches")},
                    **oft_routes},
         "5h_oft_int8": oft_q, "9_oft_train": oft_train, "10_rl": rl, "11a_memvla": mem,
-        "11b_memvla_int8": mem_q}}, default=float))
+        "11b_memvla_int8": mem_q, "12_memvla_train": mem_train, "13_navila": nav}}, default=float))
     rl_train = rl["10b_train_rl"]
-    rl_keys = {  # each kernel's launches on the GRPO paths: 10b's runs, 10c's rollout call
+    rl_keys = {  # each kernel's launches on the GRPO paths (10b's runs, 10c's rollout call),
+        # MemVLA's (11a, 11b, 12b) and NaVILA's (13a's requests, 13c's steps)
         "flash_fwd": {"rl_train_launches": sum(r["launches"]["flash_fwd"] for r in rl_train.values()),
                       "rl_rollout_launches": rl["10c_rollouts"]["launches"],
                       "memvla_launches": mem["launches"]["flash_fwd"],
-                      "memvla_int8_launches": mem_q["launches"]["flash_fwd"]},
+                      "memvla_int8_launches": mem_q["launches"]["flash_fwd"],
+                      "memvla_train_launches": mem_train["12b_train"]["launches"]["flash_fwd"],
+                      "navila_serve_launches": nav["13a_serve"]["launches"]["flash_fwd"],
+                      "navila_train_launches": nav["13c_train"]["launches"]["flash_fwd"]},
         "flash_bwd": {"rl_train_launches": sum(r["launches"]["flash_bwd"]
-                                               for r in rl_train.values())},
+                                               for r in rl_train.values()),
+                      "memvla_train_launches": mem_train["12b_train"]["launches"]["flash_bwd"],
+                      "navila_train_launches": nav["13c_train"]["launches"]["flash_bwd"]},
         "quant_matmul": {"memvla_int8_launches": mem_q["launches"]["quant_matmul"],
                          "memvla_int8_request_launches": mem_q["k4_per_request"]}}
     oft_counts = {  # each kernel's launches on OFT's three paths: served bf16, int8, trained

@@ -1,4 +1,4 @@
-"""MemVLA experiment, serving half (port of dexbotic_tpu/exp/memvla_exp.py).
+"""MemVLA experiment (port of dexbotic_tpu/exp/memvla_exp.py).
 
 Defaults as the JAX package's: LLaMA-2-7B + CLIP-L/336 + ``mlp2x_gelu``,
 a DiT-B head with memory cross-attention, action_dim 7, chunk 16, and the
@@ -9,8 +9,13 @@ int8 / w8a8 through ``inference_quantize``) on ``device`` and fills it from
 ``model_name_or_path`` if set: a port ``checkpoint-{step}`` directory, or a
 released checkpoint converted by ``utils/convert.convert_memvla``.  Serving
 is ``exp/serve.MemVLAServer``: one episode's bank across requests, reset by
-the request field ``episode_first_frame``.  Training (``memvla_loss``, the
-episode-ordered schedule, the Trainer's carry of the bank) is not ported yet.
+the request field ``episode_first_frame``.
+
+Training follows ``dataloader_type`` (``exp/mem_trainer.episode_batches``):
+'parallel_stream' keeps a bank a row, 'group' / 'stream' one bank shared by
+the batch's consecutive frames.  The bank is the Trainer's aux state, carried
+from step to step and not checkpointed; each batch carries 'timesteps' (each
+row's frame in its episode) and 'episode_reset'.
 """
 
 from __future__ import annotations
@@ -18,23 +23,22 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Optional
 
+import numpy as np
 import torch
 
 from dexbotic_tpu_torch.exp import base_exp
+from dexbotic_tpu_torch.exp.mem_trainer import episode_batches
 from dexbotic_tpu_torch.models import presets
 from dexbotic_tpu_torch.models.memvla import (
     MemVLAConfig,
     build_memvla,
     init_mem_state,
     memvla_inference_action,
+    memvla_loss,
     reset_mem_rows,
 )
 from dexbotic_tpu_torch.models.vlm import VLMConfig
 from dexbotic_tpu_torch.utils.convert import convert_memvla
-
-TRAINING_NOT_PORTED = ("MemVLA training (memvla_loss, the sequential bank, the episode-ordered "
-                       "schedule and the Trainer's carry of the bank) is not ported yet "
-                       "(ROADMAP Queue 1 item 7, training)")
 
 
 @dataclass
@@ -54,6 +58,8 @@ class MemVLAModelConfig(base_exp.Config):
     fusion_type: str = "gate"
     consolidate_type: str = "tome"
     update_fused: bool = True
+    dataloader_type: str = "parallel_stream"  # | 'group' | 'stream'
+    group_size: int = 8
     seed: int = 0
 
     def build_config(self) -> MemVLAConfig:
@@ -112,11 +118,84 @@ class MemVLAExp(base_exp.BaseExp):
         cfg, model, norms = self.load_for_inference()
         MemVLAServer(self, cfg, model, self.tokenizer.build_tokenizer(), norms).run()
 
-    def build_model(self, tokenizer):
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+    @property
+    def sequential_bank(self) -> bool:
+        return self.model.dataloader_type in ("group", "stream")
 
-    def train(self):
-        raise NotImplementedError(TRAINING_NOT_PORTED)
+    def build_model(self, tokenizer):
+        """(config, fp32 model on ``device``, the stateful loss_fn(model,
+        batch, generator, state) -> (loss, metrics, new state)); 'group' and
+        'stream' take the sequential single-bank semantics."""
+        cfg = self.model.build_config()
+        model = self.model.build_params(cfg, self.device)
+        sequential, remat = self.sequential_bank, self.trainer.gradient_checkpointing
+
+        def loss_fn(model, batch, generator, state):
+            return memvla_loss(model, cfg, batch, state, generator, sequential_bank=sequential,
+                               remat=remat)
+
+        return cfg, model, loss_fn
+
+    def build_aux_state(self, batch_size: int) -> dict:
+        """The training bank: one a row, or one shared bank in 'group' / 'stream' mode."""
+        return init_mem_state(self.model.build_config(), 1 if self.sequential_bank else batch_size,
+                              device=self.device)
+
+    def make_data_schedule(self, dataset, batch_size: int):
+        return episode_batches(dataset, batch_size, mode=self.model.dataloader_type,
+                               group_size=self.model.group_size, seed=self.trainer.seed)
+
+    def schedule_batches(self, dataset, collator, batch_size: int):
+        """The episode-ordered batches, the schedule looped for more epochs:
+        collated rows plus 'timesteps' and 'episode_reset' (in 'group' mode
+        the first row always resets: the reference empties every bank at the
+        head of a 'group' forward).  A schedule batch short of
+        ``batch_size`` is skipped."""
+        mode = self.model.dataloader_type
+        while True:
+            any_batch = False
+            for sched in self.make_data_schedule(dataset, batch_size):
+                if len(sched) < batch_size:
+                    continue
+                any_batch = True
+                batch = collator([dataset[i] for i, _ in sched])
+                batch["timesteps"] = np.asarray(
+                    [float(dataset.global_index[i][2]) for i, _ in sched], np.float32)
+                resets = [start for _, start in sched]
+                if mode == "group":
+                    resets[0] = True
+                batch["episode_reset"] = np.asarray(resets, bool)
+                yield batch
+            if not any_batch:
+                return
+
+    def train(self) -> dict:
+        """Episode-ordered training with the bank carried by the Trainer."""
+        from dexbotic_tpu_torch.data.collator import Collator
+        from dexbotic_tpu_torch.exp.trainer import Trainer
+
+        self._auto_compute_norm_stats()
+        tokenizer = self.tokenizer.build_tokenizer()
+        _, model, loss_fn = self.build_model(tokenizer)
+        dataset = self.data.build_data(self.build_tokenization(tokenizer),
+                                       self.action.build_action_process_func())
+        collator = Collator(pad_token_id=tokenizer.pad_token_id,
+                            max_length=self.tokenizer.model_max_length)
+        with open(self.action.statistic_mapping) as f:
+            norm_stats_json = f.read()
+        B = self.trainer.per_device_batch_size
+        if self.model.dataloader_type == "group" and B != self.model.group_size:
+            raise ValueError(f"'group' mode trains one group a step: set per_device_batch_size "
+                             f"({B}) == group_size ({self.model.group_size})")
+        if self.sequential_bank and self.trainer.mesh_data not in (None, 1):
+            raise ValueError(f"'{self.model.dataloader_type}' mode is sequential within the "
+                             f"batch; use mesh_data=1 (got {self.trainer.mesh_data})")
+        trainer = Trainer(loss_fn, model, self.trainer, self.optimizer,
+                          norm_stats_json=norm_stats_json, aux_state=self.build_aux_state(B))
+        try:
+            return trainer.train(self.schedule_batches(dataset, collator, B))
+        finally:
+            trainer.close()
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ import re
 import threading
 import time
 import traceback
+from typing import Optional
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -504,6 +505,57 @@ class MemVLAServer(ActionServer):
         out = self.session.step(ids.to(self.device), valid.to(self.device),
                                 torch.from_numpy(imgs)[None].to(self.device), self.generator)
         return self._denorm(out.float().cpu().numpy())[0].tolist()
+
+
+class NaVILAServer(ActionServer):
+    """Navigation serving: one camera frame a request and the fields 'text'
+    (the instruction), 'episode_first_frame' (resets the frame history) and
+    'run_model' ('False' only appends the frame to the history and returns
+    []); the reply is ``parse_nav_action``'s list of action ints (0 stop, 1
+    forward, 2 left, 3 right, repeated by magnitude).  A decoded RGB frame
+    is flipped to BGR before preprocessing, as the reference server does.
+    The history is state across requests, so requests are served one at a
+    time (the base class's lock).  NaVILAExp has no ``inference()``: build
+    this server by hand, as in the JAX package."""
+
+    def __init__(self, exp, cfg, model, tokenizer, host="0.0.0.0", port=7891,
+                 max_new_tokens: int = 32, engine=None):
+        super().__init__(host, port)
+        from dexbotic_tpu_torch.exp.navila_exp import NaVILAInferenceSession
+
+        self.exp, self.cfg, self.tokenizer = exp, cfg, tokenizer
+        self.session = NaVILAInferenceSession(exp, cfg, model, tokenizer, engine=engine,
+                                              max_new_tokens=max_new_tokens)
+        self.generator = torch.Generator(device=exp.device).manual_seed(0)
+
+    @staticmethod
+    def _parse_bool(value, default=False) -> bool:
+        if value is None:
+            return default
+        return str(value).strip().lower() in ("1", "true", "t", "yes", "y", "on")
+
+    def frame(self, files) -> Optional[np.ndarray]:
+        """The request's first frame in BGR, or None."""
+        payloads = [p for _, p in files]
+        if not payloads:
+            return None
+        frames, order = _decode_frames(payloads[:1])
+        return frames[0] if order == "bgr" else frames[0][..., ::-1]
+
+    def get_response(self, fields, files):
+        from dexbotic_tpu_torch.models.navila import parse_nav_action
+
+        if self._parse_bool(fields.get("episode_first_frame")):
+            self.session.reset()
+        run_model = self._parse_bool(fields.get("run_model"), default=True)
+        frame = self.frame(files)
+        if not run_model:
+            if frame is not None:
+                self.session.observe(frame)
+            return []
+        if frame is None:
+            return []
+        return parse_nav_action(self.session.act(frame, fields.get("text", ""), self.generator))
 
 
 class FlowVLAServer(ActionServer):

@@ -19,6 +19,13 @@ torch's format, ``params.pt`` and ``opt_state.pt`` (or ``adapter.pt`` alone
 under ``adapter_save``).  Every log line also goes to Weights & Biases when
 ``wandb_project`` (or WANDB_PROJECT) is set and ``wandb`` is installed, and
 carries ``data_wait_s``, the seconds a step waited on its batch.
+
+A stateful model (MemVLA's memory bank) passes ``aux_state``: its loss is
+then ``loss_fn(model, batch, generator, aux) -> (loss, metrics, new_aux)``,
+the new state is detached and carried to the next step, and the step takes
+the whole batch at once whatever ``gradient_accumulation_steps`` says (the
+state's order forbids splitting it), as the JAX trainer's aux step does.
+Checkpoints hold no aux state: a resumed run starts from a fresh one.
 """
 
 from __future__ import annotations
@@ -97,11 +104,23 @@ def load_checkpoint_params(path: str, base_params: Optional[dict] = None) -> dic
     return torch.load(os.path.join(path, "params.pt"), map_location="cpu", weights_only=True)
 
 
+def detach_tree(tree):
+    """A nested dict/list/tuple of tensors with every tensor detached."""
+    if isinstance(tree, dict):
+        return {k: detach_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(detach_tree(v) for v in tree)
+    return tree.detach() if isinstance(tree, torch.Tensor) else tree
+
+
 class Trainer:
-    """Training loop around ``loss_fn(model, batch, generator) -> (loss, metrics)``."""
+    """Training loop around ``loss_fn(model, batch, generator) -> (loss,
+    metrics)``, or ``loss_fn(model, batch, generator, aux) -> (loss, metrics,
+    new_aux)`` with an ``aux_state`` carried between steps."""
 
     def __init__(self, loss_fn: Callable, model: nn.Module, trainer_config: TrainerConfig,
-                 optimizer_config: OptimizerConfig, norm_stats_json: Optional[str] = None):
+                 optimizer_config: OptimizerConfig, norm_stats_json: Optional[str] = None,
+                 aux_state=None):
         if trainer_config.mesh_data not in (None, 1) or trainer_config.mesh_model != 1:
             raise NotImplementedError("the port's Trainer runs on one device; "
                                       "data/model meshes are not ported yet")
@@ -119,6 +138,7 @@ class Trainer:
         self.device = next(iter(self.params.values())).device
         self.optimizer = Optimizer(optimizer_config, self.params.items(), trainer_config.max_steps)
         self.step = 0
+        self.aux_state = aux_state
         self._metrics_file = None
         self._wandb = self._init_wandb()
 
@@ -129,12 +149,19 @@ class Trainer:
         (numpy arrays or tensors whose leading dim is accumulation x
         micro-batch).  Leaves each parameter's gradient, summed and averaged
         in its own dtype, in ``.grad``; returns (mean loss, the last
-        micro-batch's metrics)."""
-        accum = self.cfg.gradient_accumulation_steps
+        micro-batch's metrics).  With an aux state the batch is one
+        micro-batch and the state moves on to the loss's new one."""
         batch = {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()
                  if isinstance(v, (np.ndarray, torch.Tensor))}
         for p in self.params.values():
             p.grad = None
+        if self.aux_state is not None:  # the whole batch in one step, the state carried
+            gen = step_generator(self.cfg.seed, self.step, 0, self.device)
+            loss, metrics, new_aux = self.loss_fn(self.model, batch, gen, self.aux_state)
+            loss.backward()
+            self.aux_state = detach_tree(new_aux)
+            return loss.detach(), metrics
+        accum = self.cfg.gradient_accumulation_steps
         loss_sum = 0.0
         for m in range(accum):
             if accum == 1:

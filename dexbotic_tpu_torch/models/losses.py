@@ -1,18 +1,41 @@
-"""Shared losses (port of the hard-target part of dexbotic_tpu/models/losses.py)."""
+"""Shared losses (port of dexbotic_tpu/models/losses.py)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from dexbotic_tpu_torch.constants import IGNORE_INDEX
 
 
-def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-token NLL with no shift: (nll fp32 [B, S], mask bool [B, S])."""
+def token_nll(logits: torch.Tensor, targets: torch.Tensor,
+              soft_tokens: Optional[torch.Tensor] = None,
+              std: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token NLL with no shift: (nll fp32 [B, S], mask bool [B, S]).
+
+    With ``soft_tokens`` (int [K], an ordered set of vocabulary ids), a
+    target in the set is scored against a Gaussian over the set centred at
+    its place (std ``std``); any other target keeps the hard NLL."""
     mask = targets != IGNORE_INDEX
     safe = torch.where(mask, targets, 0).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
-    return -torch.gather(logp, -1, safe[..., None])[..., 0], mask
+    hard = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    if soft_tokens is None:
+        return hard, mask
+    soft_tokens = soft_tokens.to(device=logits.device, dtype=torch.long)
+    eq = safe[..., None] == soft_tokens  # [B, S, K]
+    in_set = eq.any(-1)
+    pos = eq.int().argmax(-1)  # the target's place in the set, where in_set
+    k = torch.arange(soft_tokens.shape[0], dtype=torch.float32, device=logits.device)
+    gauss = torch.exp(-0.5 * ((k - pos[..., None].float()) / std) ** 2)
+    gauss = gauss / gauss.sum(-1, keepdim=True)
+    soft = -(gauss * logp[..., soft_tokens]).sum(-1)
+    return torch.where(in_set, soft, hard), mask
+
+
+def _masked_mean(nll: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask, nll, 0.0).sum() / mask.sum().clamp_min(1)
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -20,6 +43,13 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
     logits [B, S, V] of any float dtype; labels int [B, S].  Mean over the
     unmasked targets."""
-    nll, mask = token_nll(logits[:, :-1], labels[:, 1:])
-    denom = mask.sum().clamp_min(1)
-    return torch.where(mask, nll, 0.0).sum() / denom
+    return _masked_mean(*token_nll(logits[:, :-1], labels[:, 1:]))
+
+
+def soft_cross_entropy_gaussian(logits: torch.Tensor, labels: torch.Tensor,
+                                soft_tokens: torch.Tensor, std: float = 1.0) -> torch.Tensor:
+    """NaVILA's soft CE: a target among ``soft_tokens`` (the numeric tokens,
+    in order) spreads its probability over the set with a Gaussian centred
+    at it; other targets take the hard CE.  Shifted and masked as
+    :func:`causal_lm_loss`."""
+    return _masked_mean(*token_nll(logits[:, :-1], labels[:, 1:], soft_tokens, std))

@@ -1,5 +1,5 @@
-"""MemVLA: CogACT with a perceptual-cognitive memory bank (port of the
-serving half of dexbotic_tpu/models/memvla.py).
+"""MemVLA: CogACT with a perceptual-cognitive memory bank (port of
+dexbotic_tpu/models/memvla.py).
 
 * The projector's image tokens are compressed by an SE bottleneck into the
   ``per`` tokens; the cognition feature (the last valid token's hidden
@@ -19,8 +19,15 @@ so that a step never waits on the device.  The sampler is the plain DDIM
 loop over ``dit_forward``: kernel K2 does not serve the memory
 cross-attention (``ops/dit_fused.fused_dit_sample`` refuses it).  On a CUDA
 device the LLaMA prefill is kernel K1, and under int8 serving the quantized
-products are kernel K4.  Training (``memvla_loss``, the sequential bank)
-is not ported yet.
+products are kernel K4.
+
+Training (:func:`memvla_loss`) threads the bank state through the steps in
+one of two ways: ``parallel_stream`` keeps a bank a row (each row its own
+episode stream, reset where ``episode_reset`` is set); ``group`` / ``stream``
+make the rows consecutive frames of one episode sharing a single bank
+(:func:`bank_step_sequential`, a loop over the rows, each row's new state
+detached before the next).  On a CUDA device its LLaMA forward is K1 and its
+backward K3.
 """
 
 from __future__ import annotations
@@ -327,6 +334,26 @@ def bank_step(model: MemVLA, cfg: MemVLAConfig, state: dict, per_tokens, cog_tok
     return out["per"], out["cog"], new_state
 
 
+def bank_step_sequential(model: MemVLA, cfg: MemVLAConfig, state1: dict, per_tokens,
+                         cog_tokens, timesteps, resets):
+    """'group' / 'stream' semantics: the batch rows are consecutive frames of
+    one episode sharing the single bank ``state1`` (``init_mem_state(cfg,
+    1)``), so row i retrieves against a bank that holds rows 0..i-1's
+    consolidated, detached features.  ``resets`` (bool [B]) empties the bank
+    before a row.  Returns (fused_per [B, ..], fused_cog [B, ..], the final
+    state1); the JAX ``lax.scan`` over rows is a loop here."""
+    per_out, cog_out = [], []
+    st = state1
+    for i in range(per_tokens.shape[0]):
+        st = reset_mem_rows(st, resets[i:i + 1])
+        per_f, cog_f, st = bank_step(model, cfg, st, per_tokens[i:i + 1], cog_tokens[i:i + 1],
+                                     timesteps[i:i + 1].float())
+        st = {r: {k: v.detach() for k, v in role.items()} for r, role in st.items()}
+        per_out.append(per_f)
+        cog_out.append(cog_f)
+    return torch.cat(per_out), torch.cat(cog_out), st
+
+
 def reset_mem_rows(state: dict, reset_mask: torch.Tensor) -> dict:
     """The bank with the rows of ``reset_mask`` (bool [B]) emptied: an
     episode's first frame."""
@@ -341,21 +368,67 @@ def reset_mem_rows(state: dict, reset_mask: torch.Tensor) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Serving
+# Training and serving
 # ---------------------------------------------------------------------------
 
 
-def encode(model: MemVLA, cfg: MemVLAConfig, input_ids, valid, images):
-    """(per tokens [B, P_tokens, per_token_size], cog token [B, 1, H])."""
-    feats = encode_images(model.vlm, cfg.vlm, images)  # the projector's output
+def encode(model: MemVLA, cfg: MemVLAConfig, input_ids, valid, images, remat=False):
+    """(per tokens [B, P_tokens, per_token_size], cog token [B, 1, H]).
+    ``remat`` checkpoints every tower and decoder layer in training (the JAX
+    loss takes none: see :func:`memvla_loss`)."""
+    feats = encode_images(model.vlm, cfg.vlm, images, remat=remat)  # the projector's output
     embeds = splice_image_embeds(model.vlm, cfg.vlm, input_ids, feats)
-    hidden = vlm_forward(model.vlm, cfg.vlm, input_ids, valid, inputs_embeds=embeds)
+    hidden = vlm_forward(model.vlm, cfg.vlm, input_ids, valid, inputs_embeds=embeds, remat=remat)
     cog = gather_last_hidden(hidden, valid)[:, None, :]
     return se_bottleneck(model.per_compr, feats), cog
 
 
 def schedule(cfg: MemVLAConfig) -> DiffusionSchedule:
     return DiffusionSchedule.create(cfg.diffusion_steps)
+
+
+def memvla_loss(model: MemVLA, cfg: MemVLAConfig, batch: dict, state: dict,
+                generator: Optional[torch.Generator] = None, sequential_bank: bool = False,
+                remat=False,
+                diffusion_t: Optional[torch.Tensor] = None,  # [B*rep] injectable (parity)
+                diffusion_noise: Optional[torch.Tensor] = None):  # [B*rep, chunk, dim]
+    """The diffusion loss conditioned on the memory-fused cog and per
+    tokens: (loss, metrics, new_state).  ``batch`` carries 'timesteps'
+    (float [B], each row's frame in its episode) and optionally
+    'episode_reset' (bool [B]).  ``sequential_bank`` is the 'group' /
+    'stream' semantics (``state`` is one bank, ``init_mem_state(cfg, 1)``);
+    by default each row has its own bank (parallel_stream).  Timesteps,
+    noise and the condition dropout are drawn from ``generator`` unless
+    injected; injected noise turns the dropout off, as in JAX.  ``remat``
+    checkpoints the tower and decoder layers, which the JAX loss never does
+    (its gradient_checkpointing flag does not reach this loss); the values
+    are the same."""
+    per, cog = encode(model, cfg, batch["input_ids"], batch["attention_mask"], batch["images"],
+                      remat=remat)
+    if sequential_bank:
+        resets = batch.get("episode_reset")
+        if resets is None:
+            resets = torch.zeros((per.shape[0],), dtype=torch.bool, device=per.device)
+        per_f, cog_f, new_state = bank_step_sequential(model, cfg, state, per, cog,
+                                                       batch["timesteps"], resets.bool())
+    else:
+        if "episode_reset" in batch:
+            state = reset_mem_rows(state, batch["episode_reset"].bool())
+        per_f, cog_f, new_state = bank_step(model, cfg, state, per, cog,
+                                            batch["timesteps"].float())
+    B, rep = cog.shape[0], cfg.repeated_diffusion_steps
+    actions = batch["actions"].reshape(B, -1, cfg.action_dim)[:, : cfg.chunk_size].float()
+    head = model.action_head
+    cog_rep = cog_f.float().repeat(rep, 1, 1)
+    per_rep = head.per_token_embedder(per_f.float()).repeat(rep, 1, 1)
+    drop_gen = None if diffusion_noise is not None else generator
+
+    def eps_fn(x_t, t):
+        return dit_mod.dit_forward(head, cfg.dit, x_t, t, cog_rep, drop_gen=drop_gen, mem=per_rep)
+
+    loss = schedule(cfg).training_loss(eps_fn, actions.repeat(rep, 1, 1), generator,
+                                       t=diffusion_t, noise=diffusion_noise)
+    return loss, {"action_loss": loss, "loss": loss}, new_state
 
 
 def sample_actions(model: MemVLA, cfg: MemVLAConfig, cog_f, per_f, noise, cfg_scale: float):

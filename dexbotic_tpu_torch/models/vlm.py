@@ -15,10 +15,12 @@ from torch import nn
 from dexbotic_tpu_torch.constants import IMAGE_TOKEN_INDEX
 from dexbotic_tpu_torch.nn.projector import Projector, apply_projector, init_projector_
 from dexbotic_tpu_torch.nn.transformer import (
+    Stream,
     Transformer,
     TransformerConfig,
     embed_tokens,
     init_transformer_,
+    mot_forward,
     transformer_forward,
 )
 from dexbotic_tpu_torch.nn.vit import ViT, ViTConfig, init_vit_, vit_forward
@@ -79,10 +81,20 @@ def vlm_forward(vlm: VLM, cfg: VLMConfig, input_ids: torch.Tensor, valid: torch.
                 images: Optional[torch.Tensor] = None,
                 inputs_embeds: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None,
-                grp: Optional[torch.Tensor] = None, remat=False) -> torch.Tensor:
-    """Causal VLM prefill; returns the final-normed last hidden states [B, S, H].
+                grp: Optional[torch.Tensor] = None, remat=False,
+                cache: Optional[dict] = None, update_cache: bool = False,
+                write_cols=None):
+    """Causal VLM forward: the final-normed last hidden states [B, S, H], or
+    (hidden, cache) when a cache is given or written (``update_cache``).
 
-    ``remat`` (False | True | "dots") checkpoints every ViT and decoder layer."""
+    With a cache, groups and positions continue after its valid tokens; see
+    ``nn/transformer.mot_forward`` for the cache modes.
+    ``remat`` (False | True | "dots") checkpoints every ViT and decoder
+    layer.  Per-row cache columns (``write_cols``) raise: the decode engine
+    is ROADMAP Queue 1 item 9."""
+    if write_cols is not None:
+        raise NotImplementedError("per-row cache columns (write_cols) are not ported yet: "
+                                  "ROADMAP Queue 1 item 9 (the decode engine)")
     if inputs_embeds is None:
         if images is not None:
             feats = encode_images(vlm, cfg, images, remat=remat)
@@ -90,12 +102,19 @@ def vlm_forward(vlm: VLM, cfg: VLMConfig, input_ids: torch.Tensor, valid: torch.
         else:
             inputs_embeds = embed_tokens(vlm.llm, cfg.llm, input_ids)
     valid = valid.to(torch.int32)
+    before = 0
+    if cache is not None and (grp is None or positions is None):
+        before = cache["valid"].sum(1, keepdim=True, dtype=torch.int32)
     if grp is None:
-        grp = torch.cumsum(valid, dim=1, dtype=torch.int32)
+        grp = torch.cumsum(valid, dim=1, dtype=torch.int32) + before
     if positions is None:
-        positions = torch.cumsum(valid, dim=1, dtype=torch.int32) - 1
-    return transformer_forward(cfg.llm, vlm.llm, inputs_embeds, positions, grp, valid,
-                               remat=remat)
+        positions = torch.cumsum(valid, dim=1, dtype=torch.int32) - 1 + before
+    if cache is None and not update_cache:
+        return transformer_forward(cfg.llm, vlm.llm, inputs_embeds, positions, grp, valid,
+                                   remat=remat)
+    outs, cache = mot_forward([Stream(cfg.llm, vlm.llm, inputs_embeds)], positions, grp, valid,
+                              cache=cache, update_cache=update_cache, remat=remat)
+    return outs[0], cache
 
 
 def last_valid_index(valid: torch.Tensor) -> torch.Tensor:

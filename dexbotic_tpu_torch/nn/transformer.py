@@ -12,7 +12,9 @@ cache in three modes:
   flow VLAs' training forward, gradients through both, ``remat`` per layer);
 * prefill (``update_cache=True``): the new tokens' rotated K/V are written
   into the cache at its ``length`` (a fresh cache of the new length when
-  ``cache`` is None); the caller's cache is not modified;
+  ``cache`` is None).  A given cache's K/V buffers are written in place, as
+  a JAX program that donates its cache (the decode loop of
+  ``models/generate.py``); its ``grp``/``valid`` are new tensors;
 * frozen prefix (``update_cache=False`` with a cache): the new K/V are
   concatenated to the cache for the attention call and never written back
   (pi0's Euler steps).
@@ -271,7 +273,7 @@ def mot_forward(streams: Sequence[Stream], positions: torch.Tensor, q_grp: torch
             if segs:
                 kv_seg = cache_seg.clone()
                 kv_seg[:, new] = q_seg
-            cache_k, cache_v = cache["k"].clone(), cache["v"].clone()
+            cache_k, cache_v = cache["k"], cache["v"]
         else:
             kv_grp = torch.cat([cache["grp"], q_grp], 1)
             kv_valid = torch.cat([cache["valid"], q_valid], 1)

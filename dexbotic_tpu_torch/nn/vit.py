@@ -121,9 +121,15 @@ def init_vit_(vit: ViT, gen: torch.Generator) -> None:
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
-    """[B, H, W, 3] -> [B, h*w, p*p*3] in (row, col, channel) patch order."""
+    """[B, H, W, 3] -> [B, h*w, p*p*3] in (row, col, channel) patch order.
+
+    Pixels past the last whole patch are dropped, as the reference's
+    stride-``patch`` convolution (VALID padding) drops them: SigLIP-so400m/384
+    takes 27 x 14 of its 384 pixels a side.  The JAX package's reshape
+    raises there instead."""
     B, H, W, C = images.shape
     h, w = H // patch, W // patch
+    images = images[:, : h * patch, : w * patch]
     x = images.reshape(B, h, patch, w, patch, C).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(B, h * w, patch * patch * C)
 

@@ -1,11 +1,12 @@
 """DB-MemVLA on LIBERO (port of playground/benchmarks/libero/libero_memvla.py):
 DiT-B with memory cross-attention, chunk 16, per tokens of 256 channels, a
-bank of 16 entries consolidated by ToMe, CLIP-L/336 frames.  It serves
-through the port (``--task inference``: MemVLAServer, with
-``episode_first_frame`` on each request); ``--task train`` raises until
-MemVLA training is ported (ROADMAP Queue 1 item 7, training).
+bank of 16 entries consolidated by ToMe, CLIP-L/336 frames, trained on
+episode-ordered 'parallel_stream' batches (a bank a row, carried from step
+to step).  ``--task inference`` serves it through MemVLAServer, with
+``episode_first_frame`` on each request.
 
 Usage:
+    python -m dexbotic_tpu_torch.playground.benchmarks.libero.libero_memvla --task train
     python -m dexbotic_tpu_torch.playground.benchmarks.libero.libero_memvla --task inference
 """
 
@@ -23,6 +24,7 @@ class LiberoMemVLAExp(MemVLAExp):
         default_factory=lambda: MemVLAModelConfig(
             action_model_type="DiT-B", action_dim=7, chunk_size=16,
             per_token_size=256, mem_length=16, consolidate_type="tome",
+            dataloader_type="parallel_stream",
         )
     )
     data: base_exp.DataConfig = field(

@@ -351,7 +351,9 @@ def test_mot_forward_modes_match_jax(mode):
         jc2, tc2 = _run_mot(pair, e2, cond2, pos2, grp2, valid2, jc, tc, update=True)
         _check_cache(jc2, tc2)
         assert int(tc2["length"]) == 20
-        np.testing.assert_array_equal(tc["k"].numpy()[:, :, :11], tc2["k"].numpy()[:, :, :11])
+        assert tc2["k"] is tc["k"] and tc2["v"] is tc["v"]  # the given K/V are written in place
+        np.testing.assert_allclose(tc2["k"].numpy()[:, :, :11], np.asarray(jc["k"])[:, :, :11],
+                                   atol=MODULE_ATOL, rtol=0)
     if mode == "frozen_prefix":  # the adaRMS expert's suffix against the frozen cache
         e2, pos2, grp2, valid2, cond2 = _mot_inputs(B, 6, 11, 4, split=0)
         k_before = tc["k"].clone()

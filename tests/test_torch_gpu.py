@@ -244,6 +244,96 @@ def test_flash_kernels_at_rl_shapes(cuda, pads):
     assert torch.equal(flash_tile_classes(*case[4]), flash_tile_classes_ref(*case[4]))
 
 
+def _navila_packed_case(cuda, B, segments, seed):
+    """NaVILA's packed training rows (LLaMA-2: 32 heads of 128): B rows of
+    4096, each the ``segments`` samples back to back (positions restarting,
+    groups = positions + 1) and the tail padding (segment -1)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    S = 4096
+    q, k, v, dout = (torch.randn(B, S, 32, 128, generator=g, device=cuda).bfloat16()
+                     for _ in range(4))
+    pos = torch.zeros(B, S, dtype=torch.int32, device=cuda)
+    seg = torch.full((B, S), -1, dtype=torch.int32, device=cuda)
+    valid = torch.zeros(B, S, dtype=torch.int32, device=cuda)
+    for r in range(B):
+        start = 0
+        for j, n in enumerate(segments):
+            pos[r, start: start + n] = torch.arange(n, dtype=torch.int32, device=cuda)
+            seg[r, start: start + n] = 2 * r + j
+            valid[r, start: start + n] = 1
+            start += n
+    grp = pos + 1
+    return q, k, v, dout, (grp, grp.clone(), valid), seg, seg.clone()
+
+
+def _navila_cached_case(cuda, Sq, filled, columns, seed):
+    """NaVILA's served calls: the prompt's prefill (``Sq`` = ``filled``) or one
+    decode row (``Sq`` = 1, the last filled column's) against a bf16 cache of
+    ``columns``, ``filled`` of them written; the cache's all-zero segments."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, dout = (torch.randn(1, Sq, 32, 128, generator=g, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(1, columns, 32, 128, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    valid = torch.zeros(1, columns, dtype=torch.int32, device=cuda)
+    valid[:, :filled] = 1
+    grp = torch.zeros(1, columns, dtype=torch.int32, device=cuda)
+    grp[:, :filled] = torch.arange(1, filled + 1, dtype=torch.int32, device=cuda)
+    q_grp = grp[:, filled - Sq: filled].clone()
+    zeros = [torch.zeros(1, n, dtype=torch.int32, device=cuda) for n in (Sq, columns)]
+    return q, k, v, dout, (q_grp, grp, valid), *zeros
+
+
+def _k1_within_bound(case, rows):
+    q, k, v, _, ints, q_seg, kv_seg = case
+    out, _ = _flash_cuda(q, k, v, *ints, q.shape[-1] ** -0.5, q_seg, kv_seg, rows=rows)
+    torch.cuda.synchronize()
+    ref, _ = flash_attention_ref(q.float(), k.float(), v.float(), *ints, None, q_seg, kv_seg)
+    plain, _ = flash_attention_ref(q, k, v, *ints, None, q_seg, kv_seg)
+    assert (out.float() - ref).abs().max().item() <= _bound(plain, ref)
+    return out
+
+
+@pytest.mark.parametrize("B,segments", [(1, (1931, 1850)), (2, (1792, 2100)), (1, (4096,))])
+def test_flash_kernels_at_navila_packed_rows(cuda, B, segments):
+    """K1 (both block shapes) and K3 with segments at NaVILA's packed 4096-token
+    rows; every tile pairing two segments is classed dead, in the class map
+    both kernels share."""
+    case = _navila_packed_case(cuda, B, segments, seed=41 + B)
+    for rows in (64, 128):
+        _k1_within_bound(case, rows)
+    q, k, v, dout, ints, q_seg, kv_seg = case
+    out, lse = flash_attention_fwd(q, k, v, *ints, None, q_seg, kv_seg)
+    got = flash_attention_bwd(q, k, v, *ints, out, lse, dout, None, q_seg, kv_seg)
+    torch.cuda.synchronize()
+    ref = flash_attention_bwd_ref(q.float(), k.float(), v.float(), *ints, out.float(), lse,
+                                  dout.float(), None, q_seg, kv_seg)
+    plain = flash_attention_bwd_ref(q, k, v, *ints, out, lse, dout, None, q_seg, kv_seg)
+    for a, p, r in zip(got, plain, ref):
+        assert torch.isfinite(a).all() and (a.float() - r).abs().max().item() <= _bound(p, r)
+    pad = sum(segments)
+    if pad < 4096:  # the padding takes no gradient
+        assert not got[1][:, pad:].any() and not got[2][:, pad:].any()
+    cls = flash_tile_classes(*ints, q_seg, kv_seg)
+    assert torch.equal(cls, flash_tile_classes_ref(*ints, q_seg, kv_seg))
+    if len(segments) > 1:  # the second segment's q tiles against the first's kv tiles
+        first_kv = segments[0] // 64  # tiles wholly inside segment 0
+        second_q = -(-segments[0] // 64)  # tiles wholly inside segment 1
+        assert (cls[:, second_q:(segments[0] + segments[1]) // 64, :first_kv] == 0).all()
+
+
+@pytest.mark.parametrize("Sq,filled,columns", [(1, 1700, 1732), (1, 2211, 2227),
+                                               (2195, 2195, 2227)])
+def test_flash_kernel_at_navila_decode_and_prefill(cuda, Sq, filled, columns):
+    """K1 (both block shapes) at one query row against a 1.7k and a 2.2k bf16
+    cache (NaVILA's decode steps: the block's other 63 or 127 rows are past
+    Sq), and at the 2195-token prompt's prefill against the cache's 2227
+    columns; the rows past Sq are never written."""
+    case = _navila_cached_case(cuda, Sq, filled, columns, seed=Sq + filled)
+    for rows in (64, 128):
+        out = _k1_within_bound(case, rows)
+        assert out.shape == (1, Sq, 32, 128) and torch.isfinite(out).all()
+
+
 @pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D", [(2, 129, 129, 8, 2, 64), (2, 65, 300, 4, 1, 128),
                                               (1, 200, 520, 4, 4, 64)])
 def test_flash_kernels_d64_and_cross_lengths(cuda, B, Sq, Skv, Hq, Hkv, D):

@@ -92,3 +92,14 @@ def test_kernel_modules_import_without_nvcc_or_gpu():
     # host code (g++, built into _build/ by data/fast_image.py), outside the kernels' hash
     assert os.listdir(os.path.join(csrc, "host")) == ["fast_image.cpp"]
     assert all(os.path.dirname(p) == csrc for p in build.LIBRARY._sources())
+
+
+def test_memvla_training_and_navila_modules_are_covered():
+    """MemVLA training's schedules and NaVILA's modules (the model, generate,
+    the losses, the dataset, the exp, the example recipe) are among the
+    modules imported with JAX blocked and scanned above."""
+    names = _modules()
+    for module in ("exp.mem_trainer", "models.navila", "models.generate", "models.losses",
+                   "data.dex_navila_dataset", "exp.navila_exp", "nn.projector",
+                   "playground.example_navila_exp"):
+        assert f"dexbotic_tpu_torch.{module}" in names

@@ -348,8 +348,6 @@ def test_convert_memvla_matches_jax_and_round_trips():
                                          torch.zeros(1), noise=_t(noise))[0]
             for m in (model, back)]
     assert torch.equal(*outs)
-    with pytest.raises(NotImplementedError, match="training"):
-        _exp().train()
 
 
 def test_int8_chunk_matches_jax():
