@@ -10,9 +10,10 @@ and packs ``samples_per_pack`` of them into ``per_device_batch_size`` rows of
 attention.  Serving is :class:`NaVILAInferenceSession` behind
 ``exp/serve.NaVILAServer``; as in the JAX package the exp has no
 ``inference()`` (the server is built by hand), and there is no converter of
-a released NaVILA checkpoint.  Not ported: context parallelism
-(``context_parallel_seq > 1``, ROADMAP Queue 1 item 11) and the shared decode
-engine of a fleet of sessions (item 9).
+a released NaVILA checkpoint.  A fleet of sessions (one a robot) may share
+one continuous-batching decode engine (:meth:`NaVILAInferenceSession.make_shared_engine`).
+Not ported: context parallelism (``context_parallel_seq > 1``, ROADMAP
+Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -227,23 +228,37 @@ def _stop_string(exp: NaVILAExp) -> str:
 class NaVILAInferenceSession:
     """The frame history and the text decoding of one navigation stream.
     The chat template's stop string ends generation as the EOS id when it is
-    one token (else id 0).  A shared ``engine`` (continuous batching of a
-    fleet's sessions) raises: ROADMAP Queue 1 item 9."""
+    one token (else id 0).  With a shared ``engine`` (continuous batching of
+    a fleet's sessions, :meth:`make_shared_engine`) the session's requests
+    join the engine's slots, and its text stops at the EOS id and at id 0
+    (the engine's own EOS), as the JAX session's does."""
 
     def __init__(self, exp: NaVILAExp, cfg: NaVILAConfig, model, tokenizer, engine=None,
                  max_new_tokens: int = 32):
-        if engine is not None:
-            raise NotImplementedError("the shared decode engine (continuous batching) is not "
-                                      "ported yet: ROADMAP Queue 1 item 9")
         self.exp, self.cfg, self.tokenizer = exp, cfg, tokenizer
+        self.engine = engine
         self.device = torch.device(exp.device)
         self.buffer = FrameHistoryBuffer(cfg.num_video_frames)
         stop = _stop_string(exp)
         stop_ids = tokenizer.encode(stop, add_bos=False) if stop else []
         self.eos_token_id = stop_ids[0] if len(stop_ids) == 1 else 0
         self.max_new_tokens = max_new_tokens
-        self.gen = exp.make_generate_fn(cfg, model, max_new_tokens=max_new_tokens,
-                                        eos_token_id=self.eos_token_id)
+        self.gen = None if engine is not None else exp.make_generate_fn(
+            cfg, model, max_new_tokens=max_new_tokens, eos_token_id=self.eos_token_id)
+
+    @staticmethod
+    def make_shared_engine(cfg: NaVILAConfig, model, slots: int = 8, max_new_tokens: int = 48,
+                           max_prompt: int = 2048, prefill_chunk: int = 0):
+        """One decode engine for a fleet of sessions (EOS id 0).  A history
+        prompt runs to 2k tokens: ``prefill_chunk`` (e.g. 512) keeps the
+        fleet's in-flight decodes ticking during those prefills.  Size
+        ``max_prompt`` to the prompt (2195 tokens at 8 frames of 196 with
+        the served instruction): the JAX default, 2048, is below it."""
+        from dexbotic_tpu_torch.exp.decode_engine import ContinuousBatchingEngine
+
+        return ContinuousBatchingEngine(model.vlm, cfg.vlm, slots=slots, max_prompt=max_prompt,
+                                        max_new=max_new_tokens, eos_token_id=0,
+                                        prefill_chunk=prefill_chunk or None)
 
     def reset(self) -> None:
         self.buffer.reset()
@@ -263,20 +278,33 @@ class NaVILAInferenceSession:
         return tokenizer_image_token(conv.get_prompt(), self.tokenizer,
                                      num_image_tokens=self.cfg.vlm.num_image_tokens)
 
-    def inputs(self, frame: np.ndarray, instruction: str):
-        """(ids [1, S], valid, images [1, n_frames, H, W, 3]) of a request
-        on ``frame``, which joins the history."""
+    def host_inputs(self, frame: np.ndarray, instruction: str) -> tuple[list, np.ndarray]:
+        """(prompt ids, images [n_frames, H, W, 3]) of a request on
+        ``frame``, which joins the history."""
         from dexbotic_tpu_torch.data.image_processing import preprocess_image
 
         frames = self.buffer.add(frame)
         proc = self.exp.data.build_image_processor()
         imgs = np.stack([preprocess_image(f, proc) for f in frames])
-        ids = torch.tensor([self.prompt_ids(instruction, len(frames))], dtype=torch.int32,
-                           device=self.device)
+        return self.prompt_ids(instruction, len(frames)), imgs
+
+    def inputs(self, frame: np.ndarray, instruction: str):
+        """(ids [1, S], valid, images [1, n_frames, H, W, 3]) of a request
+        on ``frame``, which joins the history, on the session's device."""
+        ids, imgs = self.host_inputs(frame, instruction)
+        ids = torch.tensor([ids], dtype=torch.int32, device=self.device)
         return ids, torch.ones_like(ids), torch.from_numpy(imgs)[None].to(self.device)
 
     def act(self, frame: np.ndarray, instruction: str,
             generator: Optional[torch.Generator] = None) -> str:
+        if self.engine is not None:
+            ids, imgs = self.host_inputs(frame, instruction)
+            toks = self.engine.submit(np.asarray(ids, np.int32), images=imgs,
+                                      max_new=self.max_new_tokens)
+            for stop in (self.eos_token_id, 0):
+                if stop in toks:
+                    toks = toks[: toks.index(stop)]
+            return self._postprocess(self.tokenizer.decode(toks))
         tokens = self.gen(*self.inputs(frame, instruction), generator)
         return self._postprocess(self.tokenizer.decode([int(t) for t in tokens[0].tolist()]))
 

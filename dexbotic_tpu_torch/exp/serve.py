@@ -1,14 +1,16 @@
 """HTTP action server: POST /process_frame -> JSON action chunk.
 
-Port of the CogACT, OFT, MemVLA and flow-VLA (pi0/pi0.5/DM0) serving paths of
-dexbotic_tpu/exp/serve.py: multipart form with a 'text' prompt, image file
-parts and optional 'batch_size' and 'states' fields; the response is a JSON
-[chunk_size x action_dim] list (a list of those for batch_size > 1).
-Stdlib http.server; host-side image preprocessing, or for CogACT and OFT on the
-device (``fuse_preprocess``); optional micro-batching of concurrent
-single-frame requests.  The device call draws its noise from
-one ``torch.Generator`` seeded from the config and advanced by every
-request.
+Port of the serving paths of dexbotic_tpu/exp/serve.py: CogACT, OFT,
+MemVLA, NaVILA and the flow VLAs (pi0/pi0.5/DM0) answer a multipart form
+with a 'text' prompt, image file parts and optional 'batch_size' and
+'states' fields with a JSON [chunk_size x action_dim] list (a list of those
+for batch_size > 1); the text policies, Discrete VLA and MUVLA, answer
+{"text": ..., ...}.  Stdlib http.server; host-side image preprocessing, or
+for CogACT and OFT on the device (``fuse_preprocess``); optional
+micro-batching of concurrent single-frame requests, or, for the text
+policies, the continuous-batching decode engine (``exp/decode_engine.py``).
+The device call draws its noise from one ``torch.Generator`` seeded from the
+config and advanced by every request.
 """
 
 from __future__ import annotations
@@ -137,6 +139,16 @@ def _cogact_prompt_ids(exp, cfg, tokenizer, prompt: str, assistant_stub=" ") -> 
                                  num_image_tokens=cfg.vlm.num_image_tokens)
 
 
+MAX_TEXT_TOKENS = 64  # a request's own text the engine-backed servers make room for
+
+
+def engine_max_prompt(empty_prompt_ids: int) -> int:
+    """The decode engine's prompt capacity for a served policy: the 64-token
+    bucket of the prompt built around an empty request text (the template and
+    the image slots) plus MAX_TEXT_TOKENS of the request's own text."""
+    return -(-(empty_prompt_ids + MAX_TEXT_TOKENS) // 64) * 64
+
+
 def _decode_frames(payloads) -> tuple[list, str]:
     """Raw multipart payloads / arrays / PIL images -> (uint8 HWC arrays, channel order)."""
     try:
@@ -182,7 +194,12 @@ class ActionServer:
 
     micro_batch > 1 coalesces concurrent single-frame requests that arrive
     within ``micro_batch_window_ms`` of each other into one padded device
-    call; every client still gets its own chunk."""
+    call; every client still gets its own chunk.  A server that synchronises
+    itself (``concurrent``: the continuous-batching decode engine) serves
+    requests without the global lock."""
+
+    concurrent = False
+    engine = None  # a continuous-batching decode engine the server owns, closed by close()
 
     def __init__(self, host: str = "0.0.0.0", port: int = 7891, micro_batch: int = 0,
                  micro_batch_window_ms: float = 5.0, micro_batch_timeout_s: float = 900.0):
@@ -200,9 +217,12 @@ class ActionServer:
 
     def close(self) -> None:
         """Stop the micro-batch worker once the requests queued before it are
-        served: the worker holds the server, and so its model, until then."""
+        served (the worker holds the server, and so its model, until then),
+        and the server's decode engine."""
         if self._mb_queue is not None:
             self._mb_queue.put(None)
+        if self.engine is not None:
+            self.engine.close()
 
     def get_response(self, fields: dict, files: list):
         raise NotImplementedError
@@ -273,6 +293,11 @@ class ActionServer:
                     single = int(fields.get("batch_size", 1)) == 1
                     if server_self._mb_queue is not None and single:
                         result = server_self._submit_single(fields, files)
+                    elif server_self.concurrent:
+                        # the server synchronises itself (the continuous-batching
+                        # decode engine): requests must reach it together for
+                        # their decode steps to coalesce
+                        result = server_self.get_response(fields, files)
                     else:
                         with server_self._lock:
                             result = server_self.get_response(fields, files)
@@ -694,3 +719,187 @@ class FlowVLAServer(ActionServer):
                 out = np.asarray(pipe(data)["action"])
             out = out[:, : getattr(icfg, "action_dim_out", out.shape[-1])]
         return out.tolist()
+
+
+class DiscreteVLAServer(ActionServer):
+    """Text-action serving for Discrete VLA (digit strings): a request's
+    image(s) and 'text' give the prompt (the CogACT prompt with an empty
+    assistant turn); the reply is {"text", "actions"}, the actions
+    denormalised by the served {min, max} statistics.
+
+    ``continuous_batching`` > 0 decodes greedily through the slot engine
+    (``exp/decode_engine.py``) so that concurrent robot clients share
+    decode steps (the handler takes no global lock: ``concurrent``); a text
+    that does not parse falls back to ``discrete_vla_inference_action``'s
+    sampled retries, as the reply's actions ("text" keeps the engine's
+    text).  Without the engine every request takes that function, and
+    "text" is "".  The engine's prompt capacity ``max_prompt`` defaults to
+    :func:`engine_max_prompt` of the model's prompt (the JAX server keeps
+    the engine's 512, below a full-width prompt).  The sampled retries draw
+    from the server's generator, one request's at a time.  ``parsed`` and
+    ``unparsed`` count the requests whose action came from a parsed text and
+    those that answered zeros."""
+
+    def __init__(self, exp, cfg, model, tokenizer, norms=None, host="0.0.0.0", port=7891,
+                 continuous_batching: int = 0, prefill_chunk: int = 0,
+                 max_prompt: Optional[int] = None):
+        super().__init__(host, port)
+        self.exp, self.cfg, self.model, self.tokenizer, self.norms = exp, cfg, model, tokenizer, norms
+        self.device = torch.device(exp.device)
+        self.eos = getattr(tokenizer, "eos_token_id", 0) or 0
+        self.generator = torch.Generator(device=self.device).manual_seed(0)
+        self._rng_lock = threading.Lock()
+        self.parsed = self.unparsed = 0
+        if continuous_batching > 0:
+            from dexbotic_tpu_torch.exp.decode_engine import ContinuousBatchingEngine
+
+            self.concurrent = True
+            if max_prompt is None:
+                max_prompt = engine_max_prompt(len(_cogact_prompt_ids(
+                    exp, cfg, tokenizer, "", assistant_stub=None)))
+            self.engine = ContinuousBatchingEngine(
+                model.vlm, cfg.vlm, slots=continuous_batching, max_prompt=max_prompt,
+                max_new=cfg.max_new_tokens, eos_token_id=self.eos,
+                prefill_chunk=prefill_chunk or None)
+
+    def _prepare(self, fields, files):
+        frames, order = _decode_frames([p for _, p in files])
+        imgs = preprocess_images_batch(frames, self.exp.data.build_image_processor(),
+                                       channel_order=order)
+        # an autoregressive text policy: the assistant turn stays empty
+        ids = _cogact_prompt_ids(self.exp, self.cfg, self.tokenizer, fields.get("text", ""),
+                                 assistant_stub=None)
+        return np.asarray(ids, np.int32), imgs
+
+    def get_response(self, fields, files):
+        from dexbotic_tpu_torch.models.discrete_vla import parse_action_text
+
+        ids, imgs = self._prepare(fields, files)
+        text = ""
+        if self.engine is not None:
+            toks = self.engine.submit(ids, images=imgs)
+            if self.eos in toks:
+                toks = toks[: toks.index(self.eos)]
+            text = self.tokenizer.decode(toks)
+            action = parse_action_text(text, self.cfg.action_dim, self.cfg.vocab_bins)
+            if action is None:  # sampled retries through generate
+                action = self._fused_decode(ids, imgs)
+            else:
+                with self._rng_lock:
+                    self.parsed += 1
+        else:
+            action = self._fused_decode(ids, imgs)
+        if self.norms is not None:
+            lo = np.asarray(self.norms["min"], np.float64)
+            hi = np.asarray(self.norms["max"], np.float64)
+            action = lo + (np.clip(action[: len(lo)], -1, 1) + 1.0) * 0.5 * (hi - lo)
+        return {"text": text, "actions": np.asarray(action).tolist()}
+
+    def _fused_decode(self, ids, imgs) -> np.ndarray:
+        from dexbotic_tpu_torch.models.discrete_vla import discrete_vla_inference_action
+
+        input_ids = torch.from_numpy(ids)[None].to(self.device)
+        stats: dict = {}
+        # one decode at a time on the server's generator: the eager decode is
+        # host-bound under the interpreter lock, where concurrent decodes only
+        # contend (the JAX server, whose calls are asynchronous device
+        # programs, holds its lock only to split the key)
+        with self._rng_lock:
+            action = discrete_vla_inference_action(
+                self.model, self.cfg, self.tokenizer, input_ids, torch.ones_like(input_ids),
+                torch.from_numpy(imgs)[None].to(self.device), self.eos,
+                generator=self.generator, stats=stats)
+            if stats["parsed"]:
+                self.parsed += 1
+            else:
+                self.unparsed += 1
+        return action
+
+
+class MUVLAServer(ActionServer):
+    """Map-understanding VLA serving: the first posted image is the MAP
+    view, the rest the observation views (the current one, then the
+    history); the reply is {"text": the generated action text}, cut at the
+    EOS id, the template's sep2 stop string removed, stripped.
+
+    ``continuous_batching`` > 0 serves the decode through the slot engine's
+    embeds route: the towers, the history QFormer and the fuser run on the
+    request's thread, and the spliced prompt (in fp32, as the JAX server
+    hands it over) joins the engine, so concurrent requests share decode
+    steps (``concurrent``).  ``max_prompt`` defaults to
+    :func:`engine_max_prompt` of the prompt with four observation views (the
+    JAX server keeps the engine's 512).  Without the engine a request is one
+    ``muvla_generate`` call drawing from the server's generator, one at a
+    time."""
+
+    def __init__(self, exp, cfg, model, tokenizer, host="0.0.0.0", port=7891,
+                 max_new_tokens: int = 32, continuous_batching: int = 0,
+                 prefill_chunk: int = 0, max_prompt: Optional[int] = None):
+        super().__init__(host, port)
+        self.exp, self.cfg, self.model, self.tokenizer = exp, cfg, model, tokenizer
+        self.device = torch.device(exp.device)
+        self.max_new_tokens = max_new_tokens
+        self.eos = getattr(tokenizer, "eos_token_id", 0) or 0
+        self.gen = exp.make_generate_fn(cfg, model, max_new_tokens=max_new_tokens,
+                                        eos_token_id=self.eos)
+        self.generator = torch.Generator(device=self.device).manual_seed(0)
+        self._rng_lock = threading.Lock()
+        if continuous_batching > 0:
+            from dexbotic_tpu_torch.exp.decode_engine import ContinuousBatchingEngine
+
+            self.concurrent = True
+            if max_prompt is None:
+                max_prompt = engine_max_prompt(len(self.prompt_ids("", 4)))
+            self.engine = ContinuousBatchingEngine(
+                model, cfg.vlm, slots=continuous_batching, max_prompt=max_prompt,
+                max_new=max_new_tokens, eos_token_id=self.eos,
+                prefill_chunk=prefill_chunk or None)
+
+    def prompt_ids(self, prompt: str, n_obs_views: int) -> list:
+        """The served prompt: the chat template around '<image>' + the text,
+        no newline, an empty assistant turn; the tag expands to the fused
+        tokens of ``n_obs_views`` observation views."""
+        conv = conversation_lib.conv_templates[self.exp.tokenizer.chat_template].copy()
+        conv.append_message(conv.roles[0], "<image>" + prompt)
+        conv.append_message(conv.roles[1], None)
+        return tokenizer_image_token(conv.get_prompt(), self.tokenizer,
+                                     num_image_tokens=self.cfg.num_fused_tokens(n_obs_views))
+
+    def _prepare(self, fields, files):
+        payloads = [p for _, p in files]
+        if len(payloads) < 2:
+            raise ValueError("MUVLA needs a map view and at least one observation view")
+        proc = self.exp.data.build_image_processor()
+        map_f, map_o = _decode_frames(payloads[:1])
+        obs_f, obs_o = _decode_frames(payloads[1:])
+        map_img = torch.from_numpy(preprocess_images_batch(map_f, proc, channel_order=map_o))
+        obs = torch.from_numpy(preprocess_images_batch(obs_f, proc, channel_order=obs_o))[None]
+        ids = torch.tensor([self.prompt_ids(fields.get("text", ""), obs.shape[1])],
+                           dtype=torch.int32)
+        return ids.to(self.device), map_img.to(self.device), obs.to(self.device)
+
+    def _decode_tokens(self, toks: list) -> dict:
+        if self.eos in toks:
+            toks = toks[: toks.index(self.eos)]
+        text = self.tokenizer.decode(toks)
+        sep2 = getattr(conversation_lib.conv_templates[self.exp.tokenizer.chat_template],
+                       "sep2", None)
+        if sep2:
+            text = text.replace(sep2, "")
+        return {"text": text.strip()}
+
+    @torch.no_grad()
+    def get_response(self, fields, files):
+        from dexbotic_tpu_torch.models.muvla import fuse_obs_with_history
+        from dexbotic_tpu_torch.models.vlm import splice_image_embeds
+
+        input_ids, map_img, obs = self._prepare(fields, files)
+        if self.engine is not None:
+            tokens = fuse_obs_with_history(self.model, self.cfg, map_img, obs)
+            embeds = splice_image_embeds(self.model, self.cfg.vlm, input_ids, tokens)
+            toks = self.engine.submit(input_ids[0].cpu().numpy(), embeds=embeds[0].float(),
+                                      max_new=self.max_new_tokens)
+            return self._decode_tokens(toks)
+        with self._rng_lock:  # one decode at a time, as DiscreteVLAServer's retries
+            tokens = self.gen(input_ids, torch.ones_like(input_ids), map_img, obs, self.generator)
+        return self._decode_tokens([int(t) for t in tokens[0].tolist()])

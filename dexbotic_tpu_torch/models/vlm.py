@@ -87,14 +87,13 @@ def vlm_forward(vlm: VLM, cfg: VLMConfig, input_ids: torch.Tensor, valid: torch.
     """Causal VLM forward: the final-normed last hidden states [B, S, H], or
     (hidden, cache) when a cache is given or written (``update_cache``).
 
-    With a cache, groups and positions continue after its valid tokens; see
-    ``nn/transformer.mot_forward`` for the cache modes.
+    With a cache, groups and positions continue per row after its valid
+    tokens; see ``nn/transformer.mot_forward`` for the cache modes and
+    ``write_cols`` (per-row cache columns, the decode engine's).
     ``remat`` (False | True | "dots") checkpoints every ViT and decoder
-    layer.  Per-row cache columns (``write_cols``) raise: the decode engine
-    is ROADMAP Queue 1 item 9."""
-    if write_cols is not None:
-        raise NotImplementedError("per-row cache columns (write_cols) are not ported yet: "
-                                  "ROADMAP Queue 1 item 9 (the decode engine)")
+    layer."""
+    if write_cols is not None and (cache is None or not update_cache):
+        raise ValueError("write_cols writes into a given cache (update_cache=True)")
     if inputs_embeds is None:
         if images is not None:
             feats = encode_images(vlm, cfg, images, remat=remat)
@@ -113,7 +112,8 @@ def vlm_forward(vlm: VLM, cfg: VLMConfig, input_ids: torch.Tensor, valid: torch.
         return transformer_forward(cfg.llm, vlm.llm, inputs_embeds, positions, grp, valid,
                                    remat=remat)
     outs, cache = mot_forward([Stream(cfg.llm, vlm.llm, inputs_embeds)], positions, grp, valid,
-                              cache=cache, update_cache=update_cache, remat=remat)
+                              cache=cache, update_cache=update_cache, remat=remat,
+                              write_cols=write_cols)
     return outs[0], cache
 
 

@@ -17,11 +17,17 @@ cache in three modes:
   ``models/generate.py``); its ``grp``/``valid`` are new tensors;
 * frozen prefix (``update_cache=False`` with a cache): the new K/V are
   concatenated to the cache for the attention call and never written back
-  (pi0's Euler steps).
+  (pi0's Euler steps);
+* per-row columns (``write_cols``, with ``update_cache``): row b's new
+  tokens go to columns ``write_cols[b]..+T-1`` of a given cache, in place,
+  and ``length`` is left as it is: the decode engine
+  (``exp/decode_engine.py``), whose slots sit at different depths.  A write
+  past the cache's last column is dropped, as XLA drops an out-of-bounds
+  scatter (torch would raise).
 
 Layers are a ``ModuleList``: ``utils/bridge.py`` unstacks the JAX layer
 stacks.  Not ported: MoE FFNs and their load-balance loss (``want_aux``,
-ROADMAP Queue 1 item 11) and per-row cache columns (``write_cols``, item 9).
+ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -208,6 +214,31 @@ def _i32(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if x is None else x.to(torch.int32).contiguous()
 
 
+class _RowWrites:
+    """Row b's T new tokens written at cache columns ``cols[b]..+T-1``; a
+    write past the cache's ends is dropped (XLA's scatter semantics).
+
+    No write leaves the cache and no host sync is needed: a dropped write is
+    sent to the nearest column in bounds, carrying the value the row's own
+    kept write puts there (the same value twice), or, when the row keeps no
+    write at all (a parked or finished slot), the value already there."""
+
+    def __init__(self, cols: torch.Tensor, T: int, C: int):
+        w = cols.to(torch.long)[:, None]
+        t = torch.arange(T, device=w.device)[None]
+        self.rows = torch.arange(w.shape[0], device=w.device)[:, None].expand(-1, T)
+        self.tgt = (w + t).clamp(0, C - 1)  # the column each write lands on
+        self.src = (self.tgt - w).clamp(0, T - 1)  # the new token whose value it carries
+        self.keeps = ((w <= C - 1) & (w + T - 1 >= 0))  # [B, 1]: the row keeps a write
+
+    def put_(self, buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+        """Write ``new`` [B, T, ...] into ``buf`` [B, C, ...] in place."""
+        keep = self.keeps.reshape(self.keeps.shape + (1,) * (new.ndim - 2))
+        vals = torch.where(keep, new.to(buf.dtype)[self.rows, self.src], buf[self.rows, self.tgt])
+        buf[self.rows, self.tgt] = vals
+        return buf
+
+
 def mot_forward(streams: Sequence[Stream], positions: torch.Tensor, q_grp: torch.Tensor,
                 q_valid: torch.Tensor, cache: Optional[dict] = None, update_cache: bool = False,
                 remat=False, q_seg: Optional[torch.Tensor] = None, write_cols=None,
@@ -225,9 +256,8 @@ def mot_forward(streams: Sequence[Stream], positions: torch.Tensor, q_grp: torch
     final-normed.  ``cache`` is the updated cache (``update_cache``), the
     given one (frozen mode) or None.  Segment ids stay None when neither the
     call nor the cache has any."""
-    if write_cols is not None:
-        raise NotImplementedError("per-row cache columns (write_cols) are not ported yet: "
-                                  "ROADMAP Queue 1 item 9 (the decode engine)")
+    if write_cols is not None and (cache is None or not update_cache):
+        raise ValueError("write_cols writes into a given cache (update_cache=True)")
     if want_aux:
         raise NotImplementedError("the MoE load-balance loss (want_aux) is not ported yet: "
                                   "ROADMAP Queue 1 item 11")
@@ -263,7 +293,13 @@ def mot_forward(streams: Sequence[Stream], positions: torch.Tensor, q_grp: torch
         if segs:
             q_seg = torch.zeros_like(q_grp) if q_seg is None else q_seg
             cache_seg = torch.zeros_like(cache["grp"]) if cache_seg is None else cache_seg
-        if update_cache:
+        if update_cache and write_cols is not None:
+            rw = _RowWrites(write_cols, T, cache["grp"].shape[1])
+            kv_grp = rw.put_(cache["grp"].clone(), q_grp)
+            kv_valid = rw.put_(cache["valid"].clone(), q_valid)
+            kv_seg = rw.put_(cache_seg.clone(), q_seg) if segs else None
+            cache_k, cache_v = cache["k"], cache["v"]
+        elif update_cache:
             if start + T > cache["grp"].shape[1]:
                 raise ValueError(f"{T} tokens at {start} overflow a cache of {cache['grp'].shape[1]}")
             new = slice(start, start + T)
@@ -305,7 +341,9 @@ def mot_forward(streams: Sequence[Stream], positions: torch.Tensor, q_grp: torch
         if ck is None:
             k_full, v_full = k_cat, v_cat
         else:
-            if update_cache:  # ck/cv: this layer's slice of the call's own buffer
+            if update_cache and write_cols is not None:  # per-row columns, in place
+                k_full, v_full = rw.put_(ck, k_cat), rw.put_(cv, v_cat)
+            elif update_cache:  # ck/cv: this layer's slice of the call's own buffer
                 ck[:, start:start + T] = k_cat
                 cv[:, start:start + T] = v_cat
                 k_full, v_full = ck, cv
@@ -337,7 +375,7 @@ def mot_forward(streams: Sequence[Stream], positions: torch.Tensor, q_grp: torch
             for s, x in zip(streams, xs)]
     if update_cache:
         cache = {"k": cache_k, "v": cache_v, "grp": kv_grp, "valid": kv_valid, "seg": kv_seg,
-                 "length": start + T}
+                 "length": start if write_cols is not None else start + T}
     return outs, cache
 
 

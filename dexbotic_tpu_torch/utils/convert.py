@@ -22,7 +22,8 @@ a private file mapping, so neither the ``safetensors`` package nor numpy
 takes part and bf16 reads as bf16; ``.bin`` / ``.pt`` files go through
 ``torch.load(weights_only=True)``.
 
-Not ported yet: the MUVLA converter, which waits for its model.
+MUVLA's fuser and history QFormer hold torch ``nn.MultiheadAttention``s:
+their packed ``in_proj_weight`` splits into the q, k and v linears.
 """
 
 from __future__ import annotations
@@ -434,10 +435,59 @@ def convert_memvla(sd: dict, cfg) -> dict:
             "mem_bank": bank, "action_head": convert_dit(sd, cfg.dit, prefix="model.action_head.net.")}
 
 
+# ---------------------------------------------------------------------------
+# MUVLA (the reference's muvla/muvla_arch.py)
+# ---------------------------------------------------------------------------
+
+
+def _convert_torch_mha(sd: dict, prefix: str) -> dict:
+    """torch ``nn.MultiheadAttention`` (packed in_proj_weight / in_proj_bias)
+    -> ``models/muvla.MHA``'s q/k/v/o tree."""
+    sd = _strip(sd, prefix)
+    w, b = sd["in_proj_weight"], sd["in_proj_bias"]  # [3D, D], [3D]
+    d = w.shape[1]
+    parts = {n: {"w": w[i * d:(i + 1) * d].t(), "b": b[i * d:(i + 1) * d]}
+             for i, n in enumerate(("q", "k", "v"))}
+    return {**parts, "o": _lin(sd, "out_proj")}
+
+
+def _ln(sd: dict, name: str) -> dict:
+    return {"w": sd[f"{name}.weight"], "b": sd[f"{name}.bias"]}
+
+
+def convert_muvla_fuser(sd: dict, prefix: str = "model.fuser.") -> dict:
+    """CrossFuseReduce (its forward uses the cross-attention and the
+    residual LayerNorm alone) -> ``models/muvla.Fuser``'s tree."""
+    sd = _strip(sd, prefix)
+    return {"attn": _convert_torch_mha(sd, "cross_attn."), "ln": _ln(sd, "ln")}
+
+
+def convert_muvla_qformer(sd: dict, prefix: str = "model.history_qformer.") -> dict:
+    """SimpleQFormer -> ``models/muvla.QFormer``'s tree."""
+    sd = _strip(sd, prefix)
+    return {"queries": sd["query_embeddings"], "input_proj": _lin(sd, "input_proj"),
+            "attn": _convert_torch_mha(sd, "attn."), "ln": _ln(sd, "norm")}
+
+
+def convert_muvla(sd: dict, cfg) -> dict:
+    """DB-MUVLA checkpoint -> MUVLA params: the LLM, the map tower
+    (``model.mm_vision_tower``), the observation tower
+    (``model.obs_vision_tower``), the projector, the fuser, the history
+    QFormer and the reward head."""
+    llm = attach_lm_head(convert_llm(sd, cfg.vlm.llm, prefix="model.llm."), sd, cfg.vlm.llm)
+    obs_prefix = "model.obs_vision_tower.vision_tower.vision_model."
+    return {"llm": llm, "vit": convert_vit(sd, cfg.vlm.vit, prefix=VIT_PREFIX),
+            "obs_vit": convert_vit(sd, cfg.obs_vit, prefix=obs_prefix),
+            "projector": convert_projector(sd, cfg.vlm.projector_type, prefix="model.mm_projector."),
+            "fuser": convert_muvla_fuser(sd), "qformer": convert_muvla_qformer(sd),
+            "reward_head": {"w": sd["reward_head.weight"].t()}}
+
+
 def load_release_checkpoint(model, path: str, convert_fn, cfg) -> dict:
     """Fill ``model`` from a released checkpoint: its tensors are read onto
     the model's device in their stored dtype, converted by ``convert_fn``
-    (``convert_cogact`` / ``convert_flow_vla`` / ``convert_oft`` / ``convert_memvla``) and copied into the
+    (``convert_cogact`` / ``convert_flow_vla`` / ``convert_oft`` / ``convert_memvla`` /
+    ``convert_muvla``) and copied into the
     parameters, each cast to its parameter's dtype (utils/bridge.py).
     Returns {"load_s": seconds reading the files onto the device,
     "convert_s": seconds converting and copying}."""

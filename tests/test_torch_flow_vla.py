@@ -362,11 +362,13 @@ def test_mot_forward_modes_match_jax(mode):
 
 
 def test_mot_forward_refuses_unported_modes():
+    """The MoE parts (Queue 1 item 11) raise; per-row cache columns
+    (write_cols, ported with the decode engine) need a cache to write into."""
     _, tcfg, _, model, _ = _bridged("pi0")
     x = torch.zeros(1, 3, tcfg.llm.hidden_size)
     ints = torch.zeros(1, 3, dtype=torch.int32)
     stream = [ttransformer.Stream(tcfg.llm, model.vlm.llm, x)]
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="write_cols"):
         ttransformer.mot_forward(stream, ints, ints, ints + 1, update_cache=True,
                                  write_cols=torch.zeros(1, dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="item 11"):

@@ -334,6 +334,59 @@ def test_flash_kernel_at_navila_decode_and_prefill(cuda, Sq, filled, columns):
         assert out.shape == (1, Sq, 32, 128) and torch.isfinite(out).all()
 
 
+def _engine_case(cuda, kind, B, seed, **kw):
+    """chip_smoke's engine case (engine_attn_inputs) in _attn_case's layout,
+    with a dO, and the rows that see no key."""
+    import chip_smoke
+    from dexbotic_tpu_torch.ops.attention import _allowed
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    _, q, k, v, ints, (q_seg, kv_seg) = chip_smoke.engine_attn_inputs(kind, B, g, **kw)
+    dout = torch.randn(q.shape, generator=g, device=cuda).bfloat16()
+    blind = ~_allowed(*ints, q_seg, kv_seg)[:, 0].any(-1)
+    return (q, k, v, dout, ints, q_seg, kv_seg), blind
+
+
+@pytest.mark.parametrize("B,N", [(8, 32), (4, 48)])
+def test_flash_kernel_at_engine_decode_rows(cuda, B, N):
+    """K1 (both block shapes) at one query row a slot against the decode
+    engine's cache (the Discrete server's 8 slots of 896 + 32 columns, and 4
+    slots of 896 + 48): each slot at its own depth, the slots of
+    range(2, B, 3) empty, whose rows see no key and must be exactly 0."""
+    case, blind = _engine_case(cuda, "decode", B, seed=B + N, prompt=855, P=896, N=N)
+    assert int(blind.sum()) == len(range(2, B, 3))
+    for rows in (64, 128):
+        out = _k1_within_bound(case, rows)
+        assert torch.all(out[blind] == 0) and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("off,chunk", [(0, 512), (512, 384)])
+def test_flash_kernel_at_engine_chunk_with_parked_rows(cuda, off, chunk):
+    """K1 at a chunked admission's 8 x 512 and 8 x 384 chunks against the
+    engine's 928 columns: the admitted slots' prompt columns causal, the
+    parked live slots' queries over their own prompt and decode columns, the
+    empty slots' rows seeing no key (exactly 0)."""
+    case, blind = _engine_case(cuda, "chunk", 8, seed=off + chunk, prompt=855, P=896, N=32,
+                               off=off, chunk=chunk)
+    assert blind.any()
+    for rows in (64, 128):
+        out = _k1_within_bound(case, rows)
+        assert torch.all(out[blind] == 0)
+
+
+def test_flash_kernels_at_discrete_vla_training_rows(cuda):
+    """K1 and K3 at Discrete VLA training's micro-batch of 8 rows of 2048
+    (samples of up to 884 tokens, the collator's pads trailing)."""
+    import chip_smoke
+
+    g = torch.Generator(device=cuda).manual_seed(15)
+    _, q, k, v, ints, _ = chip_smoke.attn_inputs(chip_smoke.DISCRETE_TRAIN_CASE, g)
+    dout = torch.randn(q.shape, generator=g, device=cuda).bfloat16()
+    case = (q, k, v, dout, ints, None, None)
+    _check_k1(cuda, case, None)
+    _check_k3(cuda, case)
+
+
 @pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D", [(2, 129, 129, 8, 2, 64), (2, 65, 300, 4, 1, 128),
                                               (1, 200, 520, 4, 4, 64)])
 def test_flash_kernels_d64_and_cross_lengths(cuda, B, Sq, Skv, Hq, Hkv, D):

@@ -55,9 +55,9 @@ def _sources():
 
 def test_new_entry_points_are_covered():
     """The LIBERO recipe twins, the OFT, hybrid, loader, RL (sim envs, the RL
-    dataset, GRPO, the SimpleVLA-RL exp) and MemVLA modules and the replay
-    script are among the modules imported with JAX blocked and scanned
-    above."""
+    dataset, GRPO, the SimpleVLA-RL exp), MemVLA, decode engine, Discrete
+    VLA, MUVLA and PE-ViT modules, the example recipes and the replay script
+    are among the modules imported with JAX blocked and scanned above."""
     names = _modules()
     for recipe in ("cogact", "pi0", "pi05", "dm0", "oft", "oft_discrete", "simplevla_rl",
                    "memvla"):
@@ -65,7 +65,10 @@ def test_new_entry_points_are_covered():
     for module in ("models.oft", "exp.oft_exp", "exp.hybrid_cogact_exp", "data.loader",
                    "sim_envs.base", "sim_envs.factory", "sim_envs.libero_env",
                    "data.dex_rl_dataset", "exp.rl.grpo", "exp.rl.rl_trainer",
-                   "exp.simplevla_rl_exp", "models.memvla", "exp.memvla_exp"):
+                   "exp.simplevla_rl_exp", "models.memvla", "exp.memvla_exp",
+                   "exp.decode_engine", "models.discrete_vla", "exp.discrete_vla_exp",
+                   "models.muvla", "exp.muvla_exp", "nn.pe_vit",
+                   "playground.example_muvla_exp", "playground.example_navila_exp"):
         assert f"dexbotic_tpu_torch.{module}" in names
     assert "script.replay_checkpoint_torch" in names
     assert os.path.join(REPO, "script", "replay_checkpoint_torch.py") in set(_sources())

@@ -19,7 +19,9 @@
 * ``NaVILAInferenceSession.act`` over an episode against JAX's session;
   ``NaVILAServer``'s ``run_model`` / ``episode_first_frame`` contract and its
   BGR flip; ``NaVILAExp.train()`` packed on a tiny suite; the raises of the
-  parts not ported (the decode engine, item 9; context parallelism, item 11).
+  parts not ported (context parallelism, item 11).
+* A fleet of sessions on one shared decode engine (one-shot and chunked
+  admission) against JAX's sessions on a JAX engine: the same texts.
 
 Tiny models: the 2-layer test LLM, a ViT of 3x3 patches (4 tokens a frame
 after mlp_downsample).  Tolerance 1e-3 (fp32) unless stated; integer
@@ -30,6 +32,7 @@ import dataclasses
 import io
 import json
 import os
+import threading
 import urllib.request
 
 import jax
@@ -247,18 +250,18 @@ def test_generate_sampled_logprobs_match_jax_on_the_same_tokens():
 
 
 def test_generate_write_cols_and_engine_raise():
+    """write_cols (the decode engine's per-row columns) writes into a given
+    cache only: without one it is refused, as JAX asserts; the parts of
+    Queue 1 item 11 still raise, and so does the exp's inference()."""
     jcfg, tcfg, params, model = _params_and_model()
     ids, valid, _ = _prompt_batch(jcfg, 1, [6, 6], frames=0)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="write_cols"):
         tvlm.vlm_forward(model.vlm, tcfg.vlm, _t(ids), _t(valid), write_cols=torch.zeros(2))
     with pytest.raises(NotImplementedError, match="item 11"):
         tnav.navila_packed_loss_cp(model, tcfg, {})
     with pytest.raises(NotImplementedError, match="item 11"):
         texp.NaVILAModelConfig(context_parallel_seq=2).build_config()
     exp = texp.NaVILAExp(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        texp.NaVILAInferenceSession(exp, tcfg, model, exp.tokenizer.build_tokenizer(),
-                                    engine=object())
     with pytest.raises(NotImplementedError, match="inference"):
         exp.inference()
 
@@ -460,6 +463,52 @@ def test_session_act_matches_jax():
     assert len(ts.buffer.frames) == len(js.buffer.frames) == 3
     ids, _, imgs = ts.inputs(_frames(1, 5)[0], "x")
     assert imgs.shape == (1, 8, 42, 42, 3) and int((ids == IMAGE_TOKEN_INDEX).sum()) == 8 * 4
+
+
+@pytest.mark.parametrize("chunk", [0, 64])
+def test_sessions_on_a_shared_engine_match_jax(chunk):
+    """Two sessions (two robots, their own histories) on one shared engine,
+    their requests in flight together, against JAX's two sessions on a JAX
+    engine of the same sizes: the same texts (the engine route stops at the
+    EOS id and at 0, as JAX's); the port's engine served the two at once:
+    a tick for both slots, or (chunked) a tick between an admission's chunks."""
+    jx, tx, _, _, model = _session_pair()
+    params = jax.device_get(jnav.init_navila(jax.random.PRNGKey(9), jx.model.build_config()))
+    cfg_j, cfg_t = jx.model.build_config(), tx.model.build_config()
+    tok_j, tok_t = jx.tokenizer.build_tokenizer(), tx.tokenizer.build_tokenizer()
+    kw = dict(slots=2, max_new_tokens=6, max_prompt=640, prefill_chunk=chunk)
+    jeng = jexp.NaVILAInferenceSession.make_shared_engine(cfg_j, params, **kw)
+    teng = texp.NaVILAInferenceSession.make_shared_engine(cfg_t, model, **kw)
+    frames = [_frames(3, 11), _frames(3, 12)]
+    try:
+        texts = {}
+        for pkg, eng in (("jax", jeng), ("port", teng)):
+            mod, cfg, m, tok, x = ((jexp, cfg_j, params, tok_j, jx) if pkg == "jax"
+                                   else (texp, cfg_t, model, tok_t, tx))
+            sessions = [mod.NaVILAInferenceSession(x, cfg, m, tok, engine=eng, max_new_tokens=6)
+                        for _ in frames]
+            out = [[], []]
+            together = threading.Barrier(2)
+
+            def robot(i, sessions=sessions, out=out, pkg=pkg, together=together):
+                for f in frames[i]:
+                    together.wait(timeout=60)
+                    rng = jax.random.PRNGKey(0) if pkg == "jax" else None
+                    out[i].append(sessions[i].act(f, f"find the sofa {i}", rng))
+
+            threads = [threading.Thread(target=robot, args=(i,)) for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            texts[pkg] = out
+        assert texts["port"] == texts["jax"] and all(len(o) == 3 for o in texts["port"])
+        interleaved = any(t0 < t < t1 for t0, t1, *_ in teng.admit_log for t in teng.tick_times)
+        assert teng.batched_steps > 0 or (chunk and interleaved)
+        assert {c for *_, c in teng.admit_log} == {bool(chunk)}
+    finally:
+        jeng.close()
+        teng.close()
 
 
 def _post(port, fields, png):
