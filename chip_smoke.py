@@ -18,14 +18,20 @@ Phases, any failure exits non-zero without a result line:
      prefills at B = 1..8 (1..4 for MUVLA), chunks at B = slots with parked
      and empty slots, one query row a slot at per-slot depths, generate's
      prefill and decode rows, and Discrete VLA's and MUVLA's training rows
-     (K3 too); a query row that sees no key must come out exactly 0;
+     (K3 too), and hybrid CogACT's mixed rows (phase 15d: a robot row and a
+     VQA row of 2048; K3 too); a query row that sees no key must come out
+     exactly 0;
   3b. K1 at head_dim 256 against its plain version at pi0's prefix (8 query
      heads on 1 kv head, the text's padded tail masked) and its suffix
      against the cached prefix: 1 x 816 and 51 x 867 (inference_single),
      1 x 832 and 51 x 883 (a served request), 2 x 832 and 2 x 51 x 883 (the
      batch_size=2 request, whose prefix takes 128-row blocks), and pi0's
      training rows (phase 8: 4 x 867, prefix, state token and actions in
-     one bidirectional-prefix call);
+     one bidirectional-prefix call); then pi0.5's 50-row suffix against its
+     832-token prefix (8/1 heads of 256), DM0's causal 1 x 896 prefix (16/8
+     heads of 128: GQA groups of 2, a group a token), its 50-row suffix and
+     DM0-Prog's 51-row one against it, and the LIBERO twins' training rows,
+     4 x 978 (pi0.5) and 4 x 918 (DM0; K3 at both too);
   4. K2 (fused DiT sampler) against its plain version at DiT-B width, with
      bf16 weights, then (4b) with int8 block weights: B=1, 2 and 8 (the
      8-frame micro-batch, 16 rows with CFG), DDIM-10 and DPM-5, CFG 1.5,
@@ -161,7 +167,7 @@ Phases, any failure exits non-zero without a result line:
      decoder layers in fp32 on a rollout batch, kernel path vs plain bf16
      path vs an fp32 witness (loss, pg_loss, entropy, grad_norm, gradient
      cosine; the update must move the fp32 weights); (b) train_rl() end to
-     end at that depth, two steps of schedule "random" and one of "epoch",
+     end at that depth, one step of schedule "random" and one of "epoch",
      with each step's gen / filter / update seconds, rollouts, chunks and
      peak, K1/K3 launches and shapes around it and the metrics' keys held
      to the JAX loop's; (c) the 32-layer bf16 actor's chunk call at B=8
@@ -205,7 +211,7 @@ Phases, any failure exits non-zero without a result line:
   14. the continuous-batching decode engine (exp/decode_engine.py): (a)
      Discrete VLA-7B (4 of 32 decoder layers, max_retries=1) served by
      DiscreteVLAServer over HTTP without the engine, with 8 slots and with
-     8 slots and prefill_chunk=512, 8 clients x 4 requests: every request's
+     8 slots and prefill_chunk=512, 8 clients x 2 requests: every request's
      engine tokens equal to generate's or first differing at a near-tie
      (13a's rule), ticks that served several slots, K1 counted and its
      shapes among phase 3's, no K2, K3, K4 or plain call; p50/p90, tokens/s,
@@ -219,6 +225,27 @@ Phases, any failure exits non-zero without a result line:
      observation views) served by MUVLAServer without and with the engine
      (4 clients), then one muvla_loss step with a reward in fp32 (10a's
      rule).
+  15. pi0.5, DM0, DM0-Prog and hybrid CogACT at full width, and the
+     success-rate harness: (a) pi0.5 (Pi05Exp: SigLIP so400m/224 + Gemma-2B
+     + the Gemma-300M adaRMS expert) and (b) DM0 (DM0Exp: Qwen3-1.7B + the
+     Qwen3-0.6B expert, qk-norm) served by FlowVLAServer with quantile
+     statistics, bf16 weights and fp32 activations: K1's launches (18 and
+     28 layers x 11 a request) and shapes, no plain attention call, the
+     adaRMS condition in fp32, the chunk of the kernel path against the
+     plain path on the same noise (cosine >= 0.99), p50/p90 and the device
+     call by part; then DM0-Prog (DM0's model and two seeded progress
+     projections) through flow_vla_inference_action(progress=...), its
+     chunk and end-progress held likewise; (c) the LIBERO pi0.5 and DM0
+     twins trained in full: one step at micro-batch 4 in fp32, kernel path
+     vs plain path vs bf16 matrices against an fp32 witness (10a's rule),
+     then two steps at 4 x 4 through exp.train() (K3 layers x 4 a step, K1
+     twice that, the shapes 3b and 6 hold, the peak); (d) one
+     HybridCogActExp step on a mixed batch (a robot row, a VQA row), fp32,
+     the LLM and tower frozen, the text and action losses, 10a's rule; (e)
+     the port's playground/eval_server.evaluate() with the mock env against
+     phase 5's server (before it is freed): the report must equal the JAX
+     harness's for the same arguments, with 32 K1 launches and 1 K2 launch
+     a request.
 
 Error rule for a kernel: its max error against the plain version run in
 fp32 on the same bf16 inputs must not exceed 2x the plain bf16 version's
@@ -237,7 +264,7 @@ registers and spills of every K1, K3, K4 and K2 instance from nvcc's
 ``-Xptxas -v`` (a spill fails) and the HGMMA instructions of every K2
 instance from the library's SASS (``cuobjdump``; a bf16 instance without
 one fails).
-Phases 5d-5h and 9-14 print their numbers as one JSON line (``{"phases": ...}``);
+Phases 5d-5h and 9-15 print their numbers as one JSON line (``{"phases": ...}``);
 each phase's seconds are printed after it ("[phase_...: s; s in all]").
 The last two lines printed are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``.
@@ -597,7 +624,8 @@ def phase_flash(failures: list) -> dict:
     cases += [(key, lambda kind=kind, B=B, kw=kw: engine_attn_inputs(kind, B, g, **kw))
               for key, kind, B, kw in _engine_cases()]
     cases += [("discrete_train", lambda: attn_inputs(DISCRETE_TRAIN_CASE, g)),
-              ("muvla_train", lambda: attn_inputs(MUVLA_TRAIN_CASE, g))]
+              ("muvla_train", lambda: attn_inputs(MUVLA_TRAIN_CASE, g)),
+              ("hybrid_train", lambda: hybrid_attn_inputs(g))]
     for key, make in cases:
         name, q, k, v, (q_grp, grp, valid), seg = make()
         args = (grp, valid, None, *seg_pair(seg))
@@ -636,7 +664,7 @@ def phase_flash(failures: list) -> dict:
         if key is not None:
             times[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                           "bound_by": bound_by, **lib}
-            if key.startswith(("oft", "rl", "memvla", "navila", "discrete", "muvla")):
+            if key.startswith(("oft", "rl", "memvla", "navila", "discrete", "muvla", "hybrid")):
                 times[key].update(max_abs_err=err, B_Sq_Skv=[q.shape[0], q.shape[1], k.shape[1]])
                 if blind.any():
                     times[key]["rows_seeing_no_key"] = int(blind.sum())
@@ -653,6 +681,7 @@ def phase_flash(failures: list) -> dict:
             **{key: times[key] for key, *_ in NAVILA_CASES},
             **{key: times[key] for key, *_ in _engine_cases() if key is not None},
             "discrete_train": times["discrete_train"], "muvla_train": times["muvla_train"],
+            "hybrid_train": times["hybrid_train"],
             "oft_served": {key: times[key] for key, *_ in OFT_SERVED_CASES}}
 
 
@@ -691,25 +720,31 @@ def pi0_attn_inputs(B: int, text: int, part: str, gen):
     return name, q, k, v, (kv_grp[:, Skv - Sq:].contiguous(), kv_grp, valid)
 
 
-def phase_flash_d256(failures: list) -> dict:
-    """K1 at head_dim 256 against its plain version at pi0's shapes (those of
-    inference_single, of a served request, of the batch_size=2 request and
-    of a training micro-batch), with the block rows ``fwd_rows`` picks, its time, its kernels' own time,
-    its bound and SDPA's time (cuDNN with a bool mask, or the backend that
-    took the inputs when cuDNN refused).  Both block shapes must be held."""
+def phase_flash_flow(failures: list) -> dict:
+    """K1 against its plain version at the flow VLAs' shapes: pi0's at head_dim
+    256 (those of inference_single, of a served request, of the batch_size=2
+    request and of a training micro-batch), then pi0.5's and DM0's
+    (FLOW_CASES: the served prefix and suffix, DM0-Prog's suffix, the LIBERO
+    twins' training rows), with the block rows ``fwd_rows`` picks, its time,
+    its kernels' own time, its bound and SDPA's time (cuDNN with a bool
+    mask, or the backend that took the inputs when cuDNN refused).  Both
+    block shapes must be held at head_dim 256."""
     from dexbotic_tpu_torch.ops.attention import (
         _allowed, _sm_count, flash_attention_fwd, flash_attention_ref, fwd_rows)
 
-    print("phase 3b: K1 flash_fwd vs plain at head_dim 256 (pi0)")
+    print("phase 3b: K1 flash_fwd vs plain at the flow VLAs' shapes (pi0, pi0.5, DM0, DM0-Prog)")
     g = torch.Generator(device="cuda").manual_seed(11)
     rows, block_rows = {}, set()
-    for key, B, text, part in PI0_CASES:
-        if part == "train":
-            name, q, k, v, ints, _ = pi0_train_attn_inputs(B, g)
-        else:
-            name, q, k, v, ints = pi0_attn_inputs(B, text, part, g)
-        n_rows = fwd_rows(B, q.shape[1], 8, _sm_count(0), 256)
-        block_rows.add(n_rows)
+    cases = [(key, lambda B=B, text=text, part=part: (
+        pi0_train_attn_inputs(B, g)[:5] if part == "train" else pi0_attn_inputs(B, text, part, g)))
+        for key, B, text, part in PI0_CASES]
+    cases += [(key, lambda c=c: flow_attn_inputs(*c, g)[:5]) for key, *c in FLOW_CASES]
+    for key, make in cases:
+        name, q, k, v, ints = make()
+        B, Hq, D = q.shape[0], q.shape[2], q.shape[3]
+        n_rows = fwd_rows(B, q.shape[1], Hq, _sm_count(0), D)
+        if D == 256:
+            block_rows.add(n_rows)
         out, lse = flash_attention_fwd(q, k, v, *ints)
         torch.cuda.synchronize()
         ref, _ = flash_attention_ref(q.float(), k.float(), v.float(), *ints)
@@ -730,7 +765,7 @@ def phase_flash_d256(failures: list) -> dict:
         print(f"    kernel {ms:.4f} ms  kernels alone {dev_ms:.4f} ms  plain bf16 {plain_ms:.4f} ms  "
               f"bound {bound_ms:.4f} ms ({bound_by})  SDPA ({backend}) {lib_ms:.4f} ms, "
               f"err {lib_err:.3g}{note}")
-        rows[key] = {"B_Sq_Skv_Hq_Hkv_D": [B, q.shape[1], k.shape[1], 8, 1, 256],
+        rows[key] = {"B_Sq_Skv_Hq_Hkv_D": [B, q.shape[1], k.shape[1], Hq, k.shape[2], D],
                      "block_rows": n_rows, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": lib_ms, "sdpa_backend": backend}
@@ -783,6 +818,9 @@ def phase_flash_bwd(failures: list) -> dict:
               if c[0] == "packed"]
     cases += [("discrete_train", lambda: attn_inputs(DISCRETE_TRAIN_CASE, g)),
               ("muvla_train", lambda: attn_inputs(MUVLA_TRAIN_CASE, g))]
+    cases += [(key, lambda c=c: flow_attn_inputs(*c, g)) for key, *c in FLOW_CASES
+              if c[-1] == "train"]
+    cases += [("hybrid_train", lambda: hybrid_attn_inputs(g))]
     for key, make in cases:
         name, q, k, v, ints, seg = make()
         q, k, v = (t.requires_grad_(True) for t in (q, k, v))
@@ -833,12 +871,13 @@ def phase_flash_bwd(failures: list) -> dict:
             rows[key] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                          "sdpa_backend": backend}
-            if key == "pi0_train":
-                rows[key]["B_S_Hq_Hkv_D"] = [q.shape[0], q.shape[1], 8, 1, 256]
+            if key in ("pi0_train", "pi05_train", "dm0_train"):
+                rows[key]["B_S_Hq_Hkv_D"] = [q.shape[0], q.shape[1], q.shape[2], k.shape[2],
+                                             q.shape[3]]
             if key != "main":
                 rows[key]["max_abs_err"] = max((a.float() - r).abs().max().item()
                                                for a, r in zip(got, ref))
-            if key.startswith(("oft", "rl", "memvla", "navila", "discrete", "muvla")):
+            if key.startswith(("oft", "rl", "memvla", "navila", "discrete", "muvla", "hybrid")):
                 rows[key]["B_Sq_Skv"] = [q.shape[0], q.shape[1], k.shape[1]]
             if key.startswith("navila"):
                 rows[key]["dead_tile_share"] = dead_tile_share(*ints, seg)
@@ -848,7 +887,8 @@ def phase_flash_bwd(failures: list) -> dict:
     return {"max_abs_err": worst, **rows["main"], "pi0_train": rows["pi0_train"],
             **{key: rows[key] for key, *_ in OFT_CASES + RL_CASES}, "memvla_train": rows["memvla_train"],
             **{key: rows[key] for key, kind, *_ in NAVILA_CASES if kind == "packed"},
-            "discrete_train": rows["discrete_train"], "muvla_train": rows["muvla_train"]}
+            "discrete_train": rows["discrete_train"], "muvla_train": rows["muvla_train"],
+            **{key: rows[key] for key in ("pi05_train", "dm0_train", "hybrid_train")}}
 
 
 def dit_bound(head, cfg, B: int, steps: int, cfg_scale: float) -> tuple[float, str]:
@@ -1613,7 +1653,7 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
     result = {"launches": launches, "chunk": a, "p50_ms": p50, "weight_bytes": weight_bytes,
               "parts": parts, "parts_b8": parts8, "cos_b8": cos8, "k2_b8_request": k2_batch8}
     if not quantize:  # the model and one frame's inputs, for phases 5d and 5e
-        result.update(model=model, exp=exp, cfg=cfg, tokenizer=tokenizer,
+        result.update(model=model, exp=exp, cfg=cfg, tokenizer=tokenizer, norms=norms,
                       inputs=(ids, valid, imgs, noise))
     if quantize:
         want = k4_products(model, cfg, L)
@@ -3339,7 +3379,7 @@ def phase_rl_update_compare(failures: list) -> dict:
 def phase_rl_train(failures: list) -> dict:
     """Phase 10b: SimpleVLARLExp.train_rl() end to end on the card (the
     LIBERO twin at phase 10a's depth, RL_ENVS mock envs, 2 groups of 4, 8
-    chunks an episode): two steps of schedule="random", then one of
+    chunks an episode): one step of schedule="random", then one of
     "epoch".  Per step the loop's timings, rollouts, chunks and the peak
     memory of the step (GRPOUpdater.update wrapped to read it); K1 and K3
     launches, their shapes and the plain attention calls on CUDA read around
@@ -3359,7 +3399,7 @@ def phase_rl_train(failures: list) -> dict:
     runs = {}
     rl_trainer.GRPOUpdater.update = recorded
     try:
-        for schedule, steps in (("random", 2), ("epoch", 1)):
+        for schedule, steps in (("random", 1), ("epoch", 1)):
             exp = rl_exp(RL_LAYERS, schedule=schedule)
             exp.rl_steps_per_epoch = steps
             print(f"phase 10b: SimpleVLARLExp.train_rl(), schedule={schedule!r}, {steps} step(s) "
@@ -4573,7 +4613,7 @@ def phase_navila(failures: list) -> dict:
 # DISCRETE_RETRIES (max_retries) is 1, not 40, as the JAX package's own test.
 DISCRETE_PROMPT_TOKENS, DISCRETE_BUCKET, DISCRETE_MAX_PROMPT, DISCRETE_NEW = 855, 896, 896, 32
 DISCRETE_CACHE = DISCRETE_MAX_PROMPT + DISCRETE_NEW
-DISCRETE_SLOTS, DISCRETE_CHUNK, DISCRETE_CLIENTS, DISCRETE_CLIENT_REQUESTS = 8, 512, 8, 4
+DISCRETE_SLOTS, DISCRETE_CHUNK, DISCRETE_CLIENTS, DISCRETE_CLIENT_REQUESTS = 8, 512, 8, 2
 DISCRETE_RETRIES, DISCRETE_TRAIN_TOKENS, DISCRETE_TRAIN_MICRO, DISCRETE_TRAIN_STEPS = 1, 884, 8, 3
 # 14a serves DISCRETE_SERVE_LAYERS of LLaMA-2-7B's 32 decoder layers (every
 # width kept): the decode is host-bound at ~55 eager kernels a layer and a
@@ -4940,8 +4980,8 @@ def phase_discrete_serve(failures: list) -> dict:
     """Phase 14a: Discrete VLA-7B at DISCRETE_SERVE_LAYERS decoder layers
     (seeded bf16 weights, max_retries=1) served by DiscreteVLAServer over
     HTTP three ways: without the engine (8
-    requests in sequence), with continuous_batching=8 (8 clients x 4
-    requests at once) and the same with prefill_chunk=512.  Around each
+    requests in sequence), with continuous_batching=8 (8 clients x
+    DISCRETE_CLIENT_REQUESTS requests at once) and the same with prefill_chunk=512.  Around each
     route: K1 counted and its shapes recorded (all among phase 3's), no K2,
     K3, K4 or plain CUDA attention call; on the engine routes ticks served
     several slots, and every request's engine tokens equal its input's
@@ -5546,6 +5586,759 @@ def phase_muvla(failures: list) -> dict:
                       "launches": {"flash_fwd": wk["launches"][0], "flash_bwd": wk["launches"][1]}}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: pi0.5, DM0 and DM0-Prog served and trained, hybrid CogACT, the harness
+# ---------------------------------------------------------------------------
+
+# K1's calls of pi0.5 and DM0 beside pi0's (PI0_CASES).  pi0.5 keeps pi0's
+# prefix (its served 1 x 832 is d256_served_prefix) and runs a 50-row suffix,
+# no state token, in one group after the bidirectional prefix: 8/1 heads of
+# 256.  DM0 (Qwen3-1.7B and the Qwen3-0.6B expert: 16/8 heads of 128,
+# qk-norm in both streams) has a causal prefix, a group a token; its 100
+# text ids (all valid: DM0's tokenizer pads with a non-zero id) are served
+# in the 128-token bucket (896 = 768 + 128, the last 28 masked); its 50-row
+# suffix and DM0-Prog's 51 (the progress token, then the actions) are one
+# group after the prefix.  Training (15c) runs the LIBERO twins' joint rows:
+# pi0.5's 200-token text and 10-action chunk (978 tokens), DM0's 100 and 50
+# (918).  FLOW_CASES: (result key, variant, B, text slots, valid text, part).
+FLOW_VIEWS = 3 * 256
+FLOW_HEADS = {"pi05": (8, 1, 256), "dm0": (16, 8, 128), "dm0_prog": (16, 8, 128)}
+FLOW_SUFFIX = {"pi05": 50, "dm0": 50, "dm0_prog": 51}
+FLOW_TRAIN = {"pi05": (200, 10), "dm0": (100, 50)}  # (text, chunk) of the LIBERO twins' rows
+FLOW_CASES = [
+    ("pi05_served_suffix", "pi05", 1, 64, 22, "suffix"),
+    ("pi05_train", "pi05", PI0_TRAIN_MICRO, 200, 200, "train"),
+    ("dm0_served_prefix", "dm0", 1, 128, 100, "prefix"),
+    ("dm0_served_suffix", "dm0", 1, 128, 100, "suffix"),
+    ("dm0_prog_served_suffix", "dm0_prog", 1, 128, 100, "suffix"),
+    ("dm0_train", "dm0", PI0_TRAIN_MICRO, 100, 100, "train")]
+
+
+def flow_k1_shape(variant: str, B: int, text: int, n_valid: int, part: str,
+                  views: int = FLOW_VIEWS) -> tuple:
+    """(B, query rows, key rows) of a FLOW_CASES call over ``views`` image tokens."""
+    prefix = views + text
+    suffix = FLOW_TRAIN[variant][1] if part == "train" else FLOW_SUFFIX[variant]
+    S = prefix + (0 if part == "prefix" else suffix)
+    return B, prefix if part == "prefix" else suffix if part == "suffix" else S, S
+
+
+# the K1 shapes phase 3b holds for each served variant (15a and 15b fail on another)
+K1_FLOW_SERVED = {v: {flow_k1_shape(*c[1:]) for c in FLOW_CASES if c[1] == v and c[5] != "train"}
+                  for v in FLOW_HEADS}
+K1_FLOW_SERVED["pi05"].add((1, PI0_VIEWS + 64, PI0_VIEWS + 64))  # pi0's d256_served_prefix
+
+
+def flow_attn_inputs(variant: str, B: int, text: int, n_valid: int, part: str, gen,
+                     views: int = FLOW_VIEWS, device="cuda"):
+    """(name, q, k, v, (q_grp, kv_grp, kv_valid), None) of a FLOW_CASES call:
+    the prefix of ``views`` image tokens and ``text`` slots (the first
+    ``n_valid`` valid), bidirectional for pi0.5, causal for DM0; the suffix
+    against the cached prefix; or the training rows, prefix then suffix."""
+    Hq, Hkv, D = FLOW_HEADS[variant]
+    _, Sq, S = flow_k1_shape(variant, B, text, n_valid, part, views)
+    prefix = views + text
+    dev = torch.device(device)
+    valid = torch.ones(B, S, dtype=torch.int32, device=dev)
+    valid[:, views + n_valid: prefix] = 0
+    ar = torch.zeros(B, S, dtype=torch.int32, device=dev)
+    if variant != "pi05":
+        ar[:, :prefix] = 1  # a group a prefix token
+    if S > prefix:
+        ar[:, prefix] = 1  # the suffix: one group after the prefix
+    grp = torch.cumsum(ar, 1, dtype=torch.int32)
+    q = torch.randn(B, Sq, Hq, D, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev).bfloat16() for _ in range(2))
+    name = f"{variant} {part} B={B} Sq={Sq} Skv={S} H={Hq}/{Hkv} D={D}"
+    return name, q, k, v, (grp[:, S - Sq:].contiguous(), grp, valid), None
+
+
+FLOW_REQUESTS = 6  # 15a's and 15b's timed single requests, after one not timed
+DM0_PROG_TOL = 0.05  # |end-progress, kernel path - plain path|, stated before the first run
+
+
+def flow_norms(action_dim: int, seed: int) -> dict:
+    """Seeded quantile statistics, as pi0.5's and DM0's servers read them:
+    the q01 and q99 of 7 env action dims and of the state padded to
+    ``action_dim``, under the keys ServingStats takes ("min", "max")."""
+    rng = np.random.default_rng(seed)
+
+    def quantiles(n):
+        lo = rng.uniform(-1.5, -0.2, n)
+        return {"min": lo.tolist(), "max": (lo + rng.uniform(0.5, 3.0, n)).tolist()}
+
+    return {"action": quantiles(7), "state": quantiles(action_dim)}
+
+
+def redraw_adarms_(model, gen) -> None:
+    """pi0.5's adaRMS projections (the expert norms' ``dense``) are zero at
+    init, which would leave the time condition out of every chunk: redrawn,
+    N(0, 0.02), so that the checks see it."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".dense." in name:
+                p.normal_(0.0, 0.02, generator=gen)
+
+
+@contextlib.contextmanager
+def adarms_conditions(dtypes: list):
+    """Appends the dtype of every adaRMS condition embed_suffix makes (pi0.5's
+    time, which the JAX package keeps in fp32) to ``dtypes`` while inside."""
+    from dexbotic_tpu_torch.models import flow_vla as fv
+
+    call = fv.embed_suffix
+
+    def recorded(*args, **kw):
+        out = call(*args, **kw)
+        if out[3] is not None:
+            dtypes.append(out[3].dtype)
+        return out
+
+    fv.embed_suffix = recorded
+    try:
+        yield dtypes
+    finally:
+        fv.embed_suffix = call
+
+
+def phase_flow_serve(failures: list, variant: str) -> dict:
+    """Phase 15a (pi0.5: ``Pi05Exp``, SigLIP so400m/224 + Gemma-2B + the
+    Gemma-300M adaRMS expert) or 15b (DM0: ``DM0Exp``, SigLIP so400m/224 +
+    Qwen3-1.7B + the Qwen3-0.6B expert) at full width, bf16 weights and fp32
+    activations, served through FlowVLAServer with quantile statistics:
+    FLOW_REQUESTS + 1 requests of 3 views and a state and one of 1 view,
+    with every kernel's launches (K1: layers x (1 + Euler steps) a request),
+    K1's shapes (K1_FLOW_SERVED) and the plain CUDA attention calls read
+    around them, and pi0.5's adaRMS condition in fp32; the kernel path
+    against the plain path on one request's inputs and injected noise (chunk
+    and integrated-velocity cosine >= 0.99); p50 / p90 and the device call
+    by part (pi0.5's adaRMS projections redrawn: redraw_adarms_).  DM0 then
+    serves DM0-Prog (:func:`dm0_prog_call`)."""
+    from dexbotic_tpu_torch.data.image_processing import preprocess_images_batch
+    from dexbotic_tpu_torch.exp.pi0_exp import DM0Exp, Pi05Exp
+    from dexbotic_tpu_torch.exp.serve import FlowVLAServer, _decode_frames
+    from dexbotic_tpu_torch.models import flow_vla as fv
+    from dexbotic_tpu_torch.ops.attention import flash_attention
+    from script.profile_pi0_torch import part_calls, split_parts, wall_ms
+
+    label = {"pi05": "15a", "dm0": "15b"}[variant]
+    exp = {"pi05": Pi05Exp, "dm0": DM0Exp}[variant](device="cuda")
+    t0 = time.perf_counter()
+    cfg, model, _ = exp.load_for_inference()
+    redraw_adarms_(model, torch.Generator(device="cuda").manual_seed(149))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    m = exp.model
+    print(f"phase {label}: {exp.exp_name} ({m.vit_preset} + {m.llm_preset} + {m.expert_preset}, "
+          f"{n_params / 1e9:.3f}B params, bf16 weights, fp32 activations, built in {build_s:.1f} s) "
+          f"served through /process_frame with quantile statistics")
+    D = cfg.action_dim
+    norms = flow_norms(D, seed=150)
+    rng = np.random.default_rng(151)
+    state = json.dumps(rng.normal(0, 0.5, 8).round(4).tolist())  # an 8-dof robot's state
+    views = [_frame_png(seed) for seed in range(3)]
+    server = FlowVLAServer(exp, cfg, model, exp.tokenizer.build_tokenizer(), norms,
+                           host="127.0.0.1", port=0)
+    row = server._prompt_ids(PROMPT)
+    text, n_valid = -(-len(row) // 64) * 64, int((row != 0).sum())
+    held = {(c[3], c[4]) for c in FLOW_CASES if c[1] == variant and c[5] != "train"}
+    if not server.stats.use_quantiles or (text, n_valid) not in held:
+        failures.append(f"{label}: quantiles {server.stats.use_quantiles}; the request's text is "
+                        f"{n_valid} valid ids in {text} slots, phase 3b holds {held}")
+    httpd = server.serve_background()
+    port = httpd.server_address[1]
+    per_call = cfg.llm.num_layers * (1 + cfg.num_flow_steps)
+    shapes, conds = set(), []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with k1_calls(shapes), adarms_conditions(conds):
+            _zero_counts()
+            singles, latencies = [], []
+            for _ in range(FLOW_REQUESTS + 1):
+                out, dt = _post(port, PROMPT, views, states=state)
+                singles.append(out)
+                latencies.append(dt)
+            one_view, _ = _post(port, PROMPT, views[:1], states=state)
+            launches = _launch_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_req = FLOW_REQUESTS + 2
+    print(f"  prompt {n_valid} valid ids in {text} slots; launches during {n_req} requests: "
+          f"{launches} (K1 expected {n_req} x {cfg.llm.num_layers} x (1 + {cfg.num_flow_steps}) "
+          f"= {n_req * per_call}); K1 shapes {sorted(shapes)}; adaRMS conditions "
+          f"{sorted({str(d) for d in conds})}")
+    outs = singles + [one_view]
+    checks = [(all(o.shape == (cfg.chunk_size, 7) for o in outs),
+               f"{label}: response shapes {sorted({o.shape for o in outs})}"),
+              (all(np.isfinite(o).all() for o in outs), f"{label}: a non-finite action"),
+              (launches["flash_fwd"] == n_req * per_call,
+               f"{label}: K1 launched {launches['flash_fwd']} times, expected {n_req * per_call}"),
+              (launches["plain_cuda_calls"] == launches["flash_bwd"] == launches["dit_sample"]
+               == launches["quant_matmul"] == 0, f"{label}: launches {launches}"),
+              (shapes and shapes <= K1_FLOW_SERVED[variant],
+               f"{label}: K1 shapes {sorted(shapes - K1_FLOW_SERVED[variant])} not held by 3b"),
+              (set(conds) == ({torch.float32} if cfg.adarms else set()),
+               f"{label}: adaRMS conditions in {set(conds)}")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    lat = sorted(x * 1e3 for x in latencies[1:])
+    p50, p90 = statistics.median(lat), float(np.percentile(lat, 90))
+    print(f"  request latency ms over {len(lat)} after the first ({latencies[0] * 1e3:.1f}): "
+          f"p50 {p50:.1f}, p90 {p90:.1f}; peak memory allocated {peak:.2f} GiB")
+
+    # one request's inputs by hand: the kernel path, the plain path, the parts
+    ids = np.zeros((1, text), np.int32)
+    ids[0, : len(row)] = row
+    ids_t = torch.from_numpy(ids).cuda()
+    text_mask = (ids_t != 0).to(torch.int32)
+    frames, order = _decode_frames(views)
+    imgs = torch.from_numpy(preprocess_images_batch(
+        frames, exp.data.build_image_processor(), channel_order=order))[None].cuda()
+    masks = torch.ones((1, 3), dtype=torch.int32, device="cuda")
+    states = torch.from_numpy(server.stats.normalize(
+        "state", server._parse_state(state, D)[None])).cuda()
+    noise = torch.randn((1, cfg.chunk_size, D), generator=torch.Generator(
+        device="cuda").manual_seed(152), device="cuda")
+    args = (ids_t, text_mask, imgs, masks, states)
+    plain_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, attn_impl="xla"),
+                                    expert=dataclasses.replace(cfg.expert, attn_impl="xla"))
+    a = fv.flow_vla_inference_action(model, cfg, *args, noise=noise)
+    n0 = flash_attention.launches
+    b = fv.flow_vla_inference_action(model, plain_cfg, *args, noise=noise)
+    cos = _cosine(a.flatten(), b.flatten())
+    vcos = _cosine((a - noise).flatten(), (b - noise).flatten())
+    print(f"  kernel path (K1 in bf16) vs fp32 plain path: max abs diff "
+          f"{(a - b).abs().max().item():.5g}, chunk cosine {cos:.6f}, integrated-velocity "
+          f"cosine {vcos:.6f}, |chunk| max {b.abs().max().item():.4g}")
+    if flash_attention.launches != n0:
+        failures.append(f"{label}: the plain path launched K1")
+    if not (cos >= 0.99 and vcos >= 0.99):
+        failures.append(f"{label}: chunk cosine {cos} / velocity cosine {vcos} < 0.99")
+    calls = part_calls(model, cfg, *args, noise)
+    parts = {f"{part}_ms": ms for part, (ms,) in
+             split_parts({name: (wall_ms(fn),) for name, fn in calls.items()}).items()}
+    print(f"  device path (CUDA-synchronised wall clock, medians of 5): ViT + projector (and the "
+          f"text embedding) {parts['vit_projector_ms']:.2f} ms, prefill {parts['prefill_ms']:.2f} ms "
+          f"({cfg.llm.num_layers} layers), {cfg.num_flow_steps} Euler steps "
+          f"{parts['euler_steps_ms']:.2f} ms, whole call {parts['device_call_ms']:.2f} ms")
+    result = {"params": n_params, "prompt": [n_valid, text], "launches": launches,
+              "launches_per_request": per_call, "k1_shapes": sorted(shapes), "p50_ms": p50,
+              "p90_ms": p90, "peak_gib": peak, "cosine": cos, "velocity_cosine": vcos, **parts}
+    if variant == "dm0":
+        result["dm0_prog"] = dm0_prog_call(failures, model, cfg, args, noise)
+    del server, model, a, b, calls
+    free_memory()
+    return result
+
+
+def dm0_prog_call(failures: list, model, cfg, args: tuple, noise) -> dict:
+    """15b's DM0-Prog: ``dm0_prog_config`` over DM0's backbone pair, its two
+    progress projections (1 -> the expert's width -> 1) drawn from a seeded
+    generator into DM0's model in the serving dtype (neither package has a
+    DM0-Prog exp); one ``flow_vla_inference_action(progress=...)`` on the
+    kernel path, with its K1 launches and shapes, against the plain path on
+    the same noise and progress input: chunk cosine >= 0.99 and the
+    end-progress within DM0_PROG_TOL."""
+    from dexbotic_tpu_torch.models import flow_vla as fv
+    from dexbotic_tpu_torch.nn.core import Linear, cast_matrices_, torch_linear_init_
+
+    pcfg = fv.dm0_prog_config(cfg.llm, cfg.expert, cfg.vit, projector_type=cfg.projector_type,
+                              action_dim=cfg.action_dim, chunk_size=cfg.chunk_size,
+                              num_flow_steps=cfg.num_flow_steps)
+    gen = torch.Generator(device="cuda").manual_seed(153)
+    eh = cfg.expert.hidden_size
+    with torch.no_grad():
+        for name, (i, o) in (("progress_in_proj", (1, eh)), ("progress_out_proj", (eh, 1))):
+            lin = Linear(i, o, device="cuda")
+            torch_linear_init_(lin, gen)
+            setattr(model, name, cast_matrices_(lin, torch.bfloat16).requires_grad_(False))
+    plain = dataclasses.replace(pcfg, llm=dataclasses.replace(pcfg.llm, attn_impl="xla"),
+                                expert=dataclasses.replace(pcfg.expert, attn_impl="xla"))
+    progress = torch.full((1, 1, 1), 0.35, device="cuda")
+    shapes: set = set()
+    _zero_counts()
+    with k1_calls(shapes):
+        a, pa = fv.flow_vla_inference_action(model, pcfg, *args, progress=progress, noise=noise)
+    launches = _launch_counts()
+    b, pb = fv.flow_vla_inference_action(model, plain, *args, progress=progress, noise=noise)
+    plain_launches = _launch_counts()["flash_fwd"] - launches["flash_fwd"]
+    cos = _cosine(a.flatten(), b.flatten())
+    dprog = (pa - pb).abs().max().item()
+    want = cfg.llm.num_layers * (1 + cfg.num_flow_steps)
+    print(f"  DM0-Prog (progress input {progress.item()}): K1 {launches['flash_fwd']} launches "
+          f"(expected {want}), shapes {sorted(shapes)}; kernel vs plain path: chunk cosine "
+          f"{cos:.6f}, end-progress {pa.item():.6f} vs {pb.item():.6f} (|diff| {dprog:.3g}, "
+          f"tolerance {DM0_PROG_TOL})")
+    checks = [(launches["flash_fwd"] == want and plain_launches == 0
+               and launches["plain_cuda_calls"] == 0,
+               f"15b DM0-Prog: K1 {launches['flash_fwd']} (want {want}), plain path K1 "
+               f"{plain_launches}, plain calls {launches['plain_cuda_calls']}"),
+              (shapes and shapes <= K1_FLOW_SERVED["dm0"] | K1_FLOW_SERVED["dm0_prog"],
+               f"15b DM0-Prog: K1 shapes {sorted(shapes)} not held by 3b"),
+              (cos >= 0.99 and dprog <= DM0_PROG_TOL and bool(torch.isfinite(pa).all()),
+               f"15b DM0-Prog: chunk cosine {cos}, end-progress |diff| {dprog} "
+               f"(want >= 0.99, <= {DM0_PROG_TOL})")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    del model.progress_in_proj, model.progress_out_proj
+    return {"launches": launches, "k1_shapes": sorted(shapes), "cosine": cos,
+            "progress": [pa.item(), pb.item()], "progress_abs_diff": dprog}
+
+
+def backward_reading(m, loss_fn, watched: dict, trainable=None) -> tuple[dict, dict]:
+    """One backward pass of ``loss_fn(m) -> (loss, metrics)``, only the
+    parameters in ``trainable`` (all if None) taking gradients: (the loss,
+    the metrics, grad_norm, the pass's K1/K3 launches and the seconds of its
+    forward and backward, CUDA-synchronised; each ``watched`` group's
+    gradients, the names under its prefixes, flattened in fp32); the
+    gradients are dropped after."""
+    from dexbotic_tpu_torch.exp.optim import global_norm
+    from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+
+    for name, p in m.named_parameters():
+        p.requires_grad_(trainable is None or name in trainable)
+    n0 = (flash_attention.launches, flash_attention_bwd.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        loss, metrics = loss_fn(m)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    named = [(name, p.grad) for name, p in m.named_parameters() if p.grad is not None]
+    out = {**{k: float(v.detach()) for k, v in metrics.items()}, "loss": float(loss.detach()),
+           "grad_norm": float(global_norm([g for _, g in named])),
+           "launches": (flash_attention.launches - n0[0], flash_attention_bwd.launches - n0[1]),
+           "forward_s": t1 - t0, "backward_s": t2 - t1}
+    grads = {k: torch.cat([g.float().flatten() for name, g in named if name.startswith(prefixes)])
+             for k, prefixes in watched.items()}
+    for p in m.parameters():
+        p.grad = None
+    m.requires_grad_(False)
+    return out, grads
+
+
+def step_paths(model, cfg, plain, loss_fn, watched: dict, bf16_copy, trainable=None) -> dict:
+    """10a's readings of one step of the fp32 ``model``: the fp32 witness
+    (``plain``, the plain attention in fp32), the plain path (its plain
+    version on q, k, v rounded to bf16: decoder_plain_on_bf16), the kernel
+    path (``cfg``: K1, K3) and bf16 matrices (``bf16_copy()``, a bf16 copy
+    of the weights on the plain attention, freed after); each a
+    :func:`backward_reading` of ``loss_fn(model, config)``."""
+    def read(m, c):
+        return backward_reading(m, lambda m: loss_fn(m, c), watched, trainable)
+
+    paths = {"fp32_witness": read(model, plain)}
+    with decoder_plain_on_bf16():
+        paths["plain"] = read(model, plain)
+    paths["kernel"] = read(model, cfg)
+    bf = bf16_copy()
+    with torch.no_grad():
+        for p, q in zip(bf.parameters(), model.parameters()):
+            p.copy_(q)
+    paths["bf16_matrices"] = read(bf, plain)
+    del bf
+    free_memory()
+    return paths
+
+
+FLOW_TRAIN_STEPS = 2  # 15c's timed steps of each twin at 4 x 4
+
+
+def flow_train_exp(variant: str, dataset: str, stats: str, out: str, micro: int, accum: int,
+                   steps: int):
+    """The LIBERO twin of ``variant`` (playground/benchmarks/libero/
+    libero_pi05.py, libero_dm0.py) at full width and depth with remat, on
+    ``dataset`` and the pi0-format ``stats``, with the two changes it needs
+    to train at all, in either package (ROADMAP Queue 3): image masks on (its
+    fresh action config drops them, while its data_keys ask for them), and
+    the actions padded to the model's action_dim (DM0's 7, not
+    Pi0ActionConfig's 32); ``micro`` x ``accum`` rows a step, the
+    checkpoint without the moments."""
+    from dexbotic_tpu_torch.playground.benchmarks.libero.libero_dm0 import LiberoDM0Exp
+    from dexbotic_tpu_torch.playground.benchmarks.libero.libero_pi05 import LiberoPi05Exp
+
+    exp = {"pi05": LiberoPi05Exp, "dm0": LiberoDM0Exp}[variant](device="cuda")
+    exp.data = dataclasses.replace(exp.data, dataset_name=dataset)
+    exp.action = dataclasses.replace(exp.action, statistic_mapping=stats,
+                                     load_multimodal_masks=True, action_ndim=exp.model.action_dim)
+    exp.trainer = dataclasses.replace(exp.trainer, output_dir=out, max_steps=steps,
+                                      per_device_batch_size=micro,
+                                      gradient_accumulation_steps=accum, logging_steps=1,
+                                      save_steps=steps, resume=False, save_optimizer=False)
+    return exp
+
+
+def phase_flow_train_compare(failures: list, variant: str, dataset: str, stats: str) -> dict:
+    """15c's first half: one step of the twin (micro-batch PI0_TRAIN_MICRO:
+    four samples spread over the suite) in fp32, full fine-tune, the flow
+    noise and times injected: the kernel path (K1, K3 on q, k, v rounded to
+    bf16), the plain path (their plain version on the same rounded q, k, v:
+    decoder_plain_on_bf16) and bf16 matrices (a bf16 copy of the weights on
+    the plain attention, a reading), each against an fp32 witness (the plain
+    attention in fp32): loss, grad_norm and the gradient 1-cosine of the
+    LLM's and the expert's first layers (each gradient there has passed
+    through every layer's attention backward) and of the action projections;
+    10a's rule (hold_step).  pi0.5's adaRMS projections are redrawn."""
+    from dexbotic_tpu_torch.data.collator import Collator
+    from dexbotic_tpu_torch.models import flow_vla as fv
+    from dexbotic_tpu_torch.nn.core import cast_matrices_
+
+    B = PI0_TRAIN_MICRO
+    exp = flow_train_exp(variant, dataset, stats, f"out_{variant}_compare", B, 1, 1)
+    tok = exp.tokenizer.build_tokenizer()
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, _ = exp.build_model(tok)
+    redraw_adarms_(model, torch.Generator(device="cuda").manual_seed(157))
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phase 15c: one {exp.exp_name} training step ({n_params / 1e9:.3f}B parameters, fp32, "
+          f"full fine-tune, micro-batch {B}): kernel path vs plain path (both on bf16 q, k, v) vs "
+          f"fp32 witness; bf16 matrices as a reading")
+    ds = exp.data.build_data(exp.build_tokenization(tok), exp.action.build_action_process_func())
+    host = Collator(pad_token_id=tok.pad_token_id, max_length=exp.tokenizer.model_max_length)(
+        [ds[i * (len(ds) - 1) // (B - 1)] for i in range(B)])
+    batch = {k: torch.as_tensor(v).cuda() for k, v in host.items()}
+    text, chunk = FLOW_TRAIN[variant]
+    valid = batch["attention_mask"].sum(1).tolist()
+    print(f"  rows: images {tuple(batch['images'].shape)}, text {valid} valid of "
+          f"{batch['input_ids'].shape[1]}, actions {tuple(batch['actions'].shape)}")
+    if (batch["input_ids"].shape[1], min(valid), batch["actions"].shape[1]) != (text, text, chunk):
+        failures.append(f"15c {variant}: rows of {batch['input_ids'].shape[1]} text slots "
+                        f"({valid} valid) and {batch['actions'].shape[1]} actions; phases 3b "
+                        f"and 6 hold {text} valid of {text} and {chunk}")
+    g = torch.Generator(device="cuda").manual_seed(154)
+    noise = torch.randn((B, cfg.chunk_size, cfg.action_dim), generator=g, device="cuda")
+    time_ = fv.sample_flow_time(B, g, "cuda")
+    plain = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, attn_impl="xla"),
+                                expert=dataclasses.replace(cfg.expert, attn_impl="xla"))
+    watched = {"llm_first_layer": ("vlm.llm.layers.0.",), "expert_first_layer": ("expert.layers.0.",),
+               "action_proj": ("action_in_proj.", "action_out_proj.")}
+    paths = step_paths(
+        model, cfg, plain,
+        lambda m, c: fv.flow_vla_loss(m, c, batch, remat=True, noise=noise, time=time_),
+        watched, lambda: fv.build_flow_vla(plain, "cuda",
+                                           prepare=lambda m: cast_matrices_(m, torch.bfloat16)))
+    (w32, g32), (wpl, gpl), (wk, gk), (wbf, gbf) = (
+        paths[p] for p in ("fp32_witness", "plain", "kernel", "bf16_matrices"))
+    for lab, w in (("kernel", wk), ("plain", wpl), ("bf16 matrices", wbf), ("fp32 witness", w32)):
+        print(f"  {lab}: loss {w['loss']:.6g} grad_norm {w['grad_norm']:.6g}; K1/K3 launches "
+              f"{w['launches']}; forward {w['forward_s']:.2f} s, backward {w['backward_s']:.2f} s")
+    L = cfg.llm.num_layers
+    checks = [(all(math.isfinite(wk[k]) for k in ("loss", "grad_norm")),
+               f"15c {variant}: non-finite kernel-path metrics {wk}"),
+              (wk["launches"][1] >= L and w32["launches"] == wpl["launches"]
+               == wbf["launches"] == (0, 0),
+               f"15c {variant}: K1/K3 launches kernel path {wk['launches']}, plain paths "
+               f"{wpl['launches']} {w32['launches']} {wbf['launches']}")]
+    witness, bounds = hold_step(f"15c {variant}", {"kernel": (wk, gk), "plain": (wpl, gpl),
+                                                   "bf16_matrices": (wbf, gbf)}, (w32, g32),
+                                {"loss": "rel", "grad_norm": "rel"}, checks)
+    failures.extend(msg for ok, msg in checks if not ok)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  peak memory allocated {peak:.2f} GiB")
+    del model, paths, g32, gpl, gk, gbf, batch
+    free_memory()
+    return {"params": n_params, "rows": [B, FLOW_VIEWS + text + chunk], "peak_gib": peak,
+            "kernel": wk, "plain": wpl, "bf16_matrices": wbf, "fp32_witness": w32,
+            "vs_fp32": witness, "bounds": bounds}
+
+
+def phase_flow_train_steps(failures: list, variant: str, dataset: str, stats: str) -> dict:
+    """15c's second half: FLOW_TRAIN_STEPS steps of the twin through
+    ``exp.train()`` at 4 x 4 (recorded_train: each step's peak; K1-K4 and the
+    plain CUDA attention calls read around the run, K1's and K3's shapes):
+    K3 exactly layers x 4 a step, K1 at least twice that (remat), no plain
+    call, the shapes phases 3b and 6 hold, the peak under 80 GiB."""
+    micro, accum, steps = PI0_TRAIN_MICRO, 4, FLOW_TRAIN_STEPS
+    out = f"out_{variant}_train"
+    exp = flow_train_exp(variant, dataset, stats, out, micro, accum, steps)
+    print(f"phase 15c: {steps} {exp.exp_name} training steps through exp.train() "
+          f"(micro-batch {micro}, accumulation {accum}, remat, full fine-tune)")
+    L = exp.model.build_config().llm.num_layers
+    run = recorded_train(exp, out)
+    log, seen, rows, launches, wall = (run[k] for k in ("log", "seen", "rows", "launches", "wall"))
+    for r, s_ in zip(rows, seen):
+        print(f"  step {r['step']}: loss {r['loss']:.6g} grad_norm {r['grad_norm']:.6g} step time "
+              f"{1 / r['steps_per_sec']:.4f} s; peak {s_['peak_gib']:.2f} GiB")
+    step_s = statistics.median(1 / r["steps_per_sec"] for r in rows[1:])
+    peak = max(s_["peak_gib"] for s_ in seen) if seen else float("nan")
+    S = FLOW_VIEWS + sum(FLOW_TRAIN[variant])
+    unchecked = sorted((run["k1_shapes"] | run["k3_shapes"]) - {(micro, S, S)})
+    n_bwd = L * accum * steps
+    print(f"  train() wall {wall:.1f} s; step {step_s:.4f} s (median of steps 2-{steps}), "
+          f"{micro * accum / step_s:.3f} samples/s; peak {peak:.2f} GiB; launches {launches} "
+          f"({launches['flash_fwd'] // steps} K1 and {launches['flash_bwd'] // steps} K3 a step); "
+          f"K1 shapes {sorted(run['k1_shapes'])}, K3 shapes {sorted(run['k3_shapes'])}")
+    checks = [(log.get("step") == steps and len(rows) == steps == len(seen),
+               f"15c {variant}: ran {len(rows)} of {steps} steps"),
+              (all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows),
+               f"15c {variant}: non-finite loss or grad_norm"),
+              (launches["flash_bwd"] == n_bwd and launches["flash_fwd"] >= 2 * n_bwd
+               and launches["plain_cuda_calls"] == launches["dit_sample"]
+               == launches["quant_matmul"] == 0,
+               f"15c {variant}: launches {launches}, want K3 {n_bwd}, K1 >= {2 * n_bwd}"),
+              (not unchecked, f"15c {variant}: K1/K3 shapes {unchecked} not held by 3b and 6"),
+              (peak < 80, f"15c {variant}: peak {peak:.2f} GiB >= 80")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    return {"launches": launches, "launches_per_step": {k: v // steps for k, v in launches.items()},
+            "step_s": step_s, "samples_per_s": micro * accum / step_s, "peak_gib": peak,
+            "train_wall_s": wall, "losses": [r["loss"] for r in rows]}
+
+
+def phase_flow_train(failures: list) -> dict:
+    """Phase 15c in a temp dir (a 3-view suite of 60-frame episodes, each
+    twin's statistics, checkpoints), removed after: pi0.5, then DM0, each
+    model freed before the next."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
+        dataset = write_suite(os.path.join(tmp, "suite"), views=3, name="flow", frames=60,
+                              episodes=2)
+        for variant in ("pi05", "dm0"):
+            dim = flow_train_exp(variant, dataset, "", "", 1, 1, 1).model.action_dim
+            stats = write_pi0_stats(os.path.join(tmp, f"{variant}_norm_stats.json"), dim=dim)
+            compare = phase_flow_train_compare(failures, variant, dataset, stats)
+            free_memory()
+            out[variant] = {"compare": compare,
+                            **phase_flow_train_steps(failures, variant, dataset, stats)}
+            free_memory()
+    return out
+
+
+# 15d: HybridCogActExp's mixed batch, a robot row of the suite of phase 7 and
+# a VQA row (write_vqa_suite), each padded to the recipe's TRAIN_SEQ_LEN;
+# HYBRID_ROWS are their valid tokens (the robot row carries no action text:
+# the hybrid action config adds no answer; the VQA row is its prompt and
+# answer).  Phases 3 and 6 hold K1 and K3 at the batch's rows
+# (hybrid_attn_inputs).
+HYBRID_ROWS = (858, 241)
+
+
+def hybrid_attn_inputs(gen):
+    """(name, q, k, v, (q_grp, kv_grp, kv_valid), None) of 15d's decoder call:
+    the two rows of HYBRID_ROWS valid tokens, padded to TRAIN_SEQ_LEN, causal,
+    LLaMA-2's 32 heads of 128."""
+    _, q, k, v, ints, seg = oft_attn_inputs(2, HYBRID_ROWS, TRAIN_SEQ_LEN, 0, False, gen)
+    return (f"hybrid training B=2 S={TRAIN_SEQ_LEN} ({HYBRID_ROWS} valid) H=32/32 D=128",
+            q, k, v, ints, seg)
+
+
+def write_vqa_suite(root: str, name: str = "vqa", episodes: int = 2, frames: int = 4) -> str:
+    """A synthetic VQA suite (text rows: a 480x640 frame, a question and its
+    answer, no state), as tests/test_hybrid.py's 'general' data; returns its name."""
+    from PIL import Image
+
+    from dexbotic_tpu_torch.data.registry import register_dataset
+
+    rng = np.random.default_rng(7)
+    os.makedirs(root, exist_ok=True)
+    for e in range(episodes):
+        lines = []
+        for t in range(frames):
+            url = f"v{e}f{t}.png"
+            Image.fromarray(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)).save(
+                os.path.join(root, url))
+            lines.append(json.dumps({"images_1": {"type": "image", "url": url},
+                                     "prompt": "what is on the table next to the bowl?",
+                                     "answer": "a red mug and a folded towel"}))
+        with open(os.path.join(root, f"v{e}.jsonl"), "w") as f:
+            f.write("\n".join(lines))
+    register_dataset({name: {"data_path_prefix": root, "annotations": root, "frequency": 1}},
+                     prefix="general", meta_data={"non_delta_mask": [6], "periodic_mask": None,
+                                                  "periodic_range": None})
+    return f"general_{name}"
+
+
+def hybrid_exp(dataset: str, out: str, micro: int):
+    """HybridCogActExp at CogACT-7B's widths (CLIP-L/336 frames) with phase 7's
+    optimizer (a frozen LLM and vision tower), rows of TRAIN_SEQ_LEN."""
+    from dexbotic_tpu_torch.exp.cogact_exp import CogActModelConfig
+    from dexbotic_tpu_torch.exp.hybrid_cogact_exp import HybridCogActExp
+    from dexbotic_tpu_torch.exp.optim import OptimizerConfig
+    from dexbotic_tpu_torch.exp.trainer import TrainerConfig
+
+    base = HybridCogActExp()
+    return HybridCogActExp(
+        model=CogActModelConfig(),
+        data=dataclasses.replace(base.data, dataset_name=dataset, image_processor="clip_336",
+                                 aug_policy="v1"),
+        trainer=TrainerConfig(output_dir=out, max_steps=1, per_device_batch_size=micro,
+                              logging_steps=1, save_steps=1, bf16=True,
+                              gradient_checkpointing=True, resume=False),
+        optimizer=OptimizerConfig(learning_rate=2e-5, max_grad_norm=1.0, freeze_llm=True,
+                                  freeze_mm_vision=True),
+        device="cuda")
+
+
+def hybrid_batch(exp, tok) -> dict:
+    """The first robot row and the first text row of the mixed suite, collated
+    to TRAIN_SEQ_LEN (an episode's last frame is redrawn from the global
+    ``random``: seeded)."""
+    import random
+
+    from dexbotic_tpu_torch.data.collator import Collator
+
+    ds = exp.data.build_data(exp.build_tokenization(tok), exp.action.build_action_process_func())
+    random.seed(3)
+    robot = text = None
+    for i in range(len(ds)):
+        item = ds[i]
+        if robot is None and np.any(item["has_action"]):
+            robot = item
+        if text is None and np.any(item["has_text"]):
+            text = item
+        if robot is not None and text is not None:
+            break
+    return Collator(pad_token_id=tok.pad_token_id, max_length=exp.tokenizer.model_max_length)(
+        [robot, text])
+
+
+def phase_hybrid(failures: list) -> dict:
+    """Phase 15d: one HybridCogActExp step at full width on a mixed batch (a
+    robot row, a text row), fp32, the LLM and the tower frozen, the diffusion
+    draws injected: the text loss (causal LM over the 32000 logits of every
+    row) and the action loss, the kernel path (K1, K3 on bf16 q, k, v: the
+    text loss's gradient reaches the projector through the frozen LLM's K3),
+    the plain path on the same rounded q, k, v and bf16 matrices (a reading)
+    against an fp32 witness: 10a's rule on the loss, grad_norm and the
+    gradient 1-cosine of the projector, the DiT and lm_head (which
+    ``freeze_llm`` leaves trainable); each path's text and action loss."""
+    from dexbotic_tpu_torch.exp.optim import is_frozen
+    from dexbotic_tpu_torch.models.cogact import build_cogact, cogact_loss
+    from dexbotic_tpu_torch.nn.core import cast_matrices_
+
+    B = 2
+    with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
+        robot = write_suite(os.path.join(tmp, "suite"), name="hyb")
+        vqa = write_vqa_suite(os.path.join(tmp, "vqa"))
+        exp = hybrid_exp(f"{robot}+{vqa}", "out_hybrid", B)
+        exp._auto_compute_norm_stats()
+        tok = exp.tokenizer.build_tokenizer()
+        host = hybrid_batch(exp, tok)
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, _ = exp.build_model(tok)
+    redraw_final_(model.action_head, torch.Generator(device="cuda").manual_seed(155))
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = {k: torch.as_tensor(v).cuda() for k, v in host.items()}
+    rows = tuple(batch["attention_mask"].sum(1).tolist())
+    flags = (batch["has_action"].reshape(-1).tolist(), batch["has_text"].reshape(-1).tolist())
+    print(f"phase 15d: one HybridCogActExp step ({n_params / 1e9:.3f}B parameters, fp32, LLM and "
+          f"tower frozen) on a mixed batch: has_action {flags[0]}, has_text {flags[1]}, "
+          f"{rows} valid tokens of {batch['input_ids'].shape[1]}; kernel path vs plain path "
+          f"(both on bf16 q, k, v) vs fp32 witness; bf16 matrices as a reading")
+    checks = [(flags == ([1, 0], [0, 1]), f"15d: has_action / has_text {flags}"),
+              ((rows, batch["input_ids"].shape[1]) == (HYBRID_ROWS, TRAIN_SEQ_LEN),
+               f"15d: rows of {rows} tokens padded to {batch['input_ids'].shape[1]}; phases 3 "
+               f"and 6 hold {HYBRID_ROWS} of {TRAIN_SEQ_LEN}")]
+    g = torch.Generator(device="cuda").manual_seed(156)
+    n = cfg.repeated_diffusion_steps * B
+    t = torch.randint(0, cfg.diffusion_steps, (n,), generator=g, device="cuda")
+    noise = torch.randn((n, cfg.chunk_size, cfg.action_dim), generator=g, device="cuda")
+    plain = plain_config(cfg)
+    watched = {"projector": ("vlm.projector.",), "dit": ("action_head.",),
+               "lm_head": ("vlm.llm.lm_head.",)}
+    trainable = {n for n, _ in model.named_parameters() if not is_frozen(n, exp.optimizer)}
+    shapes: set = set()
+    with k1_calls(shapes), k1_calls(shapes, "_flash_bwd_cuda"):  # the kernel path's alone
+        paths = step_paths(
+            model, cfg, plain, lambda m, c: cogact_loss(m, c, batch, remat=True, with_text_loss=True,
+                                                        diffusion_t=t, diffusion_noise=noise),
+            watched, lambda: build_cogact(plain, "cuda",
+                                          prepare=lambda m: cast_matrices_(m, torch.bfloat16)),
+            trainable)
+    (w32, g32), (wpl, gpl), (wk, gk), (wbf, gbf) = (
+        paths[p] for p in ("fp32_witness", "plain", "kernel", "bf16_matrices"))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for lab, w in (("kernel", wk), ("plain", wpl), ("bf16 matrices", wbf), ("fp32 witness", w32)):
+        print(f"  {lab}: loss {w['loss']:.6g} = text {w['text_loss']:.6g} + action "
+              f"{w['action_loss']:.6g}; grad_norm {w['grad_norm']:.6g}; K1/K3 launches "
+              f"{w['launches']}; forward {w['forward_s']:.2f} s, backward {w['backward_s']:.2f} s")
+    held = {oft_k1_shape(B, HYBRID_ROWS, TRAIN_SEQ_LEN, 0, False)}
+    L = cfg.vlm.llm.num_layers
+    paths = (wk, wpl, wbf, w32)
+    checks += [(all(math.isfinite(w[k]) and w[k] > 0 for w in paths
+                    for k in ("text_loss", "action_loss")),
+                f"15d: text / action losses {[(w['text_loss'], w['action_loss']) for w in paths]}"),
+               (wk["launches"] == (2 * L, L) and w32["launches"] == wpl["launches"]
+                == wbf["launches"] == (0, 0),
+                f"15d: K1/K3 launches kernel path {wk['launches']} (want {(2 * L, L)}), plain "
+                f"paths {wpl['launches']} {w32['launches']} {wbf['launches']}"),
+               (shapes == held, f"15d: K1/K3 shapes {sorted(shapes)}, phases 3 and 6 hold {held}"),
+               (peak < 80, f"15d: peak {peak:.2f} GiB >= 80")]
+    witness, bounds = hold_step("15d", {"kernel": (wk, gk), "plain": (wpl, gpl),
+                                        "bf16_matrices": (wbf, gbf)}, (w32, g32),
+                                {"loss": "rel", "grad_norm": "rel"}, checks)
+    text_dist = {p: {k: abs(w[k] - w32[k]) / abs(w32[k]) for k in ("text_loss", "action_loss")}
+                 for p, w in (("kernel", wk), ("plain", wpl), ("bf16_matrices", wbf))}
+    print(f"  text and action loss, relative distance from the witness: {text_dist}; peak "
+          f"memory allocated {peak:.2f} GiB")
+    failures.extend(msg for ok, msg in checks if not ok)
+    del model, paths, g32, gpl, gk, gbf, batch
+    free_memory()
+    return {"params": n_params, "rows": list(rows), "peak_gib": peak, "kernel": wk, "plain": wpl,
+            "bf16_matrices": wbf, "fp32_witness": w32, "vs_fp32": witness, "bounds": bounds,
+            "loss_parts_vs_fp32": text_dist, "launches": {"flash_fwd": wk["launches"][0],
+                                                          "flash_bwd": wk["launches"][1]}}
+
+
+# 15e: the port's harness (playground/eval_server.py) with the mock env
+# against phase 5's server: HARNESS_ARGS are (tasks, episodes a task,
+# max_steps, execute_steps).  The mock env's observations and outcomes
+# follow the trial seed alone, so the report and the requests are the JAX
+# harness's for the same arguments on the CPU (tests/test_torch_playground.py
+# holds both harnesses to these values).
+HARNESS_ARGS = (("task_0", "task_1"), 2, 32, 8)
+HARNESS_REPORT = {"per_task": {"task_0": 0.5, "task_1": 0.5}, "average": 0.5, "episodes": 4,
+                  "frames": 108}
+HARNESS_REQUESTS = 14
+
+
+def phase_harness(failures: list, serve: dict) -> dict:
+    """Phase 15e: ``eval_server.evaluate()`` (env_type "mock") against
+    phase 5's CogACT-7B behind a CogActServer, every count set to 0 just
+    before and read just after: the report but the wall time must equal
+    HARNESS_REPORT, the requests HARNESS_REQUESTS, and each request take
+    K1 once a decoder layer and K2 once."""
+    from dexbotic_tpu_torch.exp.serve import CogActServer
+    from dexbotic_tpu_torch.playground.eval_server import EvalConfig, evaluate
+
+    tasks, episodes, max_steps, execute = HARNESS_ARGS
+    cfg = serve["cfg"]
+    print(f"phase 15e: the success-rate harness (mock env, {len(tasks)} tasks x {episodes} "
+          f"episodes, max_steps {max_steps}, execute_steps {execute}) against CogACT-7B")
+    server = CogActServer(serve["exp"], cfg, serve["model"], serve["tokenizer"], serve["norms"],
+                          host="127.0.0.1", port=0)
+    httpd = server.serve_background()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/process_frame"
+    try:
+        _zero_counts()
+        calls = server.host_calls
+        report = evaluate(url, "mock", "libero_spatial", list(tasks), episodes, max_steps, execute,
+                          EvalConfig("libero_spatial", max_steps))
+        launches = _launch_counts()
+        requests = server.host_calls - calls
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    L = cfg.vlm.llm.num_layers
+    print(f"  report {report}; {requests} requests; launches {launches} (per request: K1 "
+          f"{launches['flash_fwd'] / max(requests, 1):g}, K2 {launches['dit_sample'] / max(requests, 1):g})")
+    got = {k: v for k, v in report.items() if k != "wall_s"}
+    checks = [(got == HARNESS_REPORT, f"15e: report {got}, the JAX harness's {HARNESS_REPORT}"),
+              (requests == HARNESS_REQUESTS, f"15e: {requests} requests, want {HARNESS_REQUESTS}"),
+              (launches["flash_fwd"] == L * requests and launches["dit_sample"] == requests
+               and launches["plain_cuda_calls"] == launches["flash_bwd"] == 0,
+               f"15e: launches {launches} for {requests} requests")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    return {"report": report, "requests": requests, "launches": launches,
+            "per_request": {"flash_fwd": launches["flash_fwd"] / max(requests, 1),
+                            "dit_sample": launches["dit_sample"] / max(requests, 1)}}
+
+
 def build_report(log: str, failures: list) -> tuple[dict, dict, dict, dict]:
     """Registers and spills of every K1 instance ("flash_fwd_kernel<D, NWG,
     BK>"), every K3 instance ("dkv_kernel<D, NWG, stages, split>",
@@ -5665,8 +6458,8 @@ def main() -> int:
     k2_sass_report(build.LIBRARY.path, k2_build, failures)
     k1 = phase_flash(failures)
     lap("phase_flash")
-    k1_d256 = phase_flash_d256(failures)
-    lap("phase_flash_d256")
+    k1_flow = phase_flash_flow(failures)
+    lap("phase_flash_flow")
     k2 = phase_dit(failures)
     lap("phase_dit")
     k2q = phase_dit(failures, int8=True)
@@ -5679,7 +6472,9 @@ def main() -> int:
     lap("phase_fused_preprocess")
     replay = phase_replay_cogact(failures, serve)
     lap("phase_replay_cogact")
-    for key in ("model", "exp", "tokenizer", "inputs"):
+    harness = phase_harness(failures, serve)
+    lap("phase_harness")
+    for key in ("model", "exp", "tokenizer", "norms", "inputs"):
         del serve[key]
     free_memory()  # the serving model
     serve_q = phase_slice(failures, quantize="w8a8", bf16=serve)
@@ -5689,6 +6484,11 @@ def main() -> int:
     lap("phase_pi0")
     pi0_q = phase_pi0_replay(failures, pi0)
     lap("phase_pi0_replay")
+    free_memory()
+    pi05 = phase_flow_serve(failures, "pi05")
+    lap("phase_flow_serve")
+    dm0 = phase_flow_serve(failures, "dm0")
+    lap("phase_flow_serve")
     launches, launches_q = serve["launches"], serve_q["launches"]
     oft = phase_oft(failures)
     lap("phase_oft")
@@ -5704,6 +6504,12 @@ def main() -> int:
     free_memory()
     pi0_train = phase_pi0_train(failures)
     lap("phase_pi0_train")
+    free_memory()
+    flow_train = phase_flow_train(failures)
+    lap("phase_flow_train")
+    free_memory()
+    hybrid = phase_hybrid(failures)
+    lap("phase_hybrid")
     free_memory()
     oft_train = phase_oft_train(failures)
     lap("phase_oft_train")
@@ -5745,7 +6551,9 @@ def main() -> int:
                    **oft_routes},
         "5h_oft_int8": oft_q, "9_oft_train": oft_train, "10_rl": rl, "11a_memvla": mem,
         "11b_memvla_int8": mem_q, "12_memvla_train": mem_train, "13_navila": nav,
-        "14_discrete": discrete, "14d_muvla": muvla}}, default=float))
+        "14_discrete": discrete, "14d_muvla": muvla, "15a_pi05": pi05, "15b_dm0": dm0,
+        "15c_flow_train": flow_train, "15d_hybrid": hybrid, "15e_harness": harness}},
+        default=float))
     fleet = nav["13a_serve"]["14c_fleet"]
     d_routes, m_routes = discrete["14a_serve"]["routes"], muvla["routes"]
     engine_keys = {  # each kernel's launches on the decode engine's paths (14a-14d), measured
@@ -5784,6 +6592,18 @@ def main() -> int:
                          oft_train["workers"]["launches"]["quant_matmul"])}
     oft_keys = {name: dict(zip(("oft_launches", "oft_int8_launches", "oft_train_launches"), n))
                 for name, n in oft_counts.items()}
+    flow_keys = {  # each kernel's launches on phase 15's paths, measured
+        "flash_fwd": {"pi05_launches": pi05["launches"]["flash_fwd"],
+                      "dm0_launches": dm0["launches"]["flash_fwd"],
+                      "dm0_prog_launches": dm0["dm0_prog"]["launches"]["flash_fwd"],
+                      "pi05_train_launches": flow_train["pi05"]["launches"]["flash_fwd"],
+                      "dm0_train_launches": flow_train["dm0"]["launches"]["flash_fwd"],
+                      "hybrid_train_launches": hybrid["launches"]["flash_fwd"],
+                      "eval_harness_launches": harness["launches"]["flash_fwd"]},
+        "flash_bwd": {"pi05_train_launches": flow_train["pi05"]["launches"]["flash_bwd"],
+                      "dm0_train_launches": flow_train["dm0"]["launches"]["flash_bwd"],
+                      "hybrid_train_launches": hybrid["launches"]["flash_bwd"]},
+        "dit_sample": {"eval_harness_launches": harness["launches"]["dit_sample"]}}
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "dexbotic_tpu/ops/attention.py:86",
@@ -5793,12 +6613,14 @@ def main() -> int:
          "launches_fused_preprocess": fused["launches"]["flash_fwd"],
          "launches_replay": replay["launches"]["flash_fwd"],
          "pi0_int8_launches": pi0_q["launches"]["flash_fwd"], **oft_keys["flash_fwd"],
-         **rl_keys["flash_fwd"], **engine_keys["flash_fwd"], **k1, **k1_d256, "build": k1_build},
+         **rl_keys["flash_fwd"], **engine_keys["flash_fwd"], **flow_keys["flash_fwd"], **k1,
+         **k1_flow, "build": k1_build},
         {"name": "dit_sample", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/dit_sampler.cu",
          "replaces": "dexbotic_tpu/ops/dit_fused.py:58",
          "launches": launches["dit_sample"], "launches_8_frame_request": serve["k2_b8_request"],
          "launches_fused_preprocess": fused["launches"]["dit_sample"],
-         "launches_replay": replay["launches"]["dit_sample"], **k2, "build": k2_build},
+         "launches_replay": replay["launches"]["dit_sample"], **flow_keys["dit_sample"], **k2,
+         "build": k2_build},
         {"name": "dit_sample_int8", "route": "cuda",
          "source": "dexbotic_tpu_torch/csrc/dit_sampler.cu",
          "replaces": "dexbotic_tpu/ops/dit_fused.py:58",
@@ -5810,7 +6632,8 @@ def main() -> int:
                            "dexbotic_tpu/ops/attention.py:446"],
          "launches": train["launches"]["flash_bwd"],
          "pi0_train_launches": pi0_train["launches"]["flash_bwd"], **oft_keys["flash_bwd"],
-         **rl_keys["flash_bwd"], **engine_keys["flash_bwd"], **k3, "build": k3_build},
+         **rl_keys["flash_bwd"], **engine_keys["flash_bwd"], **flow_keys["flash_bwd"], **k3,
+         "build": k3_build},
         {"name": "quant_matmul", "route": "cuda",
          "source": "dexbotic_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "dexbotic_tpu/ops/quant_matmul.py:77",

@@ -1,1 +1,1 @@
-"""Benchmark recipes (LIBERO) of the port."""
+"""Benchmark recipes of the port: LIBERO, CALVIN, ManiSkill2, RoboTwin2.0 and SimplerEnv."""

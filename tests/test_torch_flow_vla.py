@@ -430,3 +430,56 @@ def test_flow_config_fields_and_presets_match_jax():
         jc, tc = j.build_config(), t.build_config()
         assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
         assert tc.suffix_len == jc.suffix_len and tc.vlm.num_image_tokens == jc.vlm.num_image_tokens
+
+
+@pytest.mark.parametrize("key", ["pi05_served_suffix", "pi05_train", "dm0_served_prefix",
+                                 "dm0_served_suffix", "dm0_prog_served_suffix", "dm0_train"])
+def test_chip_smoke_flow_k1_inputs_match_the_model(key, monkeypatch):
+    """chip_smoke phase 3b's pi0.5 / DM0 / DM0-Prog K1 inputs (FLOW_CASES via
+    flow_attn_inputs) carry the query and key rows and the group and valid
+    masks that the model gives its decoder attention at that call: a tiny
+    model of the variant, 3 views of 4 image tokens, the case's text slots
+    and valid ids and its suffix; the first call of the prefill, of the
+    first Euler step, or of the training loss."""
+    import chip_smoke
+    from dexbotic_tpu_torch.nn import transformer
+
+    cases = {c[0]: c for c in chip_smoke.FLOW_CASES}
+    assert set(cases) == {"pi05_served_suffix", "pi05_train", "dm0_served_prefix",
+                          "dm0_served_suffix", "dm0_prog_served_suffix", "dm0_train"}
+    _, variant, B, text, n_valid, part = cases[key]
+    chunk = chip_smoke.FLOW_TRAIN[variant][1] if part == "train" else 50
+    cfg = dataclasses.replace(_pair(variant)[1], chunk_size=chunk)
+    model = tflow.build_flow_vla(cfg, "cpu")
+    rng = np.random.default_rng(2)
+    images = torch.from_numpy(rng.standard_normal((B, 3, 28, 28, 3)).astype(np.float32))
+    masks = torch.ones((B, 3), dtype=torch.int32)
+    ids = torch.from_numpy(rng.integers(1, cfg.llm.vocab_size, (B, text)).astype(np.int32))
+    ids[:, n_valid:] = 0
+    tmask = (ids != 0).to(torch.int32)
+    calls = []
+    attn = transformer.attention
+
+    def recorded(q, k, v, q_grp, kv_grp, kv_valid, *args, **kw):
+        calls.append((q.shape[1], k.shape[1], q_grp, kv_grp, kv_valid))
+        return attn(q, k, v, q_grp, kv_grp, kv_valid, *args, **kw)
+
+    monkeypatch.setattr(transformer, "attention", recorded)
+    with torch.no_grad():
+        if part == "train":
+            batch = {"images": images, "image_masks": masks, "input_ids": ids,
+                     "attention_mask": tmask,
+                     "actions": torch.randn(B, chunk, cfg.action_dim, generator=torch.Generator())}
+            tflow.flow_vla_loss(model, cfg, batch, torch.Generator().manual_seed(0))
+        else:
+            prog = torch.full((B, 1, 1), 0.3) if variant == "dm0_prog" else None
+            tflow.flow_vla_inference_action(model, cfg, ids, tmask, images, masks, None,
+                                            generator=torch.Generator().manual_seed(0),
+                                            num_steps=1, progress=prog)
+    got = calls[cfg.llm.num_layers if part == "suffix" else 0]
+    _, q, k, _, want, _ = chip_smoke.flow_attn_inputs(variant, B, text, n_valid, part,
+                                                      torch.Generator().manual_seed(0),
+                                                      views=3 * 4, device="cpu")
+    assert got[:2] == (q.shape[1], k.shape[1])
+    for w, g in zip(want, got[2:]):
+        assert torch.equal(g.to(torch.int64).expand(w.shape), w.to(torch.int64))

@@ -74,6 +74,22 @@ def test_new_entry_points_are_covered():
     assert os.path.join(REPO, "script", "replay_checkpoint_torch.py") in set(_sources())
 
 
+def test_playground_twins_are_covered():
+    """The twins of the JAX package's entry files (the CALVIN, ManiSkill2,
+    RoboTwin2.0 and SimplerEnv recipes, the examples, the success-rate
+    harness, the SO-101 example and bridge) are among the modules imported
+    with JAX blocked and scanned above."""
+    names = _modules()
+    twins = ["benchmarks.calvin.calvin_cogact", "benchmarks.calvin.calvin_oft",
+             "benchmarks.maniskill2.maniskill2_cogact", "benchmarks.maniskill2.maniskill2_oft",
+             "benchmarks.maniskill2.maniskill2_pi0", "benchmarks.robotwin2.robotwin2_cogact",
+             "benchmarks.simpler.simpler_cogact", "benchmarks.simpler.simpler_memvla",
+             "benchmarks.simpler.simpler_oft", "eval_server", "example_exp",
+             "example_memvla_exp", "so101_inference_example", "so101.bridge_server"]
+    for twin in twins:
+        assert f"dexbotic_tpu_torch.playground.{twin}" in names, twin
+
+
 def test_no_jax_package_in_the_sources():
     """No line of the port or of chip_smoke.py imports dexbotic_tpu (the port's
     own dexbotic_tpu_torch is fine)."""

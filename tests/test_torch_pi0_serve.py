@@ -1,11 +1,12 @@
-"""The port's pi0 serving entry points on the CPU at a tiny pi0.
+"""The port's pi0 serving entry points on the CPU at a tiny pi0, pi0.5 and DM0.
 
 A multipart POST to /process_frame (3 views and a state, 1 view with the
 others masked, batch_size=2, micro-batched singles) must return what a
 direct call of flow_vla_inference_action returns from the same generator
-state, after the served state normalisation and output transforms; those
-transforms and ServingStats must equal the JAX FlowVLAServer's on one raw
-chunk (float64 on both sides, rtol 1e-12).
+state, after the served state normalisation and output transforms (mean/std
+for pi0, the quantiles for pi0.5 and DM0, whose tokenization and text bucket
+differ too); those transforms and ServingStats must equal the JAX
+FlowVLAServer's on one raw chunk (float64 on both sides, rtol 1e-12).
 """
 
 import concurrent.futures
@@ -22,9 +23,10 @@ from PIL import Image
 
 from dexbotic_tpu.exp import pi0_exp as jexp
 from dexbotic_tpu.exp import serve as jserve
-from dexbotic_tpu_torch.exp.pi0_exp import FlowModelConfig, Pi0Exp, Pi05Exp
+from dexbotic_tpu_torch.exp.pi0_exp import DM0Exp, FlowModelConfig, Pi0Exp, Pi05Exp
 from dexbotic_tpu_torch.exp.serve import FlowVLAServer, ServingStats, _decode_frames
 from dexbotic_tpu_torch.data.image_processing import preprocess_images_batch
+from dexbotic_tpu_torch.models import presets
 from dexbotic_tpu_torch.models.flow_vla import flow_vla_inference_action
 
 torch.set_num_threads(2)
@@ -71,14 +73,42 @@ def served():
     return exp, cfg, model, exp.tokenizer.build_tokenizer()
 
 
+@pytest.fixture(scope="module", params=["pi05", "dm0"])
+def served_variant(request):
+    """A tiny pi0.5 (the adaRMS expert, its zero-initialised ``dense``
+    projections redrawn so that the time condition counts) or DM0 (qk-norm
+    in both streams, as the Qwen3 pair: tiny presets registered for the
+    build), each exp's quantile statistics and tokenization."""
+    with pytest.MonkeyPatch.context() as mp:
+        if request.param == "pi05":
+            exp = _exp(Pi05Exp, expert_preset="test_adarms")
+        else:
+            mp.setitem(presets.LLM_PRESETS, "test_qk",
+                       dataclasses.replace(presets.LLM_TEST, qk_norm=True))
+            mp.setitem(presets.EXPERT_PRESETS, "test_qk",
+                       dataclasses.replace(presets.EXPERT_TEST, qk_norm=True))
+            exp = _exp(DM0Exp, llm_preset="test_qk", expert_preset="test_qk")
+        cfg, model, _ = exp.load_for_inference()
+    assert exp.action.use_quantiles and (cfg.adarms or cfg.llm.qk_norm and cfg.expert.qk_norm)
+    gen = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".dense." in name:
+                p.normal_(0.0, 0.05, generator=gen)
+    return exp, cfg, model, exp.tokenizer.build_tokenizer()
+
+
 def _direct(exp, cfg, model, tok, prompt, groups, state_rows, norms, gen):
     """The request by hand: ids padded to the 64-token bucket, views
-    preprocessed and masked, the state normalised, the chunk denormalised and
-    made absolute against the raw state, cut to the env's 7 dims."""
+    preprocessed and masked, the state normalised, the chunk denormalised
+    (NORMS by hand: mean/std, or the min/max quantiles with the padded dim's
+    identity -1/1) and made absolute against the raw state, cut to the env's
+    7 dims."""
     B, n = len(groups), exp.data.num_images
+    quantiles = exp.action.use_quantiles
     ids = np.asarray(exp.build_tokenization(tok)(
         conversations=[{"from": "human", "value": prompt}])["input_ids"], np.int32)
-    ids_b = np.zeros((B, 64), np.int32)
+    ids_b = np.zeros((B, -(-len(ids) // 64) * 64), np.int32)
     ids_b[:, : len(ids)] = ids
     proc = exp.data.build_image_processor()
     imgs = np.zeros((B, n, proc.size, proc.size, 3), np.float32)
@@ -87,7 +117,7 @@ def _direct(exp, cfg, model, tok, prompt, groups, state_rows, norms, gen):
         frames, order = _decode_frames(g)
         imgs[b, : len(g)] = preprocess_images_batch(frames, proc, channel_order=order)
         masks[b, : len(g)] = 1
-    stats = ServingStats(norms, use_quantiles=False)
+    stats = ServingStats(norms, use_quantiles=quantiles)
     st = np.stack(state_rows).astype(np.float32)
     raw = flow_vla_inference_action(
         model, cfg, torch.from_numpy(ids_b), torch.from_numpy((ids_b != 0).astype(np.int32)),
@@ -96,7 +126,10 @@ def _direct(exp, cfg, model, tok, prompt, groups, state_rows, norms, gen):
     out = []
     for b in range(B):
         a = raw[b].astype(np.float64)
-        if norms is not None:
+        if norms is not None and quantiles:
+            lo, hi = np.concatenate([np.full(7, -1.0), [-1.0]]), np.concatenate([np.full(7, 3.0), [1.0]])
+            a = (a + 1.0) / 2.0 * (hi - lo + 1e-6) + lo
+        elif norms is not None:
             a = a * np.concatenate([np.full(7, 2.0 + 1e-6), np.ones(1)]) + \
                 np.concatenate([np.full(7, 0.1), np.zeros(1)])
         absolute = a + np.asarray(state_rows[b], np.float64)[None]
@@ -129,6 +162,34 @@ def test_process_frame_equals_direct_call(served, n_views):
     want = _direct(exp, cfg, model, tok, "pick up the moka pot", [pngs], [row], NORMS,
                    torch.Generator().manual_seed(exp.model.seed))[0]
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_views", [3, 1])
+def test_process_frame_equals_direct_call_pi05_dm0(served_variant, n_views):
+    """pi0.5 and DM0 through /process_frame: their tokenization (DM0's 100
+    ids of the step template, in the 128-token bucket), the quantile
+    normalisation of the state and the quantile denormalisation of the
+    chunk; 3 views and 1 view, the chunk equal to a direct call's."""
+    exp, cfg, model, tok = served_variant
+    pngs = [_png((10 + 60 * i, 200 - 50 * i, 30)) for i in range(n_views)]
+    state = [0.3, -0.2, 0.1, 0.0, 0.5, -0.4, 1.0]
+    server, httpd = _serve(served_variant, NORMS)
+    try:
+        got = _post(httpd.server_address[1], "pick up the moka pot", pngs, json.dumps(state))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert server.stats.use_quantiles and got.shape == (cfg.chunk_size, 7)
+    row = np.zeros(8, np.float32)
+    row[:7] = state
+    want = _direct(exp, cfg, model, tok, "pick up the moka pot", [pngs], [row], NORMS,
+                   torch.Generator().manual_seed(exp.model.seed))[0]
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    # the quantiles moved the chunk: the mean/std reading of the same raw chunk differs
+    mean_std = dataclasses.replace(exp, action=dataclasses.replace(exp.action, use_quantiles=False))
+    other = _direct(mean_std, cfg, model, tok, "pick up the moka pot", [pngs], [row], NORMS,
+                    torch.Generator().manual_seed(exp.model.seed))[0]
+    assert np.abs(other - want).max() > 1e-2
 
 
 def test_batch_size_2_equals_direct_call(served):
