@@ -141,6 +141,16 @@ Phases, any failure exits non-zero without a result line:
      accumulation 2) through CogActExp.train(), with K1/K3 launch counts read
      around them, a finite loss at each step and checkpoint-3 holding
      norm_stats.json; prints the step time, samples/s and peak memory;
+     (c) the same recipe through CogActExp.train() on the mesh path
+     (parallel/): a process group of one over NCCL made by
+     multihost.maybe_initialize, a 1 x 1 ('data', 'model') mesh whose leaves
+     the FSDP rule replicates (no FSDP2 group at data size 1, as in JAX),
+     7b's batches replayed (its augmentations draw fresh entropy) under
+     7b's schedule (max_steps 3), stopped after step 2: steps 1 and 2's loss,
+     action_loss and grad_norm within rel 1e-5 of 7b's, K3 >= 32 x 2 x 2
+     launches, the gathered checkpoint-2 with 7b's keys, shapes and dtypes;
+     prints the step time and peak beside 7b's; the group is destroyed
+     after, so the later phases run the one-device path;
   8. the pi0 training slice: pi0 at full width and depth (Pi0Exp's default,
      3.238B parameters) on the LIBERO pi0 recipe (3 views, the text padded to
      48 tokens, remat, no freeze) over a synthetic 3-view Dexdata suite with
@@ -211,7 +221,7 @@ Phases, any failure exits non-zero without a result line:
   14. the continuous-batching decode engine (exp/decode_engine.py): (a)
      Discrete VLA-7B (4 of 32 decoder layers, max_retries=1) served by
      DiscreteVLAServer over HTTP without the engine, with 8 slots and with
-     8 slots and prefill_chunk=512, 8 clients x 2 requests: every request's
+     8 slots and prefill_chunk=512, 8 clients x 1 request: every request's
      engine tokens equal to generate's or first differing at a near-tie
      (13a's rule), ticks that served several slots, K1 counted and its
      shapes among phase 3's, no K2, K3, K4 or plain call; p50/p90, tokens/s,
@@ -264,6 +274,9 @@ registers and spills of every K1, K3, K4 and K2 instance from nvcc's
 ``-Xptxas -v`` (a spill fails) and the HGMMA instructions of every K2
 instance from the library's SASS (``cuobjdump``; a bf16 instance without
 one fails).
+Past phase 8, exp.train() writes no checkpoint (unwritten_checkpoints: the
+Trainer's save is called and records its step; 7b, 7c and 8b write theirs
+and read them back).
 Phases 5d-5h and 9-15 print their numbers as one JSON line (``{"phases": ...}``);
 each phase's seconds are printed after it ("[phase_...: s; s in all]").
 The last two lines printed are the kernels' JSON summary and
@@ -673,7 +686,7 @@ def phase_flash(failures: list) -> dict:
                 print(f"    dead tiles {times[key]['dead_tile_share']:.1%} of the call's 64 x 64 "
                       f"tiles; the bound counts the visible pairs only")
         del q, k, v, out, lse, ref, ref_lse, plain
-        free_memory()
+    free_memory()
     # serving's shape, training's, then OFT's
     return {"max_abs_err": worst, **times["serve"],
             **{f"train_{key}": val for key, val in times["train"].items()},
@@ -2583,7 +2596,9 @@ def write_suite(root: str, views: int = 1, name: str = "train", frames: int = 24
                 episodes: int = 3) -> str:
     """A synthetic Dexdata suite of 480x640 PNG frames (``views`` cameras)
     and 7-dof states (``episodes`` episodes of ``frames`` frames; past the
-    24th the images repeat); returns its name."""
+    24th the images repeat); returns its name.  The PNGs are stored without
+    compression (the same pixels): zlib's default level took ~0.12 s a
+    frame, a minute of every run over the suites' ~560 frames."""
     from PIL import Image
 
     from dexbotic_tpu_torch.data.registry import register_dataset
@@ -2601,7 +2616,7 @@ def write_suite(root: str, views: int = 1, name: str = "train", frames: int = 24
                     img = np.stack([(xx + 9 * t) % 256, (yy + 40 * e) % 256,
                                     (xx + yy) // (4 + c) % 256], -1)
                     img = (img + rng.integers(0, 16, img.shape)).clip(0, 255).astype(np.uint8)
-                    Image.fromarray(img).save(os.path.join(root, url))
+                    Image.fromarray(img).save(os.path.join(root, url), compress_level=0)
                 row[f"images_{c}"] = {"type": "image", "url": url}
             state = np.sin(np.arange(7) * 0.7 + t * 0.2 + e) + 0.01 * rng.standard_normal(7)
             row.update(state=state.tolist(), prompt=LIBERO_PROMPT, is_robot=True)
@@ -2712,6 +2727,7 @@ def phase_train_compare(failures: list, dataset: str) -> None:
 
 
 def phase_train_steps(failures: list, dataset: str) -> dict:
+    from dexbotic_tpu_torch.exp.trainer import Trainer
     from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
 
     micro, accum, steps = 8, 2, 3
@@ -2719,11 +2735,22 @@ def phase_train_steps(failures: list, dataset: str) -> dict:
           f"(micro-batch {micro}, accumulation {accum})")
     exp = train_exp(dataset, "out_train", micro, accum, steps)
     n_layers = exp.model.build_config().vlm.llm.num_layers
+    batches = []  # the host batches, for 7c to replay
+    train_step = Trainer.train_step
+
+    def recording(self, batch):
+        batches.append(batch)
+        return train_step(self, batch)
+
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
     flash_attention_bwd.launches = 0
     t0 = time.perf_counter()
-    log = exp.train()
+    Trainer.train_step = recording
+    try:
+        log = exp.train()
+    finally:
+        Trainer.train_step = train_step
     wall = time.perf_counter() - t0
     launches = {"flash_fwd": flash_attention.launches, "flash_bwd": flash_attention_bwd.launches}
     with open(os.path.join("out_train", "metrics.jsonl")) as f:
@@ -2743,7 +2770,123 @@ def phase_train_steps(failures: list, dataset: str) -> dict:
               (launches["flash_bwd"] >= n_layers * accum * steps,
                f"K3 launched {launches['flash_bwd']} < {n_layers * accum * steps} times")]
     failures.extend(msg for ok, msg in checks if not ok)
-    return {"launches": launches, "step_s": step_s, "samples_per_s": rate, "peak_gib": peak}
+    return {"launches": launches, "step_s": step_s, "samples_per_s": rate, "peak_gib": peak,
+            "rows": rows, "batches": batches, "max_steps": steps, "checkpoint": ckpt}
+
+
+def checkpoint_layout(path: str) -> dict:
+    """{file: {key: (shape, dtype)}} of a checkpoint's params.pt and
+    opt_state.pt (the moments under 'mu.' / 'nu.'), read through mmap."""
+    out = {}
+    for name in ("params.pt", "opt_state.pt"):
+        sd = torch.load(os.path.join(path, name), map_location="cpu", weights_only=True, mmap=True)
+        if name == "opt_state.pt":
+            sd = {**{"mu." + k: v for k, v in sd["mu"].items()},
+                  **{"nu." + k: v for k, v in sd["nu"].items()}}
+        out[name] = {k: (tuple(v.shape), str(v.dtype)) for k, v in sd.items()}
+        del sd
+    return out
+
+
+MESH_STEPS = 2
+
+
+def phase_train_mesh(failures: list, dataset: str, ref: dict) -> dict:
+    """7c: 7b's recipe through CogActExp.train() on the mesh path at world
+    size 1 over NCCL; no fallback: a group that does not come up, or a
+    Trainer off the mesh path, fails the phase."""
+    import socket
+
+    import torch.distributed as dist
+
+    from dexbotic_tpu_torch.exp.trainer import Trainer
+    from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+    from dexbotic_tpu_torch.parallel import multihost
+
+    micro, accum, steps = 8, 2, MESH_STEPS
+    print(f"phase 7c: {steps} of 7b's steps through CogActExp.train() on the mesh path "
+          f"(a process group of one over NCCL, a 1 x 1 mesh whose leaves are all replicated, "
+          f"as the FSDP rule says at data size 1; 7b's batches and schedule)")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    multihost.maybe_initialize(f"localhost:{port}", 1, 0)
+    init_s = time.perf_counter() - t0
+    backend = dist.get_backend()
+    exp = train_exp(dataset, "out_mesh", micro, accum, ref["max_steps"])
+    n_layers = exp.model.build_config().vlm.llm.num_layers
+    seen: dict = {}
+    train = Trainer.train
+
+    def replay(self, data_iter, max_steps=None):
+        seen["mesh"] = self.mesh is not None and self.sharded is not None
+        if self.sharded is not None:
+            seen["groups"] = {str(d): len(n) for d, n in self.sharded.groups.items()}
+            seen["layer_groups"] = len(self.sharded.layers)
+            seen["replicated"] = len(self.sharded.replicated)
+        return train(self, iter(ref["batches"][:steps]), max_steps=steps)
+
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    Trainer.train = replay
+    try:
+        exp.train()
+    finally:
+        Trainer.train = train
+        multihost.shutdown()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": flash_attention.launches, "flash_bwd": flash_attention_bwd.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join("out_mesh", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    rel = {}
+    for r, b in zip(rows, ref["rows"]):
+        for k in ("loss", "action_loss", "grad_norm"):
+            rel[f"{k}_{r['step']}"] = abs(r[k] - b[k]) / max(abs(b[k]), 1e-30)
+        print(f"  step {r['step']}: loss {r['loss']!r} (7b {b['loss']!r}) action_loss "
+              f"{r['action_loss']!r} (7b {b['action_loss']!r}) grad_norm {r['grad_norm']!r} "
+              f"(7b {b['grad_norm']!r}); step time {1 / r['steps_per_sec']:.4f} s")
+    differ = sorted(k for k, v in rel.items() if v)
+    step_s = 1 / rows[-1]["steps_per_sec"] if rows else float("nan")
+    # 7c replays 7b's batches, so its steps wait on no host decode: compare without the wait
+    compute_s = step_s - rows[-1]["data_wait_s"] if rows else float("nan")
+    ref_compute_s = statistics.median(1 / r["steps_per_sec"] - r["data_wait_s"]
+                                      for r in ref["rows"][1:])
+    print(f"  group init {init_s:.2f} s ({backend}); mesh path {seen.get('mesh')}, FSDP2 groups "
+          f"{seen.get('groups')} and {seen.get('layer_groups')} a layer, "
+          f"{seen.get('replicated')} replicated leaves; train() wall "
+          f"{wall:.1f} s; step 2 {step_s:.4f} s against 7b's median {ref['step_s']:.4f} s "
+          f"(without the data wait: {compute_s:.4f} s against {ref_compute_s:.4f} s); peak "
+          f"{peak:.2f} GiB against 7b's {ref['peak_gib']:.2f} GiB; launches {launches}; rel "
+          f"differences from 7b {rel} (not bit-equal: {differ or 'none'})")
+    mine = os.path.join("out_mesh", f"checkpoint-{steps}")
+    layout, ref_layout = checkpoint_layout(mine), checkpoint_layout(ref["checkpoint"])
+    n_bwd = n_layers * accum * steps
+    checks = [(backend == "nccl", f"7c: the group's backend is {backend}, not nccl"),
+              (seen.get("mesh") is True and seen.get("groups") == {}
+               and seen.get("layer_groups") == 0,
+               f"7c: the Trainer did not take the mesh path, or sharded at data size 1 "
+               f"({seen})"),
+              (len(rows) == steps and all(math.isfinite(r["loss"]) for r in rows),
+               f"7c: {len(rows)} rows of {steps} steps, or a non-finite loss"),
+              (len(rel) == 3 * steps and max(rel.values()) <= 1e-5,
+               f"7c: rel differences from 7b {rel} > 1e-5"),
+              (launches["flash_bwd"] >= n_bwd and launches["flash_fwd"] >= n_bwd,
+               f"7c: launches {launches}, want K3 and K1 >= {n_bwd}"),
+              (layout == ref_layout, "7c: checkpoint-2's keys, shapes or dtypes differ from 7b's "
+               f"checkpoint-{ref['max_steps']}"),
+              (not dist.is_initialized(), "7c: the process group outlived the phase")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    return {"launches": launches, "step_s": step_s, "ref_step_s": ref["step_s"],
+            "compute_s": compute_s, "ref_compute_s": ref_compute_s,
+            "peak_gib": peak, "ref_peak_gib": ref["peak_gib"], "rel_from_7b": rel,
+            "bit_equal": not differ, "group_init_s": init_s, "train_wall_s": wall,
+            "fsdp_groups": seen.get("groups"), "layer_groups": seen.get("layer_groups"),
+            "replicated_leaves": seen.get("replicated"),
+            "checkpoint_entries": {k: len(v) for k, v in layout.items()}}
 
 
 def phase_train(failures: list) -> dict:
@@ -2751,7 +2894,12 @@ def phase_train(failures: list) -> dict:
     with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
         dataset = write_suite(os.path.join(tmp, "suite"))
         phase_train_compare(failures, dataset)
-        return phase_train_steps(failures, dataset)
+        steps = phase_train_steps(failures, dataset)
+        free_memory()
+        mesh = phase_train_mesh(failures, dataset, steps)
+        for key in ("rows", "batches", "max_steps", "checkpoint"):
+            del steps[key]
+        return {**steps, "7c_mesh": mesh}
 
 
 def write_pi0_stats(path: str, dim: int = 32) -> str:
@@ -3050,7 +3198,8 @@ def phase_oft_train_steps(failures: list, dataset: str, workers: int) -> dict:
     flash_attention.launches = flash_attention_bwd.launches = attention.plain_cuda_calls = 0
     qm.quant_matmul.launches = 0
     t0 = time.perf_counter()
-    log = exp.train()
+    with unwritten_checkpoints() as saves:
+        log = exp.train()
     wall = time.perf_counter() - t0
     launches = {"flash_fwd": flash_attention.launches, "flash_bwd": flash_attention_bwd.launches,
                 "quant_matmul": qm.quant_matmul.launches,
@@ -3067,15 +3216,15 @@ def phase_oft_train_steps(failures: list, dataset: str, workers: int) -> dict:
     print(f"  train() wall {wall:.1f} s; step {step_s:.4f} s (median of steps 2-{steps}), "
           f"{rate:.3f} samples/s, data wait {wait_s:.4f} s a step; peak memory allocated "
           f"{peak:.2f} GiB; launches {launches}")
-    checks = [(log.get("step") == steps and len(rows) == steps,
-               f"9b: ran {len(rows)} of {steps} steps"),
+    checks = [(log.get("step") == steps and len(rows) == steps and saves == [steps],
+               f"9b: ran {len(rows)} of {steps} steps, saved at {saves}"),
               (all(math.isfinite(r["loss"]) for r in rows), "9b: non-finite loss"),
               (launches["flash_bwd"] >= n_layers * steps and not launches["plain_cuda_calls"]
                and not launches["quant_matmul"],
                f"9b: launches {launches}, want K3 >= {n_layers * steps}, no K4 launch and no "
                f"plain call")]
     failures.extend(msg for ok, msg in checks if not ok)
-    shutil.rmtree(out, ignore_errors=True)  # the checkpoint's ~14 GB
+    shutil.rmtree(out, ignore_errors=True)
     return {"launches": launches, "step_s": step_s, "samples_per_s": rate,
             "data_wait_s": wait_s, "peak_gib": peak, "workers": workers, "train_wall_s": wall}
 
@@ -3232,9 +3381,10 @@ def recorded_train(exp, out_dir: str, before=None, after=None) -> dict:
     completes it after the step, and the record gains the step's peak
     memory.  The counts of K1-K4 and of plain CUDA attention calls are set
     to 0 just before the run and read just after, with K1's and K3's shapes.
-    Returns the log, the records, the rows of ``out_dir``'s metrics.jsonl
-    (the directory is removed after), the launches, the shapes and the
-    wall time."""
+    The checkpoint is not written (unwritten_checkpoints).  Returns the log,
+    the records, the rows of ``out_dir``'s metrics.jsonl (the directory is
+    removed after), the launches, the shapes, the wall time and the steps
+    the Trainer saved at."""
     from dexbotic_tpu_torch.exp import trainer as trainer_mod
 
     seen = []
@@ -3256,7 +3406,8 @@ def recorded_train(exp, out_dir: str, before=None, after=None) -> dict:
     trainer_mod.Trainer.train_step = recorded
     t0 = time.perf_counter()
     try:
-        with k1_calls(shapes), k1_calls(bwd_shapes, "_flash_bwd_cuda"):
+        with k1_calls(shapes), k1_calls(bwd_shapes, "_flash_bwd_cuda"), \
+                unwritten_checkpoints() as saves:
             log = exp.train()
     finally:
         trainer_mod.Trainer.train_step = step
@@ -3266,7 +3417,38 @@ def recorded_train(exp, out_dir: str, before=None, after=None) -> dict:
         rows = [json.loads(line) for line in f]
     shutil.rmtree(out_dir, ignore_errors=True)
     return {"log": log, "seen": seen, "rows": rows, "launches": launches,
-            "k1_shapes": shapes, "k3_shapes": bwd_shapes, "wall": wall}
+            "k1_shapes": shapes, "k3_shapes": bwd_shapes, "wall": wall, "saves": saves}
+
+
+@contextlib.contextmanager
+def unwritten_checkpoints():
+    """Inside, Trainer.save_checkpoint appends the step it is called at to
+    the list yielded and writes nothing.  Phases 7b, 7c and 8b write the
+    Trainer's checkpoint and read it back; a later phase's (10-15 GB of
+    seeded weights: the host copy, the write and the removal, ~15 s each)
+    was read by nothing."""
+    from dexbotic_tpu_torch.exp.trainer import Trainer
+
+    steps: list = []
+    save = Trainer.save_checkpoint
+    Trainer.save_checkpoint = lambda self: steps.append(self.step)
+    try:
+        yield steps
+    finally:
+        Trainer.save_checkpoint = save
+
+
+def seed_rows_(ds, seed: int) -> None:
+    """Seed the draws a Dexdata item takes (an episode's last frames redrawn
+    from the global ``random``, each image's PixelAug, which draws fresh
+    entropy), so that a kernel-vs-plain step holds the same rows in every
+    run."""
+    import random
+
+    random.seed(seed)
+    for fn in ds.image_process_func:
+        if getattr(fn, "augmentations", None) is not None:
+            fn.augmentations.rng = np.random.default_rng(seed)
 
 
 def phase_rl_update_compare(failures: list) -> dict:
@@ -4613,7 +4795,7 @@ def phase_navila(failures: list) -> dict:
 # DISCRETE_RETRIES (max_retries) is 1, not 40, as the JAX package's own test.
 DISCRETE_PROMPT_TOKENS, DISCRETE_BUCKET, DISCRETE_MAX_PROMPT, DISCRETE_NEW = 855, 896, 896, 32
 DISCRETE_CACHE = DISCRETE_MAX_PROMPT + DISCRETE_NEW
-DISCRETE_SLOTS, DISCRETE_CHUNK, DISCRETE_CLIENTS, DISCRETE_CLIENT_REQUESTS = 8, 512, 8, 2
+DISCRETE_SLOTS, DISCRETE_CHUNK, DISCRETE_CLIENTS, DISCRETE_CLIENT_REQUESTS = 8, 512, 8, 1
 DISCRETE_RETRIES, DISCRETE_TRAIN_TOKENS, DISCRETE_TRAIN_MICRO, DISCRETE_TRAIN_STEPS = 1, 884, 8, 3
 # 14a serves DISCRETE_SERVE_LAYERS of LLaMA-2-7B's 32 decoder layers (every
 # width kept): the decode is host-bound at ~55 eager kernels a layer and a
@@ -4631,7 +4813,7 @@ DISCRETE_SERVE_LAYERS = 4
 MUVLA_INSTRUCTIONS = ("go to the red door", "go to the tan door", "go to the big door",
                       "go to the old door")
 MUVLA_VIEWS, MUVLA_PROMPT_TOKENS, MUVLA_BUCKET, MUVLA_MAX_PROMPT, MUVLA_NEW = 4, 959, 960, 1024, 32
-MUVLA_SLOTS, MUVLA_CLIENT_REQUESTS, MUVLA_TRAIN_TOKENS = 4, 2, 999
+MUVLA_SLOTS, MUVLA_CLIENT_REQUESTS, MUVLA_TRAIN_TOKENS = 4, 1, 999
 MUVLA_ANSWERS = ("The next action is move forward 75 cm.",
                  "The next action is turn left 30 degree.")
 # 14c: four NaVILA sessions on make_shared_engine(slots=4, max_prompt=2240,
@@ -4639,7 +4821,7 @@ MUVLA_ANSWERS = ("The next action is move forward 75 cm.",
 # prompt is admitted in chunks of 4 x 512 four times and 4 x 192 against the
 # 2288 columns; each session asks NAVILA_FLEET_REQUESTS times.
 NAVILA_FLEET_SLOTS, NAVILA_FLEET_MAX_PROMPT, NAVILA_FLEET_CHUNK = 4, 2240, 512
-NAVILA_FLEET_NEW, NAVILA_FLEET_REQUESTS = 48, 2
+NAVILA_FLEET_NEW, NAVILA_FLEET_REQUESTS = 48, 1
 NAVILA_FLEET_CACHE = NAVILA_FLEET_MAX_PROMPT + NAVILA_FLEET_NEW
 
 
@@ -5999,6 +6181,7 @@ def phase_flow_train_compare(failures: list, variant: str, dataset: str, stats: 
           f"full fine-tune, micro-batch {B}): kernel path vs plain path (both on bf16 q, k, v) vs "
           f"fp32 witness; bf16 matrices as a reading")
     ds = exp.data.build_data(exp.build_tokenization(tok), exp.action.build_action_process_func())
+    seed_rows_(ds, exp.trainer.seed)
     host = Collator(pad_token_id=tok.pad_token_id, max_length=exp.tokenizer.model_max_length)(
         [ds[i * (len(ds) - 1) // (B - 1)] for i in range(B)])
     batch = {k: torch.as_tensor(v).cuda() for k, v in host.items()}
@@ -6175,14 +6358,11 @@ def hybrid_exp(dataset: str, out: str, micro: int):
 
 def hybrid_batch(exp, tok) -> dict:
     """The first robot row and the first text row of the mixed suite, collated
-    to TRAIN_SEQ_LEN (an episode's last frame is redrawn from the global
-    ``random``: seeded)."""
-    import random
-
+    to TRAIN_SEQ_LEN, their draws seeded (seed_rows_)."""
     from dexbotic_tpu_torch.data.collator import Collator
 
     ds = exp.data.build_data(exp.build_tokenization(tok), exp.action.build_action_process_func())
-    random.seed(3)
+    seed_rows_(ds, 3)
     robot = text = None
     for i in range(len(ds)):
         item = ds[i]
@@ -6549,7 +6729,8 @@ def main() -> int:
         "5g_oft": {**{k: v for k, v in oft.items() if k in ("prompt_tokens", "bf16_weight_bytes",
                                                             "head_params", "launches")},
                    **oft_routes},
-        "5h_oft_int8": oft_q, "9_oft_train": oft_train, "10_rl": rl, "11a_memvla": mem,
+        "5h_oft_int8": oft_q, "7c_mesh_train": train["7c_mesh"], "9_oft_train": oft_train,
+        "10_rl": rl, "11a_memvla": mem,
         "11b_memvla_int8": mem_q, "12_memvla_train": mem_train, "13_navila": nav,
         "14_discrete": discrete, "14d_muvla": muvla, "15a_pi05": pi05, "15b_dm0": dm0,
         "15c_flow_train": flow_train, "15d_hybrid": hybrid, "15e_harness": harness}},
@@ -6609,6 +6790,7 @@ def main() -> int:
          "replaces": "dexbotic_tpu/ops/attention.py:86",
          "also_replaces": "dexbotic_tpu/ops/attention.py:165",
          "launches": launches["flash_fwd"], "train_launches": train["launches"]["flash_fwd"],
+         "mesh_train_launches": train["7c_mesh"]["launches"]["flash_fwd"],
          "pi0_launches": pi0["launches"], "pi0_train_launches": pi0_train["launches"]["flash_fwd"],
          "launches_fused_preprocess": fused["launches"]["flash_fwd"],
          "launches_replay": replay["launches"]["flash_fwd"],
@@ -6631,6 +6813,7 @@ def main() -> int:
          "also_replaces": ["dexbotic_tpu/ops/attention.py:498", "dexbotic_tpu/ops/attention.py:400",
                            "dexbotic_tpu/ops/attention.py:446"],
          "launches": train["launches"]["flash_bwd"],
+         "mesh_train_launches": train["7c_mesh"]["launches"]["flash_bwd"],
          "pi0_train_launches": pi0_train["launches"]["flash_bwd"], **oft_keys["flash_bwd"],
          **rl_keys["flash_bwd"], **engine_keys["flash_bwd"], **flow_keys["flash_bwd"], **k3,
          "build": k3_build},

@@ -7,8 +7,10 @@ tokenization and norm statistics are the port's copies of the JAX package's
 (``data/``, ``tokenization/``).  Serving may quantize the weights to int8
 (``inference_quantize``).  Training fetches its batches in line, or with
 ``num_workers > 0`` through ``data/loader.py``'s workers (``worker_mode``
-'thread' or 'process') and a device prefetch.  Not ported: multi-process
-norm statistics (ROADMAP Queue 1 item 11).
+'thread' or 'process') and a device prefetch.  ``train()`` joins a process
+group when one is configured (``parallel/multihost``: torchrun's or the
+DEXBOTIC_* variables) and feeds each data rank its contiguous rows of every
+global batch (``per_device_batch_size`` x data ranks x accumulation rows).
 """
 
 from __future__ import annotations
@@ -45,7 +47,10 @@ from dexbotic_tpu_torch.exp.trainer import Trainer, TrainerConfig, load_checkpoi
 from dexbotic_tpu_torch.nn.core import cast_matrices_
 from dexbotic_tpu_torch.ops import quant_matmul
 from dexbotic_tpu_torch.ops.quant import quantize_model_
+from dexbotic_tpu_torch.parallel import multihost
 from dexbotic_tpu_torch.utils.convert import is_release_checkpoint, load_release_checkpoint
+
+NORM_STATS_POLL_S = 2.0  # how often a non-primary process looks for the primary's norm stats
 
 
 @dataclass
@@ -249,17 +254,24 @@ def fill_weights_(model: nn.Module, path: Optional[str], convert_fn: Callable, c
 
 
 def data_iterator(dataset, collator, batch_size: int, seed: int = 42, epochs: int = 10 ** 6,
-                  shuffle: bool = True):
-    """Epoch iterator yielding collated numpy batches of ``batch_size``, each
-    epoch in a fresh seeded order (``shuffle``) or in the dataset's order."""
+                  shuffle: bool = True, process_id: int = 0, process_count: int = 1):
+    """Epoch iterator yielding collated numpy batches, each epoch in a fresh
+    seeded order (``shuffle``) or in the dataset's order.  ``batch_size`` is
+    the global batch; with ``process_count`` > 1 each process collates its
+    own contiguous slice of every global batch (the same order everywhere,
+    disjoint rows)."""
+    if batch_size % process_count:
+        raise ValueError(f"batch_size {batch_size} not divisible by {process_count} processes")
     n = len(dataset)
     rng = random.Random(seed)
+    local = batch_size // process_count
+    lo, hi = process_id * local, (process_id + 1) * local
     for _ in range(epochs):
         order = list(range(n))
         if shuffle:
             rng.shuffle(order)
         for i in range(0, n - batch_size + 1, batch_size):
-            yield collator([dataset[j] for j in order[i: i + batch_size]])
+            yield collator([dataset[j] for j in order[i + lo: i + hi]])
 
 
 @dataclass
@@ -332,21 +344,31 @@ class BaseExp:
 
     # ---- norm stats ------------------------------------------------------
 
-    def _auto_compute_norm_stats(self) -> None:
-        """Compute (or reuse the cached) norm stats keyed by the dataset name's md5."""
+    def _auto_compute_norm_stats(self, poll_timeout_s: float = 1800.0) -> None:
+        """Compute (or reuse the cached) norm stats keyed by the dataset name's
+        md5.  Across processes the primary alone computes and writes them;
+        the others poll for the finished file, up to ``poll_timeout_s``."""
         if self.action.statistic_mapping and os.path.exists(self.action.statistic_mapping):
             return
         key = hashlib.md5(self.data.dataset_name.encode()).hexdigest()[:16]
         cache_dir = os.path.join("norm_assets", f"auto-{key}")
         out = os.path.join(cache_dir, "norm_stats.json")
         if not os.path.exists(out):
-            ComputeNormActionConfig(delta=self.action.delta, norm_save_path=cache_dir
-                                    ).compute_norm_stats(self.data.dataset_name)
+            if multihost.is_primary():
+                ComputeNormActionConfig(delta=self.action.delta, norm_save_path=cache_dir
+                                        ).compute_norm_stats(self.data.dataset_name)
+            else:
+                t0 = time.time()
+                while not os.path.exists(out):
+                    if time.time() - t0 > poll_timeout_s:
+                        raise TimeoutError(f"norm stats {out} not produced by the primary")
+                    time.sleep(NORM_STATS_POLL_S)
         self.action.statistic_mapping = out
 
     # ---- tasks -----------------------------------------------------------
 
     def train(self) -> dict:
+        multihost.maybe_initialize(device=self.device)  # a no-op unless a launch configures one
         self._auto_compute_norm_stats()
         tokenizer = self.tokenizer.build_tokenizer()
         _, model, loss_fn = self.build_model(tokenizer)
@@ -358,16 +380,18 @@ class BaseExp:
             norm_stats_json = f.read()
         trainer = Trainer(loss_fn, model, self.trainer, self.optimizer,
                           norm_stats_json=norm_stats_json)
-        # per-step batch = micro-batch x accumulation (one device)
-        batch_size = self.trainer.per_device_batch_size * self.trainer.gradient_accumulation_steps
+        # per-step global batch = micro-batch x data ranks x accumulation
+        batch_size = (self.trainer.per_device_batch_size * trainer.data_size
+                      * self.trainer.gradient_accumulation_steps)
+        shard = dict(process_id=trainer.data_rank, process_count=trainer.data_size)
         if self.data.num_workers > 0:
             batches = device_prefetch(iter(DataLoader(
                 dataset, collator, batch_size, shuffle=self.data.shuffle,
                 num_workers=self.data.num_workers, worker_mode=self.data.worker_mode,
-                seed=self.trainer.seed)), self.device)
+                seed=self.trainer.seed, **shard)), trainer.device)
         else:
             batches = data_iterator(dataset, collator, batch_size, seed=self.trainer.seed,
-                                    shuffle=self.data.shuffle)
+                                    shuffle=self.data.shuffle, **shard)
         try:
             return trainer.train(batches)
         finally:

@@ -141,11 +141,13 @@ class MemVLAExp(base_exp.BaseExp):
         return init_mem_state(self.model.build_config(), 1 if self.sequential_bank else batch_size,
                               device=self.device)
 
-    def make_data_schedule(self, dataset, batch_size: int):
+    def make_data_schedule(self, dataset, batch_size: int, shard: int = 0, num_shards: int = 1):
         return episode_batches(dataset, batch_size, mode=self.model.dataloader_type,
-                               group_size=self.model.group_size, seed=self.trainer.seed)
+                               group_size=self.model.group_size, seed=self.trainer.seed,
+                               shard=shard, num_shards=num_shards)
 
-    def schedule_batches(self, dataset, collator, batch_size: int):
+    def schedule_batches(self, dataset, collator, batch_size: int, shard: int = 0,
+                         num_shards: int = 1):
         """The episode-ordered batches, the schedule looped for more epochs:
         collated rows plus 'timesteps' and 'episode_reset' (in 'group' mode
         the first row always resets: the reference empties every bank at the
@@ -154,7 +156,7 @@ class MemVLAExp(base_exp.BaseExp):
         mode = self.model.dataloader_type
         while True:
             any_batch = False
-            for sched in self.make_data_schedule(dataset, batch_size):
+            for sched in self.make_data_schedule(dataset, batch_size, shard, num_shards):
                 if len(sched) < batch_size:
                     continue
                 any_batch = True
@@ -173,7 +175,9 @@ class MemVLAExp(base_exp.BaseExp):
         """Episode-ordered training with the bank carried by the Trainer."""
         from dexbotic_tpu_torch.data.collator import Collator
         from dexbotic_tpu_torch.exp.trainer import Trainer
+        from dexbotic_tpu_torch.parallel import multihost
 
+        multihost.maybe_initialize(device=self.device)
         self._auto_compute_norm_stats()
         tokenizer = self.tokenizer.build_tokenizer()
         _, model, loss_fn = self.build_model(tokenizer)
@@ -192,8 +196,12 @@ class MemVLAExp(base_exp.BaseExp):
                              f"batch; use mesh_data=1 (got {self.trainer.mesh_data})")
         trainer = Trainer(loss_fn, model, self.trainer, self.optimizer,
                           norm_stats_json=norm_stats_json, aux_state=self.build_aux_state(B))
+        if self.sequential_bank and trainer.data_size > 1:
+            raise ValueError(f"'{self.model.dataloader_type}' mode is sequential within the "
+                             f"batch: it cannot split over {trainer.data_size} data ranks")
         try:
-            return trainer.train(self.schedule_batches(dataset, collator, B))
+            return trainer.train(self.schedule_batches(dataset, collator, B, trainer.data_rank,
+                                                       trainer.data_size))
         finally:
             trainer.close()
 

@@ -12,8 +12,9 @@ attention.  Serving is :class:`NaVILAInferenceSession` behind
 ``inference()`` (the server is built by hand), and there is no converter of
 a released NaVILA checkpoint.  A fleet of sessions (one a robot) may share
 one continuous-batching decode engine (:meth:`NaVILAInferenceSession.make_shared_engine`).
-Not ported: context parallelism (``context_parallel_seq > 1``, ROADMAP
-Queue 1 item 11).
+Packed training runs over the data axis of a mesh (each data rank packs
+its own share of the length-grouped samples).  Not ported: context
+parallelism (``context_parallel_seq > 1``, ROADMAP Queue 1 item 11b).
 """
 
 from __future__ import annotations
@@ -78,13 +79,13 @@ class NaVILAModelConfig(base_exp.Config):
     use_packing: bool = True
     pack_max_len: int = 0  # 0 -> tokenizer.model_max_length
     samples_per_pack: int = 0  # 0 -> 2x the packed rows
-    context_parallel_seq: int = 1  # > 1 raises: ROADMAP Queue 1 item 11
+    context_parallel_seq: int = 1  # > 1 raises: ROADMAP Queue 1 item 11b
 
     def build_config(self) -> NaVILAConfig:
         if self.context_parallel_seq > 1:
             raise NotImplementedError("context parallelism (context_parallel_seq > 1: ring "
                                       "attention over a 'seq' mesh axis) is not ported yet: "
-                                      "ROADMAP Queue 1 item 11")
+                                      "ROADMAP Queue 1 item 11b")
         return NaVILAConfig(
             vlm=VLMConfig(llm=presets.LLM_PRESETS[self.llm_preset],
                           vit=presets.VIT_PRESETS[self.vit_preset],
@@ -157,21 +158,26 @@ class NaVILAExp(base_exp.BaseExp):
     def pack_max_len_resolved(self) -> int:
         return self.model.pack_max_len or self.tokenizer.model_max_length
 
-    def packed_batches(self, dataset, collator, pad_token_id: int, rows: int):
+    def packed_batches(self, dataset, collator, pad_token_id: int, rows: int,
+                       process_id: int = 0, process_count: int = 1):
         """Packed steps, epoch after epoch: ``samples_per_pack`` samples of
         similar lengths (the length-grouped schedule, seeded by the trainer's
         seed + the epoch), collated, then packed into ``rows`` rows of
         ``pack_max_len_resolved()`` tokens; ``images`` are the samples'
-        frames, unpacked."""
+        frames, unpacked.  Over ``process_count`` data ranks the schedule's
+        groups hold that many times the samples, and each rank packs its own
+        contiguous share into its own rows."""
         K = self.model.samples_per_pack or 2 * rows
         max_len = self.pack_max_len_resolved()
         lengths = (dataset.length_hints() if hasattr(dataset, "length_hints")
                    else [1] * len(dataset))
         epoch = 0
         while True:
-            for idxs in length_grouped_batches(lengths, K, seed=self.trainer.seed + epoch):
-                if len(idxs) < K:
+            for idxs in length_grouped_batches(lengths, K * process_count,
+                                               seed=self.trainer.seed + epoch):
+                if len(idxs) < K * process_count:
                     continue
+                idxs = idxs[process_id * K: (process_id + 1) * K]
                 base = collator([dataset[i] for i in idxs])
                 packed = pack_batch(base["input_ids"], base["labels"],
                                     base["attention_mask"].astype(np.int64), num_rows=rows,
@@ -190,7 +196,9 @@ class NaVILAExp(base_exp.BaseExp):
                              "instead of gradient accumulation")
         from dexbotic_tpu_torch.data.collator import Collator
         from dexbotic_tpu_torch.exp.trainer import Trainer
+        from dexbotic_tpu_torch.parallel import multihost
 
+        multihost.maybe_initialize(device=self.device)
         tokenizer = self.tokenizer.build_tokenizer()
         cfg = self.model.build_config()
         model = self.model.build_params(cfg, self.device)
@@ -204,8 +212,9 @@ class NaVILAExp(base_exp.BaseExp):
                             max_length=self.tokenizer.model_max_length)
         trainer = Trainer(loss_fn, model, self.trainer, self.optimizer)
         try:
-            return trainer.train(self.packed_batches(dataset, collator, tokenizer.pad_token_id,
-                                                     self.trainer.per_device_batch_size))
+            return trainer.train(self.packed_batches(
+                dataset, collator, tokenizer.pad_token_id, self.trainer.per_device_batch_size,
+                process_id=trainer.data_rank, process_count=trainer.data_size))
         finally:
             trainer.close()
 

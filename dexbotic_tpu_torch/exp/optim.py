@@ -9,6 +9,11 @@ the parameter's dtype and updates in place: here the moments are fp32, the
 update is computed in fp32 and applied as ``(p + u).to(p.dtype)``, as
 ``optax.apply_updates`` applies it to bf16 parameters.  The clip norm counts
 every gradient it is given, frozen or not; frozen groups allocate no moments.
+
+Parameters sharded over a mesh (DTensors, ``parallel/mesh.shard_model``)
+are updated shard by shard: each rank's moments are those of its own shard,
+and the clip norm is the whole tree's, summed from the local shards in one
+collective (:func:`global_norm`).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,10 +134,41 @@ def stopgrad_subtrees(named_params, names: tuple) -> None:
             p.requires_grad_(False)
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient, in fp32 (0-d tensor)."""
-    sq = [torch.linalg.vector_norm(g, dtype=torch.float32).square() for g in grads]
-    return torch.stack(sq).sum().sqrt()
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A sharded tensor's (DTensor's) local shard, which in-place writes
+    reach; any other tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _counted_here(t: torch.Tensor, coords: dict) -> bool:
+    """Whether this rank's copy of ``t`` enters the mesh-wide sum of
+    squares, so that each element counts once: a copy that is replicated
+    along a mesh axis (a plain tensor along every axis; a DTensor along the
+    axes it is not sharded on) counts on that axis's rank 0.  ``coords`` is
+    this rank's {axis: coordinate} on the whole mesh."""
+    sub = getattr(t, "device_mesh", None)
+    sharded = set() if sub is None else {
+        axis for axis, pl in zip(sub.mesh_dim_names, t.placements) if not pl.is_replicate()}
+    return all(c == 0 for axis, c in coords.items() if axis not in sharded)
+
+
+def global_norm(grads, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient, in fp32 (0-d tensor).
+
+    Over a ``mesh`` the sum runs over every rank's local shards, each
+    element once, and one all-reduce adds them: the norm of the whole tree,
+    taken once."""
+    grads = list(grads)
+    if mesh is None:
+        sq = [torch.linalg.vector_norm(g, dtype=torch.float32).square() for g in grads]
+        return torch.stack(sq).sum().sqrt()
+    coords = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    sq = [torch.linalg.vector_norm(local(g), dtype=torch.float32).square() for g in grads
+          if _counted_here(g, coords)]
+    device = local(grads[0]).device if grads else torch.device("cpu")
+    total = torch.stack(sq).sum() if sq else torch.zeros((), dtype=torch.float32, device=device)
+    dist.all_reduce(total)
+    return total.sqrt()
 
 
 @torch.no_grad()
@@ -160,8 +197,9 @@ class Optimizer:
     Parameters of a frozen group (a ``freeze_*`` flag or a group lr of 0)
     keep no moments and are never written."""
 
-    def __init__(self, cfg: OptimizerConfig, named_params, total_steps: int):
+    def __init__(self, cfg: OptimizerConfig, named_params, total_steps: int, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh  # the clip norm's mesh when the parameters are sharded
         named_params = list(named_params)
         lrs = group_learning_rates(cfg)
         self.schedules = {g: make_schedule(cfg, lr, total_steps) for g, lr in lrs.items()
@@ -172,7 +210,7 @@ class Optimizer:
             self.labels[name] = label if label in self.schedules else "frozen"
         params = dict(named_params)
         self.count = 0  # updates applied so far
-        self.mu = {n: torch.zeros_like(params[n], dtype=torch.float32)
+        self.mu = {n: torch.zeros_like(local(params[n]), dtype=torch.float32)
                    for n, label in self.labels.items() if label != "frozen"}
         self.nu = {n: torch.zeros_like(m) for n, m in self.mu.items()}
 
@@ -184,31 +222,33 @@ class Optimizer:
         """Apply one update to ``params`` from fp32-castable ``grads`` (name ->
         gradient, None where the loss did not reach); returns the global norm
         of all the gradients given, taken before clipping."""
-        norm = global_norm([g for g in grads.values() if g is not None])
+        norm = global_norm([g for g in grads.values() if g is not None], self.mesh)
         clip = self.cfg.max_grad_norm and self.cfg.max_grad_norm > 0
         lrs = {g: self.lr(g) for g in self.schedules}
         self.count += 1
         for name, mu in self.mu.items():
             g = grads.get(name)
             if g is not None:
-                g = g.float()
+                g = local(g).float()
                 if clip:
                     g = torch.where(norm < self.cfg.max_grad_norm, g,
                                     g / norm * self.cfg.max_grad_norm)
-            adamw_update_(params[name], g, mu, self.nu[name], self.count,
+            adamw_update_(local(params[name]), g, mu, self.nu[name], self.count,
                           lrs[self.labels[name]], self.cfg)
         return norm
 
     def state_dict(self) -> dict:
         return {"count": self.count, "mu": self.mu, "nu": self.nu}
 
-    def load_state_dict(self, state: dict) -> bool:
+    def load_state_dict(self, state: dict, part=None) -> bool:
         """Restore moments saved by :meth:`state_dict`; False (and fresh
-        moments kept) when the trainable set has changed since."""
+        moments kept) when the trainable set has changed since.  ``part(name,
+        whole)`` cuts a whole saved moment to this rank's shard."""
         if set(state["mu"]) != set(self.mu):
             return False
+        part = part or (lambda name, t: t)
         for name in self.mu:
-            self.mu[name].copy_(state["mu"][name])
-            self.nu[name].copy_(state["nu"][name])
+            self.mu[name].copy_(part(name, state["mu"][name]))
+            self.nu[name].copy_(part(name, state["nu"][name]))
         self.count = int(state["count"])
         return True

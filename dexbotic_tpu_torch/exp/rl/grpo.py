@@ -13,6 +13,8 @@ import dataclasses
 
 import torch
 
+from dexbotic_tpu_torch.models.losses import batch_mean
+
 
 @dataclasses.dataclass(frozen=True)
 class GRPOConfig:
@@ -63,7 +65,7 @@ def ppo_clip_loss(old_log_prob, log_prob, advantages, eos_mask, clip_ratio_low: 
     mask = _t(eos_mask, device=log_prob.device)
 
     def masked_mean(x):
-        return (x * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return batch_mean((x * mask).sum(), mask.sum(), floor=1.0)
 
     neg_kl = log_prob - old_log_prob
     ratio = torch.exp(neg_kl)

@@ -7,12 +7,16 @@ redistribution -> PPO-clip update with GRPO advantages and an entropy
 bonus.  Envs and filtering stay on the host; rollouts are stored as
 fixed-shape [N, max_chunks, ...] arrays with masks.  The sampled bins come
 from one ``torch.Generator`` on the actor's device, where the JAX package
-splits a key each chunk.  The update runs on one device: a data- or
-model-sharded update (the JAX package's mesh) raises.
+splits a key each chunk.  Across processes each one rolls out its own envs,
+:func:`allgather_rollouts` gives every process the identical union, and the
+update runs over a mesh (``GRPOUpdater(mesh=...)``): the actor sharded by
+``parallel/mesh.shard_model``, each micro-batch's rows split over the data
+ranks, its masked means over the whole micro-batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional
 
@@ -20,17 +24,17 @@ import numpy as np
 import torch
 
 from dexbotic_tpu_torch.data.dex_rl_dataset import process_rank_and_count
-from dexbotic_tpu_torch.exp.optim import Optimizer, OptimizerConfig
+from dexbotic_tpu_torch.exp.optim import Optimizer, OptimizerConfig, local
 from dexbotic_tpu_torch.exp.rl.grpo import (
     GRPOConfig,
     accuracy_filter,
     grpo_outcome_advantage,
     ppo_clip_loss,
 )
+from dexbotic_tpu_torch.models import losses
+from dexbotic_tpu_torch.models.losses import batch_mean
 from dexbotic_tpu_torch.models.oft import OFTConfig, oft_action_log_probs
-
-MULTI_PROCESS = ("a multi-process RL run (rollouts gathered across processes, a sharded "
-                 "update) is not ported yet (ROADMAP Queue 1 item 11)")
+from dexbotic_tpu_torch.parallel import multihost
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,11 +145,36 @@ def flatten_rollouts(buf: RolloutBuffer) -> dict:
 
 
 def allgather_rollouts(buf: RolloutBuffer, pad_prompt_to: Optional[int] = None) -> RolloutBuffer:
-    """Every process's rollout buffer, concatenated.  In one process this is
-    ``buf`` itself; across processes it is not ported yet and raises."""
+    """Every process's rollout buffer, concatenated in process order, on
+    every process (``buf`` itself in one process), so that the filter, the
+    redistribution and the update are the same everywhere.
+
+    The processes' episode counts and prompt lengths may differ: the prompts
+    are right-padded to ``pad_prompt_to``, the counts exchanged, every
+    per-episode array right-padded to the largest count, gathered, and the
+    padding rows dropped again."""
     if process_rank_and_count()[1] == 1:
         return buf
-    raise NotImplementedError(MULTI_PROCESS)
+    if pad_prompt_to is not None and buf.input_ids.shape[1] < pad_prompt_to:
+        pad = pad_prompt_to - buf.input_ids.shape[1]
+        buf.input_ids = np.pad(buf.input_ids, ((0, 0), (0, pad)))
+        buf.prompt_valid = np.pad(buf.prompt_valid, ((0, 0), (0, pad)))
+    counts = multihost.allgather(np.asarray([buf.n], np.int32)).reshape(-1)
+    n_max = int(counts.max())
+
+    def pad_rows(a):
+        return np.pad(a, [(0, n_max - a.shape[0])] + [(0, 0)] * (a.ndim - 1))
+
+    # the gathered rows are [P * n_max, ...]; process p's are p * n_max + [0, counts[p])
+    keep = np.concatenate([p * n_max + np.arange(c) for p, c in enumerate(counts)])
+    g = RolloutBuffer.__new__(RolloutBuffer)
+    g.n = int(counts.sum())
+    g.max_chunks = buf.max_chunks
+    g.obs = {k: multihost.allgather(pad_rows(v))[keep] for k, v in buf.obs.items()}
+    for name in ("input_ids", "prompt_valid", "bins", "old_logp", "chunk_count", "success",
+                 "truncated", "group_index"):
+        setattr(g, name, multihost.allgather(pad_rows(getattr(buf, name)))[keep])
+    return g
 
 
 def filter_and_redistribute(buf: RolloutBuffer, grpo_cfg: GRPOConfig, rollout_cfg: RolloutConfig,
@@ -195,7 +224,7 @@ def rl_policy_loss(model, oft_cfg: OFTConfig, grpo_cfg: GRPOConfig, batch: dict,
     pg_loss, clip_frac, approx_kl = ppo_clip_loss(
         batch["old_logp"], logp, batch["advantages"], mask,
         grpo_cfg.clip_ratio_low, grpo_cfg.clip_ratio_high)
-    ent = (entropy * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    ent = batch_mean((entropy * mask).sum(), mask.sum(), floor=1.0)
     loss = pg_loss - grpo_cfg.entropy_coeff * ent
     return loss, {"pg_loss": pg_loss, "clip_frac": clip_frac, "approx_kl": approx_kl,
                   "entropy": ent, "loss": loss}
@@ -238,22 +267,44 @@ class GRPOUpdater:
     optax's defaults (weight decay 1e-4 on every parameter, eps 1e-8, betas
     0.9 / 0.999, a fixed learning rate with no warmup), moments in fp32.
     ``model`` is trained in place; its parameters keep their dtype (the JAX
-    init's fp32: bf16 weights would round an update of lr 1e-6 away)."""
+    init's fp32: bf16 weights would round an update of lr 1e-6 away).
+
+    With a ``mesh`` the update is sharded: the actor is laid out by
+    ``parallel/mesh.shard_model`` (call :meth:`gathered` around anything
+    else that runs it, such as the rollouts), the moments are sharded like
+    their parameters, and each micro-batch's rows are split over the data
+    ranks, whose gradients are averaged."""
 
     def __init__(self, oft_cfg: OFTConfig, grpo_cfg: GRPOConfig, model,
                  learning_rate: float = 1e-6, max_grad_norm: float = 1.0,
                  temperature: float = 1.0, mesh=None, remat=True):
-        if mesh is not None or process_rank_and_count()[1] > 1:
-            raise NotImplementedError(MULTI_PROCESS)
         self.oft_cfg = oft_cfg
         self.grpo_cfg = grpo_cfg
         self.temperature = temperature
         self.remat = remat
+        self.mesh = mesh
         model.requires_grad_(True)
+        self.sharded = None
+        if mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            from dexbotic_tpu_torch.parallel.mesh import shard_model
+
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a ('data', 'model') DeviceMesh "
+                                f"(parallel/mesh.make_mesh), not {type(mesh).__name__}")
+            self.sharded = shard_model(model, mesh)
         self.optimizer = Optimizer(
             OptimizerConfig(learning_rate=learning_rate, weight_decay=1e-4,
                             max_grad_norm=max_grad_norm, lr_scheduler_type="fixed"),
-            model.named_parameters(), total_steps=1)
+            model.named_parameters(), total_steps=1, mesh=mesh)
+
+    def gathered(self):
+        """A context in which the sharded actor's parameters are whole on
+        every rank (a no-op without a mesh)."""
+        if self.sharded is None:
+            return contextlib.nullcontext()
+        return self.sharded.gathered()
 
     def grads(self, model, mb: dict) -> tuple[dict, dict]:
         """(metrics as 0-d tensors, {name: gradient or None}) of one
@@ -261,11 +312,25 @@ class GRPOUpdater:
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
+
+        def loss_fn(model, mb):
+            return rl_policy_loss(model, self.oft_cfg, self.grpo_cfg, mb, self.temperature,
+                                  remat=self.remat)
+
         with torch.enable_grad():
-            loss, metrics = rl_policy_loss(model, self.oft_cfg, self.grpo_cfg, mb,
-                                           self.temperature, remat=self.remat)
+            if self.sharded is None:
+                loss, metrics = loss_fn(model, mb)
+            else:
+                with losses.data_parallel(self.sharded.data_group, self.sharded.data_size):
+                    loss, metrics = self.sharded(loss_fn, mb)
             loss.backward()
-        return {k: v.detach() for k, v in metrics.items()}, {n: p.grad for n, p in params.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.sharded is not None:
+            self.sharded.reduce_replicated_grads()
+            stacked = torch.stack([v.float().reshape(()) for v in metrics.values()])
+            torch.distributed.all_reduce(stacked, group=self.sharded.data_group)
+            metrics = dict(zip(metrics, stacked / self.sharded.data_size))
+        return metrics, {n: p.grad for n, p in params.items()}
 
     def apply(self, model, grads: dict) -> torch.Tensor:
         """One optimizer update from ``grads``; returns their global norm."""
@@ -285,8 +350,16 @@ class GRPOUpdater:
         (moved to the model's device one at a time): a tail short of a whole
         micro-batch is padded with repeats of the first rows whose token
         mask and advantages are zero, so that it counts without weight.
-        Returns (model, the metrics' means over the micro-batches)."""
-        device = next(model.parameters()).device
+        Returns (model, the metrics' means over the micro-batches).  Over a
+        mesh each data rank takes its contiguous share of every micro-batch."""
+        device = local(next(model.parameters())).device
+        rows = slice(0, micro_batch_size)
+        if self.sharded is not None:
+            i, d = self.sharded.data_rank, self.sharded.data_size
+            if micro_batch_size % d:
+                raise ValueError(f"micro_batch_size {micro_batch_size} not divisible by the "
+                                 f"data-parallel size {d}")
+            rows = slice(i * micro_batch_size // d, (i + 1) * micro_batch_size // d)
         n = batch["bins"].shape[0]
         pad = (-n) % micro_batch_size
         if pad:
@@ -298,7 +371,7 @@ class GRPOUpdater:
             n += pad
         all_metrics = []
         for s in range(0, n, micro_batch_size):
-            mb = {k: v[s: s + micro_batch_size].to(device, non_blocking=True)
+            mb = {k: v[s: s + micro_batch_size][rows].to(device, non_blocking=True)
                   for k, v in batch.items()}
             metrics = self.step(model, mb)
             all_metrics.append({k: float(v) for k, v in metrics.items()})

@@ -5,12 +5,18 @@ Env batches from a task sampler -> chunked sampled rollouts with each
 chunk's log-probs kept -> binary success reward -> accuracy filter ->
 circular redistribution -> PPO-clip update with GRPO advantages.  The actor
 trains in the JAX init's fp32 on ``device``; a rollout's images and prompt
-are made on the host, its bins drawn on the device.  One process: a
-multi-process run raises (``exp/rl/rl_trainer.MULTI_PROCESS``).
+are made on the host, its bins drawn on the device.  Across processes
+(torchrun, or the DEXBOTIC_* variables of ``parallel/multihost``) each
+process rolls out its own envs from its own seeds (``seed + rank``), the
+buffers are gathered so that every process holds the same union, and the
+update runs over a ('data', 'model') mesh whose data size is
+``mesh_data`` or the largest that divides both the processes and the
+micro-batch.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 
@@ -26,7 +32,6 @@ from dexbotic_tpu_torch.exp import base_exp
 from dexbotic_tpu_torch.exp.oft_exp import OFTModelConfig
 from dexbotic_tpu_torch.exp.rl.grpo import GRPOConfig
 from dexbotic_tpu_torch.exp.rl.rl_trainer import (
-    MULTI_PROCESS,
     GRPOUpdater,
     RolloutConfig,
     allgather_rollouts,
@@ -36,9 +41,28 @@ from dexbotic_tpu_torch.exp.rl.rl_trainer import (
     prepare_update_batch,
 )
 from dexbotic_tpu_torch.models.oft import oft_generate_action
+from dexbotic_tpu_torch.parallel import multihost
+from dexbotic_tpu_torch.parallel.mesh import make_mesh, mesh_requested
 from dexbotic_tpu_torch.sim_envs.base import extract_rgb
 from dexbotic_tpu_torch.sim_envs.factory import create_env_batch
 from dexbotic_tpu_torch.tokenization.tokenize import tokenizer_image_token
+
+
+def update_mesh_data(processes: int, model: int, micro_batch_size: int) -> int:
+    """The GRPO update mesh's data size: the largest the micro-batch can be
+    split over, ``gcd(processes // model, micro_batch_size)``, as the JAX
+    recipe picks it.  JAX lays that mesh over the first data x model devices
+    and leaves the others out of the update; here the mesh covers every
+    process (one a card), so a size short of ``processes // model`` is
+    refused (ROADMAP Queue 3)."""
+    data = math.gcd(processes // model, micro_batch_size) or 1
+    if data * model != processes:
+        raise ValueError(
+            f"the GRPO update's mesh must cover all {processes} processes, but "
+            f"micro_batch_size {micro_batch_size} splits over {data} data ranks x mesh_model "
+            f"{model}: make micro_batch_size a multiple of processes // mesh_model, or set "
+            f"mesh_data (the JAX recipe would update on the first {data * model} devices alone)")
+    return data
 
 
 @dataclass
@@ -149,13 +173,18 @@ class SimpleVLARLExp(base_exp.BaseExp):
     def train_rl(self):
         """Rollouts, filter and update, ``rl_epochs`` x ``rl_steps_per_epoch``
         times.  Returns (the trained model, one metrics dict a step)."""
-        if self.trainer.mesh_data not in (None, 1) or self.trainer.mesh_model != 1:
-            raise NotImplementedError(MULTI_PROCESS)
+        multihost.maybe_initialize(device=self.device)
+        mesh = None
+        model_size = self.trainer.mesh_model
+        if mesh_requested(self.trainer.mesh_data, model_size):
+            data = self.trainer.mesh_data or update_mesh_data(
+                multihost.process_count(), model_size, self.micro_batch_size)
+            mesh = make_mesh(data, model_size, device_type=torch.device(self.device).type)
         cfg = self.model.build_config()
         model = self.model.build_params(cfg, self.device)  # fp32, as the JAX init
         tokenizer = self.tokenizer.build_tokenizer()
         updater = GRPOUpdater(cfg, self.grpo, model, learning_rate=self.rl_learning_rate,
-                              temperature=self.rollout.temperature)
+                              temperature=self.rollout.temperature, mesh=mesh)
         pid, nproc = process_rank_and_count()
         host_rng = np.random.default_rng(self.trainer.seed + pid)
         generator = torch.Generator(device=self.device).manual_seed(self.trainer.seed + pid)
@@ -186,7 +215,9 @@ class SimpleVLARLExp(base_exp.BaseExp):
                 # wall seconds of each phase, reported as timing/<phase>_s
                 timing: dict = {}
                 t0 = time.perf_counter()
-                buf = collect_rollouts(envs, actor, self.rollout, generator, group_index=groups)
+                with updater.gathered():
+                    buf = collect_rollouts(envs, actor, self.rollout, generator,
+                                           group_index=groups)
                 for e in envs:
                     e.close()
                 timing["gen"] = time.perf_counter() - t0

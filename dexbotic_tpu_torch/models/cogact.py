@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from dexbotic_tpu_torch.models import dit as dit_mod
-from dexbotic_tpu_torch.models.losses import causal_lm_loss
+from dexbotic_tpu_torch.models.losses import batch_mean, causal_lm_loss, global_sum
 from dexbotic_tpu_torch.models.vlm import VLM, VLMConfig, gather_last_hidden, init_vlm_, vlm_forward
 from dexbotic_tpu_torch.nn.transformer import lm_logits
 from dexbotic_tpu_torch.ops.diffusion import DiffusionSchedule
@@ -125,7 +125,7 @@ def cogact_loss(
         per_sample = sched.training_loss(eps_fn, actions_rep, generator, t=diffusion_t,
                                          noise=diffusion_noise, reduction="none")
         ha = has_action.reshape(-1).float().repeat(rep)
-        action_loss = (per_sample * ha).sum() / (ha.sum() + 1e-6)
+        action_loss = batch_mean((per_sample * ha).sum(), ha.sum(), eps=1e-6)
     else:
         action_loss = sched.training_loss(eps_fn, actions_rep, generator, t=diffusion_t,
                                           noise=diffusion_noise)
@@ -139,7 +139,7 @@ def cogact_loss(
         if has_text is not None:
             # as the reference: when any row has text, every row's labels count
             # and the term is scaled by has_text.any()
-            text_loss = text_loss * has_text.reshape(-1).bool().any().float()
+            text_loss = text_loss * (global_sum(has_text.reshape(-1).bool().sum()) > 0).float()
         metrics["text_loss"] = text_loss
         loss = loss + text_loss
     metrics["loss"] = loss

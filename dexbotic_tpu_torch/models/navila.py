@@ -11,7 +11,7 @@ tower call and are gathered into the packed rows.  The loss is the causal
 LM loss, or NaVILA's soft CE over the numeric tokens.  Serving decodes text
 over an 8-frame history (:class:`FrameHistoryBuffer`, ``models/generate.py``).
 Not ported: the context-parallel packed loss (ring attention), ROADMAP
-Queue 1 item 11.
+Queue 1 item 11b.
 """
 
 from __future__ import annotations
@@ -165,7 +165,7 @@ def navila_packed_loss(model: NaVILA, cfg: NaVILAConfig, batch: dict,
 
 def navila_packed_loss_cp(*args, **kwargs):
     raise NotImplementedError("the context-parallel packed loss (ring attention over a 'seq' "
-                              "mesh axis) is not ported yet: ROADMAP Queue 1 item 11")
+                              "mesh axis) is not ported yet: ROADMAP Queue 1 item 11b")
 
 
 def navila_loss(model: NaVILA, cfg: NaVILAConfig, batch: dict,

@@ -121,7 +121,7 @@ def remat_call(fn, remat, *args):
 def embed(mod: nn.Module, ids: torch.Tensor) -> torch.Tensor:
     if isinstance(mod, QuantEmbedding):  # rows of q, times their scales, in the scales' dtype
         return mod.q[ids].to(mod.s.dtype) * mod.s[ids]
-    return F.embedding(ids, mod.weight)
+    return mod(ids)  # the module's call, where tensor parallelism hooks in
 
 
 class GatedMLP(nn.Module):

@@ -1,8 +1,9 @@
 """Multimodal projector (port of dexbotic_tpu/nn/projector.py).
 
-Types: 'linear', 'mlp{N}x_gelu' (exact-erf GELU between layers) and
-'mlp_downsample' (NaVILA's: a 2x2 space-to-depth of the token grid, an odd
-grid zero-padded, then LayerNorm, fc0, GELU, fc1).
+Types: 'linear', 'linear{N}x' (a bias-free ``fc`` of ``mm_hidden * N ->
+hidden``, applied to features of that width), 'mlp{N}x_gelu' (exact-erf
+GELU between layers) and 'mlp_downsample' (NaVILA's: a 2x2 space-to-depth of
+the token grid, an odd grid zero-padded, then LayerNorm, fc0, GELU, fc1).
 """
 
 from __future__ import annotations
@@ -22,6 +23,11 @@ def _mlp_depth(projector_type: str) -> int | None:
     return int(m.group(1)) if m else None
 
 
+def _linear_mult(projector_type: str) -> int | None:
+    m = re.match(r"^linear(\d+)x$", projector_type)
+    return int(m.group(1)) if m else None
+
+
 class Projector(nn.Module):
     def __init__(self, projector_type: str, mm_hidden: int, hidden: int):
         super().__init__()
@@ -29,6 +35,8 @@ class Projector(nn.Module):
         depth = _mlp_depth(projector_type)
         if projector_type == "linear":
             self.fc = core.Linear(mm_hidden, hidden)
+        elif _linear_mult(projector_type):
+            self.fc = core.Linear(mm_hidden * _linear_mult(projector_type), hidden, bias=False)
         elif projector_type == "mlp_downsample":
             self.ln = LayerNorm(mm_hidden * 4, eps=1e-5)
             self.fc0 = core.Linear(mm_hidden * 4, hidden)
@@ -38,7 +46,7 @@ class Projector(nn.Module):
             for i in range(1, depth):
                 setattr(self, f"fc{i}", core.Linear(hidden, hidden))
         else:
-            raise NotImplementedError(f"projector type {projector_type!r} is not ported yet")
+            raise ValueError(f"unknown projector type: {projector_type!r}")
 
 
 @torch.no_grad()
@@ -65,14 +73,14 @@ def downsample_2x2(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_projector(proj: Projector, x: torch.Tensor, projector_type: str) -> torch.Tensor:
-    if projector_type == "linear":
+    if projector_type == "linear" or _linear_mult(projector_type):
         return proj.fc(x)
     if projector_type == "mlp_downsample":
         x = proj.ln(downsample_2x2(x))
         return proj.fc1(F.gelu(proj.fc0(x)))
     depth = _mlp_depth(projector_type)
     if not depth:
-        raise NotImplementedError(f"projector type {projector_type!r} is not ported yet")
+        raise ValueError(f"unknown projector type: {projector_type!r}")
     out = proj.fc0(x)
     for i in range(1, depth):
         out = getattr(proj, f"fc{i}")(F.gelu(out))

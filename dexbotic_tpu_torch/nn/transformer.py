@@ -27,12 +27,13 @@ cache in three modes:
 
 Layers are a ``ModuleList``: ``utils/bridge.py`` unstacks the JAX layer
 stacks.  Not ported: MoE FFNs and their load-balance loss (``want_aux``,
-ROADMAP Queue 1 item 11).
+ROADMAP Queue 1 item 11c).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -67,7 +68,7 @@ class TransformerConfig:
     adarms_cond_dim: Optional[int] = None  # pi0.5 action expert
     attn_scale: Optional[float] = None  # default head_dim**-0.5
     attn_impl: str = "auto"
-    moe_num_experts: Optional[int] = None  # not ported yet (ROADMAP Queue 1 item 11)
+    moe_num_experts: Optional[int] = None  # not ported yet (ROADMAP Queue 1 item 11c)
     moe_top_k: int = 2
     moe_capacity_factor: float = 2.0
 
@@ -116,12 +117,19 @@ class DecoderLayer(nn.Module):
         self.attn = _Attn(cfg)
         self.mlp = core.GatedMLP(cfg.hidden_size, cfg.intermediate_size)
 
+    def forward(self, fn, *args):
+        """``fn(*args)``: :func:`mot_forward` runs a layer's computation as a
+        call of the layer, so that hooks on it (``parallel/mesh.shard_model``'s
+        per-layer FSDP2 gather) run around it."""
+        return fn(*args)
+
 
 class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         if cfg.moe_num_experts:
-            raise NotImplementedError("MoE FFNs are not ported yet (ROADMAP Queue 1 item 11)")
+            raise NotImplementedError("MoE FFNs are not ported yet (ROADMAP Queue 1 item 11c)")
+        self.cfg = cfg  # the head counts tensor parallelism checks (parallel/mesh.tp_plan)
         self.layers = nn.ModuleList(DecoderLayer(cfg) for _ in range(cfg.num_layers))
         self.norm = _make_norm(cfg, cfg.hidden_size)
         if cfg.has_embed:
@@ -158,7 +166,10 @@ def lm_logits(llm: Transformer, cfg: TransformerConfig, hidden: torch.Tensor) ->
     e = llm.embed  # tied embedding
     if isinstance(e, core.QuantEmbedding):  # int8 rows, per-row scales, in hidden's dtype
         return (hidden @ e.q.to(hidden.dtype).t()) * e.s.to(hidden.dtype).t()
-    return hidden @ e.weight.to(hidden.dtype).t()
+    w = e.weight
+    if hasattr(w, "full_tensor"):  # a table split over the 'model' axis: gathered whole
+        w = w.full_tensor()
+    return hidden @ w.to(hidden.dtype).t()
 
 
 def _apply_norm(norm: nn.Module, cfg: TransformerConfig, x: torch.Tensor,
@@ -239,6 +250,17 @@ class _RowWrites:
         return buf
 
 
+def _through_layers(layers: tuple, fn, *args):
+    """``fn(layers, *args)`` inside a call of each decoder layer of
+    ``layers`` (one a stream, nested)."""
+    def call(i, *a):
+        if i == len(layers):
+            return fn(layers, *a)
+        return layers[i](functools.partial(call, i + 1), *a)
+
+    return call(0, *args)
+
+
 def mot_forward(streams: Sequence[Stream], positions: torch.Tensor, q_grp: torch.Tensor,
                 q_valid: torch.Tensor, cache: Optional[dict] = None, update_cache: bool = False,
                 remat=False, q_seg: Optional[torch.Tensor] = None, write_cols=None,
@@ -260,7 +282,7 @@ def mot_forward(streams: Sequence[Stream], positions: torch.Tensor, q_grp: torch
         raise ValueError("write_cols writes into a given cache (update_cache=True)")
     if want_aux:
         raise NotImplementedError("the MoE load-balance loss (want_aux) is not ported yet: "
-                                  "ROADMAP Queue 1 item 11")
+                                  "ROADMAP Queue 1 item 11c")
     active = [s for s in streams if s.embeds is not None]
     if not active:
         raise ValueError("at least one stream must have embeddings")
@@ -318,18 +340,20 @@ def mot_forward(streams: Sequence[Stream], positions: torch.Tensor, q_grp: torch
     else:
         kv_grp, kv_valid, kv_seg = q_grp, q_valid, q_seg
 
-    def layer(layers, ck, cv, *xs):
+    def layer(layers, ck, cv, conds, *xs):
         q_list, k_list, v_list, gates1 = [], [], [], []
-        for s, lp, x in zip(streams, layers, xs):
+        for s, lp, x, cond in zip(streams, layers, xs, conds):
             if x is None:
                 gates1.append(None)
                 continue
-            h, gate1 = _apply_norm(lp.ln1, s.cfg, x, s.cond)
+            h, gate1 = _apply_norm(lp.ln1, s.cfg, x, cond)
             gates1.append(gate1)
             b, n, _ = h.shape
-            q = lp.attn.q(h).reshape(b, n, s.cfg.num_heads, s.cfg.head_dim)
-            k = lp.attn.k(h).reshape(b, n, s.cfg.num_kv_heads, s.cfg.head_dim)
-            v = lp.attn.v(h).reshape(b, n, s.cfg.num_kv_heads, s.cfg.head_dim)
+            # heads from the tensor: under tensor parallelism a rank holds
+            # num_heads / model of them (parallel/mesh.TP_PLAN)
+            q = lp.attn.q(h).reshape(b, n, -1, s.cfg.head_dim)
+            k = lp.attn.k(h).reshape(b, n, -1, s.cfg.head_dim)
+            v = lp.attn.v(h).reshape(b, n, -1, s.cfg.head_dim)
             if s.cfg.qk_norm:
                 q, k = lp.attn.q_norm(q), lp.attn.k_norm(k)
             q_list.append(q)
@@ -354,22 +378,24 @@ def mot_forward(streams: Sequence[Stream], positions: torch.Tensor, q_grp: torch
         a = attention(q_cat, k_full, v_full, q_grp, kv_grp, kv_valid, scale=scale,
                       impl=base.attn_impl, q_seg=q_seg, kv_seg=kv_seg)
         outs, offset = [], 0
-        for s, lp, x, n, gate1 in zip(streams, layers, xs, seq_lens, gates1):
+        for s, lp, x, cond, n, gate1 in zip(streams, layers, xs, conds, seq_lens, gates1):
             if x is None:
                 outs.append(None)
                 continue
             o = lp.attn.o((a if n == T else a[:, offset: offset + n]).reshape(B, n, -1))
             offset += n
             x1 = _gated_residual(x, o, gate1)
-            h2, gate2 = _apply_norm(lp.ln2, s.cfg, x1, s.cond)
+            h2, gate2 = _apply_norm(lp.ln2, s.cfg, x1, cond)
             outs.append(_gated_residual(x1, lp.mlp(h2, s.cfg.act), gate2))
         return tuple(outs)
 
     xs = tuple(s.embeds for s in streams)
+    # the conditions go in as arguments, where a layer's hooks see them
+    conds = tuple(s.cond for s in streams)
     for i, layers in enumerate(zip(*(s.module.layers for s in streams))):
         ck = None if cache_k is None else cache_k[i]
         cv = None if cache_v is None else cache_v[i]
-        xs = core.remat_call(layer, remat, layers, ck, cv, *xs)
+        xs = core.remat_call(_through_layers, remat, layers, layer, ck, cv, conds, *xs)
 
     outs = [None if x is None else _apply_norm(s.module.norm, s.cfg, x, s.cond)[0]
             for s, x in zip(streams, xs)]

@@ -90,6 +90,27 @@ def test_playground_twins_are_covered():
         assert f"dexbotic_tpu_torch.playground.{twin}" in names, twin
 
 
+def test_parallel_layer_is_covered():
+    """The parallel layer (launch contract, mesh, FSDP2 and tensor parallelism)
+    is among the modules imported with JAX blocked and scanned above, and
+    imports no distributed machinery it does not need when imported."""
+    names = _modules()
+    for module in ("parallel", "parallel.multihost", "parallel.mesh"):
+        assert f"dexbotic_tpu_torch.{module}" in names, module
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['dexbotic_tpu'] = None\n"
+            "import dexbotic_tpu_torch.parallel.mesh, dexbotic_tpu_torch.parallel.multihost\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
+            "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,
+                       env=env, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
 def test_no_jax_package_in_the_sources():
     """No line of the port or of chip_smoke.py imports dexbotic_tpu (the port's
     own dexbotic_tpu_torch is fine)."""

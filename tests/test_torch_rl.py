@@ -365,7 +365,7 @@ def test_grpo_update_matches_jax():
 def test_update_refuses_a_mesh():
     _, tcfg = _oft_pair()
     model = toft.build_oft(tcfg, "cpu", seed=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(TypeError, match="make_mesh"):  # a mesh is a DeviceMesh
         trl.GRPOUpdater(tcfg, tgrpo.GRPOConfig(), model, mesh=object())
     assert trl.allgather_rollouts("buf") == "buf"  # one process: the buffer as it is
 
