@@ -216,7 +216,19 @@ Phases, any failure exits non-zero without a result line:
      weights in fp32, held as 12a, and the packed loss against navila_loss
      on the same samples unpacked; (c) two packed steps of
      NaVILAExp.train() at 4 rows of 4096 (remat, the LLM frozen): step
-     time, tokens/s, pack fill, dead-tile share, peak, K1/K3 launches.
+     time, tokens/s, pack fill, dead-tile share, peak, K1/K3 launches;
+     (e) one step of (c)'s recipe on (b)'s weights (bf16 matrices) through
+     navila_packed_loss_cp on a ('data', 'model', 'seq') = (1, 1, 1) mesh
+     over a process group of one (NCCL): the ring code, one K1 hop a layer
+     call, held to navila_packed_loss on the same batch (loss and grad norm
+     within rel 1e-5; K1 = ring hops, K3 a layer); (f) the ring's hops at
+     NaVILA-7B's layer shape (4 packed rows of 4096, 32 heads of 128) in 4
+     blocks of 1024 and 2 of 2048, each rank's hops run as that rank would
+     in one process (parallel/ring.simulate): out, lse, dq, dk, dv on the
+     valid rows against the fp32 plain version over the whole sequence,
+     each within 2x the whole-sequence call's error + 1e-3; each hop's K1
+     and K3 time, a rank's hops summed against one whole-sequence call,
+     the share of dead hops, and K1/K3 rows at the diagonal hop.
 
   14. the continuous-batching decode engine (exp/decode_engine.py): (a)
      Discrete VLA-7B (4 of 32 decoder layers, max_retries=1) served by
@@ -256,6 +268,20 @@ Phases, any failure exits non-zero without a result line:
      phase 5's server (before it is freed): the report must equal the JAX
      harness's for the same arguments, with 32 K1 launches and 1 K2 launch
      a request.
+  16. the parallel layer's MoE and pipeline at LLaMA-2-7B's layer width,
+     one rank an axis: (a) an MoE decoder (2 layers, 8 experts, top-2,
+     capacity 2.0, bf16) on 2 x 2048 causal rows, mot_forward(want_aux=True)
+     forward and backward through K1 and K3 against the plain attention
+     path (cosines >= 0.999, the balance loss within 1e-3), the dropped
+     share, one layer's expert FFN time against K1's and K3's; (b) the
+     GPipe pipeline at ('stage', 'data') = (1, 1) over a process group of
+     one, n_micro 4, a 4-layer decoder (fp32) on 4 x 2048: the loss on
+     fp32 embeddings and its grad norm within rel 1e-5 of the unpipelined
+     loss over the whole batch, every gradient within 1e-5 of it over the
+     same micro-batches, K1 and K3 16 each; the plain fp32 path's whole
+     against micro-batched gradients within 1e-5, K1 (at one block height)
+     and K3 bit for bit whole and micro-batched; pipeline_causal_lm_loss
+     (bf16 embeddings) once, finite, K1 and K3 16 each.
 
 Error rule for a kernel: its max error against the plain version run in
 fp32 on the same bf16 inputs must not exceed 2x the plain bf16 version's
@@ -2795,8 +2821,6 @@ def phase_train_mesh(failures: list, dataset: str, ref: dict) -> dict:
     """7c: 7b's recipe through CogActExp.train() on the mesh path at world
     size 1 over NCCL; no fallback: a group that does not come up, or a
     Trainer off the mesh path, fails the phase."""
-    import socket
-
     import torch.distributed as dist
 
     from dexbotic_tpu_torch.exp.trainer import Trainer
@@ -2807,11 +2831,8 @@ def phase_train_mesh(failures: list, dataset: str, ref: dict) -> dict:
     print(f"phase 7c: {steps} of 7b's steps through CogActExp.train() on the mesh path "
           f"(a process group of one over NCCL, a 1 x 1 mesh whose leaves are all replicated, "
           f"as the FSDP rule says at data size 1; 7b's batches and schedule)")
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
     t0 = time.perf_counter()
-    multihost.maybe_initialize(f"localhost:{port}", 1, 0)
+    group_of_one()
     init_s = time.perf_counter() - t0
     backend = dist.get_backend()
     exp = train_exp(dataset, "out_mesh", micro, accum, ref["max_steps"])
@@ -3324,9 +3345,9 @@ def decoder_plain_on_bf16():
     call = transformer.attention
 
     def rounded(q, k, v, q_grp, kv_grp, kv_valid, scale=None, impl="auto", q_seg=None,
-                kv_seg=None):
+                kv_seg=None, group=None):
         if impl != "xla" or q.dtype != torch.float32:
-            return call(q, k, v, q_grp, kv_grp, kv_valid, scale, impl, q_seg, kv_seg)
+            return call(q, k, v, q_grp, kv_grp, kv_valid, scale, impl, q_seg, kv_seg, group)
         out, _ = flash_attention_ref(q.bfloat16(), k.bfloat16(), v.bfloat16(), q_grp, kv_grp,
                                      kv_valid, scale, q_seg, kv_seg)
         return out.float()
@@ -4757,8 +4778,9 @@ def phase_navila_train_steps(failures: list, dataset: str) -> dict:
 
 def phase_navila(failures: list) -> dict:
     """Phase 13: serving (13a) builds the bf16 model, whose weights 13b
-    trains in fp32; 13c runs the exp's own train().  In a temp dir (the
-    suite, checkpoints), removed after."""
+    trains in fp32 and 13e (bf16 matrices after 13b) runs through the
+    context-parallel loss; 13f times the ring's hops; 13c runs the exp's own
+    train().  In a temp dir (the suite, checkpoints), removed after."""
     serve = phase_navila_serve(failures)
     model, cfg = serve.pop("model"), serve.pop("cfg")
     serve.pop("tokenizer")
@@ -4766,10 +4788,13 @@ def phase_navila(failures: list) -> dict:
     with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
         dataset = write_nav_suite(os.path.join(tmp, "nav"))
         compare = phase_navila_train_compare(failures, dataset, model, cfg)
+        cp = phase_navila_cp(failures, dataset, model, cfg)
         del model
         free_memory()
+        hops = phase_ring_hops(failures)
         steps = phase_navila_train_steps(failures, dataset)
-    return {"13a_serve": serve, "13b_compare": compare, "13c_train": steps}
+    return {"13a_serve": serve, "13b_compare": compare, "13e_cp": cp, "13f_ring_hops": hops,
+            "13c_train": steps}
 
 
 # ---------------------------------------------------------------------------
@@ -6519,6 +6544,613 @@ def phase_harness(failures: list, serve: dict) -> dict:
                             "dit_sample": launches["dit_sample"] / max(requests, 1)}}
 
 
+# ---------------------------------------------------------------------------
+# Phases 13e, 13f and 16: the parallel layer's last parts (parallel/ring.py,
+# nn/moe.py, parallel/pipeline.py) at full width, one rank an axis (NCCL
+# refuses two ranks on one card; the gloo tests hold 2 and 4 processes)
+# ---------------------------------------------------------------------------
+
+RING_SPLITS = (4, 2)  # 13f: NaVILA's 4096-token rows in 4 blocks of 1024, then 2 of 2048
+# 16a: an MoE decoder at LLaMA-2-7B's layer width; 16b: a 4-layer decoder of that
+# width, pipelined at ('stage', 'data') = (1, 1)
+MOE_CFG = dict(vocab_size=32000, hidden_size=4096, num_layers=2, num_heads=32, num_kv_heads=32,
+               head_dim=128, intermediate_size=11008, moe_num_experts=8, moe_top_k=2,
+               moe_capacity_factor=2.0, has_embed=False)
+MOE_ROWS, MOE_TOKENS = 2, 2048
+PP_CFG = dict(MOE_CFG, num_layers=4, moe_num_experts=None, has_embed=True, tie_embeddings=False)
+PP_ROWS, PP_TOKENS, PP_MICRO = 4, 2048, 4
+PARALLEL_REL = 1e-5  # 13e and 16b: the CP / pipelined step against the plain one, relative
+MOE_COSINE = 0.999  # 16a: kernel path against plain path, outputs and gradients
+
+
+def group_of_one():
+    """A process group of one over NCCL (multihost.maybe_initialize on a free
+    localhost port): the mesh path's own collectives, at one rank an axis."""
+    import socket
+
+    from dexbotic_tpu_torch.parallel import multihost
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    multihost.maybe_initialize(f"localhost:{port}", 1, 0)
+
+
+def attn_rows(q, k, v, ints, seg, dout, reps: int = 10) -> dict:
+    """K1 and K3 at one shape: {"flash_fwd": row, "flash_bwd": row}, each with
+    the kernel's time (CUDA events, median), its plain version's (3 calls),
+    the bound, SDPA's time (the first backend that takes the mask; the
+    backward by autograd through it) and the error against the fp32 plain
+    version."""
+    from dexbotic_tpu_torch.ops.attention import (
+        _allowed,
+        flash_attention_bwd,
+        flash_attention_bwd_ref,
+        flash_attention_fwd,
+        flash_attention_ref,
+    )
+
+    sq = seg_pair(seg)
+    out, lse = flash_attention_fwd(q, k, v, *ints, None, *sq)
+    grads = flash_attention_bwd(q, k, v, *ints, out, lse, dout, None, *sq)
+    with torch.no_grad():
+        qf, kf, vf = q.float(), k.float(), v.float()
+        ref_out, _ = flash_attention_ref(qf, kf, vf, *ints, None, *sq)
+        ref_g = flash_attention_bwd_ref(qf, kf, vf, *ints, out.float(), lse, dout.float(), None,
+                                        *sq)
+    io_f, pairs = attn_counts(q, k, ints, seg, (q, k, v, out, lse))
+    io_b, _ = attn_counts(q, k, ints, seg, (q, k, v, out, dout, lse, *grads))
+    rows = {}
+    for name, call, plain, io, ops, err in (
+            ("flash_fwd", lambda: flash_attention_fwd(q, k, v, *ints, None, *sq),
+             lambda: flash_attention_ref(q, k, v, *ints, None, *sq), io_f,
+             4 * q.shape[-1] * pairs, (out.float() - ref_out).abs().max().item()),
+            ("flash_bwd", lambda: flash_attention_bwd(q, k, v, *ints, out, lse, dout, None, *sq),
+             lambda: flash_attention_bwd_ref(q, k, v, *ints, out, lse, dout, None, *sq), io_b,
+             10 * q.shape[-1] * pairs,
+             max((a.float() - r).abs().max().item() for a, r in zip(grads, ref_g)))):
+        bound_ms, bound_by = bound(io, ops)
+        rows[name] = {"ms": median_ms(call, reps), "plain_ms": median_ms(plain, 3),
+                      "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+                      "B_Sq_Skv": [q.shape[0], q.shape[1], k.shape[1]]}
+    backend, leaves, call = sdpa(q, k, v, _allowed(*ints, *sq), backward=True)
+    with torch.no_grad():
+        rows["flash_fwd"]["library_ms"] = median_ms(call, reps)
+    lib_out = call()
+    dout_t = dout.transpose(1, 2)
+    rows["flash_bwd"]["library_ms"] = median_ms(
+        lambda: torch.autograd.grad(lib_out, leaves, dout_t, retain_graph=True), reps)
+    for r in rows.values():
+        r["sdpa_backend"] = backend
+    del lib_out, leaves, ref_g, ref_out, grads
+    return rows
+
+
+def phase_navila_cp(failures: list, dataset: str, model, cfg) -> dict:
+    """Phase 13e: one step of 13c's recipe (NaVILA-7B, 4 rows of 4096, the
+    LLM frozen, remat, 13b's weights: bf16 matrices, fp32 vectors) through
+    navila_packed_loss_cp on a ('data', 'model', 'seq') = (1, 1, 1) mesh over
+    a process group of one (NCCL): the ring code with one hop a layer call,
+    held to navila_packed_loss on the same batch, loss and grad norm within
+    PARALLEL_REL; K1, K3 and the ring's hops counted around each."""
+    import torch.distributed as dist
+
+    from dexbotic_tpu_torch.data.collator import Collator
+    from dexbotic_tpu_torch.exp.optim import global_norm, is_frozen
+    from dexbotic_tpu_torch.models.navila import navila_packed_loss, navila_packed_loss_cp
+    from dexbotic_tpu_torch.parallel import multihost
+    from dexbotic_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+    from dexbotic_tpu_torch.parallel.ring import ring_attention
+
+    R = NAVILA_TRAIN_ROWS
+    exp = navila_exp(dataset, "out_nav_cp", rows=R, train=True)
+    tok = exp.tokenizer.build_tokenizer()
+    ds = exp.data.build_data(exp.build_tokenization(tok))
+    collator = Collator(pad_token_id=tok.pad_token_id, max_length=exp.tokenizer.model_max_length)
+    host = next(exp.packed_batches(ds, collator, tok.pad_token_id, R))
+    batch = {k: torch.as_tensor(v).cuda() for k, v in host.items()}
+    soft = exp._digit_ids(tok)
+    trainable = {n for n, _ in model.named_parameters() if not is_frozen(n, exp.optimizer)}
+    group_of_one()
+    mesh = make_mesh(data=1, model=1, seq=1)
+    print(f"phase 13e: one packed NaVILA-7B step ({R} rows of {host['input_ids'].shape[1]}, "
+          f"LLM frozen, remat, bf16 matrices) through navila_packed_loss_cp on a "
+          f"{mesh_shape(mesh)} mesh over a process group of one ({dist.get_backend()}), against "
+          f"navila_packed_loss on the same batch")
+
+    def run(cp: bool) -> dict:
+        for n, p in model.named_parameters():
+            p.requires_grad_(n in trainable)
+        _zero_counts()
+        hops = ring_attention.hops
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            loss, _ = (navila_packed_loss_cp(model, cfg, batch, mesh, soft, remat=True) if cp
+                       else navila_packed_loss(model, cfg, batch, soft, remat=True))
+            loss.backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        out = {"loss": float(loss.detach()), "grad_norm": float(global_norm(grads)),
+               "launches": launches, "hops": ring_attention.hops - hops, "step_s": wall}
+        for p in model.parameters():
+            p.grad = None
+        model.requires_grad_(False)
+        free_memory()
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        plain = run(False)
+        ring = run(True)
+    finally:
+        multihost.shutdown()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rel = {k: abs(ring[k] - plain[k]) / abs(plain[k]) for k in ("loss", "grad_norm")}
+    L = cfg.vlm.llm.num_layers
+    for label, w in (("navila_packed_loss_cp", ring), ("navila_packed_loss", plain)):
+        print(f"  {label}: loss {w['loss']!r} grad_norm {w['grad_norm']!r}; {w['step_s']:.3f} s; "
+              f"launches {w['launches']}; ring hops {w['hops']}")
+    print(f"  rel loss {rel['loss']:.3g}, grad_norm {rel['grad_norm']:.3g} (bound {PARALLEL_REL}); "
+          f"peak {peak:.2f} GiB")
+    lr = ring["launches"]
+    checks = [(max(rel.values()) <= PARALLEL_REL, f"13e: rel differences {rel} > {PARALLEL_REL}"),
+              (ring["hops"] == lr["flash_fwd"] >= 2 * L and lr["flash_bwd"] == L
+               and lr["plain_cuda_calls"] == 0,
+               f"13e: ring hops {ring['hops']}, launches {lr}: want one K1 hop a layer call "
+               f"(2 x {L} with remat), K3 {L}, no plain call"),
+              (plain["hops"] == 0, "13e: the plain step ran the ring"),
+              (not dist.is_initialized(), "13e: the process group outlived the phase")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    return {"rows": R, "mesh": {"data": 1, "model": 1, "seq": 1}, "ring": ring, "plain": plain,
+            "rel": rel, "peak_gib": peak}
+
+
+def phase_ring_hops(failures: list) -> dict:
+    """Phase 13f: the ring's hops at NaVILA-7B's layer shape (4 packed rows of
+    4096, 32 heads of 128, 13c's segments), the sequence cut into n blocks
+    (RING_SPLITS), each rank's hops run as that rank would in one process
+    (parallel/ring.simulate: K1 hops merged, then K3 hops from the global
+    out, lse and dO): out, lse, dq, dk and dv on the valid rows against the
+    fp32 plain version over the whole sequence, each within 2x the whole-
+    sequence K1/K3 call's error + 1e-3; each hop's K1 and K3 time, a rank's
+    hops summed against one whole-sequence call, and the share of dead hops
+    (every 64 x 64 tile dead)."""
+    from dexbotic_tpu_torch.ops.attention import (
+        DEAD,
+        flash_attention_bwd,
+        flash_attention_bwd_ref,
+        flash_attention_fwd,
+        flash_attention_ref,
+        flash_tile_classes,
+    )
+    from dexbotic_tpu_torch.parallel.ring import simulate
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+    name, q, k, v, ints, seg = navila_attn_inputs("packed", NAVILA_TRAIN_ROWS, g)
+    dout = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
+    B, S = q.shape[:2]
+    print(f"phase 13f: ring hops at {name}, split in {RING_SPLITS} blocks")
+    out, lse = flash_attention_fwd(q, k, v, *ints, None, seg, seg)
+    whole = dict(zip(("dq", "dk", "dv"), flash_attention_bwd(q, k, v, *ints, out, lse, dout, None,
+                                                              seg, seg)), out=out, lse=lse)
+    whole_ms = {"flash_fwd": median_ms(lambda: flash_attention_fwd(q, k, v, *ints, None, seg, seg),
+                                       5),
+                "flash_bwd": median_ms(lambda: flash_attention_bwd(q, k, v, *ints, out, lse, dout,
+                                                                   None, seg, seg), 5)}
+    valid = ints[2].bool()
+    ref: dict = {}
+    for b in range(B):  # the fp32 reference a row at a time: [32, 4096, 4096] scores
+        sl = slice(b, b + 1)
+        args = [t[sl] for t in ints]
+        qf, kf, vf = (t[sl].float() for t in (q, k, v))
+        with torch.no_grad():
+            o, l_ = flash_attention_ref(qf, kf, vf, *args, None, seg[sl], seg[sl])
+            grads = flash_attention_bwd_ref(qf, kf, vf, *args, o, l_, dout[sl].float(), None,
+                                            seg[sl], seg[sl])
+        for key, t in zip(("out", "lse", "dq", "dk", "dv"), (o, l_, *grads)):
+            ref.setdefault(key, []).append(t)
+        del o, l_, grads, qf, kf, vf
+    ref = {key: torch.cat(ts) for key, ts in ref.items()}
+
+    def on_valid(key, t):
+        return (t.transpose(1, 2) if key == "lse" else t)[valid].float()
+
+    whole_err = {key: (on_valid(key, whole[key]) - on_valid(key, ref[key])).abs().max().item()
+                 for key in ref}
+    result = {"whole_ms": whole_ms, "whole_err": whole_err}
+    for n in RING_SPLITS:
+        sim = simulate(q, k, v, *ints, seg, seg, n=n, dout=dout)
+        err = {key: (on_valid(key, sim[key]) - on_valid(key, ref[key])).abs().max().item()
+               for key in ref}
+        for key in ref:
+            check_bound(f"13f n={n} {key}", err[key], whole_err[key], failures)
+        del sim
+        L = S // n
+
+        def blk(t, r):
+            return t[:, r * L: (r + 1) * L]
+
+        hops, dead = [], 0
+        for r in range(n):  # rank r's hops: its queries against block (r - h) % n
+            for h in range(n):
+                j = (r - h) % n
+                qi = [blk(t, r) for t in (q, ints[0], seg, dout)]
+                kv = [blk(t, j) for t in (k, v, ints[1], ints[2], seg)]
+                o, l_ = flash_attention_fwd(qi[0], kv[0], kv[1], qi[1], kv[2], kv[3], None, qi[2],
+                                            kv[4])
+                cls = flash_tile_classes(qi[1], kv[2], kv[3], qi[2], kv[4])
+                is_dead = bool((cls == DEAD).all())
+                dead += is_dead
+                fwd_ms = median_ms(lambda: flash_attention_fwd(
+                    qi[0], kv[0], kv[1], qi[1], kv[2], kv[3], None, qi[2], kv[4]), 5)
+                bwd_ms = median_ms(lambda: flash_attention_bwd(
+                    qi[0], kv[0], kv[1], qi[1], kv[2], kv[3], o, l_, qi[3], None, qi[2], kv[4]), 5)
+                hops.append({"rank": r, "block": j, "flash_fwd_ms": fwd_ms,
+                             "flash_bwd_ms": bwd_ms, "dead": is_dead})
+        sums = {kern: [sum(hp[f"{kern}_ms"] for hp in hops if hp["rank"] == r) for r in range(n)]
+                for kern in ("flash_fwd", "flash_bwd")}
+        # the table's row: the diagonal hop of rank 0 (its own block, the causal edge)
+        rows = attn_rows(blk(q, 0), blk(k, 0), blk(v, 0), tuple(blk(t, 0) for t in ints),
+                         blk(seg, 0), blk(dout, 0), reps=5)
+        print(f"  n={n}: blocks of {L}; hops (rank, block, K1 ms, K3 ms, dead): "
+              + ", ".join(f"({hp['rank']}, {hp['block']}, {hp['flash_fwd_ms']:.4f}, "
+                          f"{hp['flash_bwd_ms']:.4f}{', dead' if hp['dead'] else ''})"
+                          for hp in hops))
+        print(f"    a rank's hops summed: K1 {[round(x, 4) for x in sums['flash_fwd']]} ms, K3 "
+              f"{[round(x, 4) for x in sums['flash_bwd']]} ms, against one whole-sequence call: "
+              f"K1 {whole_ms['flash_fwd']:.4f} ms, K3 {whole_ms['flash_bwd']:.4f} ms; dead hops "
+              f"{dead} of {n * n} ({dead / (n * n):.1%})")
+        for kern, row in rows.items():
+            print(f"    {kern} at the diagonal hop {row['B_Sq_Skv']}: {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                  f"SDPA ({row['sdpa_backend']}) {row['library_ms']:.4f} ms")
+        result[f"n{n}"] = {"err": err, "hops": hops, "rank_sums_ms": sums,
+                           "dead_hop_share": dead / (n * n), "rows": rows}
+    free_memory()
+    return result
+
+
+def phase_moe(failures: list) -> dict:
+    """Phase 16a: an MoE decoder at LLaMA-2-7B's layer width (MOE_CFG: 2
+    layers, 8 experts, top-2, capacity 2.0, bf16 matrices) on MOE_ROWS x
+    MOE_TOKENS causal rows: mot_forward(want_aux=True) forward and backward
+    through K1 and K3 (counted), held against the same model on the plain
+    attention path (outputs, the input's and the router's, experts' and
+    attention's gradients at cosine >= MOE_COSINE, the balance loss within
+    1e-3 relative); the dropped share, and one layer's expert FFN time
+    against its attention's (K1 and K3, with the kernel table's row)."""
+    from dexbotic_tpu_torch.nn import moe
+    from dexbotic_tpu_torch.nn.core import cast_matrices_
+    from dexbotic_tpu_torch.nn.transformer import (
+        Stream,
+        Transformer,
+        TransformerConfig,
+        init_transformer_,
+        mot_forward,
+    )
+
+    cfg = TransformerConfig(**MOE_CFG)
+    with torch.device("meta"):
+        model = Transformer(cfg)
+    model = model.to_empty(device="cuda")
+    init_transformer_(model, torch.Generator(device="cuda").manual_seed(16))
+    cast_matrices_(model, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    B, T, H = MOE_ROWS, MOE_TOKENS, cfg.hidden_size
+    x = torch.randn(B, T, H, generator=g, device="cuda").bfloat16()
+    dout = torch.randn(B, T, H, generator=g, device="cuda").bfloat16()
+    pos = torch.arange(T, device="cuda", dtype=torch.int32)[None].expand(B, T).contiguous()
+    valid = torch.ones(B, T, dtype=torch.int32, device="cuda")
+    print(f"phase 16a: MoE decoder at LLaMA-2-7B width ({cfg.num_layers} layers, "
+          f"{cfg.moe_num_experts} experts, top-{cfg.moe_top_k}, capacity "
+          f"{cfg.moe_capacity_factor}; {sum(p.numel() for p in model.parameters()) / 1e9:.2f}B "
+          f"parameters, bf16) on {B} x {T} causal rows: mot_forward(want_aux=True) forward and "
+          f"backward, kernel path vs plain path")
+    stats: list = []
+    moe_mlp = moe.moe_mlp
+
+    def recorded(*a, **kw):
+        stats.append({})
+        kw["stats"] = stats[-1]
+        return moe_mlp(*a, **kw)
+
+    watched = {"router": ".mlp.router.", "experts": ".mlp.", "attention": ".attn."}
+
+    def run(impl):
+        model.requires_grad_(True)
+        xi = x.clone().requires_grad_(True)
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        stats.clear()
+        _zero_counts()
+        moe.moe_mlp = recorded
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            outs, _, aux = mot_forward([Stream(c, model, xi)], pos, pos + 1, valid, want_aux=True)
+            loss = (outs[0].float() * dout.float()).sum() + aux["moe_aux"]
+            loss.backward()
+        finally:
+            moe.moe_mlp = moe_mlp
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        named = dict(model.named_parameters())
+        grads = {"input": xi.grad.float().flatten()}
+        grads.update({k: torch.cat([p.grad.float().flatten() for n, p in named.items()
+                                    if sub in n and (k != "experts" or ".router." not in n)])
+                      for k, sub in watched.items()})
+        out = {"out": outs[0].detach().float().flatten(), "aux": float(aux["moe_aux"].detach()),
+               "launches": _launch_counts(), "step_s": wall,
+               "dropped_share": [st["dropped_share"] for st in stats],
+               "capacity": stats[0]["capacity"]}
+        model.zero_grad(set_to_none=True)
+        model.requires_grad_(False)
+        return out, grads
+
+    kern, gk = run("auto")
+    plain, gp = run("xla")
+    cos = {"out": _cosine(kern.pop("out"), plain.pop("out")),
+           **{k: _cosine(gk[k], gp[k]) for k in gk}}
+    aux_rel = abs(kern["aux"] - plain["aux"]) / abs(plain["aux"])
+    del gk, gp
+    free_memory()
+    # one layer's expert FFN (three batched products on the [E, C, H] buffer)
+    # against its attention (K1, K3) at the layer's shape
+    layer = model.layers[0].mlp
+    C = kern["capacity"]
+    xs = torch.randn(cfg.moe_num_experts, C, H, generator=g, device="cuda").bfloat16()
+    with torch.no_grad():
+        ffn_ms = median_ms(lambda: moe._experts(layer, xs, cfg.act), 10)
+    q, k_, v = (torch.randn(B, T, cfg.num_heads, cfg.head_dim, generator=g,
+                            device="cuda").bfloat16() for _ in range(3))
+    rows = attn_rows(q, k_, v, (pos + 1, pos + 1, valid), None,
+                     torch.randn(q.shape, generator=g, device="cuda").bfloat16())
+    print(f"  kernel path: {kern['step_s']:.3f} s, launches {kern['launches']}; plain path: "
+          f"{plain['step_s']:.3f} s, launches {plain['launches']}")
+    print(f"  cosine kernel vs plain: {cos}; balance loss {kern['aux']!r} vs {plain['aux']!r} "
+          f"(rel {aux_rel:.3g}); capacity {C} slots an expert; dropped share a layer "
+          f"{kern['dropped_share']}")
+    print(f"  one layer: expert FFN {ffn_ms:.4f} ms ([{cfg.moe_num_experts}, {C}, {H}] through "
+          f"gate/up/down) against K1 {rows['flash_fwd']['ms']:.4f} ms and K3 "
+          f"{rows['flash_bwd']['ms']:.4f} ms (SDPA {rows['flash_fwd']['library_ms']:.4f} / "
+          f"{rows['flash_bwd']['library_ms']:.4f} ms); K1 bound {rows['flash_fwd']['bound_ms']:.4f}"
+          f" ms, K3 {rows['flash_bwd']['bound_ms']:.4f} ms")
+    L = cfg.num_layers
+    lk = kern["launches"]
+    checks = [(min(cos.values()) >= MOE_COSINE, f"16a: cosines {cos} < {MOE_COSINE}"),
+              (aux_rel <= 1e-3, f"16a: balance loss rel {aux_rel} > 1e-3"),
+              (lk["flash_fwd"] == L and lk["flash_bwd"] == L and lk["plain_cuda_calls"] == 0,
+               f"16a: kernel path launches {lk}, want K1 {L}, K3 {L}, no plain call"),
+              (plain["launches"]["flash_fwd"] == plain["launches"]["flash_bwd"] == 0,
+               f"16a: the plain path launched {plain['launches']}")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    del model, layer, xs
+    free_memory()
+    return {"kernel": kern, "plain": plain, "cosine": cos, "aux_rel": aux_rel,
+            "expert_ffn_ms": ffn_ms, "rows": rows}
+
+
+def kernel_batch_invariance(cfg, pos, valid, g) -> dict:
+    """K1 and K3 on the same bf16 inputs [PP_ROWS, PP_TOKENS, H, D] (causal
+    groups), whole and as PP_MICRO micro-batches: the largest difference of
+    each output between the two (0: a row's result does not depend on the
+    batch it is in).  K1 takes 128-row blocks at the whole batch's shape
+    and 64-row ones at a micro-batch's (``ops/attention.fwd_rows``), so the
+    whole batch is also run at 64 rows."""
+    from dexbotic_tpu_torch.ops.attention import (
+        _flash_cuda,
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+
+    q, k, v, dout = (torch.randn(PP_ROWS, PP_TOKENS, cfg.num_heads, cfg.head_dim, generator=g,
+                                 device="cuda").bfloat16() for _ in range(4))
+    ints = (pos, pos, valid)
+    scale = cfg.head_dim ** -0.5
+    out, lse = flash_attention_fwd(q, k, v, *ints)
+    out64, lse64 = _flash_cuda(q, k, v, *ints, scale, None, None, rows=64)
+    grads = flash_attention_bwd(q, k, v, *ints, out, lse, dout)
+    parts = [(flash_attention_fwd(*c[:6]), c) for c in
+             zip(*(t.chunk(PP_MICRO) for t in (q, k, v, pos, pos, valid, out, lse, dout)))]
+    out_m = torch.cat([o for (o, _), _ in parts])
+    lse_m = torch.cat([lse_ for (_, lse_), _ in parts])
+    grads_m = [torch.cat(t) for t in zip(*(flash_attention_bwd(*c) for _, c in parts))]
+
+    def diff(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    return {"k1_rows": {"whole": fwd_rows_of(q), "micro": fwd_rows_of(q[: PP_ROWS // PP_MICRO])},
+            "k1_out": diff(out, out_m), "k1_lse": diff(lse, lse_m),
+            "k1_out_at_64_rows": diff(out64, out_m), "k1_lse_at_64_rows": diff(lse64, lse_m),
+            "k3": {n: diff(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, grads_m)}}
+
+
+def fwd_rows_of(q) -> int:
+    from dexbotic_tpu_torch.ops.attention import _sm_count, fwd_rows
+
+    B, S, H, D = q.shape
+    return fwd_rows(B, S, H, _sm_count(q.device.index), D)
+
+
+def phase_pipeline(failures: list) -> dict:
+    """Phase 16b: the GPipe pipeline on a ('stage', 'data') = (1, 1) mesh
+    over a process group of one (NCCL), n_micro PP_MICRO, a PP_CFG decoder
+    (4 layers at LLaMA-2-7B's width, fp32 weights; K1 and K3 take q/k/v
+    rounded to bf16) on PP_ROWS x PP_TOKENS causal rows.
+
+    The checked step is the causal-LM loss on fp32 embeddings
+    (``pipeline_transformer_forward``, then ``lm_loss``), held within
+    PARALLEL_REL to the unpipelined loss (``transformer_forward``, the same
+    loss): over the whole batch, the loss and the grad norm; over the same
+    micro-batches (one transformer_forward each, the loss over their
+    concatenation), every gradient (the relative norm of the difference).
+    ``pipeline_causal_lm_loss`` (bf16 embeddings, as the JAX loss) is then
+    run once: a finite loss, K1 and K3 on every micro-batch and layer.
+
+    Against the whole batch the kernel path's gradients differ by ~1e-3 (a
+    reading), and so do they when each embedding moves by one fp32 ulp with
+    no change of batch (a reading): K3's bf16 intermediates amplify
+    last-bit differences.  Checked beside it: the same whole-batch gap on
+    the plain fp32 attention (``attn_impl="xla"``) within PARALLEL_REL, and
+    K1 (at one block height) and K3 giving a row the same bits whole and
+    micro-batched (:func:`kernel_batch_invariance`)."""
+    import torch.distributed as dist
+
+    from dexbotic_tpu_torch.exp.optim import global_norm
+    from dexbotic_tpu_torch.nn.transformer import (
+        Transformer,
+        TransformerConfig,
+        embed_tokens,
+        init_transformer_,
+        transformer_forward,
+    )
+    from dexbotic_tpu_torch.parallel import multihost
+    from dexbotic_tpu_torch.parallel.mesh import make_pipeline_mesh, mesh_shape
+    from dexbotic_tpu_torch.parallel.pipeline import (
+        lm_loss,
+        pipeline_causal_lm_loss,
+        pipeline_transformer_forward,
+    )
+
+    cfg = TransformerConfig(**PP_CFG)
+    with torch.device("meta"):
+        model = Transformer(cfg)
+    model = model.to_empty(device="cuda")
+    init_transformer_(model, torch.Generator(device="cuda").manual_seed(19))
+    g = torch.Generator(device="cuda").manual_seed(20)
+    ids = torch.randint(1, cfg.vocab_size, (PP_ROWS, PP_TOKENS), generator=g, device="cuda")
+    valid = torch.ones_like(ids, dtype=torch.int32)
+    pos = torch.cumsum(valid, 1, dtype=torch.int32) - 1
+    batch = {"input_ids": ids, "attention_mask": valid, "labels": ids}
+    group_of_one()
+    mesh = make_pipeline_mesh(1, 1)
+    print(f"phase 16b: the pipelined causal-LM loss on a {mesh_shape(mesh)} mesh over a process "
+          f"group of one ({dist.get_backend()}), n_micro {PP_MICRO}, a {cfg.num_layers}-layer "
+          f"decoder at LLaMA-2-7B width (fp32) on {PP_ROWS} x {PP_TOKENS}, against the "
+          f"unpipelined loss")
+    model.requires_grad_(True)
+
+    def grads_and_norm():
+        named = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return named, float(global_norm(list(named.values())))
+
+    def unpipelined(parts: int, c=cfg, ulp: bool = False, remat: bool = False):
+        """The unpipelined loss over ``parts`` micro-batches, backward, on
+        fp32 embeddings (each moved one ulp in a random direction with
+        ``ulp``); (loss, s)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = embed_tokens(model, c, ids, dtype=torch.float32)
+        if ulp:
+            up = torch.rand(x.shape, generator=g, device="cuda") < 0.5
+            x = x + (torch.nextafter(x, torch.where(up, math.inf, -math.inf)) - x).detach()
+        hidden = torch.cat([transformer_forward(c, model, xc, pc, pc, vc, remat=remat)
+                            for xc, pc, vc in zip(x.chunk(parts), pos.chunk(parts),
+                                                  valid.chunk(parts))])
+        loss = lm_loss(model, c, hidden, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), time.perf_counter() - t0
+
+    def rel_diff(a: dict, b: dict, norm: float) -> float:
+        return math.sqrt(sum(float((a[n].float() - b[n].float()).square().sum())
+                             for n in b)) / norm
+
+    try:
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = embed_tokens(model, cfg, ids, dtype=torch.float32)
+        hidden = pipeline_transformer_forward(cfg, model, x, pos, pos, valid, mesh,
+                                              n_micro=PP_MICRO)
+        loss_pp = lm_loss(model, cfg, hidden, batch)
+        loss_pp.backward()
+        torch.cuda.synchronize()
+        pp_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        loss_pp = float(loss_pp.detach())
+        del x, hidden
+        g_pp, norm_pp = grads_and_norm()
+        _zero_counts()
+        loss_bf16 = pipeline_causal_lm_loss(model, cfg, batch, mesh, n_micro=PP_MICRO)
+        loss_bf16.backward()
+        entry_launches = _launch_counts()
+        loss_bf16 = float(loss_bf16.detach())
+        model.zero_grad(set_to_none=True)
+    finally:
+        multihost.shutdown()
+    loss_whole, whole_s = unpipelined(1)
+    g_ref, norm_whole = grads_and_norm()
+    whole_grads = rel_diff(g_pp, g_ref, norm_whole)
+    unpipelined(1, ulp=True)
+    g_ulp, _ = grads_and_norm()
+    witness = {"kernel_one_ulp_whole_batch": rel_diff(g_ulp, g_ref, norm_whole)}
+    del g_ref, g_ulp
+    free_memory()
+    _, micro_s = unpipelined(PP_MICRO)
+    g_ref, norm_micro = grads_and_norm()
+    rel = {"loss": abs(loss_pp - loss_whole) / abs(loss_whole),
+           "grad_norm": abs(norm_pp - norm_whole) / norm_whole,
+           "grads_same_micro_batches": rel_diff(g_pp, g_ref, norm_micro)}
+    del g_pp, g_ref
+    free_memory()
+    plain = dataclasses.replace(cfg, attn_impl="xla")
+    unpipelined(1, plain, remat=True)
+    g_plain, norm_plain = grads_and_norm()
+    unpipelined(PP_MICRO, plain, remat=True)
+    g_plain_m, _ = grads_and_norm()
+    witness["plain_fp32_micro_vs_whole"] = rel_diff(g_plain_m, g_plain, norm_plain)
+    del g_plain, g_plain_m, model
+    free_memory()
+    witness.update(kernel_batch_invariance(cfg, pos, valid, g))
+    free_memory()
+    L = cfg.num_layers
+    print(f"  pipelined: loss {loss_pp!r} grad_norm {norm_pp!r} {pp_s:.3f} s, launches "
+          f"{launches}; unpipelined, whole batch: loss {loss_whole!r} grad_norm {norm_whole!r} "
+          f"{whole_s:.3f} s; over the same micro-batches {micro_s:.3f} s; rel {rel} (bound "
+          f"{PARALLEL_REL}); the gradients against the whole batch's (a reading): rel "
+          f"{whole_grads:.3g}")
+    print(f"  pipeline_causal_lm_loss (bf16 embeddings): loss {loss_bf16!r}, launches "
+          f"{entry_launches}")
+    print(f"  witnesses of the whole-batch gap (readings): {json.dumps(witness)}")
+    want = L * PP_MICRO
+    checks = [(max(rel.values()) <= PARALLEL_REL, f"16b: rel differences {rel} > {PARALLEL_REL}"),
+              (launches["flash_fwd"] == launches["flash_bwd"] == want
+               and launches["plain_cuda_calls"] == 0,
+               f"16b: launches {launches}, want K1 and K3 {want}, no plain call"),
+              (math.isfinite(loss_bf16) and entry_launches["flash_fwd"] == want
+               == entry_launches["flash_bwd"] and entry_launches["plain_cuda_calls"] == 0,
+               f"16b: pipeline_causal_lm_loss gave {loss_bf16} with launches {entry_launches}"),
+              (witness["plain_fp32_micro_vs_whole"] <= PARALLEL_REL,
+               f"16b: the plain fp32 path's gradients, whole batch against micro-batches: rel "
+               f"{witness['plain_fp32_micro_vs_whole']} > {PARALLEL_REL}"),
+              (witness["k1_out_at_64_rows"] == witness["k1_lse_at_64_rows"] == 0
+               and not any(witness["k3"].values()),
+               f"16b: K1 or K3 gives a row other bits whole than micro-batched: {witness}"),
+              (not dist.is_initialized(), "16b: the process group outlived the phase")]
+    failures.extend(msg for ok, msg in checks if not ok)
+    q, k_, v = (torch.randn(PP_ROWS // PP_MICRO, PP_TOKENS, cfg.num_heads, cfg.head_dim,
+                            generator=g, device="cuda").bfloat16() for _ in range(3))
+    p1 = pos[: PP_ROWS // PP_MICRO]
+    rows = attn_rows(q, k_, v, (p1, p1, valid[:1]), None,  # a micro-batch's causal groups
+                     torch.randn(q.shape, generator=g, device="cuda").bfloat16())
+    return {"launches": launches, "rel": rel, "whole_batch_grads_rel": whole_grads,
+            "witness": witness, "entry_loss_bf16": loss_bf16, "entry_launches": entry_launches,
+            "pipelined_s": pp_s, "unpipelined_s": whole_s, "loss": loss_pp, "rows": rows}
+
+
+def phase_parallel(failures: list) -> dict:
+    """Phase 16: MoE (16a) and GPipe stages (16b)."""
+    moe = phase_moe(failures)
+    free_memory()
+    pp = phase_pipeline(failures)
+    free_memory()
+    return {"16a_moe": moe, "16b_pipeline": pp}
+
+
 def build_report(log: str, failures: list) -> tuple[dict, dict, dict, dict]:
     """Registers and spills of every K1 instance ("flash_fwd_kernel<D, NWG,
     BK>"), every K3 instance ("dkv_kernel<D, NWG, stages, split>",
@@ -6716,6 +7348,9 @@ def main() -> int:
     muvla = phase_muvla(failures)
     lap("phase_muvla")
     free_memory()
+    par = phase_parallel(failures)
+    lap("phase_parallel")
+    free_memory()
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)
         return 1
@@ -6733,8 +7368,8 @@ def main() -> int:
         "10_rl": rl, "11a_memvla": mem,
         "11b_memvla_int8": mem_q, "12_memvla_train": mem_train, "13_navila": nav,
         "14_discrete": discrete, "14d_muvla": muvla, "15a_pi05": pi05, "15b_dm0": dm0,
-        "15c_flow_train": flow_train, "15d_hybrid": hybrid, "15e_harness": harness}},
-        default=float))
+        "15c_flow_train": flow_train, "15d_hybrid": hybrid, "15e_harness": harness,
+        "16_parallel": par}}, default=float))
     fleet = nav["13a_serve"]["14c_fleet"]
     d_routes, m_routes = discrete["14a_serve"]["routes"], muvla["routes"]
     engine_keys = {  # each kernel's launches on the decode engine's paths (14a-14d), measured
@@ -6785,6 +7420,17 @@ def main() -> int:
                       "dm0_train_launches": flow_train["dm0"]["launches"]["flash_bwd"],
                       "hybrid_train_launches": hybrid["launches"]["flash_bwd"]},
         "dit_sample": {"eval_harness_launches": harness["launches"]["dit_sample"]}}
+    cp, hops = nav["13e_cp"], nav["13f_ring_hops"]
+    moe, pp = par["16a_moe"], par["16b_pipeline"]
+    parallel_keys = {  # each attention kernel's launches on the ring (13e), MoE (16a) and
+        # pipeline (16b) paths, and its rows at their shapes (13f's hops, 16a's layer, 16b's
+        # micro-batch)
+        name: {"ring_launches": cp["ring"]["launches"][name],
+               "moe_launches": moe["kernel"]["launches"][name],
+               "pipeline_launches": pp["launches"][name],
+               **{f"ring_hop_n{n}": hops[f"n{n}"]["rows"][name] for n in RING_SPLITS},
+               "moe_layer": moe["rows"][name], "pipeline_micro": pp["rows"][name]}
+        for name in ("flash_fwd", "flash_bwd")}
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "dexbotic_tpu/ops/attention.py:86",
@@ -6795,8 +7441,8 @@ def main() -> int:
          "launches_fused_preprocess": fused["launches"]["flash_fwd"],
          "launches_replay": replay["launches"]["flash_fwd"],
          "pi0_int8_launches": pi0_q["launches"]["flash_fwd"], **oft_keys["flash_fwd"],
-         **rl_keys["flash_fwd"], **engine_keys["flash_fwd"], **flow_keys["flash_fwd"], **k1,
-         **k1_flow, "build": k1_build},
+         **rl_keys["flash_fwd"], **engine_keys["flash_fwd"], **flow_keys["flash_fwd"],
+         **parallel_keys["flash_fwd"], **k1, **k1_flow, "build": k1_build},
         {"name": "dit_sample", "route": "cuda", "source": "dexbotic_tpu_torch/csrc/dit_sampler.cu",
          "replaces": "dexbotic_tpu/ops/dit_fused.py:58",
          "launches": launches["dit_sample"], "launches_8_frame_request": serve["k2_b8_request"],
@@ -6815,8 +7461,8 @@ def main() -> int:
          "launches": train["launches"]["flash_bwd"],
          "mesh_train_launches": train["7c_mesh"]["launches"]["flash_bwd"],
          "pi0_train_launches": pi0_train["launches"]["flash_bwd"], **oft_keys["flash_bwd"],
-         **rl_keys["flash_bwd"], **engine_keys["flash_bwd"], **flow_keys["flash_bwd"], **k3,
-         "build": k3_build},
+         **rl_keys["flash_bwd"], **engine_keys["flash_bwd"], **flow_keys["flash_bwd"],
+         **parallel_keys["flash_bwd"], **k3, "build": k3_build},
         {"name": "quant_matmul", "route": "cuda",
          "source": "dexbotic_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "dexbotic_tpu/ops/quant_matmul.py:77",

@@ -13,8 +13,10 @@ attention.  Serving is :class:`NaVILAInferenceSession` behind
 a released NaVILA checkpoint.  A fleet of sessions (one a robot) may share
 one continuous-batching decode engine (:meth:`NaVILAInferenceSession.make_shared_engine`).
 Packed training runs over the data axis of a mesh (each data rank packs
-its own share of the length-grouped samples).  Not ported: context
-parallelism (``context_parallel_seq > 1``, ROADMAP Queue 1 item 11b).
+its own share of the length-grouped samples); with ``context_parallel_seq``
+> 1 the mesh is ('data', 'model', 'seq'), each seq rank of a data rank takes
+that rank's rows and computes on its columns of them
+(``models/navila.navila_packed_loss_cp``: attention a ring over 'seq').
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from dexbotic_tpu_torch.models.navila import (
     build_navila,
     navila_loss,
     navila_packed_loss,
+    navila_packed_loss_cp,
     pack_batch,
 )
 from dexbotic_tpu_torch.models.vlm import VLMConfig
@@ -79,13 +82,9 @@ class NaVILAModelConfig(base_exp.Config):
     use_packing: bool = True
     pack_max_len: int = 0  # 0 -> tokenizer.model_max_length
     samples_per_pack: int = 0  # 0 -> 2x the packed rows
-    context_parallel_seq: int = 1  # > 1 raises: ROADMAP Queue 1 item 11b
+    context_parallel_seq: int = 1  # > 1: each row's columns split over a 'seq' mesh axis
 
     def build_config(self) -> NaVILAConfig:
-        if self.context_parallel_seq > 1:
-            raise NotImplementedError("context parallelism (context_parallel_seq > 1: ring "
-                                      "attention over a 'seq' mesh axis) is not ported yet: "
-                                      "ROADMAP Queue 1 item 11b")
         return NaVILAConfig(
             vlm=VLMConfig(llm=presets.LLM_PRESETS[self.llm_preset],
                           vit=presets.VIT_PRESETS[self.vit_preset],
@@ -203,14 +202,26 @@ class NaVILAExp(base_exp.BaseExp):
         cfg = self.model.build_config()
         model = self.model.build_params(cfg, self.device)
         soft, remat = self._soft_tokens(tokenizer), self.trainer.gradient_checkpointing
+        cp = max(1, self.model.context_parallel_seq)
+        mesh = None
+        if cp > 1:
+            from dexbotic_tpu_torch.parallel.mesh import make_mesh
+
+            if self.pack_max_len_resolved() % cp:
+                raise ValueError(f"pack_max_len {self.pack_max_len_resolved()} does not split "
+                                 f"over context_parallel_seq={cp}")
+            mesh = make_mesh(model=1, seq=cp, device_type=torch.device(self.device).type)
 
         def loss_fn(model, batch, generator):
+            if mesh is not None:
+                return navila_packed_loss_cp(model, cfg, batch, mesh, soft_tokens=soft,
+                                             remat=remat)
             return navila_packed_loss(model, cfg, batch, soft_tokens=soft, remat=remat)
 
         dataset = self.data.build_data(self.build_tokenization(tokenizer))
         collator = Collator(pad_token_id=tokenizer.pad_token_id,
                             max_length=self.tokenizer.model_max_length)
-        trainer = Trainer(loss_fn, model, self.trainer, self.optimizer)
+        trainer = Trainer(loss_fn, model, self.trainer, self.optimizer, mesh=mesh)
         try:
             return trainer.train(self.packed_batches(
                 dataset, collator, tokenizer.pad_token_id, self.trainer.per_device_batch_size,

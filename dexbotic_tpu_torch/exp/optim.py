@@ -25,6 +25,8 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from dexbotic_tpu_torch.nn.core import local
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
@@ -132,12 +134,6 @@ def stopgrad_subtrees(named_params, names: tuple) -> None:
     for name, p in named_params:
         if any(k in names for k in _keys(name)):
             p.requires_grad_(False)
-
-
-def local(t: torch.Tensor) -> torch.Tensor:
-    """A sharded tensor's (DTensor's) local shard, which in-place writes
-    reach; any other tensor itself."""
-    return t.to_local() if hasattr(t, "to_local") else t
 
 
 def _counted_here(t: torch.Tensor, coords: dict) -> bool:

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from dexbotic_tpu_torch.data.dex_rl_dataset import process_rank_and_count
-from dexbotic_tpu_torch.exp.optim import Optimizer, OptimizerConfig, local
+from dexbotic_tpu_torch.exp.optim import Optimizer, OptimizerConfig
 from dexbotic_tpu_torch.exp.rl.grpo import (
     GRPOConfig,
     accuracy_filter,
@@ -34,6 +34,7 @@ from dexbotic_tpu_torch.exp.rl.grpo import (
 from dexbotic_tpu_torch.models import losses
 from dexbotic_tpu_torch.models.losses import batch_mean
 from dexbotic_tpu_torch.models.oft import OFTConfig, oft_action_log_probs
+from dexbotic_tpu_torch.nn.core import local
 from dexbotic_tpu_torch.parallel import multihost
 
 
@@ -326,7 +327,7 @@ class GRPOUpdater:
             loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         if self.sharded is not None:
-            self.sharded.reduce_replicated_grads()
+            self.sharded.reduce_grads()
             stacked = torch.stack([v.float().reshape(()) for v in metrics.values()])
             torch.distributed.all_reduce(stacked, group=self.sharded.data_group)
             metrics = dict(zip(metrics, stacked / self.sharded.data_size))

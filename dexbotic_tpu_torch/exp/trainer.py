@@ -24,7 +24,9 @@ feeds them: ``per_device_batch_size`` x accumulation rows a step), means
 over tokens divide by the global batch's counts
 (``models/losses.data_parallel``), the gradients are averaged over the data
 ranks, the clip norm is the whole tree's and the moments are sharded like
-their parameters.  A rank's micro-batch m is its own m-th slice of its
+their parameters.  A caller may pass its own ``mesh`` (NaVILA's
+context-parallel ('data', 'model', 'seq') mesh: each seq rank of a data
+rank takes the same rows, and the gradients are summed over 'seq').  A rank's micro-batch m is its own m-th slice of its
 rows; the JAX package's is the m-th contiguous block of the global batch
 (ROADMAP Queue 3).  Checkpoints are gathered and written by the primary
 alone, in the one-process format, so either path resumes the other; logs
@@ -59,9 +61,9 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from dexbotic_tpu_torch.exp.optim import Optimizer, OptimizerConfig, local, stopgrad_subtrees
+from dexbotic_tpu_torch.exp.optim import Optimizer, OptimizerConfig, stopgrad_subtrees
 from dexbotic_tpu_torch.models import losses
-from dexbotic_tpu_torch.nn.core import cast_matrices_
+from dexbotic_tpu_torch.nn.core import cast_matrices_, local
 from dexbotic_tpu_torch.parallel import multihost
 from dexbotic_tpu_torch.parallel.mesh import make_mesh, mesh_requested, shard_model
 
@@ -150,7 +152,7 @@ class Trainer:
 
     def __init__(self, loss_fn: Callable, model: nn.Module, trainer_config: TrainerConfig,
                  optimizer_config: OptimizerConfig, norm_stats_json: Optional[str] = None,
-                 aux_state=None):
+                 aux_state=None, mesh=None):
         self.cfg = trainer_config
         self.opt_cfg = optimizer_config
         self.loss_fn = loss_fn
@@ -163,10 +165,10 @@ class Trainer:
             cast_matrices_(model, torch.bfloat16)
         self.mesh = self.sharded = None
         self.data_rank, self.data_size = 0, 1
-        if mesh_requested(trainer_config.mesh_data, trainer_config.mesh_model):
+        if mesh is not None or mesh_requested(trainer_config.mesh_data, trainer_config.mesh_model):
             device = next(model.parameters()).device
-            self.mesh = make_mesh(trainer_config.mesh_data, trainer_config.mesh_model,
-                                  device_type=device.type)
+            self.mesh = mesh if mesh is not None else make_mesh(
+                trainer_config.mesh_data, trainer_config.mesh_model, device_type=device.type)
             self.sharded = shard_model(model, self.mesh)
             self.data_rank, self.data_size = self.sharded.data_rank, self.sharded.data_size
         self.params = dict(model.named_parameters())
@@ -207,7 +209,7 @@ class Trainer:
             loss.backward()
             self.aux_state = detach_tree(new_aux)
             if self.sharded is not None:
-                self.sharded.reduce_replicated_grads()
+                self.sharded.reduce_grads()
             return loss.detach(), metrics
         accum = self.cfg.gradient_accumulation_steps
         loss_sum = 0.0
@@ -225,7 +227,7 @@ class Trainer:
                 if p.grad is not None:
                     local(p.grad).div_(accum)  # a shard in place: no DTensor dispatch
         if self.sharded is not None:
-            self.sharded.reduce_replicated_grads()
+            self.sharded.reduce_grads()
         return loss_sum / accum, metrics
 
     def apply_gradients(self) -> torch.Tensor:

@@ -12,36 +12,23 @@ rank holds.  Outside it (one process) the means are the plain ones.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 from dexbotic_tpu_torch.constants import IGNORE_INDEX
-
-_DATA_PARALLEL = None  # (process group, its size) while a data-parallel step runs
-
-
-@contextlib.contextmanager
-def data_parallel(group, size: int):
-    """Means inside the block are over the global batch of ``size`` data
-    ranks (``group``); every rank must run the same losses in the same order."""
-    global _DATA_PARALLEL
-    prev, _DATA_PARALLEL = _DATA_PARALLEL, (group, size)
-    try:
-        yield
-    finally:
-        _DATA_PARALLEL = prev
+from dexbotic_tpu_torch.parallel.mesh import data_parallel, data_parallel_state  # noqa: F401
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
     """``x`` (a count, no gradient) summed over the data ranks; ``x`` itself
     outside :func:`data_parallel`."""
-    if _DATA_PARALLEL is None:
+    dp = data_parallel_state()
+    if dp is None:
         return x
     total = x.detach().clone()
-    dist.all_reduce(total, group=_DATA_PARALLEL[0])
+    dist.all_reduce(total, group=dp[0])
     return total
 
 
@@ -57,7 +44,8 @@ def batch_mean(total: torch.Tensor, count: torch.Tensor, floor: Optional[float] 
     if eps is not None:
         count = count + eps
     mean = total / count
-    return mean if _DATA_PARALLEL is None else mean * _DATA_PARALLEL[1]
+    dp = data_parallel_state()
+    return mean if dp is None else mean * dp[1]
 
 
 def token_nll(logits: torch.Tensor, targets: torch.Tensor,

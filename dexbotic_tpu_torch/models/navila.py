@@ -10,8 +10,9 @@ a CUDA device).  The image features of all samples come from one batched
 tower call and are gathered into the packed rows.  The loss is the causal
 LM loss, or NaVILA's soft CE over the numeric tokens.  Serving decodes text
 over an 8-frame history (:class:`FrameHistoryBuffer`, ``models/generate.py``).
-Not ported: the context-parallel packed loss (ring attention), ROADMAP
-Queue 1 item 11b.
+:func:`navila_packed_loss_cp` is the packed loss with each row's columns
+split over the 'seq' axis of a mesh (context parallelism: attention as a
+ring of K1 and K3 hops, ``parallel/ring.py``).
 """
 
 from __future__ import annotations
@@ -23,9 +24,11 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from dexbotic_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from dexbotic_tpu_torch.models import losses
 from dexbotic_tpu_torch.models.losses import causal_lm_loss, soft_cross_entropy_gaussian
 from dexbotic_tpu_torch.models.vlm import VLM, VLMConfig, encode_images, init_vlm_, vlm_forward
 from dexbotic_tpu_torch.nn.transformer import embed_tokens, lm_logits, transformer_forward
@@ -163,9 +166,50 @@ def navila_packed_loss(model: NaVILA, cfg: NaVILAConfig, batch: dict,
     return _text_loss(model, cfg, hidden, batch["labels"], soft_tokens)
 
 
-def navila_packed_loss_cp(*args, **kwargs):
-    raise NotImplementedError("the context-parallel packed loss (ring attention over a 'seq' "
-                              "mesh axis) is not ported yet: ROADMAP Queue 1 item 11b")
+def navila_packed_loss_cp(model: NaVILA, cfg: NaVILAConfig, batch: dict, mesh,
+                          soft_tokens: Optional[torch.Tensor] = None, remat=False,
+                          seq_axis: str = "seq"):
+    """The packed loss (:func:`navila_packed_loss`'s value) with each row's
+    columns split over ``mesh``'s ``seq_axis``: every seq rank computes the
+    packed embeddings (one tower call, the gather into the rows) and takes
+    its contiguous L / seq columns of them, of the labels (shifted at full
+    length first, so that no next-token pair crosses a rank's edge), of the
+    segment-restarting positions and of the segment ids; the decoder runs
+    with ``attn_impl="ring:<seq_axis>"`` over that axis's group of ``mesh``,
+    the group the loss's sums are reduced over.
+
+    The loss's value is the whole batch's mean (the NLL summed over the seq
+    ranks, and over the data ranks inside ``models/losses.data_parallel``);
+    its gradient on a rank is that of the rank's own NLL sum over the global
+    token count, so that the gradients summed over 'seq'
+    (``ShardedModel.reduce_grads``) and averaged over 'data' are one
+    process's."""
+    group = mesh.get_group(seq_axis)
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    embeds = packed_embeds(model, cfg, batch, remat=remat)
+    labels = batch["labels"]
+    R, L = labels.shape
+    if L % n:
+        raise ValueError(f"rows of {L} tokens do not split over {n} seq ranks")
+    shifted = torch.cat([labels[:, 1:], labels.new_full((R, 1), IGNORE_INDEX)], 1)
+    cols = slice(r * L // n, (r + 1) * L // n)
+    positions = batch["positions"].to(torch.int32)[:, cols]
+    llm = dataclasses.replace(cfg.vlm.llm, attn_impl=f"ring:{seq_axis}")
+    hidden = transformer_forward(llm, model.vlm.llm, embeds[:, cols], positions, positions + 1,
+                                 batch["attention_mask"].to(torch.int32)[:, cols],
+                                 q_seg=batch["segments"].to(torch.int32)[:, cols], remat=remat,
+                                 attn_group=group)
+    logits = lm_logits(model.vlm.llm, llm, hidden)
+    nll, mask = losses.token_nll(logits, shifted[:, cols],
+                                 soft_tokens if cfg.use_soft_ce else None, cfg.soft_ce_std)
+    total = torch.where(mask, nll, 0.0).sum()
+    sums = torch.stack([total.detach(), mask.sum().to(total.dtype)])
+    if n > 1:
+        dist.all_reduce(sums, group=group)
+    mine = losses.batch_mean(total, sums[1], floor=1)
+    whole = losses.batch_mean(sums[0], sums[1], floor=1)
+    loss = mine + (whole - mine).detach()
+    return loss, {"text_loss": loss, "loss": loss}
 
 
 def navila_loss(model: NaVILA, cfg: NaVILAConfig, batch: dict,

@@ -104,6 +104,12 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A sharded tensor's (DTensor's) local shard, which in-place writes
+    reach; any other tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def remat_call(fn, remat, *args):
     """``fn(*args)`` under the JAX ``remat`` flag of one layer.
 

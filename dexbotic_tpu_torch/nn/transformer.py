@@ -25,9 +25,13 @@ cache in three modes:
   past the cache's last column is dropped, as XLA drops an out-of-bounds
   scatter (torch would raise).
 
+A config with ``moe_num_experts`` makes every layer's MLP a top-k routed
+expert bank (``nn/moe.py``); ``want_aux=True`` also returns the MoE
+load-balance loss summed over the layers (``{"moe_aux": ...}``), so that a
+loss can train the router with its balance term.
+
 Layers are a ``ModuleList``: ``utils/bridge.py`` unstacks the JAX layer
-stacks.  Not ported: MoE FFNs and their load-balance loss (``want_aux``,
-ROADMAP Queue 1 item 11c).
+stacks.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from dexbotic_tpu_torch.nn import core
+from dexbotic_tpu_torch.nn import core, moe
 from dexbotic_tpu_torch.ops.attention import attention
 from dexbotic_tpu_torch.ops.norms import RMSNorm
 from dexbotic_tpu_torch.ops.rope import apply_rope, rope_cos_sin
@@ -68,7 +72,9 @@ class TransformerConfig:
     adarms_cond_dim: Optional[int] = None  # pi0.5 action expert
     attn_scale: Optional[float] = None  # default head_dim**-0.5
     attn_impl: str = "auto"
-    moe_num_experts: Optional[int] = None  # not ported yet (ROADMAP Queue 1 item 11c)
+    # a top-k routed expert bank in every layer's MLP (nn/moe.py), its
+    # expert stacks sharded over an 'expert' mesh axis under expert parallelism
+    moe_num_experts: Optional[int] = None
     moe_top_k: int = 2
     moe_capacity_factor: float = 2.0
 
@@ -115,7 +121,8 @@ class DecoderLayer(nn.Module):
         self.ln1 = _make_norm(cfg, cfg.hidden_size)
         self.ln2 = _make_norm(cfg, cfg.hidden_size)
         self.attn = _Attn(cfg)
-        self.mlp = core.GatedMLP(cfg.hidden_size, cfg.intermediate_size)
+        self.mlp = (moe.MoE(cfg.hidden_size, cfg.intermediate_size, cfg.moe_num_experts)
+                    if cfg.moe_num_experts else core.GatedMLP(cfg.hidden_size, cfg.intermediate_size))
 
     def forward(self, fn, *args):
         """``fn(*args)``: :func:`mot_forward` runs a layer's computation as a
@@ -127,8 +134,6 @@ class DecoderLayer(nn.Module):
 class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        if cfg.moe_num_experts:
-            raise NotImplementedError("MoE FFNs are not ported yet (ROADMAP Queue 1 item 11c)")
         self.cfg = cfg  # the head counts tensor parallelism checks (parallel/mesh.tp_plan)
         self.layers = nn.ModuleList(DecoderLayer(cfg) for _ in range(cfg.num_layers))
         self.norm = _make_norm(cfg, cfg.hidden_size)
@@ -147,6 +152,8 @@ def init_transformer_(llm: Transformer, gen: torch.Generator) -> None:
         if isinstance(m, AdaRMSNorm):
             m.dense.weight.zero_()
             m.dense.bias.zero_()
+        elif isinstance(m, moe.MoE):
+            moe.moe_init_(m, gen)
     if hasattr(llm, "embed"):
         core.normal_init_(llm.embed.weight, gen)
 
@@ -261,11 +268,82 @@ def _through_layers(layers: tuple, fn, *args):
     return call(0, *args)
 
 
+def mot_layer(cfgs: Sequence[TransformerConfig], lps: Sequence, xs: Sequence, conds: Sequence,
+              cos: torch.Tensor, sin: torch.Tensor, q_grp: torch.Tensor, q_valid: torch.Tensor,
+              q_seg: Optional[torch.Tensor] = None, kv=None, attn_group=None) -> tuple:
+    """One decoder layer of N streams (the body of :func:`mot_forward`'s
+    layers, and of ``parallel/pipeline.mot_decoder_layer``): each active
+    stream's q/k/v with its own weights, one joint attention over the
+    concatenation, each stream's output projection, MLP or MoE bank and
+    (adaRMS-gated) residuals.  A stream whose ``x`` is None sits out.
+
+    ``cos``/``sin`` and the int32 ``q_*`` vectors span the concatenation.
+    ``kv`` None attends the new tokens only; ``(join, kv_grp, kv_valid,
+    kv_seg)`` attends ``join(k, v)`` (the new K/V with a cache) under those
+    vectors.  Returns (outs, aux): the streams' outputs (None for an
+    inactive one) and the layer's MoE balance loss (None without an MoE
+    stream)."""
+    base = cfgs[0]
+    scale = base.attn_scale if base.attn_scale is not None else base.head_dim ** -0.5
+    first = next(x for x in xs if x is not None)
+    aux = (torch.zeros((), dtype=torch.float32, device=first.device)
+           if any(c.moe_num_experts for c in cfgs) else None)
+    q_list, k_list, v_list, gates1 = [], [], [], []
+    for cfg, lp, x, cond in zip(cfgs, lps, xs, conds):
+        if x is None:
+            gates1.append(None)
+            continue
+        h, gate1 = _apply_norm(lp.ln1, cfg, x, cond)
+        gates1.append(gate1)
+        b, n, _ = h.shape
+        # heads from the tensor: under tensor parallelism a rank holds
+        # num_heads / model of them (parallel/mesh.TP_PLAN)
+        q = lp.attn.q(h).reshape(b, n, -1, cfg.head_dim)
+        k = lp.attn.k(h).reshape(b, n, -1, cfg.head_dim)
+        v = lp.attn.v(h).reshape(b, n, -1, cfg.head_dim)
+        if cfg.qk_norm:
+            q, k = lp.attn.q_norm(q), lp.attn.k_norm(k)
+        q_list.append(q)
+        k_list.append(k)
+        v_list.append(v)
+    q_cat, k_cat, v_cat = (t[0] if len(t) == 1 else torch.cat(t, 1)
+                           for t in (q_list, k_list, v_list))
+    q_cat, k_cat = apply_rope(q_cat, cos, sin), apply_rope(k_cat, cos, sin)
+    if kv is None:
+        k_full, v_full, kv_grp, kv_valid, kv_seg = k_cat, v_cat, q_grp, q_valid, q_seg
+    else:
+        join, kv_grp, kv_valid, kv_seg = kv
+        k_full, v_full = join(k_cat, v_cat)
+    a = attention(q_cat, k_full, v_full, q_grp, kv_grp, kv_valid, scale=scale,
+                  impl=base.attn_impl, q_seg=q_seg, kv_seg=kv_seg, group=attn_group)
+    B, T = a.shape[:2]
+    outs, offset = [], 0
+    for cfg, lp, x, cond, gate1 in zip(cfgs, lps, xs, conds, gates1):
+        if x is None:
+            outs.append(None)
+            continue
+        n = x.shape[1]
+        o = lp.attn.o((a if n == T else a[:, offset: offset + n]).reshape(B, n, -1))
+        x1 = _gated_residual(x, o, gate1)
+        h2, gate2 = _apply_norm(lp.ln2, cfg, x1, cond)
+        if cfg.moe_num_experts:
+            m, layer_aux = lp.mlp(h2, cfg.act, cfg.moe_top_k, cfg.moe_capacity_factor,
+                                  valid=q_valid[:, offset: offset + n])
+            aux = aux + layer_aux
+        else:
+            m = lp.mlp(h2, cfg.act)
+        offset += n
+        outs.append(_gated_residual(x1, m, gate2))
+    return tuple(outs), aux
+
+
 def mot_forward(streams: Sequence[Stream], positions: torch.Tensor, q_grp: torch.Tensor,
                 q_valid: torch.Tensor, cache: Optional[dict] = None, update_cache: bool = False,
                 remat=False, q_seg: Optional[torch.Tensor] = None, write_cols=None,
-                want_aux: bool = False):
-    """Joint attention over N decoder streams; returns (outs, cache).
+                want_aux: bool = False, attn_group=None):
+    """Joint attention over N decoder streams; returns (outs, cache), and
+    (outs, cache, {"moe_aux": the load-balance loss summed over layers}) with
+    ``want_aux`` (0 without an MoE stream).
 
     The active streams' tokens are concatenated along the sequence; every
     layer computes each stream's q/k/v with its own weights, runs one
@@ -277,12 +355,11 @@ def mot_forward(streams: Sequence[Stream], positions: torch.Tensor, q_grp: torch
     ``outs`` is aligned with ``streams`` (None for an inactive one), each
     final-normed.  ``cache`` is the updated cache (``update_cache``), the
     given one (frozen mode) or None.  Segment ids stay None when neither the
-    call nor the cache has any."""
+    call nor the cache has any.  ``attn_group`` is the process group of a
+    ring attention (``attn_impl="ring:<axis>"``), taken from the caller's
+    mesh; None finds the axis on the current mesh."""
     if write_cols is not None and (cache is None or not update_cache):
         raise ValueError("write_cols writes into a given cache (update_cache=True)")
-    if want_aux:
-        raise NotImplementedError("the MoE load-balance loss (want_aux) is not ported yet: "
-                                  "ROADMAP Queue 1 item 11c")
     active = [s for s in streams if s.embeds is not None]
     if not active:
         raise ValueError("at least one stream must have embeddings")
@@ -292,11 +369,9 @@ def mot_forward(streams: Sequence[Stream], positions: torch.Tensor, q_grp: torch
         if (s.cfg.num_heads, s.cfg.num_kv_heads, s.cfg.head_dim, s.cfg.num_layers) != geometry:
             raise ValueError("MoT streams must share attention geometry and depth")
 
-    seq_lens = [0 if s.embeds is None else s.embeds.shape[1] for s in streams]
-    T = sum(seq_lens)
+    T = sum(0 if s.embeds is None else s.embeds.shape[1] for s in streams)
     first = active[0].embeds
     B, dtype, device = first.shape[0], first.dtype, first.device
-    scale = base.attn_scale if base.attn_scale is not None else base.head_dim ** -0.5
     cos, sin = rope_cos_sin(positions, base.head_dim, base.rope_theta)
 
     # the int32 mask vectors of the call, built once for every layer
@@ -340,79 +415,61 @@ def mot_forward(streams: Sequence[Stream], positions: torch.Tensor, q_grp: torch
     else:
         kv_grp, kv_valid, kv_seg = q_grp, q_valid, q_seg
 
-    def layer(layers, ck, cv, conds, *xs):
-        q_list, k_list, v_list, gates1 = [], [], [], []
-        for s, lp, x, cond in zip(streams, layers, xs, conds):
-            if x is None:
-                gates1.append(None)
-                continue
-            h, gate1 = _apply_norm(lp.ln1, s.cfg, x, cond)
-            gates1.append(gate1)
-            b, n, _ = h.shape
-            # heads from the tensor: under tensor parallelism a rank holds
-            # num_heads / model of them (parallel/mesh.TP_PLAN)
-            q = lp.attn.q(h).reshape(b, n, -1, s.cfg.head_dim)
-            k = lp.attn.k(h).reshape(b, n, -1, s.cfg.head_dim)
-            v = lp.attn.v(h).reshape(b, n, -1, s.cfg.head_dim)
-            if s.cfg.qk_norm:
-                q, k = lp.attn.q_norm(q), lp.attn.k_norm(k)
-            q_list.append(q)
-            k_list.append(k)
-            v_list.append(v)
-        q_cat, k_cat, v_cat = (t[0] if len(t) == 1 else torch.cat(t, 1)
-                               for t in (q_list, k_list, v_list))
-        q_cat, k_cat = apply_rope(q_cat, cos, sin), apply_rope(k_cat, cos, sin)
-        if ck is None:
-            k_full, v_full = k_cat, v_cat
+    moe_streams = any(s.cfg.moe_num_experts for s in streams)
+    cfgs = tuple(s.cfg for s in streams)
+
+    def join_cache(ck, cv, k_cat, v_cat):
+        if update_cache and write_cols is not None:  # per-row columns, in place
+            k_full, v_full = rw.put_(ck, k_cat), rw.put_(cv, v_cat)
+        elif update_cache:  # ck/cv: this layer's slice of the call's own buffer
+            ck[:, start:start + T] = k_cat
+            cv[:, start:start + T] = v_cat
+            k_full, v_full = ck, cv
         else:
-            if update_cache and write_cols is not None:  # per-row columns, in place
-                k_full, v_full = rw.put_(ck, k_cat), rw.put_(cv, v_cat)
-            elif update_cache:  # ck/cv: this layer's slice of the call's own buffer
-                ck[:, start:start + T] = k_cat
-                cv[:, start:start + T] = v_cat
-                k_full, v_full = ck, cv
-            else:
-                k_full = torch.cat([ck, k_cat.to(ck.dtype)], 1)
-                v_full = torch.cat([cv, v_cat.to(cv.dtype)], 1)
-            k_full, v_full = k_full.to(q_cat.dtype), v_full.to(q_cat.dtype)
-        a = attention(q_cat, k_full, v_full, q_grp, kv_grp, kv_valid, scale=scale,
-                      impl=base.attn_impl, q_seg=q_seg, kv_seg=kv_seg)
-        outs, offset = [], 0
-        for s, lp, x, cond, n, gate1 in zip(streams, layers, xs, conds, seq_lens, gates1):
-            if x is None:
-                outs.append(None)
-                continue
-            o = lp.attn.o((a if n == T else a[:, offset: offset + n]).reshape(B, n, -1))
-            offset += n
-            x1 = _gated_residual(x, o, gate1)
-            h2, gate2 = _apply_norm(lp.ln2, s.cfg, x1, cond)
-            outs.append(_gated_residual(x1, lp.mlp(h2, s.cfg.act), gate2))
-        return tuple(outs)
+            k_full = torch.cat([ck, k_cat.to(ck.dtype)], 1)
+            v_full = torch.cat([cv, v_cat.to(cv.dtype)], 1)
+        return k_full.to(k_cat.dtype), v_full.to(v_cat.dtype)
+
+    def layer(layers, ck, cv, conds, *xs):
+        kv = None if ck is None else (functools.partial(join_cache, ck, cv), kv_grp, kv_valid,
+                                      kv_seg)
+        outs, aux = mot_layer(cfgs, layers, xs, conds, cos, sin, q_grp, q_valid, q_seg, kv=kv,
+                              attn_group=attn_group)
+        return outs + ((aux,) if moe_streams else ())
 
     xs = tuple(s.embeds for s in streams)
     # the conditions go in as arguments, where a layer's hooks see them
     conds = tuple(s.cond for s in streams)
+    # the MoE balance loss summed over the layers (no tensor is made without MoE or want_aux)
+    aux = torch.zeros((), dtype=torch.float32, device=device) if moe_streams or want_aux else None
     for i, layers in enumerate(zip(*(s.module.layers for s in streams))):
         ck = None if cache_k is None else cache_k[i]
         cv = None if cache_v is None else cache_v[i]
         xs = core.remat_call(_through_layers, remat, layers, layer, ck, cv, conds, *xs)
+        if moe_streams:
+            aux, xs = aux + xs[-1], xs[:-1]
 
     outs = [None if x is None else _apply_norm(s.module.norm, s.cfg, x, s.cond)[0]
             for s, x in zip(streams, xs)]
     if update_cache:
         cache = {"k": cache_k, "v": cache_v, "grp": kv_grp, "valid": kv_valid, "seg": kv_seg,
                  "length": start if write_cols is not None else start + T}
+    if want_aux:
+        return outs, cache, {"moe_aux": aux}
     return outs, cache
 
 
 def transformer_forward(cfg: TransformerConfig, llm: Transformer, embeds: torch.Tensor,
                         positions: torch.Tensor, grp: torch.Tensor, valid: torch.Tensor,
-                        q_seg: Optional[torch.Tensor] = None, remat=False) -> torch.Tensor:
+                        q_seg: Optional[torch.Tensor] = None, remat=False, want_aux: bool = False,
+                        attn_group=None):
     """Single-stream full-sequence forward, the N=1 case of
-    :func:`mot_forward`; returns the final-normed hidden states.
+    :func:`mot_forward`; returns the final-normed hidden states, and with
+    ``want_aux`` (hidden, {"moe_aux": ...}), so that an MoE decoder's loss
+    can add the load-balance term.
 
     ``remat`` (False | True | "dots") is the JAX flag, applied per layer
     (``core.remat_call``)."""
-    outs, _ = mot_forward([Stream(cfg, llm, embeds)], positions, grp, valid, remat=remat,
-                          q_seg=q_seg)
-    return outs[0]
+    res = mot_forward([Stream(cfg, llm, embeds)], positions, grp, valid, remat=remat,
+                      q_seg=q_seg, want_aux=want_aux, attn_group=attn_group)
+    return (res[0][0], res[2]) if want_aux else res[0][0]

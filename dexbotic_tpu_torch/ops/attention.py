@@ -21,7 +21,9 @@ k/v [B, Skv, Hkv, D] with Hq % Hkv == 0 (GQA); int32 [B, S] mask vectors.
   head_dim K1 serves (:data:`FLASH_HEAD_DIMS`, :func:`flash_serves`) to the
   kernels, and every other call to ``attention_xla``, as the JAX ``auto``
   sends unaligned head dims to XLA; such a plain call on CUDA tensors counts
-  on ``attention.plain_cuda_calls`` (an explicit ``impl="xla"`` does not).
+  on ``attention.plain_cuda_calls`` (an explicit ``impl="xla"`` does not);
+  ``impl="ring:<axis>"`` is context parallelism, the ring of K1 and K3 hops
+  over that axis of the current mesh (``parallel/ring.py``).
 """
 
 from __future__ import annotations
@@ -117,15 +119,18 @@ def _i32(x: torch.Tensor | None) -> torch.Tensor | None:
     return x.to(torch.int32).contiguous()
 
 
-def _mask_args(q, B, Sq, Skv, q_grp, kv_grp, kv_valid, q_seg, kv_seg) -> list:
-    """The int32 mask vectors' pointers (None for absent segments), checked."""
+def _mask_args(q, B, Sq, Skv, q_grp, kv_grp, kv_valid, q_seg, kv_seg) -> tuple[list, list]:
+    """(the int32 mask vectors' pointers, None for absent segments; the
+    vectors), checked.  A vector that was not int32 and contiguous (a column
+    slice: the ring's blocks) is a new tensor: the caller holds the vectors
+    until its launch is queued, or their memory could be reused before it."""
     if (q_seg is None) != (kv_seg is None):
         raise ValueError("pass both q_seg and kv_seg or neither")
     ints = [_i32(t) for t in (q_grp, kv_grp, kv_valid, q_seg, kv_seg)]
     for t, n in zip(ints, (Sq, Skv, Skv, Sq, Skv)):
         if t is not None and (t.shape != (B, n) or t.device != q.device):
             raise ValueError(f"mask vector of shape {tuple(t.shape)} on {t.device}, want ({B}, {n})")
-    return [None if t is None else t.data_ptr() for t in ints]
+    return [None if t is None else t.data_ptr() for t in ints], ints
 
 
 def _classes_buffer(B, Sq, Skv, device) -> torch.Tensor:
@@ -139,7 +144,7 @@ def flash_tile_classes(q_grp, kv_grp, kv_valid, q_seg=None, kv_seg=None) -> torc
     from dexbotic_tpu_torch.kernels import build
 
     (B, Sq), Skv = q_grp.shape, kv_grp.shape[1]
-    ptr = _mask_args(q_grp, B, Sq, Skv, q_grp, kv_grp, kv_valid, q_seg, kv_seg)
+    ptr, ints = _mask_args(q_grp, B, Sq, Skv, q_grp, kv_grp, kv_valid, q_seg, kv_seg)
     cls = _classes_buffer(B, Sq, Skv, q_grp.device)
     code = build.load().dbx_flash_tile_classes(
         *ptr, cls.data_ptr(), B, Sq, Skv, torch.cuda.current_stream(q_grp.device).cuda_stream)
@@ -185,7 +190,7 @@ def _flash_cuda(q, k, v, q_grp, kv_grp, kv_valid, scale, q_seg, kv_seg, rows=Non
     for t in (q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("flash kernel needs 16-byte aligned q/k/v")
-    ptr = _mask_args(q, B, Sq, Skv, q_grp, kv_grp, kv_valid, q_seg, kv_seg)
+    ptr, ints = _mask_args(q, B, Sq, Skv, q_grp, kv_grp, kv_valid, q_seg, kv_seg)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     cls = _classes_buffer(B, Sq, Skv, q.device)
@@ -278,7 +283,7 @@ def _flash_bwd_cuda(q, k, v, q_grp, kv_grp, kv_valid, out, lse, g, scale, q_seg,
     for t in (q, k, v, out):
         if t.data_ptr() % 16:
             raise ValueError("flash backward needs 16-byte aligned q/k/v/out")
-    ptr = _mask_args(q, B, Sq, Skv, q_grp, kv_grp, kv_valid, q_seg, kv_seg)
+    ptr, ints = _mask_args(q, B, Sq, Skv, q_grp, kv_grp, kv_valid, q_seg, kv_seg)
     dq, dk, dv, qs = (torch.empty_like(t) for t in (q, k, v, q))
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     cls = _classes_buffer(B, Sq, Skv, q.device)
@@ -347,13 +352,29 @@ def flash_serves(head_dim: int) -> bool:
 
 
 def attention(q, k, v, q_grp, kv_grp, kv_valid, scale=None, impl: str = "auto",
-              q_seg=None, kv_seg=None):
-    """impl: 'auto' | 'flash' | 'xla'.  'auto' takes the kernel for CUDA
-    tensors of a head_dim it serves, else the plain ``attention_xla``.
+              q_seg=None, kv_seg=None, group=None):
+    """impl: 'auto' | 'flash' | 'xla' | 'ring:<axis>'.  'auto' takes the
+    kernel for CUDA tensors of a head_dim it serves, else the plain
+    ``attention_xla``.  'ring:<axis>' runs the call as this rank's part of
+    ring attention over ``group``, the sequence sharded on it; with no
+    ``group``, over axis ``<axis>`` of the current mesh
+    (``parallel/mesh.axis_group``).  Set
+    ``TransformerConfig(attn_impl="ring:seq")`` to train a decoder with its
+    columns split over a 'seq' axis, and pass the mesh's group down
+    (``transformer_forward(attn_group=...)``, as
+    ``models/navila.navila_packed_loss_cp`` does).
 
     K1 computes in bf16: a CUDA call in fp32 (π0's decoder and expert, whose
     residual stream is fp32) is rounded to bf16 at the kernel's input and
     its output returned in fp32."""
+    if impl.startswith("ring:"):
+        from dexbotic_tpu_torch.parallel.mesh import axis_group
+        from dexbotic_tpu_torch.parallel.ring import ring_attention
+
+        if group is None:
+            group = axis_group(impl[len("ring:"):])
+        return ring_attention(q, k, v, q_grp, kv_grp, kv_valid, group, scale, q_seg=q_seg,
+                              kv_seg=kv_seg)
     if impl == "auto":
         impl = "flash" if q.device.type == "cuda" and flash_serves(q.shape[-1]) else "xla"
         if impl == "xla" and q.device.type == "cuda":

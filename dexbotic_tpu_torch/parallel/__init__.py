@@ -1,4 +1,4 @@
 """The parallel layer (port of dexbotic_tpu/parallel/): the launch contract
-(``multihost``) and the device mesh with FSDP2 and tensor parallelism
-(``mesh``).  Context parallelism (``ring``) and pipeline stages
-(``pipeline``) are ROADMAP Queue 1 items 11b and 11c."""
+(``multihost``), the device mesh with FSDP2, tensor and expert parallelism
+(``mesh``), context parallelism as a ring of K1 and K3 hops (``ring``) and
+GPipe pipeline stages (``pipeline``)."""

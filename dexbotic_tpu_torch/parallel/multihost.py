@@ -89,10 +89,14 @@ def maybe_initialize(coordinator: Optional[str] = None, num_processes: Optional[
 
 
 def shutdown() -> None:
-    """Leave the process group (after a final barrier); a no-op without one."""
+    """Leave the process group (after a final barrier) and forget the
+    current mesh, whose groups it destroys; a no-op without one."""
+    from dexbotic_tpu_torch.parallel.mesh import clear_current_mesh
+
     if dist.is_initialized():
         dist.barrier()
         dist.destroy_process_group()
+    clear_current_mesh()
 
 
 def process_index() -> int:

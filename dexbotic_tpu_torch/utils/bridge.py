@@ -24,7 +24,11 @@ parameter, so a converted tree is never copied again.  A Python list of layer
 dicts (OFT's MLPResNet ``blocks``, MemVLA's ``retrieval`` blocks) is no
 stack: its items map onto ``<name>.<i>`` as they are.  MemVLA's tree needs
 no rule of its own: the bank's roles, gates and timestep embedders and the
-DiT's ``xattn`` (a stacked subtree of ``blocks``) follow these.
+DiT's ``xattn`` (a stacked subtree of ``blocks``) follow these.  Nor do the
+MoE layers (``nn/moe.py``): the router's [L, H, E] stack unstacks into
+``layers.<i>.mlp.router.weight`` ([E, H], transposed like any 2-D ``w``),
+and an expert stack [L, E, in, out] into ``layers.<i>.mlp.gate.weight`` [E,
+in, out], the JAX layout, kept (a 3-D ``w`` is not transposed).
 """
 
 from __future__ import annotations

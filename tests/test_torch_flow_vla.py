@@ -362,8 +362,10 @@ def test_mot_forward_modes_match_jax(mode):
 
 
 def test_mot_forward_refuses_unported_modes():
-    """The MoE parts (Queue 1 item 11) raise; per-row cache columns
-    (write_cols, ported with the decode engine) need a cache to write into."""
+    """Per-row cache columns (write_cols, ported with the decode engine)
+    need a cache to write into; the MoE parts (nn/moe.py) are ported: an MoE
+    decoder builds, and ``want_aux`` returns the load-balance loss (0 without
+    an MoE stream)."""
     _, tcfg, _, model, _ = _bridged("pi0")
     x = torch.zeros(1, 3, tcfg.llm.hidden_size)
     ints = torch.zeros(1, 3, dtype=torch.int32)
@@ -371,10 +373,11 @@ def test_mot_forward_refuses_unported_modes():
     with pytest.raises(ValueError, match="write_cols"):
         ttransformer.mot_forward(stream, ints, ints, ints + 1, update_cache=True,
                                  write_cols=torch.zeros(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttransformer.mot_forward(stream, ints, ints, ints + 1, want_aux=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttransformer.Transformer(dataclasses.replace(tcfg.llm, moe_num_experts=4))
+    _, _, aux = ttransformer.mot_forward(stream, ints, ints, ints + 1, want_aux=True)
+    assert float(aux["moe_aux"]) == 0.0
+    moe = ttransformer.Transformer(dataclasses.replace(tcfg.llm, moe_num_experts=4))
+    assert moe.layers[0].mlp.gate.weight.shape == (4, tcfg.llm.hidden_size,
+                                                   tcfg.llm.intermediate_size)
 
 
 # ---------------------------------------------------------------------------

@@ -913,3 +913,68 @@ def test_safetensors_parser_reads_to_cuda(cuda, tmp_path):
         for k, v in want.items():
             assert got[k].device.type == "cuda" and got[k].dtype == v.dtype, k
             assert torch.equal(got[k].cpu(), v), k
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_hops_match_whole_sequence(cuda, n):
+    """The ring's hop arithmetic on the card (parallel/ring.simulate: n
+    ranks' K1 hops merged, then their K3 hops, in one process) at a packed
+    NaVILA-like row (two segments, padding): out, lse, dq, dk and dv on the
+    rows that see a key within 2x the whole-sequence K1/K3 call's error
+    against the fp32 plain reference, + 1e-3."""
+    from dexbotic_tpu_torch.parallel.ring import simulate
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, S, H, D = 2, 512, 4, 64
+    q, k, v, dout = (torch.randn(B, S, H, D, generator=g, device=cuda).bfloat16() for _ in range(4))
+    pos = torch.zeros(B, S, dtype=torch.int32, device=cuda)
+    seg = torch.full((B, S), -1, dtype=torch.int32, device=cuda)
+    valid = torch.zeros(B, S, dtype=torch.int32, device=cuda)
+    for lo, hi, s_id in ((0, 230, 0), (230, 470, 1)):
+        pos[:, lo:hi] = torch.arange(hi - lo, dtype=torch.int32, device=cuda)
+        seg[:, lo:hi], valid[:, lo:hi] = s_id, 1
+    grp = pos + 1
+    ints = (grp, grp, valid, seg, seg)
+    ring = simulate(q, k, v, *ints, n=n, dout=dout)
+    out, lse = flash_attention_fwd(q, k, v, grp, grp, valid, None, seg, seg)
+    whole = dict(zip(("dq", "dk", "dv"), flash_attention_bwd(q, k, v, grp, grp, valid, out, lse,
+                                                              dout, None, seg, seg)))
+    whole.update(out=out, lse=lse)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ref_out, ref_lse = flash_attention_ref(qf, kf, vf, grp, grp, valid, None, seg, seg)
+    ref = dict(zip(("dq", "dk", "dv"), flash_attention_bwd_ref(
+        qf, kf, vf, grp, grp, valid, ref_out, ref_lse, dout.float(), None, seg, seg)))
+    ref.update(out=ref_out, lse=ref_lse)
+    rows = valid.bool()
+    for key in ("out", "lse", "dq", "dk", "dv"):
+        pick = (lambda t: t.transpose(1, 2)[rows]) if key == "lse" else (lambda t: t[rows])
+        err = (pick(ring[key]).float() - pick(ref[key])).abs().max().item()
+        whole_err = (pick(whole[key]).float() - pick(ref[key])).abs().max().item()
+        assert err <= 2 * whole_err + 1e-3, (key, err, whole_err)
+
+
+def test_flash_kernels_take_column_slices_of_the_masks(cuda):
+    """Mask vectors that are column slices (the ring's blocks; not
+    contiguous) give K1 and K3 exactly what contiguous copies give: the
+    wrappers' int32 copies live through the launch."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, S, H, D = 2, 384, 4, 64
+    q, k, v, dout = (torch.randn(B, S // 2, H, D, generator=g, device=cuda).bfloat16()
+                     for _ in range(4))
+    grp = torch.arange(1, S + 1, dtype=torch.int32, device=cuda).repeat(B, 1)
+    valid = torch.ones(B, S, dtype=torch.int32, device=cuda)
+    valid[1, 250:] = 0
+    seg = (torch.arange(S, device=cuda) >= 300).int().repeat(B, 1)
+    cols = slice(S // 2, S)
+    sliced = (grp[:, cols], grp[:, cols], valid[:, cols], seg[:, cols], seg[:, cols])
+    assert not sliced[0].is_contiguous()
+    whole = tuple(t.contiguous() for t in sliced)
+    for _ in range(3):  # other allocations in between reuse freed memory
+        a = flash_attention_fwd(q, k, v, *sliced[:3], None, *sliced[3:])
+        scratch = [torch.full((B, S // 2), -7, dtype=torch.int32, device=cuda) for _ in range(8)]
+        b = flash_attention_fwd(q, k, v, *whole[:3], None, *whole[3:])
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        ga = flash_attention_bwd(q, k, v, *sliced[:3], *a, dout, None, *sliced[3:])
+        gb = flash_attention_bwd(q, k, v, *whole[:3], *b, dout, None, *whole[3:])
+        assert all(torch.equal(x, y) for x, y in zip(ga, gb))
+        del scratch

@@ -18,8 +18,8 @@
   ``nav_question`` and ``NAV_PROMPT`` byte for byte.
 * ``NaVILAInferenceSession.act`` over an episode against JAX's session;
   ``NaVILAServer``'s ``run_model`` / ``episode_first_frame`` contract and its
-  BGR flip; ``NaVILAExp.train()`` packed on a tiny suite; the raises of the
-  parts not ported (context parallelism, item 11).
+  BGR flip; ``NaVILAExp.train()`` packed on a tiny suite (its
+  context-parallel loss is tests/test_torch_ring.py's).
 * A fleet of sessions on one shared decode engine (one-shot and chunked
   admission) against JAX's sessions on a JAX engine: the same texts.
 
@@ -251,16 +251,15 @@ def test_generate_sampled_logprobs_match_jax_on_the_same_tokens():
 
 def test_generate_write_cols_and_engine_raise():
     """write_cols (the decode engine's per-row columns) writes into a given
-    cache only: without one it is refused, as JAX asserts; the parts of
-    Queue 1 item 11 still raise, and so does the exp's inference()."""
+    cache only: without one it is refused, as JAX asserts; the exp's
+    inference() raises; a context-parallel config builds (its loss and
+    training run in tests/test_torch_ring.py)."""
     jcfg, tcfg, params, model = _params_and_model()
     ids, valid, _ = _prompt_batch(jcfg, 1, [6, 6], frames=0)
     with pytest.raises(ValueError, match="write_cols"):
         tvlm.vlm_forward(model.vlm, tcfg.vlm, _t(ids), _t(valid), write_cols=torch.zeros(2))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tnav.navila_packed_loss_cp(model, tcfg, {})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        texp.NaVILAModelConfig(context_parallel_seq=2).build_config()
+    assert texp.NaVILAModelConfig(context_parallel_seq=2).build_config() == \
+        texp.NaVILAModelConfig().build_config()
     exp = texp.NaVILAExp(device="cpu")
     with pytest.raises(NotImplementedError, match="inference"):
         exp.inference()
