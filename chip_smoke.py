@@ -46,7 +46,11 @@ Phases, any failure exits non-zero without a result line:
      noisy-action projector and lm_head at 112, the MLPResNet at 16 fp32
      rows from K = 28672), and int8 MemVLA's (the SE bottleneck, the
      bank's two roles, the per-token embedder and the DiT with its memory
-     keys and values, fp32 and bf16 activations); two calls must agree
+     keys and values, fp32 and bf16 activations), and int8 Discrete VLA's
+     and MUVLA's (phase 14e/14f: the engine's decode at 4 and 8 rows and
+     generate's at 1, each with the lm_head, generate's 855- and 959-row
+     prefills in bf16; MUVLA's 960-row admission, two frames' tower and
+     projector, MUVLA's fuse in fp32); two calls must agree
      bit for bit, and where the dispatch rule gives K4 the shape it must not
      be slower than the plain version;
   5. the serving slice: CogACT-7B (LLaMA-2-7B + CLIP-L/336 + DiT-B, seeded
@@ -59,7 +63,7 @@ Phases, any failure exits non-zero without a result line:
   5d. the same model served with on-device preprocessing
      (CogActServer(fuse_preprocess=True): raw uint8 frames uploaded, the BGR
      flip, pad, resize and normalisation on the card) beside the host path:
-     the same 480x640 PNG, 10 single frames and 6 8-frame requests a route;
+     the same 480x640 PNG, 6 single frames and 4 8-frame requests a route;
      the two routes' pixels within 2 uint8 quanta, their chunks on the same
      noise at cosine >= 0.99, fused_calls equal to the requests the fused
      server served, K1 and K2 counted on the fused route, p50/p90 of both
@@ -88,7 +92,7 @@ Phases, any failure exits non-zero without a result line:
   5c. pi0 at full width (SigLIP so400m/224 + Gemma-2B + the Gemma-300M
      expert, seeded random bf16 weights, fp32 activations and KV cache as
      in the JAX package, K1 fed bf16) served over HTTP by the port's
-     FlowVLAServer: 12 requests of 3 views and a state, one of 1 view and a
+     FlowVLAServer: 6 requests of 3 views and a state, one of 1 view and a
      batch_size=2 one, with K1's launches (18 layers x (prefill + 10 Euler
      steps) a device call) and the plain attention calls on CUDA (must be 0)
      read around them; then one request through the kernel path and the
@@ -158,16 +162,16 @@ Phases, any failure exits non-zero without a result line:
      kernel path and the plain path (attn_impl="xla" on the decoder and the
      expert) on the same weights, batch, noise and flow times, compared on
      loss, grad_norm and the gradient cosine of the LLM, the expert and the
-     action projections, K3 counted on both paths; (b) three steps
+     action projections, K3 counted on both paths; (b) two steps
      (micro-batch 4, accumulation 4) through Pi0Exp.train() with the K1/K3
      launches and plain CUDA attention calls counted, a finite loss at each
-     step, checkpoint-3 holding norm_stats.json and a peak below 80 GiB;
+     step, checkpoint-2 holding norm_stats.json and a peak below 80 GiB;
      prints the step time, samples/s and peak memory;
   9. the OFT training slice: OFT-7B on the LIBERO OFT recipe (L1, chunk 8,
      proprio, remat) with a frozen LLM and the suite's 7-dof states as the
      proprio input, rows of 2048 + 57 tokens: (a) one step (micro-batch 2),
      kernel path vs plain path as in 7a (the projector's, the tower's and
-     the head's gradients); (b) four steps of micro-batch 8 through
+     the head's gradients); (b) three steps of micro-batch 8 through
      OFTExp.train() with 4 forked decode processes, then the same in line:
      K1/K3 launches, no plain attention call, the step time, samples/s,
      peak memory and the seconds a step waited on its batch;
@@ -232,21 +236,38 @@ Phases, any failure exits non-zero without a result line:
 
   14. the continuous-batching decode engine (exp/decode_engine.py): (a)
      Discrete VLA-7B (4 of 32 decoder layers, max_retries=1) served by
-     DiscreteVLAServer over HTTP without the engine, with 8 slots and with
-     8 slots and prefill_chunk=512, 8 clients x 1 request: every request's
-     engine tokens equal to generate's or first differing at a near-tie
-     (13a's rule), ticks that served several slots, K1 counted and its
-     shapes among phase 3's, no K2, K3, K4 or plain call; p50/p90, tokens/s,
-     live slots and ms a tick, the largest gap between ticks around an
-     admission, a full tick's idle share, the parsed share; (b) one step
-     kernel vs plain vs fp32 witness on (a)'s weights (10a's rule), then
-     three steps of DiscreteVLAExp.train() at 8 x 2048, all 32 layers, the
-     LLM frozen; (c) inside 13a, four NaVILA sessions on one shared engine
-     (4 slots, max_prompt 2240, chunks of 512), each session's tokens held
-     to its own requests without the engine; (d) MUVLA-7B (a map view + 4
-     observation views) served by MUVLAServer without and with the engine
-     (4 clients), then one muvla_loss step with a reward in fp32 (10a's
-     rule).
+     DiscreteVLAServer over HTTP with 8 slots (one-shot admissions), 8
+     clients x 1 request, every text unparsed and retried by sampling:
+     every request's engine tokens equal to generate's or first differing
+     at a near-tie (13a's rule), ticks that served several slots, K1
+     counted and its shapes among phase 3's, no K2, K3, K4 or plain call;
+     p50/p90, tokens/s, live slots and ms a tick, the largest gap between
+     ticks around an admission, a full tick's idle share, the parsed share;
+     (b) one step kernel vs plain vs fp32 witness on (a)'s weights (10a's
+     rule), then two steps of DiscreteVLAExp.train() at 8 x 2048, all 32
+     layers, the LLM frozen; (c) inside 13a, four NaVILA sessions on one
+     shared engine (4 slots, max_prompt 2240, chunks of 512), each
+     session's tokens held to its own requests without the engine; (d)
+     MUVLA-7B (a map view + 4 observation views) served by MUVLAServer
+     without and with the engine (4 clients), then one muvla_loss step with
+     a reward in fp32 (10a's rule); (e) Discrete VLA-7B at all 32 layers
+     served by DiscreteVLAServer through the engine (8 slots,
+     prefill_chunk=512, 8 clients x 1 request, a decode that always
+     parses) in bf16, then quantized in place by the exp ("int8", then
+     "w8a8"), where one more request decodes with the exp's tokenizer, does
+     not parse and takes the fused retries (its greedy retry equal to
+     generate alone's tokens): the quantized products' routes (K4, the dequantize
+     formulation, W8A8) from forward hooks equal to the package's counts
+     and to the dispatch rule's from the model, the engine's admissions
+     and ticks; K4 and K1 shapes among phases 4c's and 3's; no K2, K3 or
+     plain call; the engine's tokens against generate alone by the
+     near-tie rule, its bound from one decode step of the 8 prompts held
+     by 10c's rule against an fp32 witness of the (dequantized) weights;
+     p50/p90, ms a tick, a traced tick by part (K4, K1, the rest) with the
+     idle share, weight bytes a decode step, peak memory, the tokens'
+     agreement with bf16's; (f) MUVLA-7B with (d)'s seeded weights built
+     with inference_quantize="int8", then "w8a8", through the engine (4
+     clients): (e)'s checks and readings, agreement with (d)'s tokens.
   15. pi0.5, DM0, DM0-Prog and hybrid CogACT at full width, and the
      success-rate harness: (a) pi0.5 (Pi05Exp: SigLIP so400m/224 + Gemma-2B
      + the Gemma-300M adaRMS expert) and (b) DM0 (DM0Exp: Qwen3-1.7B + the
@@ -298,8 +319,9 @@ behind device work where three profiling sessions see none of its kernels),
 beside ``ms`` (CUDA events around the Python call).  Phase 2 lists the
 registers and spills of every K1, K3, K4 and K2 instance from nvcc's
 ``-Xptxas -v`` (a spill fails) and the HGMMA instructions of every K2
-instance from the library's SASS (``cuobjdump``; a bf16 instance without
-one fails).
+instance from the library's SASS (``cuobjdump``, run beside phase 7,
+whose steps take seconds: beside no kernel's timing; a bf16 instance
+without one fails).
 Past phase 8, exp.train() writes no checkpoint (unwritten_checkpoints: the
 Trainer's save is called and records its step; 7b, 7c and 8b write theirs
 and read them back).
@@ -311,6 +333,7 @@ The last two lines printed are the kernels' JSON summary and
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -334,6 +357,8 @@ import numpy as np
 import torch
 
 REPS = 20
+PART_REPS = 3  # a device call's parts (wall_ms): medians of 3 calls after one
+LIB_REPS = 5  # SDPA's time beside K1's and K3's (cuDNN with a mask: ~40 ms of host a call)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 495e12}  # dense tensor-core bf16; TF32
 
@@ -681,7 +706,7 @@ def phase_flash(failures: list) -> dict:
         lse_err = (lse - ref_lse)[live].abs().max().item()
         reps = REPS if key is not None else 5  # a shape no row of the kernel table reads: fewer
         ms = median_ms(lambda: flash_attention_fwd(q, k, v, q_grp, *args), reps)
-        plain_ms = median_ms(lambda: flash_attention_ref(q, k, v, q_grp, *args), reps)
+        plain_ms = median_ms(lambda: flash_attention_ref(q, k, v, q_grp, *args), 5)
         check_bound(name, err, plain_err, failures)
         io_bytes, pairs = attn_counts(q, k, (q_grp, grp, valid), seg, (q, k, v, out, lse))
         bound_ms, bound_by = bound(io_bytes, 4 * q.shape[-1] * pairs)
@@ -693,7 +718,7 @@ def phase_flash(failures: list) -> dict:
             backend, _, call = sdpa(q, k, v, mask)
             with torch.no_grad():
                 lib_err = (call().transpose(1, 2).float() - ref).abs().max().item()
-                lib = {"library_ms": median_ms(call), "sdpa_backend": backend,
+                lib = {"library_ms": median_ms(call, LIB_REPS), "sdpa_backend": backend,
                        "device_ms": device_ms(lambda: flash_attention_fwd(q, k, v, q_grp, *args),
                                               K1_KERNELS)}
             line += (f"  kernels alone {lib['device_ms']:.4f} ms  SDPA ({backend}) "
@@ -793,13 +818,13 @@ def phase_flash_flow(failures: list) -> dict:
                     (plain.float() - ref).abs().max().item(), failures)
         ms = median_ms(lambda: flash_attention_fwd(q, k, v, *ints))
         dev_ms = device_ms(lambda: flash_attention_fwd(q, k, v, *ints), K1_KERNELS)
-        plain_ms = median_ms(lambda: flash_attention_ref(q, k, v, *ints))
+        plain_ms = median_ms(lambda: flash_attention_ref(q, k, v, *ints), 5)
         io_bytes, pairs = attn_counts(q, k, ints, None, (q, k, v, out, lse))
         bound_ms, bound_by = bound(io_bytes, 4 * q.shape[-1] * pairs)
         backend, _, call = sdpa(q, k, v, _allowed(*ints, None, None))
         with torch.no_grad():
             lib_err = (call().transpose(1, 2).float() - ref).abs().max().item()
-        lib_ms = median_ms(call)
+        lib_ms = median_ms(call, LIB_REPS)
         note = "" if backend == "CUDNN_ATTENTION" else f" (cuDNN refused these inputs: {backend})"
         print(f"    kernel {ms:.4f} ms  kernels alone {dev_ms:.4f} ms  plain bf16 {plain_ms:.4f} ms  "
               f"bound {bound_ms:.4f} ms ({bound_by})  SDPA ({backend}) {lib_ms:.4f} ms, "
@@ -903,7 +928,7 @@ def phase_flash_bwd(failures: list) -> dict:
             lib_out = call()
             dout_t = dout.transpose(1, 2)
             library_ms = median_ms(lambda: torch.autograd.grad(lib_out, leaves, dout_t,
-                                                               retain_graph=True))
+                                                               retain_graph=True), LIB_REPS)
             dev_ms = device_ms(lambda: flash_attention_bwd(*bwd_args), K3_KERNELS)
             line += f"  kernels alone {dev_ms:.4f} ms  SDPA backward ({backend}) {library_ms:.4f} ms"
             del lib_out, leaves
@@ -997,7 +1022,7 @@ def phase_dit(failures: list, int8: bool = False) -> dict:
         with plain_int8():
             ref = dit_sample_ref(head32, cfg, z, noise, sched, **kw)
             plain = dit_sample_ref(head, cfg, z, noise, sched, **kw)
-            plain_ms = median_ms(lambda: dit_sample_ref(head, cfg, z, noise, sched, **kw), reps=5)
+            plain_ms = median_ms(lambda: dit_sample_ref(head, cfg, z, noise, sched, **kw), reps=3)
         err = (out - ref).abs().max().item()
         plain_err = (plain - ref).abs().max().item()
         ms = median_ms(lambda: fused_dit_sample(head, cfg, z, noise, sched, **kw))
@@ -1109,10 +1134,34 @@ K4_MEMVLA_BF16 = [("memvla cog q", 1, 4096, 4096), ("memvla cog k/v", 17, 4096, 
                   ("memvla dit o / xattn q, o", 34, 768, 768),
                   ("memvla dit xattn k/v", 1152, 768, 768), ("memvla dit fc0", 34, 768, 3072),
                   ("memvla dit fc1", 34, 3072, 768)]
+# Discrete VLA-7B and MUVLA-7B with int8 weights (phases 14e and 14f;
+# LLaMA-2-7B's lm_head is untied, so the logits are K4's too): the decode
+# engine's ticks at M = its slots (8 and 4) and generate's one-row steps,
+# each with the lm_head, and generate's prefill of one prompt (855 and 959
+# rows), in bf16; MUVLA's one-shot admission of one prompt (960 rows of its
+# fp32 embeds), Discrete VLA's admission of two frames (the tower over 2 x
+# 577 rows, the projector over 2 x 576), and MUVLA's fuse of a request in
+# fp32: the QFormer's 192 queries, the fuser's 192 + 576 observation tokens
+# against the map's 576, the projector over the 768 fused tokens (the
+# history tower, the QFormer's keys and values and every admission past
+# 1664 rows take the dequantize formulation or W8A8).  Phases 14e and 14f
+# fail if their requests give K4 a shape that is not held here.
+LLAMA_WIDTHS = ((4096, 4096), (4096, 11008), (11008, 4096))
+K4_TEXT_BF16 = ([(f"llama decode {K}->{N}", M, K, N) for M in (4, 8) for K, N in LLAMA_WIDTHS]
+                + [(f"llama lm_head {M} rows 4096->32000", M, 4096, 32000) for M in (1, 4, 8)]
+                + [(f"llama generate prefill {K}->{N}", M, K, N) for M in (855, 959)
+                   for K, N in LLAMA_WIDTHS])
+K4_TEXT_F32 = ([(f"muvla admission {K}->{N}", 960, K, N) for K, N in LLAMA_WIDTHS]
+               + [("clip 2 frames q/k/v/o", 1154, 1024, 1024), ("clip 2 frames fc1", 1154, 1024, 4096),
+                  ("clip 2 frames fc2", 1154, 4096, 1024), ("projector 2 frames fc0", 1152, 1024, 4096),
+                  ("projector 2 frames fc2", 1152, 4096, 4096), ("muvla qformer q/o", 192, 1024, 1024),
+                  ("muvla fuser q/o", 768, 1024, 1024), ("muvla fuser k/v", 576, 1024, 1024),
+                  ("muvla projector fc0", 768, 1024, 4096), ("muvla projector fc2", 768, 4096, 4096)])
 K4_RUNS = ([(torch.bfloat16, c) for c in K4_CASES] + [(torch.float32, c) for c in K4_CASES]
            + [(torch.float32, c) for c in K4_PI0] + [(torch.bfloat16, c) for c in K4_OFT]
            + [(torch.float32, c) for c in K4_OFT_F32] + [(torch.float32, c) for c in K4_MEMVLA_F32]
-           + [(torch.bfloat16, c) for c in K4_MEMVLA_BF16])
+           + [(torch.bfloat16, c) for c in K4_MEMVLA_BF16] + [(torch.bfloat16, c) for c in K4_TEXT_BF16]
+           + [(torch.float32, c) for c in K4_TEXT_F32])
 K4_CHECKED = {(M, K, N, dtype) for dtype, (_, M, K, N) in K4_RUNS}  # (rows, K, N, x dtype)
 
 
@@ -1478,6 +1527,37 @@ def sampled_host_peak(interval_s: float = 0.005):
         out["peak_gib"] = max(out["peak_gib"], host_rss_gib())
 
 
+QUANT_ROUTES = ("k4", "dequant", "w8a8")
+
+
+def quant_route(rows: int, K: int, N: int, device: str) -> str:
+    """Where ops/quant_matmul.quant_linear sends a product of ``rows`` rows
+    of a tensor on ``device``: "w8a8" from W8A8_MIN_ROWS rows when that is
+    set, else "k4" on the card where KERNEL_DISPATCH is on and K4 takes the
+    shape, else "dequant" (the dequantize formulation)."""
+    from dexbotic_tpu_torch.ops import quant_matmul as qm
+
+    if qm.W8A8_MIN_ROWS is not None and rows >= qm.W8A8_MIN_ROWS:
+        return "w8a8"
+    if qm.KERNEL_DISPATCH and device == "cuda" and qm.quant_matmul_eligible(rows, K, N):
+        return "k4"
+    return "dequant"
+
+
+def quant_route_counts(passes: list) -> dict:
+    """{route: products} the dispatch rule gives ``passes``: (module, rows)
+    pairs, every QuantLinear inside the module run once at that many rows,
+    on the device its weights are on."""
+    from dexbotic_tpu_torch.nn.core import QuantLinear
+
+    counts = dict.fromkeys(QUANT_ROUTES, 0)
+    for mod, rows in passes:
+        for m in mod.modules():
+            if isinstance(m, QuantLinear):
+                counts[quant_route(rows, m.in_features, m.out_features, m.q.device.type)] += 1
+    return counts
+
+
 def k4_products(model, cfg, llm_rows: int, batch: int = 1) -> dict:
     """{part: the quantized products of one request of ``batch`` frames that
     the dispatch rule gives K4}, counted from the model: every QuantLinear
@@ -1485,8 +1565,6 @@ def k4_products(model, cfg, llm_rows: int, batch: int = 1) -> dict:
     ViT's up to select_layer, the projector's, the DiT's z_embed at 2 rows a
     frame with CFG) whose (rows, K, N) quant_linear sends to K4.  The DiT's
     other layers run inside K2 or once per process (t_mlp's tables)."""
-    from dexbotic_tpu_torch.nn.core import QuantLinear
-
     vit = cfg.vlm.vit
     vit_layers = vit.num_layers + (vit.select_layer + 1 if vit.select_layer is not None else 0)
     rows_z = batch * (2 if cfg.cfg_scale > 1.0 else 1)
@@ -1494,39 +1572,45 @@ def k4_products(model, cfg, llm_rows: int, batch: int = 1) -> dict:
              "vit": (model.vlm.vit.layers[:vit_layers], batch * vit.seq_len),
              "projector": (model.vlm.projector, batch * vit.num_output_tokens),
              "z_embed": (model.action_head.z_embed, rows_z)}
-    return {part: sum(k4_takes(rows, m) for m in mod.modules() if isinstance(m, QuantLinear))
-            for part, (mod, rows) in parts.items()}
+    return {part: quant_route_counts([(mod, rows)])["k4"] for part, (mod, rows) in parts.items()}
 
 
-def k4_takes(rows: int, m) -> bool:
-    """Does quant_linear send a product of ``rows`` rows through QuantLinear
-    ``m`` to K4 (not to W8A8, not to the dequantize formulation)?"""
-    from dexbotic_tpu_torch.ops import quant_matmul as qm
+class RoutesSeen(collections.Counter):
+    """quant_routes_seen's count: (module prefix, route) -> products."""
 
-    return ((qm.W8A8_MIN_ROWS is None or rows < qm.W8A8_MIN_ROWS)
-            and qm.quant_matmul_eligible(rows, m.in_features, m.out_features))
+    def routes(self) -> dict:
+        """{route: products} over every module."""
+        out = dict.fromkeys(QUANT_ROUTES, 0)
+        for (_, route), n in self.items():
+            out[route] += n
+        return out
+
+    def k4(self) -> dict:
+        """{module prefix: products sent to K4}."""
+        return {prefix: n for (prefix, route), n in self.items() if route == "k4"}
 
 
 @contextlib.contextmanager
-def k4_calls(model, shapes: set | None = None):
-    """{module prefix: quantized products sent to K4} while inside, from
-    forward hooks on every QuantLinear (quant_linear's rule on the rows each
-    call sees); each product's (rows, K, N, x dtype) is added to ``shapes``."""
-    from dexbotic_tpu_torch.nn.core import QuantLinear
-    from dexbotic_tpu_torch.ops import quant_matmul as qm
+def quant_routes_seen(model, shapes: set | None = None):
+    """The routes the dispatch rule (quant_route) gives the QuantLinear calls
+    of ``model`` while inside, on any thread: a RoutesSeen keyed by the
+    module's first two name parts, from forward pre-hooks on the rows and
+    the device each call sees; each K4 product's (rows, K, N, x dtype) is
+    added to ``shapes``."""
+    import threading
 
-    seen, handles = {}, []
+    from dexbotic_tpu_torch.nn.core import QuantLinear
+
+    seen, lock, handles = RoutesSeen(), threading.Lock(), []
     for name, m in model.named_modules():
         if isinstance(m, QuantLinear):
-            def hook(mod, args, name=name):
+            def hook(mod, args, prefix=".".join(name.split(".")[:2])):
                 x = args[0]
                 rows = x.numel() // mod.in_features
-                if ((qm.W8A8_MIN_ROWS is None or rows < qm.W8A8_MIN_ROWS) and qm.KERNEL_DISPATCH
-                        and x.device.type == "cuda"
-                        and qm.quant_matmul_eligible(rows, mod.in_features, mod.out_features)):
-                    key = ".".join(name.split(".")[:2])
-                    seen[key] = seen.get(key, 0) + 1
-                    if shapes is not None:
+                route = quant_route(rows, mod.in_features, mod.out_features, x.device.type)
+                with lock:
+                    seen[prefix, route] += 1
+                    if route == "k4" and shapes is not None:
                         shapes.add((rows, mod.in_features, mod.out_features, x.dtype))
             handles.append(m.register_forward_pre_hook(hook))
     try:
@@ -1539,7 +1623,7 @@ def k4_calls(model, shapes: set | None = None):
 @torch.no_grad()
 def cogact_parts_ms(model, cfg, ids, valid, imgs, noise) -> dict:
     """A CogACT request's device path by part, each timed alone as a
-    CUDA-synchronised median of 10 (``wall_ms``): the ViT and projector
+    CUDA-synchronised median of 5 (``wall_ms``): the ViT and projector
     (``encode_images``), the LLM prefill on the spliced embeddings, the
     action sampler on the cognition feature (K2 where
     ``cogact_inference_action`` takes it by K2's shape rule, else the plain
@@ -1556,13 +1640,13 @@ def cogact_parts_ms(model, cfg, ids, valid, imgs, noise) -> dict:
     sample = fused_dit_sample if fused else dit_sample_ref
     kw = dict(steps=cfg.ddim_steps, cfg_scale=cfg.cfg_scale, sampler=cfg.sampler)
     return {
-        "tower_projector_ms": wall_ms(lambda: encode_images(model.vlm, cfg.vlm, imgs), reps=10),
+        "tower_projector_ms": wall_ms(lambda: encode_images(model.vlm, cfg.vlm, imgs), reps=5),
         "prefill_ms": wall_ms(lambda: vlm_forward(model.vlm, cfg.vlm, ids, valid,
-                                                  inputs_embeds=embeds), reps=10),
+                                                  inputs_embeds=embeds), reps=5),
         "sampler_ms": wall_ms(lambda: sample(model.action_head, cfg.dit, z, noise, schedule(cfg),
-                                             **kw), reps=10),
+                                             **kw), reps=5),
         "device_call_ms": wall_ms(lambda: cogact_inference_action(model, cfg, ids, valid, imgs,
-                                                                  noise=noise), reps=10)}
+                                                                  noise=noise), reps=5)}
 
 
 def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) -> dict:
@@ -1624,7 +1708,7 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
         launches = {name: fn.launches for name, fn in kernels.items()}
         plain_calls = attention.plain_cuda_calls
         if quantize:  # one more single frame: K4's launches against the rule's products
-            with k4_calls(model) as seen:
+            with quant_routes_seen(model) as seen:
                 qm.quant_matmul.launches = 0
                 _post(port, prompt, [png])
                 k4_single = qm.quant_matmul.launches
@@ -1698,11 +1782,11 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
         want = k4_products(model, cfg, L)
         print(f"  K4 launches in one single-frame request: {k4_single}; the rule's products, "
               f"from the model: {sum(want.values())} {want}; from forward hooks: "
-              f"{sum(seen.values())} {seen}")
-        if not k4_single == sum(want.values()) == sum(seen.values()):
+              f"{seen.routes()['k4']} {seen.k4()}")
+        if not k4_single == sum(want.values()) == seen.routes()["k4"]:
             failures.append(f"K4 launched {k4_single} times in a single-frame request; the "
                             f"dispatch rule gives it {sum(want.values())} products {want}, "
-                            f"the hooks saw {sum(seen.values())}")
+                            f"the hooks saw {seen.routes()['k4']}")
         result["k4_single_request"] = k4_single
         qm.W8A8_MIN_ROWS = None  # "w8a8" set it for this process
         cos_bf16 = _cosine(a, bf16["chunk"])
@@ -1755,7 +1839,7 @@ def phase_pi0(failures: list) -> dict:
     port = httpd.server_address[1]
     # one attention call a layer: the prefill, then one per Euler step
     per_call = cfg.llm.num_layers * (1 + cfg.num_flow_steps)
-    n_single = 12
+    n_single = 6
     torch.cuda.reset_peak_memory_stats()
     try:
         flash_attention.launches = 0
@@ -1830,7 +1914,8 @@ def phase_pi0(failures: list) -> dict:
 
     calls = part_calls(model, cfg, *args, noise)
     parts = {f"{part}_ms": ms for part, (ms,) in
-             split_parts({name: (wall_ms(fn),) for name, fn in calls.items()}).items()}
+             split_parts({name: (wall_ms(fn, reps=PART_REPS),)
+                          for name, fn in calls.items()}).items()}
     t_call = parts["device_call_ms"]
     _, q, k, v, ints = pi0_attn_inputs(1, 64, "suffix", torch.Generator(device="cuda").manual_seed(14))
     for _ in range(5):
@@ -1841,7 +1926,7 @@ def phase_pi0(failures: list) -> dict:
         flash_attention_fwd(q, k, v, *ints)
     host_ms = (time.perf_counter() - t) * 10
     torch.cuda.synchronize()
-    print(f"  device path (CUDA-synchronised wall clock, medians of 5): ViT + projector (and the "
+    print(f"  device path (CUDA-synchronised wall clock, medians of {PART_REPS}): ViT + projector (and the "
           f"text embedding) {parts['vit_projector_ms']:.2f} ms, prefill {parts['prefill_ms']:.2f} ms "
           f"({cfg.llm.num_layers} layers), {cfg.num_flow_steps} Euler steps "
           f"{parts['euler_steps_ms']:.2f} ms, whole call {t_call:.2f} ms; K1 wrapper host time "
@@ -1856,11 +1941,15 @@ def phase_pi0(failures: list) -> dict:
             "norms": norms, "state": state, "views": views}
 
 
+ROUTE_SINGLES, ROUTE_EIGHTS = 6, 4  # 5d's requests a route, the first of each not timed
+
+
 def _route_latencies(port: int, png: bytes) -> dict:
-    """Ten single-frame requests and six 8-frame ones; ms of each after the first."""
-    one = [_post(port, PROMPT, [png])[1] * 1e3 for _ in range(10)]
+    """ROUTE_SINGLES single-frame requests and ROUTE_EIGHTS 8-frame ones; ms
+    of each after the first."""
+    one = [_post(port, PROMPT, [png])[1] * 1e3 for _ in range(ROUTE_SINGLES)]
     eight = [_post(port, ";".join([PROMPT] * 8), [png] * 8, batch_size=8)[1] * 1e3
-             for _ in range(6)]
+             for _ in range(ROUTE_EIGHTS)]
     out = {}
     for label, lat in (("1", one[1:]), ("8", eight[1:])):
         out[f"p50_{label}_ms"] = statistics.median(lat)
@@ -1949,12 +2038,14 @@ def phase_fused_preprocess(failures: list, serve: dict) -> dict:
         finally:
             httpd.shutdown()
             httpd.server_close()
-    served = 10 + 6 + client.get("requests", 0)
+    served = ROUTE_SINGLES + ROUTE_EIGHTS + client.get("requests", 0)
     route_calls = {r: (s.fused_calls, s.host_calls) for r, s in servers.items()}
     print(f"  route counters (fused_calls, host_calls): {route_calls}; requests served by each: "
           f"host 16, fused {served}; launches on the fused route: {counts}")
-    if route_calls["fused"] != (served, 0) or route_calls["host"] != (0, 16):
-        failures.append(f"5d: route counters {route_calls}, want fused ({served}, 0), host (0, 16)")
+    host_want = (0, ROUTE_SINGLES + ROUTE_EIGHTS)
+    if route_calls["fused"] != (served, 0) or route_calls["host"] != host_want:
+        failures.append(f"5d: route counters {route_calls}, want fused ({served}, 0), host "
+                        f"{host_want}")
     if counts.get("flash_fwd", 0) <= 0 or counts.get("dit_sample", 0) <= 0:
         failures.append(f"5d: the fused route launched {counts}")
     if counts.get("plain_cuda_calls"):
@@ -2075,8 +2166,6 @@ def pi0_k4_products(model, cfg, views: int, text_len: int, batch: int = 1) -> di
     bucket), and per Euler step the expert's at the suffix, the action
     projections' and the time MLP's at the action tokens, the state's at one
     row (where the layers are quantized at all: inference_quantize_min_size)."""
-    from dexbotic_tpu_torch.nn.core import QuantLinear
-
     T = cfg.vit.num_output_tokens
     steps = cfg.num_flow_steps
     actions = torch.nn.ModuleList([model.action_in_proj, model.action_out_proj,
@@ -2087,8 +2176,7 @@ def pi0_k4_products(model, cfg, views: int, text_len: int, batch: int = 1) -> di
              "expert": (model.expert.layers, batch * cfg.suffix_len, steps),
              "action_and_time": (actions, batch * cfg.chunk_size, steps),
              "state_proj": (getattr(model, "state_proj", torch.nn.Identity()), batch, steps)}
-    return {part: calls * sum(k4_takes(rows, m) for m in mod.modules()
-                              if isinstance(m, QuantLinear))
+    return {part: calls * quant_route_counts([(mod, rows)])["k4"]
             for part, (mod, rows, calls) in parts.items()}
 
 
@@ -2137,7 +2225,7 @@ def phase_pi0_replay(failures: list, pi0: dict) -> dict:
     shapes = set()
     try:
         _post(port, PROMPT, pi0["views"], states=pi0["state"])  # warm-up, not counted
-        with k4_calls(model, shapes) as seen:
+        with quant_routes_seen(model, shapes) as seen:
             flash_attention.launches = qm.quant_matmul.launches = attention.plain_cuda_calls = 0
             latencies = [_post(port, PROMPT, pi0["views"], states=pi0["state"])[1] * 1e3
                          for _ in range(n_req)]
@@ -2149,7 +2237,7 @@ def phase_pi0_replay(failures: list, pi0: dict) -> dict:
         httpd.server_close()
     want = pi0_k4_products(model, cfg2, views=len(pi0["views"]), text_len=args[0].shape[1])
     per_req = counts["quant_matmul"] / n_req
-    hooks = sum(seen.values()) / n_req
+    hooks = seen.routes()["k4"] / n_req
     print(f"  int8 served, {n_req} requests of 3 views + a state: launches {counts}; K4 a request "
           f"{per_req:g}; the rule's products, from the model: {sum(want.values())} {want}; from "
           f"forward hooks: {hooks:g} a request")
@@ -2208,7 +2296,7 @@ def phase_pi0_replay(failures: list, pi0: dict) -> dict:
 OFT_ROUTES = [("l1", {}), ("libero_l1", {"chunk_size": 8, "use_proprio": True, "proprio_dim": 8}),
               ("diffusion", {"action_model_type": "Diffusion"}),
               ("discrete", {"action_model_type": "Discrete"})]
-OFT_REQUESTS = 8  # timed single-frame requests a route, after one warm-up
+OFT_REQUESTS = 4  # timed single-frame requests a route, after one warm-up
 
 
 def oft_k1_per_request(cfg) -> int:
@@ -2225,8 +2313,6 @@ def oft_k4_products(model, cfg, prompt_len: int) -> dict:
     then the segment at each DDIM step), the head's (the MLPResNet at the
     chunk's rows, the noisy-action projector at the action tokens, Discrete's
     lm_head at the action tokens, the proprio projector at one row)."""
-    from dexbotic_tpu_torch.nn.core import QuantLinear
-
     vit = cfg.vlm.vit
     vit_layers = vit.num_layers + (vit.select_layer + 1 if vit.select_layer is not None else 0)
     head, llm = model.action_head, model.vlm.llm
@@ -2248,7 +2334,7 @@ def oft_k4_products(model, cfg, prompt_len: int) -> dict:
         parts["lm_head"] = (llm.lm_head, cfg.num_action_tokens, 1)
     if cfg.use_proprio:
         parts["proprio_projector"] = (head.proprio_projector, 1, calls)
-    return {part: n * sum(k4_takes(rows, m) for m in mod.modules() if isinstance(m, QuantLinear))
+    return {part: n * quant_route_counts([(mod, rows)])["k4"]
             for part, (mod, rows, n) in parts.items()}
 
 
@@ -2294,9 +2380,10 @@ def oft_parts_ms(model, cfg, ids, valid, imgs, states, noise) -> dict:
     def call():
         return om.oft_inference_action(model, cfg, ids, valid, imgs, states=states, noise=noise)
 
-    parts = {"tower_projector_ms": wall_ms(lambda: om.encode_images(model.vlm, cfg.vlm, imgs)),
-             "decoder_ms": wall_ms(decoder), "head_ms": wall_ms(head),
-             "device_call_ms": wall_ms(call)}
+    parts = {"tower_projector_ms": wall_ms(lambda: om.encode_images(model.vlm, cfg.vlm, imgs),
+                                           reps=PART_REPS),
+             "decoder_ms": wall_ms(decoder, reps=PART_REPS),
+             "head_ms": wall_ms(head, reps=PART_REPS), "device_call_ms": wall_ms(call, reps=PART_REPS)}
     busy, n_kernels, _ = trace(call)
     parts.update(device_busy_ms=busy, idle_share=1 - busy / parts["device_call_ms"],
                  kernels=n_kernels)
@@ -2496,7 +2583,7 @@ def phase_oft(failures: list) -> dict:
               f"launches ({row['k1_per_request']:g} a request, segment {rcfg.segment_len} "
               f"tokens), plain attention calls on CUDA {plain}; device call "
               f"{row['device_call_ms']:.2f} ms = tower {row['tower_projector_ms']:.2f} + decoder "
-              f"{row['decoder_ms']:.2f} + head {row['head_ms']:.2f} (medians of 5), device idle "
+              f"{row['decoder_ms']:.2f} + head {row['head_ms']:.2f} (medians of {PART_REPS}), device idle "
               f"{row['idle_share']:.1%} of it over {row['kernels']} kernels")
         results[route] = row
     if total["flash_bwd"] or total["quant_matmul"]:
@@ -2550,7 +2637,7 @@ def phase_oft_int8(failures: list, oft: dict) -> dict:
         shapes = set()
         try:
             _oft_serve(port, rcfg, oft["png"], oft["state_json"], 1)  # warm-up, not counted
-            with k4_calls(model, shapes) as seen, k1_calls(k1_shapes):
+            with quant_routes_seen(model, shapes) as seen, k1_calls(k1_shapes):
                 flash_attention.launches = flash_attention_bwd.launches = 0
                 qm.quant_matmul.launches = attention.plain_cuda_calls = 0
                 outs, lat = _oft_serve(port, rcfg, oft["png"], oft["state_json"], OFT_REQUESTS)
@@ -2565,7 +2652,7 @@ def phase_oft_int8(failures: list, oft: dict) -> dict:
             total[k] += counts[k]
         want = oft_k4_products(model, rcfg, ids.shape[1])
         per_req = counts["quant_matmul"] / OFT_REQUESTS
-        hooks = sum(seen.values()) / OFT_REQUESTS
+        hooks = seen.routes()["k4"] / OFT_REQUESTS
         k1_want = OFT_REQUESTS * oft_k1_per_request(rcfg)
         unchecked = sorted((M, K, N, str(dt)[6:]) for M, K, N, dt in shapes - K4_CHECKED)
         if not all(o.shape == (rcfg.chunk_size, rcfg.action_dim) and np.isfinite(o).all()
@@ -2631,7 +2718,7 @@ def write_suite(root: str, views: int = 1, name: str = "train", frames: int = 24
 
     rng = np.random.default_rng(6)
     os.makedirs(root, exist_ok=True)
-    yy, xx = np.mgrid[0:480, 0:640]
+    yy, xx = np.mgrid[0:480, 0:640].astype(np.int16)
     for e in range(episodes):
         lines = []
         for t in range(frames):
@@ -2641,7 +2728,8 @@ def write_suite(root: str, views: int = 1, name: str = "train", frames: int = 24
                 if t < 24:
                     img = np.stack([(xx + 9 * t) % 256, (yy + 40 * e) % 256,
                                     (xx + yy) // (4 + c) % 256], -1)
-                    img = (img + rng.integers(0, 16, img.shape)).clip(0, 255).astype(np.uint8)
+                    img = np.minimum(img + rng.integers(0, 16, img.shape).astype(np.int16),
+                                     255).astype(np.uint8)
                     Image.fromarray(img).save(os.path.join(root, url), compress_level=0)
                 row[f"images_{c}"] = {"type": "image", "url": url}
             state = np.sin(np.arange(7) * 0.7 + t * 0.2 + e) + 0.01 * rng.standard_normal(7)
@@ -3035,12 +3123,12 @@ def phase_pi0_train_compare(failures: list, dataset: str, stats: str) -> dict:
 
 
 def phase_pi0_train_steps(failures: list, dataset: str, stats: str) -> dict:
-    """Three steps of the recipe through Pi0Exp.train(), K1/K3 and the plain
+    """Two steps of the recipe through Pi0Exp.train(), K1/K3 and the plain
     CUDA attention calls counted around them.  The checkpoint leaves out the
     optimizer's moments (save_optimizer=False: 26 GB to disk)."""
     from dexbotic_tpu_torch.ops.attention import attention, flash_attention, flash_attention_bwd
 
-    micro, accum, steps = PI0_TRAIN_MICRO, 4, 3
+    micro, accum, steps = PI0_TRAIN_MICRO, 4, 2
     print(f"phase 8b: {steps} pi0 training steps through Pi0Exp.train() "
           f"(micro-batch {micro}, accumulation {accum}, remat, no freeze)")
     exp = pi0_train_exp(dataset, stats, "out_pi0_train", micro, accum, steps, save_optimizer=False)
@@ -3250,7 +3338,7 @@ def phase_oft_train_steps(failures: list, dataset: str, workers: int) -> dict:
             "data_wait_s": wait_s, "peak_gib": peak, "workers": workers, "train_wall_s": wall}
 
 
-OFT_TRAIN_STEPS = 4
+OFT_TRAIN_STEPS = 2
 
 
 def phase_oft_train(failures: list) -> dict:
@@ -3272,10 +3360,11 @@ def phase_oft_train(failures: list) -> dict:
 # weights, gradients and Adam's two moments take 16 bytes a parameter.  A
 # LLaMA-2-7B layer holds 202.4M parameters; the embedding, lm_head,
 # CLIP-L/336 and the projector 0.59B; so N layers take (0.59 + 0.2024 N) x 16
-# GB before activations: 8 layers 35.3 GB, 16 layers 61.3 GB (57.1 GiB), all
-# 32 would take 113 GB, more than one card.  8 keep the whole script within
-# its time with phases 12 and 13 (16 took ~1 min more).
-RL_LAYERS = 8
+# GB before activations: 4 layers 22.4 GB, 8 layers 35.3 GB, 16 layers 61.3
+# GB (57.1 GiB), all 32 would take 113 GB, more than one card.  4 keep the
+# whole script within its time with phases 14e and 14f (8 took ~15 s more;
+# at 2, 10a's loss_abs rule failed: PERF.md §7).
+RL_LAYERS = 4
 RL_EPISODE_STEPS = 64  # the mock envs' episode and the rollout budget: 8 chunks of 8 steps
 # the metrics of one step of train_rl(), as the JAX package's loop reports them
 RL_METRICS = {"pg_loss", "clip_frac", "approx_kl", "entropy", "loss", "grad_norm",
@@ -3472,6 +3561,59 @@ def seed_rows_(ds, seed: int) -> None:
             fn.augmentations.rng = np.random.default_rng(seed)
 
 
+def rl_watched(cfg) -> dict:
+    """10a's watched parameter groups: {name: parameter-name prefix} of the
+    projector, the tower's last layer, lm_head and the decoder's last layer."""
+    L, vit = cfg.vlm.llm.num_layers, cfg.vlm.vit
+    nv = vit.num_layers + (vit.select_layer + 1 if vit.select_layer is not None else 0)
+    return {"projector": "vlm.projector.", "vit_last_layer": f"vlm.vit.layers.{nv - 1}.",
+            "lm_head": "vlm.llm.lm_head.", "llm_last_layer": f"vlm.llm.layers.{L - 1}."}
+
+
+def rl_watched_grads(named_grads, watched: dict) -> dict:
+    """{group: the group's gradients flattened into one fp32 vector}."""
+    return {k: torch.cat([g.float().flatten() for n, g in named_grads
+                          if n.startswith(prefix) and g is not None])
+            for k, prefix in watched.items()}
+
+
+def rl_micro_step(model, cfg, exp, mb: dict, watched: dict) -> tuple[dict, dict]:
+    """One GRPO micro-batch through rl_policy_loss and its backward, no
+    update: (metrics with the gradients' global norm and the K1/K3 launches,
+    the watched groups' gradients); the model is left without gradients."""
+    from dexbotic_tpu_torch.exp.optim import global_norm
+    from dexbotic_tpu_torch.exp.rl.rl_trainer import rl_policy_loss
+    from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
+
+    model.requires_grad_(True)
+    n0 = (flash_attention.launches, flash_attention_bwd.launches)
+    with torch.enable_grad():
+        loss, metrics = rl_policy_loss(model, cfg, exp.grpo, mb, exp.rollout.temperature)
+        loss.backward()
+    named = [(n, p.grad) for n, p in model.named_parameters()]
+    out = {k: float(v.detach()) for k, v in metrics.items()}
+    out["grad_norm"] = float(global_norm([g for _, g in named if g is not None]))
+    out["launches"] = (flash_attention.launches - n0[0], flash_attention_bwd.launches - n0[1])
+    g = rl_watched_grads(named, watched)
+    for p in model.parameters():
+        p.grad = None
+    model.requires_grad_(False)
+    return out, g
+
+
+def rl_bf16_copy(model, cfg, cast):
+    """A copy of the fp32 actor ``model`` on the card with the dtype rule
+    ``cast(module, torch.bfloat16)`` (nn/core.cast_matrices_ or
+    cast_served_) applied before the values are copied in."""
+    from dexbotic_tpu_torch.models.oft import build_oft
+
+    bf = build_oft(cfg, "cuda", prepare=lambda m: cast(m, torch.bfloat16))
+    with torch.no_grad():
+        for p, q in zip(bf.parameters(), model.parameters()):
+            p.copy_(q)
+    return bf
+
+
 def phase_rl_update_compare(failures: list) -> dict:
     """Phase 10a: one GRPOUpdater micro-step on a rollout batch of the 8 envs
     and the same fp32 weights, through the kernel path (K1, K3 on q, k, v
@@ -3484,9 +3626,7 @@ def phase_rl_update_compare(failures: list) -> dict:
     matrices cost the same step (a bf16 copy of the weights on the plain
     attention, a reading).  Then the update, which must move the fp32
     weights."""
-    from dexbotic_tpu_torch.exp.optim import global_norm
-    from dexbotic_tpu_torch.exp.rl.rl_trainer import GRPOUpdater, rl_policy_loss
-    from dexbotic_tpu_torch.models.oft import build_oft
+    from dexbotic_tpu_torch.exp.rl.rl_trainer import GRPOUpdater
     from dexbotic_tpu_torch.nn.core import cast_matrices_
     from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
 
@@ -3502,40 +3642,17 @@ def phase_rl_update_compare(failures: list) -> dict:
     model = exp.model.build_params(cfg, "cuda")
     n_params = sum(p.numel() for p in model.parameters())
     mb = rl_rollout_batch(exp, cfg, model, tok)
-    L, vit = cfg.vlm.llm.num_layers, cfg.vlm.vit
-    nv = vit.num_layers + (vit.select_layer + 1 if vit.select_layer is not None else 0)
-    watched = {"projector": "vlm.projector.", "vit_last_layer": f"vlm.vit.layers.{nv - 1}.",
-               "lm_head": "vlm.llm.lm_head.", "llm_last_layer": f"vlm.llm.layers.{L - 1}."}
+    L = cfg.vlm.llm.num_layers
+    watched = rl_watched(cfg)
 
-    def grab(named_grads):
-        return {k: torch.cat([g.float().flatten() for n, g in named_grads
-                              if n.startswith(prefix) and g is not None])
-                for k, prefix in watched.items()}
-
-    def run(m, c):  # one micro-batch's metrics and watched gradients, no update
-        m.requires_grad_(True)
-        n0 = (flash_attention.launches, flash_attention_bwd.launches)
-        with torch.enable_grad():
-            loss, metrics = rl_policy_loss(m, c, exp.grpo, mb, exp.rollout.temperature)
-            loss.backward()
-        named = [(n, p.grad) for n, p in m.named_parameters()]
-        out = {k: float(v.detach()) for k, v in metrics.items()}
-        out["grad_norm"] = float(global_norm([g for _, g in named if g is not None]))
-        out["launches"] = (flash_attention.launches - n0[0], flash_attention_bwd.launches - n0[1])
-        g = grab(named)
-        for p in m.parameters():
-            p.grad = None
-        m.requires_grad_(False)
-        return out, g
+    def run(m, c):
+        return rl_micro_step(m, c, exp, mb, watched)
 
     plain = plain_config(cfg)
     w32, g32 = run(model, plain)
     with decoder_plain_on_bf16():
         wpl, gpl = run(model, plain)
-    bf = build_oft(plain, "cuda", prepare=lambda m: cast_matrices_(m, torch.bfloat16))
-    with torch.no_grad():
-        for p, q in zip(bf.parameters(), model.parameters()):
-            p.copy_(q)
+    bf = rl_bf16_copy(model, plain, cast_matrices_)
     wbf, gbf = run(bf, plain)
     del bf
     free_memory()
@@ -3547,7 +3664,7 @@ def phase_rl_update_compare(failures: list) -> dict:
     metrics, grads = updater.grads(model, mb)
     wk = {k: float(v) for k, v in metrics.items()}
     wk["launches"] = (flash_attention.launches - n0[0], flash_attention_bwd.launches - n0[1])
-    gk = grab(grads.items())
+    gk = rl_watched_grads(grads.items(), watched)
     wk["grad_norm"] = float(updater.apply(model, grads))
     del grads
     with torch.no_grad():
@@ -3713,9 +3830,10 @@ def phase_rl_rollouts(failures: list) -> dict:
                                             temperature=T)
     dl = (logp - plain_logp).abs()
     logp_ok = bool((dl <= 2.0 ** -7 * plain_logp.abs() + 1e-3).all())
-    actor_ms = wall_ms(lambda: actor(obs, inst, gen))
+    actor_ms = wall_ms(lambda: actor(obs, inst, gen), reps=PART_REPS)
     device_call_ms = wall_ms(lambda: om.oft_generate_action(model, cfg, ids_t, valid_t, imgs_t,
-                                                            None, gen, temperature=T))
+                                                            None, gen, temperature=T),
+                             reps=PART_REPS)
     model.float()  # the fp32 witness
     lw = om.discrete_bin_logits(model, plain, ids_t, valid_t, imgs_t, None, T)
     off = {label: (x.argmax(-1) != lw.argmax(-1)).float().mean().item()
@@ -3743,7 +3861,7 @@ def phase_rl_rollouts(failures: list) -> dict:
           f"{err['plain']:.5g}; {int(flips.sum())} bins decided otherwise than the plain path, "
           f"their plain-path gaps at most {widest:.5g} (near-tie bound {near_tie:.5g})")
     print(f"  a chunk call: actor {actor_ms:.2f} ms (host preprocessing of {RL_ENVS} frames "
-          f"included), device call {device_call_ms:.2f} ms (medians of 5)")
+          f"included), device call {device_call_ms:.2f} ms (medians of {PART_REPS})")
     unchecked = sorted(shapes - K1_RL_CHECKED)
     checks = [(cos >= 0.999, f"10c: bin-logit cosine {cos} < 0.999"),
               (err["kernel"] <= 2.0 * err["plain"] + 1e-3,
@@ -3819,13 +3937,15 @@ def memvla_parts_ms(model, cfg, ids, valid, imgs, state, noise) -> dict:
     def call():
         return mm.memvla_inference_action(model, cfg, ids, valid, imgs, state, t, noise=noise)
 
-    tower = wall_ms(lambda: encode_images(model.vlm, cfg.vlm, imgs))
+    tower = wall_ms(lambda: encode_images(model.vlm, cfg.vlm, imgs), reps=PART_REPS)
     parts = {"tower_projector_ms": tower,
-             "prefill_se_ms": wall_ms(lambda: mm.encode(model, cfg, ids, valid, imgs)) - tower,
-             "bank_step_ms": wall_ms(lambda: mm.bank_step(model, cfg, state, per, cog, t)),
+             "prefill_se_ms": wall_ms(lambda: mm.encode(model, cfg, ids, valid, imgs),
+                                      reps=PART_REPS) - tower,
+             "bank_step_ms": wall_ms(lambda: mm.bank_step(model, cfg, state, per, cog, t),
+                                     reps=PART_REPS),
              "dit_sampler_ms": wall_ms(lambda: mm.sample_actions(model, cfg, cog_f, per_f, noise,
-                                                                 cfg.cfg_scale)),
-             "device_call_ms": wall_ms(call)}
+                                                                 cfg.cfg_scale), reps=PART_REPS),
+             "device_call_ms": wall_ms(call, reps=PART_REPS)}
     busy, n_kernels, _ = trace(call)
     parts.update(device_busy_ms=busy, idle_share=1 - busy / parts["device_call_ms"],
                  kernels=n_kernels)
@@ -3956,7 +4076,7 @@ def phase_memvla(failures: list) -> dict:
     print(f"  {n} requests p50 {row['p50_ms']:.1f} ms, p90 {row['p90_ms']:.1f} ms; device call "
           f"{parts['device_call_ms']:.2f} ms = tower {parts['tower_projector_ms']:.2f} + prefill "
           f"and SE {parts['prefill_se_ms']:.2f} + bank step {parts['bank_step_ms']:.2f} + DiT "
-          f"sampler {parts['dit_sampler_ms']:.2f} (medians of 5), device idle "
+          f"sampler {parts['dit_sampler_ms']:.2f} (medians of {PART_REPS}), device idle "
           f"{parts['idle_share']:.1%} of it over {parts['kernels']} kernels")
     unchecked = sorted(shapes - K1_MEMVLA_CHECKED)
     checks = [(counts == want_counts, f"11a: bank counts {counts}, want {want_counts}"),
@@ -4003,7 +4123,7 @@ def phase_memvla_int8(failures: list, mem: dict) -> dict:
         k1s, k4s = set(), set()
         flash_attention.launches = fused_dit_sample.launches = attention.plain_cuda_calls = 0
         qm.quant_matmul.launches = 0
-        with k1_calls(k1s), k4_calls(model, k4s) as seen:
+        with k1_calls(k1s), quant_routes_seen(model, k4s) as seen:
             chunks, lat, counts = _memvla_episode(port, mem["pngs"], MEMVLA_INT8_REQUESTS, server)
         launches = {"flash_fwd": flash_attention.launches, "quant_matmul": qm.quant_matmul.launches,
                     "dit_sample": fused_dit_sample.launches,
@@ -4015,12 +4135,12 @@ def phase_memvla_int8(failures: list, mem: dict) -> dict:
     qm.W8A8_MIN_ROWS = old_rows
     cos = [_cosine(a.flatten().double(), b.flatten().double())
            for a, b in zip(q, mem["kernel_chunks"][:n])]
-    hooks = sum(seen.values())
+    hooks = seen.routes()["k4"]
     unchecked = sorted(k4s - K4_CHECKED, key=str)
     lat = sorted(lat)
     row = {"p50_ms": statistics.median(lat), "launches": launches,
            "k4_per_request": launches["quant_matmul"] / n, "k4_hook_products": hooks,
-           "k4_by_module": seen, "int8_weight_bytes": int8_bytes,
+           "k4_by_module": seen.k4(), "int8_weight_bytes": int8_bytes,
            "bf16_weight_bytes": mem["bf16_weight_bytes"], "cosine_to_bf16_min": min(cos),
            "bank_counts": counts, "k4_shapes": sorted([list(s[:3]) + [str(s[3])] for s in k4s])}
     print(f"  K4 {launches['quant_matmul']} launches ({row['k4_per_request']:g} a request; the "
@@ -4059,10 +4179,12 @@ K4_INSTANCES = [(t, r, 1 if r <= 64 else 2) for t in ("bf16", "f32")
 # collator's TRAIN_SEQ_LEN tokens, at 12a's 2 rows (MEMVLA_TRAIN_CASE, held
 # by phases 3 and 6) and the recipe's 8 (TRAIN_CASE).  The samples are
 # CogACT's template on this suite's own states, so their byte-level answers
-# differ in length: 12a's six samples are up to MEMVLA_TRAIN_TOKENS.  The
+# differ in length: 12a's six samples are up to MEMVLA_TRAIN_TOKENS (the
+# norm statistics and the rows drawn with the global ``random`` seeded by
+# the trainer's seed: the answers' digits follow the statistics).  The
 # suite: 8 episodes (one a parallel stream at B=8) of 17 frames (16 actions:
 # the action pipeline's trajectory length).
-MEMVLA_TRAIN_MICRO, MEMVLA_TRAIN_STEPS, MEMVLA_TRAIN_TOKENS = 2, 2, 1279
+MEMVLA_TRAIN_MICRO, MEMVLA_TRAIN_STEPS, MEMVLA_TRAIN_TOKENS = 2, 2, 1280
 MEMVLA_TRAIN_CASE = (MEMVLA_TRAIN_MICRO, TRAIN_SEQ_LEN, 32, 32, 128,
                      TRAIN_SEQ_LEN - MEMVLA_TRAIN_TOKENS, False)
 K1_MEMVLA_TRAIN_CHECKED = {(c[0], c[1], c[1]) for c in (MEMVLA_TRAIN_CASE, TRAIN_CASE)}
@@ -4099,10 +4221,14 @@ def redraw_memvla_(model, gen) -> None:
 
 
 def _memvla_batches(exp, tok, n: int, micro: int) -> tuple[list, int]:
-    """The schedule's first ``n`` batches on the card, and the longest sample's tokens."""
+    """The schedule's first ``n`` batches on the card, their draws seeded
+    with the trainer's seed (seed_rows_: else the samples, and their
+    lengths, follow whatever the phases before drew from the global
+    ``random``), and the longest sample's tokens."""
     from dexbotic_tpu_torch.data.collator import Collator
 
     ds = exp.data.build_data(exp.build_tokenization(tok), exp.action.build_action_process_func())
+    seed_rows_(ds, exp.trainer.seed)
     collator = Collator(pad_token_id=tok.pad_token_id, max_length=exp.tokenizer.model_max_length)
     it = exp.schedule_batches(ds, collator, micro)
     host = [next(it) for _ in range(n)]
@@ -4129,8 +4255,11 @@ def phase_memvla_train_compare(failures: list, dataset: str) -> dict:
     from dexbotic_tpu_torch.nn.core import cast_matrices_
     from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
 
+    import random
+
     B = MEMVLA_TRAIN_MICRO
     exp = memvla_train_exp(dataset, "out_mem_compare", B, 1)
+    random.seed(exp.trainer.seed)  # the statistics redraw episodes' last frames from it
     exp._auto_compute_norm_stats()
     tok = exp.tokenizer.build_tokenizer()
     free_memory()
@@ -4496,7 +4625,7 @@ def phase_navila_serve(failures: list) -> dict:
     if n_prompt != NAVILA_PROMPT_TOKENS:
         failures.append(f"13a: the prompt is {n_prompt} tokens; phase 3 holds K1 at "
                         f"{NAVILA_PROMPT_TOKENS}")
-    pngs = [_frame_png(130 + i) for i in range(10)]
+    pngs = [_frame_png(130 + i) for i in range(7)]
     observed, served = pngs[:3], pngs[3:]
     httpd = server.serve_background()
     port = httpd.server_address[1]
@@ -4560,9 +4689,9 @@ def phase_navila_serve(failures: list) -> dict:
             sess.inputs(server.frame([("f", served[0])]), NAVILA_INSTRUCTION)
             torch.cuda.synchronize()
             host.append((time.perf_counter() - t0) * 1e3)
-        tower = wall_ms(lambda: encode_images(model.vlm, cfg.vlm, imgs))
-        pre = wall_ms(prefill)
-        whole = wall_ms(call)
+        tower = wall_ms(lambda: encode_images(model.vlm, cfg.vlm, imgs), reps=PART_REPS)
+        pre = wall_ms(prefill, reps=PART_REPS)
+        whole = wall_ms(call, reps=PART_REPS)
         busy, n_kernels, _ = trace(call)
         decode = whole - pre
         parts = {"tower_projector_ms": tower, "prefill_ms": pre - tower, "decode_ms": decode,
@@ -4821,7 +4950,7 @@ def phase_navila(failures: list) -> dict:
 DISCRETE_PROMPT_TOKENS, DISCRETE_BUCKET, DISCRETE_MAX_PROMPT, DISCRETE_NEW = 855, 896, 896, 32
 DISCRETE_CACHE = DISCRETE_MAX_PROMPT + DISCRETE_NEW
 DISCRETE_SLOTS, DISCRETE_CHUNK, DISCRETE_CLIENTS, DISCRETE_CLIENT_REQUESTS = 8, 512, 8, 1
-DISCRETE_RETRIES, DISCRETE_TRAIN_TOKENS, DISCRETE_TRAIN_MICRO, DISCRETE_TRAIN_STEPS = 1, 884, 8, 3
+DISCRETE_RETRIES, DISCRETE_TRAIN_TOKENS, DISCRETE_TRAIN_MICRO, DISCRETE_TRAIN_STEPS = 1, 884, 8, 2
 # 14a serves DISCRETE_SERVE_LAYERS of LLaMA-2-7B's 32 decoder layers (every
 # width kept): the decode is host-bound at ~55 eager kernels a layer and a
 # token, and a request whose text does not parse (every one with random
@@ -4839,6 +4968,7 @@ MUVLA_INSTRUCTIONS = ("go to the red door", "go to the tan door", "go to the big
                       "go to the old door")
 MUVLA_VIEWS, MUVLA_PROMPT_TOKENS, MUVLA_BUCKET, MUVLA_MAX_PROMPT, MUVLA_NEW = 4, 959, 960, 1024, 32
 MUVLA_SLOTS, MUVLA_CLIENT_REQUESTS, MUVLA_TRAIN_TOKENS = 4, 1, 999
+MUVLA_SEQUENTIAL = 2  # 14d's requests without the engine, after a warm-up
 MUVLA_ANSWERS = ("The next action is move forward 75 cm.",
                  "The next action is turn left 30 degree.")
 # 14c: four NaVILA sessions on make_shared_engine(slots=4, max_prompt=2240,
@@ -4988,7 +5118,8 @@ class EngineProbe:
             live = int(engine.live.sum())
             t0 = time.perf_counter()
             out = step(*args)
-            torch.cuda.synchronize()
+            if engine.device.type == "cuda":
+                torch.cuda.synchronize()
             self.ticks.append((live, (time.perf_counter() - t0) * 1e3))
             return out
 
@@ -5054,23 +5185,33 @@ def hold_decode(label: str, model, llm_mod, llm_cfg, n_prompt: int, generate_cal
         cos = [_cosine(a.double(), b.double()) for a, b in zip(lk, lp)]
         model.float()
         lw = teacher_forced()
+    held = hold_logits(label, f"teacher-forced over {n_steps} steps", "steps", lk, lp, lw, checks)
+    checks.append((min(cos) >= 0.999, f"{label}: teacher-forced logit cosine {min(cos)} < 0.999"))
+    return {"teacher_forced_steps": n_steps, "logit_cosine_min": min(cos), **held}
+
+
+def hold_logits(label: str, what: str, rows: str, lk, lp, lw, checks: list) -> dict:
+    """10c's rule on logits [n, V] of the kernel path ``lk`` and the plain
+    path ``lp`` against an fp32 witness ``lw``: the kernel path's largest
+    error <= 2x the plain path's + 1e-3, and an argmax that differs from the
+    plain path's only across a near-tie (the plain path's top-two gap <= 2x
+    its largest error)."""
     err_p, err_k = (lp - lw).abs().max().item(), (lk - lw).abs().max().item()
     ak, ap = lk.argmax(-1), lp.argmax(-1)
     flips = ak != ap
     gaps = (lp.gather(-1, ap[:, None]) - lp.gather(-1, ak[:, None]))[:, 0][flips]
     widest = gaps.max().item() if flips.any() else 0.0
     near_tie, err_bound = 2.0 * err_p, 2.0 * err_p + 1e-3
-    print(f"  {label} teacher-forced over {n_steps} steps: logit cosine {min(cos):.6f} at worst; "
-          f"argmax differs at {int(flips.sum())} steps (plain-path gaps at most {widest:.4g}, "
-          f"near-tie bound {near_tie:.4g}); largest logit error from the fp32 witness: kernel "
-          f"{err_k:.4g}, plain {err_p:.4g} (bound {err_bound:.4g})")
-    checks += [(min(cos) >= 0.999, f"{label}: teacher-forced logit cosine {min(cos)} < 0.999"),
-               (err_k <= err_bound, f"{label}: the kernel path's largest logit error from the "
+    cos = min(_cosine(a.double(), b.double()) for a, b in zip(lk, lp))
+    print(f"  {label} {what}: logit cosine {cos:.6f} at worst; argmax differs at "
+          f"{int(flips.sum())} {rows} (plain-path gaps at most {widest:.4g}, near-tie bound "
+          f"{near_tie:.4g}); largest logit error from the fp32 witness: kernel {err_k:.4g}, plain "
+          f"{err_p:.4g} (bound {err_bound:.4g})")
+    checks += [(err_k <= err_bound, f"{label}: the kernel path's largest logit error from the "
                                     f"fp32 witness {err_k} > 2 x the plain path's {err_p} + 1e-3"),
-               (widest <= near_tie, f"{label}: the kernel path decided a step otherwise than "
-                                    f"the plain path across a gap of {widest} > {near_tie}")]
-    return {"teacher_forced_steps": n_steps, "logit_cosine_min": min(cos),
-            "argmax_flips": int(flips.sum()), "flip_gap_max": widest, "near_tie_bound": near_tie,
+               (widest <= near_tie, f"{label}: the kernel path decided a {rows[:-1]} otherwise "
+                                    f"than the plain path across a gap of {widest} > {near_tie}")]
+    return {"argmax_flips": int(flips.sum()), "flip_gap_max": widest, "near_tie_bound": near_tie,
             "logit_err_bound": err_bound, "logit_err_vs_fp32": {"kernel": err_k, "plain": err_p}}
 
 
@@ -5186,9 +5327,11 @@ def discrete_exp(dataset: str = "", out: str = "", micro: int = 2, steps: int = 
 def phase_discrete_serve(failures: list) -> dict:
     """Phase 14a: Discrete VLA-7B at DISCRETE_SERVE_LAYERS decoder layers
     (seeded bf16 weights, max_retries=1) served by DiscreteVLAServer over
-    HTTP three ways: without the engine (8
-    requests in sequence), with continuous_batching=8 (8 clients x
-    DISCRETE_CLIENT_REQUESTS requests at once) and the same with prefill_chunk=512.  Around each
+    HTTP with continuous_batching=8 (8 clients x DISCRETE_CLIENT_REQUESTS
+    requests at once, one-shot admissions; every request's text fails to
+    parse and takes the sampled retries, discrete_vla_inference_action,
+    which is what the server runs without the engine; 14e serves the engine
+    with prefill_chunk=512 at all 32 layers).  Around each
     route: K1 counted and its shapes recorded (all among phase 3's), no K2,
     K3, K4 or plain CUDA attention call; on the engine routes ticks served
     several slots, and every request's engine tokens equal its input's
@@ -5203,8 +5346,7 @@ def phase_discrete_serve(failures: list) -> dict:
     from dexbotic_tpu_torch.exp.serve import DiscreteVLAServer
     from dexbotic_tpu_torch.models.generate import generate
     from dexbotic_tpu_torch.models.vlm import vlm_forward
-    from script.profile_pi0_torch import trace
-
+    
     exp = discrete_exp(layers=DISCRETE_SERVE_LAYERS)
     t0 = time.perf_counter()
     cfg, model, norms = exp.load_for_inference()
@@ -5224,8 +5366,7 @@ def phase_discrete_serve(failures: list) -> dict:
     def key(ids, images, embeds):
         return hash(np.asarray(images).tobytes())
 
-    for route, slots, chunk in (("sequential", 0, 0), ("engine", DISCRETE_SLOTS, 0),
-                                ("engine_chunked", DISCRETE_SLOTS, DISCRETE_CHUNK)):
+    for route, slots, chunk in (("engine", DISCRETE_SLOTS, 0),):
         server = DiscreteVLAServer(exp, cfg, model, tok, norms, host="127.0.0.1", port=0,
                                    continuous_batching=slots, prefill_chunk=chunk)
         probe = EngineProbe(server.engine, key) if slots else None
@@ -5252,18 +5393,7 @@ def phase_discrete_serve(failures: list) -> dict:
             idle = None
             if slots and not chunk:  # one full tick of the idle engine, traced
                 eng = server.engine
-                dev = eng.device
-                args = (torch.full((eng.S,), DISCRETE_PROMPT_TOKENS, dtype=torch.int32, device=dev),
-                        torch.zeros(eng.S, dtype=torch.int32, device=dev),
-                        torch.zeros(eng.S, dtype=torch.bool, device=dev),
-                        torch.full((eng.S,), eng.N, dtype=torch.int32, device=dev), eng.k)
-                t1 = time.perf_counter()
-                eng._step(*args)
-                torch.cuda.synchronize()
-                tick_ms = (time.perf_counter() - t1) * 1e3
-                busy, n_kernels, _ = trace(lambda: eng._step(*args))
-                idle = {"tick_ms": tick_ms, "device_busy_ms": busy, "kernels": n_kernels,
-                        "idle_share": 1 - busy / tick_ms}
+                idle = tick_parts(eng, DISCRETE_PROMPT_TOKENS)
         finally:
             httpd.shutdown()
             httpd.server_close()
@@ -5292,8 +5422,9 @@ def phase_discrete_serve(failures: list) -> dict:
                   f"ticks around one: {row['max_tick_gap_admission_ms']} ms one-shot, "
                   f"{row['max_tick_gap_chunked_admission_ms']} ms chunked")
         if idle is not None:
-            print(f"    one full tick ({eng.k} steps, {eng.S} slots) traced: {tick_ms:.1f} ms, device "
-                  f"busy {busy:.1f} ms over {n_kernels} kernels, idle {idle['idle_share']:.1%}")
+            print(f"    one full tick ({eng.k} steps, {eng.S} slots) traced: {idle['tick_ms']:.1f} "
+                  f"ms, device busy {idle['device_busy_ms']:.1f} ms over {idle['kernels']} kernels, "
+                  f"idle {idle['idle_share']:.1%}")
         checks += [(launches["flash_fwd"] > 0, f"14a {route}: no K1 launch"),
                    (launches["flash_bwd"] == launches["dit_sample"] == launches["quant_matmul"]
                     == launches["plain_cuda_calls"] == 0, f"14a {route}: launches {launches}"),
@@ -5613,7 +5744,7 @@ def phase_muvla(failures: list) -> dict:
     """Phase 14d: MUVLA-7B (the example recipe's defaults: LLaMA-2-7B, two
     CLIP-L/336 towers, a fuser of 1024 and 192 history queries; seeded bf16
     weights) served by MUVLAServer over HTTP (a map view + 4 observation
-    views a request) without the engine (4 requests in sequence), then with
+    views a request) without the engine (MUVLA_SEQUENTIAL requests in sequence), then with
     continuous_batching=4 (the embeds route) from 4 client threads; K1
     counted and its shapes held to phase 3's; the engine's tokens against
     generate alone by 13a's near-tie rule; p50/p90, the fuse time (towers +
@@ -5666,7 +5797,7 @@ def phase_muvla(failures: list) -> dict:
                 if slots:
                     lat, wall = _clients(post, [[i] * MUVLA_CLIENT_REQUESTS for i in range(slots)])
                 else:
-                    lat, wall = _clients(post, [list(range(MUVLA_SLOTS))])
+                    lat, wall = _clients(post, [list(range(MUVLA_SEQUENTIAL))])
             launches = _launch_counts()
         finally:
             httpd.shutdown()
@@ -5787,10 +5918,585 @@ def phase_muvla(failures: list) -> dict:
     del model, server, g32, gpl, gk, gbf, batch
     free_memory()
     return {"params": n_params, "prompt_tokens": n_prompt, "routes": routes,
-            "fuse_ms": fuse_ms, **witness,
+            "fuse_ms": fuse_ms, **witness, "engine_tokens": engine_tokens,
             "train": {"kernel": wk, "plain": wpl, "bf16_matrices": wbf, "fp32_witness": w32,
                       "vs_fp32": vs, "bounds": bounds, "peak_gib": peak,
                       "launches": {"flash_fwd": wk["launches"][0], "flash_bwd": wk["launches"][1]}}}
+
+
+# ---------------------------------------------------------------------------
+# Phases 14e and 14f: the token-decoding policies served with int8 weights
+# (inference_quantize "int8", then "w8a8") through the decode engine
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def quant_calls():
+    """{route: calls} the package made while inside: K4's launches (its
+    count) and quant_linear's calls of the dequantize formulation and of
+    w8a8_matmul (wrappers on the two functions of ops/quant_matmul)."""
+    import threading
+
+    from dexbotic_tpu_torch.ops import quant_matmul as qm
+
+    calls, lock = {"dequant": 0, "w8a8": 0}, threading.Lock()
+    real = {"dequant": qm.quant_matmul_ref, "w8a8": qm.w8a8_matmul}
+
+    def counted(route):
+        def call(*args, **kw):
+            with lock:
+                calls[route] += 1
+            return real[route](*args, **kw)
+        return call
+
+    n0 = qm.quant_matmul.launches
+    qm.quant_matmul_ref, qm.w8a8_matmul = counted("dequant"), counted("w8a8")
+    try:
+        yield calls
+    finally:
+        qm.quant_matmul_ref, qm.w8a8_matmul = real["dequant"], real["w8a8"]
+        calls["k4"] = qm.quant_matmul.launches - n0
+
+
+def tower_passes(vit, vcfg, images: int) -> list:
+    """The quantized products of a ViT over ``images`` frames: the patch
+    embedding over their patches, the layers up to select_layer over their
+    tokens (nn/vit.vit_forward)."""
+    n = vcfg.num_layers + (vcfg.select_layer + 1 if vcfg.select_layer is not None else 0)
+    return ([(vit.patch_embed, images * vcfg.num_patches)]
+            + [(layer, images * vcfg.seq_len) for layer in vit.layers[:n]])
+
+
+def head_passes(llm, rows: int, n: int) -> list:
+    """``n`` calls of lm_logits over ``rows`` rows: the lm_head's products
+    (a tied table is dequantized by lm_logits itself: none)."""
+    return [(llm.lm_head, rows)] * n if hasattr(llm, "lm_head") else []
+
+
+def generate_passes(vlm, vcfg, prompt: int, new: int, images: int) -> list:
+    """The quantized products of one models/generate.generate call of one
+    row: the tower and projector over ``images`` frames (0: the prompt's
+    embeds are given), the prefill of ``prompt`` rows, ``new`` - 1 one-row
+    steps and ``new`` lm_logits calls."""
+    passes = []
+    if images:
+        passes += tower_passes(vlm.vit, vcfg.vit, images)
+        passes.append((vlm.projector, images * vcfg.vit.num_output_tokens))
+    passes += [(vlm.llm.layers, prompt)] + [(vlm.llm.layers, 1)] * (new - 1)
+    return passes + head_passes(vlm.llm, 1, new)
+
+
+def engine_passes(vlm, vcfg, eng, admissions: list, ticks: int, prompt: int,
+                  images: int) -> list:
+    """The quantized products of a decode engine's ``admissions`` (its
+    admit_log entries) of prompts of ``prompt`` tokens with ``images``
+    frames each (0: the embeds route) and of ``ticks`` ticks: an admission
+    of B runs the tower and projector over B x ``images`` frames, then one
+    prefill of B x bucket rows or, chunked, S x chunk rows a chunk up to the
+    prompt's end; a tick runs ``eng.k`` steps of S rows and lm_logits."""
+    passes = []
+    for _, _, B, bucket, chunked in admissions:
+        if images:
+            passes += tower_passes(vlm.vit, vcfg.vit, B * images)
+            passes.append((vlm.projector, B * images * vcfg.vit.num_output_tokens))
+        if chunked:
+            passes += [(vlm.llm.layers, eng.S * min(eng.chunk, bucket - off))
+                       for off in range(0, prompt, eng.chunk)]
+        else:
+            passes.append((vlm.llm.layers, B * bucket))
+    passes += [(vlm.llm.layers, eng.S)] * (ticks * eng.k)
+    return passes + head_passes(vlm.llm, eng.S, ticks * eng.k)
+
+
+def muvla_fuse_passes(model, cfg, views: int) -> list:
+    """The quantized products of models/muvla.fuse_obs_with_history for one
+    request of a map view and ``views`` observation views: the observation
+    tower over the current view, then over the history; the QFormer's input
+    projection and attention (its queries against the history's tokens); the
+    map tower; the fuser (the observation tokens against the map's); the
+    projector over the fused tokens."""
+    ov, Q = cfg.obs_vit, cfg.num_history_queries
+    passes = tower_passes(model.obs_vit, ov, 1)
+    n_obs = ov.num_output_tokens
+    if views > 1:
+        mem = (views - 1) * ov.num_output_tokens
+        a = model.qformer.attn
+        passes += tower_passes(model.obs_vit, ov, views - 1)
+        passes += [(model.qformer.input_proj, mem), (a.q, Q), (a.k, mem), (a.v, mem), (a.o, Q)]
+        n_obs += Q
+    passes += tower_passes(model.vit, cfg.vlm.vit, 1)
+    n_map, f = cfg.vlm.vit.num_output_tokens, model.fuser.attn
+    return passes + [(f.q, n_obs), (f.k, n_map), (f.v, n_map), (f.o, n_obs),
+                     (model.projector, n_obs)]
+
+
+@contextlib.contextmanager
+def generate_calls(module, out: list):
+    """Records every ``generate`` call made through ``module``'s name for it
+    while inside: (images' bytes hash or None, prompt rows, new tokens,
+    temperature, tokens, each step's logits [steps, V])."""
+    call = module.generate
+
+    def recorded(vlm, vcfg, ids, valid, images, max_new, eos, *args, temperature=0.0, **kw):
+        logits: list = []
+        with decode_logits(logits):
+            toks, lp = call(vlm, vcfg, ids, valid, images, max_new, eos, *args,
+                            temperature=temperature, **kw)
+        key = None if images is None else hash(images.cpu().numpy().tobytes())
+        out.append((key, ids.shape[1], max_new, temperature, toks[0].tolist(), torch.cat(logits)))
+        return toks, lp
+
+    module.generate = recorded
+    try:
+        yield out
+    finally:
+        module.generate = call
+
+
+@torch.no_grad()
+def first_step_logits(vlm, vcfg, ids, images=None, embeds=None, tok=None,
+                      cache_dtype=torch.bfloat16):
+    """generate's first decode step over a batch of whole prompts ``ids``
+    [B, S] at once: the prefill into a cache of S + 1 columns, then one
+    query row a prompt fed ``tok`` [B] (None: the prefill's argmax).
+    (the step's logits fp32 [B, V], tok)."""
+    from dexbotic_tpu_torch.models.vlm import vlm_forward
+    from dexbotic_tpu_torch.nn.transformer import embed_tokens, init_kv_cache, lm_logits
+
+    B, S = ids.shape
+    cache = init_kv_cache(vcfg.llm, B, S + 1, dtype=cache_dtype, device=ids.device)
+    hidden, cache = vlm_forward(vlm, vcfg, ids, torch.ones_like(ids), images=images,
+                                inputs_embeds=embeds, cache=cache, update_cache=True)
+    if tok is None:
+        tok = lm_logits(vlm.llm, vcfg.llm, hidden[:, -1]).float().argmax(-1).to(torch.int32)
+    emb = embed_tokens(vlm.llm, vcfg.llm, tok[:, None], dtype=hidden.dtype)
+    pos = torch.full((B, 1), S, dtype=torch.int32, device=ids.device)
+    hidden, _ = vlm_forward(vlm, vcfg, tok[:, None], torch.ones_like(pos), inputs_embeds=emb,
+                            positions=pos, grp=pos + 1, cache=cache, update_cache=True)
+    return lm_logits(vlm.llm, vcfg.llm, hidden[:, 0]).float(), tok
+
+
+def hold_decode_step(label: str, model, vlm, vcfg, ids, checks: list, images=None,
+                     embeds_fn=None) -> dict:
+    """10c's rule on one decode step of B prompts at once (B = the engine's
+    slots: K4's few-row tiles and the lm_head at the decode's rows): the
+    kernel path (K1, and K4 on int8 weights), the plain path (the plain
+    attention; on int8 weights the dequantize formulation, plain_int8) and
+    an fp32 witness (every floating weight in fp32, the int8 q kept: the
+    dequantized weights' values; the plain path without W8A8, an fp32
+    cache), each fed
+    the kernel path's first token: the kernel path's largest logit error
+    from the witness <= 2x the plain path's + 1e-3, an argmax that differs
+    from the plain path's only across a near-tie (its top-two gap <= 2x its
+    largest error).  ``embeds_fn()`` gives the prompt's embeds where the
+    policy splices them itself (MUVLA).  The model is left as it was found."""
+    plain = dataclasses.replace(vcfg, llm=dataclasses.replace(vcfg.llm, attn_impl="xla"))
+    emb = (lambda: None) if embeds_fn is None else embeds_fn
+    k_logits, tok = first_step_logits(vlm, vcfg, ids, images, emb())
+    with plain_int8():
+        p_logits, _ = first_step_logits(vlm, plain, ids, images, emb(), tok)
+    from dexbotic_tpu_torch.ops import quant_matmul as qm
+
+    dtypes = {name: p.dtype for name, p in model.named_parameters()}
+    w8a8, qm.W8A8_MIN_ROWS = qm.W8A8_MIN_ROWS, None  # the witness keeps every activation
+    model.float()
+    try:
+        with plain_int8():
+            w_logits, _ = first_step_logits(vlm, plain, ids, images, emb(), tok,
+                                            cache_dtype=torch.float32)
+    finally:
+        qm.W8A8_MIN_ROWS = w8a8
+        for name, p in model.named_parameters():
+            p.data = p.data.to(dtypes[name])
+    cos = min(_cosine(a.double(), b.double()) for a, b in zip(k_logits, p_logits))
+    held = hold_logits(label, f"one decode step of {ids.shape[0]} prompts", "rows", k_logits,
+                       p_logits, w_logits, checks)
+    return {"rows": ids.shape[0], "logit_cosine_min": cos, **held}
+
+
+def decode_weight_bytes(llm) -> int:
+    """Bytes of the weights one decode step reads: every decoder layer's
+    parameters and the lm_head's (int8 q and its scales where quantized; an
+    embedding row a slot is left out)."""
+    mods = [llm.layers, llm.norm] + ([llm.lm_head] if hasattr(llm, "lm_head") else [])
+    return sum(nbytes(*m.parameters()) for m in mods)
+
+
+def tick_parts(eng, prompt: int) -> dict:
+    """One full tick (``eng.k`` steps, every slot live at ``prompt`` prompt
+    tokens) of the idle engine, traced: its wall ms, the card's busy ms and
+    idle share, and the device ms of K4, K1 and everything else."""
+    from script.profile_pi0_torch import trace
+
+    dev = eng.device
+    args = (torch.full((eng.S,), prompt, dtype=torch.int32, device=dev),
+            torch.zeros(eng.S, dtype=torch.int32, device=dev),
+            torch.zeros(eng.S, dtype=torch.bool, device=dev),
+            torch.full((eng.S,), eng.N, dtype=torch.int32, device=dev), eng.k)
+    eng._step(*args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng._step(*args)
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t1) * 1e3
+    busy, n_kernels, by_name = trace(lambda: eng._step(*args))
+    parts = {"k4": 0.0, "k1": 0.0, "other": 0.0}
+    for name, ms in by_name.items():  # the kernels' own, not PyTorch's reduce_kernel
+        ours = "anonymous namespace" in name or "_GLOBAL__N_" in name  # csrc's own kernels
+        part = ("k4" if ours and any(k in name for k in K4_KERNELS)
+                else "k1" if any(k in name for k in K1_KERNELS) else "other")
+        parts[part] += ms
+    return {"tick_ms": tick_ms, "device_busy_ms": busy, "kernels": n_kernels,
+            "idle_share": 1 - busy / tick_ms, "host_ms": tick_ms - busy,
+            "device_ms_by_part": parts}
+
+
+def token_agreement(tokens: dict, ref: dict) -> dict:
+    """Each request's engine tokens (EngineProbe.tokens) against the same
+    input's first request in ``ref`` (another route's): the share of
+    requests equal in full, and the mean share of a request's tokens before
+    its first difference."""
+    same, prefix = [], []
+    for key, lists in tokens.items():
+        want = ref[key][0]
+        for toks in lists:
+            n = next((i for i, (a, b) in enumerate(zip(toks, want)) if a != b),
+                     min(len(toks), len(want)))
+            same.append(toks == want)
+            prefix.append(n / max(len(want), 1))
+    return {"equal_share": statistics.mean(same), "mean_prefix_share": statistics.mean(prefix)}
+
+
+def quant_route_checks(label: str, seen: dict, calls: dict, want: dict, shapes: set,
+                       launches: dict, checks: list) -> None:
+    """A quantized route's counts: the hooks' routes equal the rule's counts
+    from the model, and the package's K4 launches, dequantize calls and
+    w8a8 calls equal them; every K4 shape one phase 4c holds; no K2, K3 or
+    plain attention call."""
+    unheld = sorted((M, K, N, str(dt)) for M, K, N, dt in shapes - K4_CHECKED)
+    checks += [(seen == want, f"{label}: the hooks' routes {seen} != the rule's {want}"),
+               (calls == seen, f"{label}: the package's calls {calls} != the hooks' {seen}"),
+               (not unheld, f"{label}: K4 took shapes phase 4c does not hold: {unheld}"),
+               (launches["flash_fwd"] > 0 and launches["flash_bwd"] == launches["dit_sample"]
+                == launches["plain_cuda_calls"] == 0, f"{label}: launches {launches}")]
+
+
+class DigitDecode:
+    """The exp's tokenizer, whose decode writes each token id as its number:
+    a greedy decode then always parses (the first seven ids as bins), so the
+    served requests measure the engine, not the sampled retries (with random
+    weights a real decode never parses)."""
+
+    def __init__(self, tok):
+        self._tok = tok
+
+    def __getattr__(self, name):
+        return getattr(self._tok, name)
+
+    def __call__(self, *args, **kw):
+        return self._tok(*args, **kw)
+
+    def decode(self, ids):
+        return " ".join(str(int(i)) for i in ids)
+
+
+def phase_discrete_quant(failures: list) -> dict:
+    """Phase 14e: Discrete VLA-7B at all 32 decoder layers (seeded weights,
+    max_retries=1) built by DiscreteVLAExp.load_for_inference(), served by
+    DiscreteVLAServer over HTTP through the engine (8 slots,
+    prefill_chunk=512), 8 clients x 1 request, three ways: bf16 (the
+    reference), then the same model quantized in place by the exp's
+    quantize_inference_model with inference_quantize="int8", then "w8a8"
+    (W8A8_MIN_ROWS = 2048, restored after).  The server decodes with
+    DigitDecode, so every client's text parses; in the "int8" route one
+    more request then decodes with the exp's tokenizer, whose text does not
+    parse (random weights), so that it takes discrete_vla_inference_action's
+    retries on the quantized weights (a greedy and a sampled generate; the
+    greedy one must equal generate alone's tokens).  Per route: the hooks' routes, K4's launches and the
+    dequantize and w8a8 calls against the rule's counts from the model and
+    the engine's admissions and ticks; K4 and K1 shapes among 4c's and 3's;
+    no K2, K3 or plain call.  Per quantized route: each request's engine
+    tokens equal to generate's alone or first differing at a near-tie
+    (10c's rule on one decode step of the 8 prompts, hold_decode_step;
+    "w8a8" takes "int8"'s references and retries, and its traced tick, where
+    the rule sends none of their products to W8A8: both then run the same
+    kernels on the same operands).  Readings: p50/p90, ms a full tick, a traced tick by
+    part with the idle share, weight bytes a decode step, the peak, the
+    quantized routes' agreement with the bf16 route's tokens."""
+    from dexbotic_tpu_torch.exp.serve import DiscreteVLAServer
+    from dexbotic_tpu_torch.models import discrete_vla as dv_mod
+    from dexbotic_tpu_torch.ops import quant_matmul as qm
+
+    exp = discrete_exp()
+    t0 = time.perf_counter()
+    cfg, model, norms = exp.load_for_inference()
+    cfg = dataclasses.replace(cfg, max_retries=DISCRETE_RETRIES)
+    torch.cuda.synchronize()
+    tok = exp.tokenizer.build_tokenizer()
+    eos = tok.eos_token_id
+    print(f"phase 14e: Discrete VLA-7B at all {cfg.vlm.llm.num_layers} decoder layers "
+          f"({sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params, built in "
+          f"{time.perf_counter() - t0:.1f} s) through the engine ({DISCRETE_SLOTS} slots, "
+          f"prefill_chunk={DISCRETE_CHUNK}), {DISCRETE_CLIENTS} clients x 1 request: bf16, int8, w8a8")
+    pngs = [_frame_png(200 + i) for i in range(DISCRETE_CLIENTS)]
+    prepared = [DiscreteVLAServer._prepare(types.SimpleNamespace(exp=exp, cfg=cfg, tokenizer=tok),
+                                           {"text": LIBERO_PROMPT}, [("f", png)]) for png in pngs]
+    ids_b = torch.from_numpy(np.stack([i for i, _ in prepared])).cuda()
+    imgs_b = torch.from_numpy(np.stack([m for _, m in prepared])).cuda()
+
+    def key(ids, images, embeds):
+        return hash(np.asarray(images).tobytes())
+
+    checks, routes, tokens = [], {}, {}
+    try:
+        for mode in ("", "int8", "w8a8"):
+            label = f"14e {mode or 'bf16'}"
+            if mode:
+                dataclasses.replace(exp, inference_quantize=mode).quantize_inference_model(model)
+            checks.append((qm.W8A8_MIN_ROWS == (2048 if mode == "w8a8" else None),
+                           f"{label}: W8A8_MIN_ROWS is {qm.W8A8_MIN_ROWS}"))
+            # generate alone; "w8a8" repeats "int8"'s where the rule sends none of its products
+            # to W8A8 (the same kernels on the same operands): its references and retries
+            alone = generate_passes(model.vlm, cfg.vlm, DISCRETE_PROMPT_TOKENS, cfg.max_new_tokens, 1)
+            own_generate = mode == "int8" or (mode == "w8a8"
+                                              and quant_route_counts(alone)["w8a8"] > 0)
+            server = DiscreteVLAServer(exp, cfg, model, DigitDecode(tok), norms, host="127.0.0.1",
+                                       port=0, continuous_batching=DISCRETE_SLOTS,
+                                       prefill_chunk=DISCRETE_CHUNK)
+            eng = server.engine
+            probe = EngineProbe(eng, key)
+            httpd = server.serve_background()
+            port = httpd.server_address[1]
+            replies, gens, shapes, k4_shapes = [], [], set(), set()
+
+            def post(png):
+                out, dt = _post(port, LIBERO_PROMPT, [png])
+                replies.append(out.item())
+                return dt
+
+            try:
+                n_ticks, n_adm = len(probe.ticks), len(eng.admit_log)
+                _zero_counts()
+                torch.cuda.reset_peak_memory_stats()
+                with (k1_calls(shapes), generate_calls(dv_mod, gens),
+                      quant_routes_seen(model, k4_shapes) as seen, quant_calls() as calls):
+                    lat, wall = _clients(post, [[png] for png in pngs])
+                    n_tok = sum(len(t) for lists in probe.tokens.values() for t in lists)
+                    summary = probe.summary()  # the clients' ticks
+                    if own_generate:  # the exp's tokenizer: its text does not parse: the retries
+                        server.tokenizer = tok
+                        retry = _post(port, LIBERO_PROMPT, [pngs[0]])[0].item()
+                launches = _launch_counts()
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                ticks = len(probe.ticks) - n_ticks
+                one_tick = engine_passes(model.vlm, cfg.vlm, eng, [], 1, DISCRETE_PROMPT_TOKENS, 1)
+                if mode == "w8a8" and quant_route_counts(one_tick)["w8a8"] == 0:
+                    tick = routes["int8"]["tick_trace"]  # a tick runs int8's kernels
+                else:
+                    tick = tick_parts(eng, DISCRETE_PROMPT_TOKENS)
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                server.close()
+            passes = engine_passes(model.vlm, cfg.vlm, eng, eng.admit_log[n_adm:], ticks,
+                                   DISCRETE_PROMPT_TOKENS, 1)
+            for _, n_prompt, new, _, _, _ in gens:
+                passes += generate_passes(model.vlm, cfg.vlm, n_prompt, new, 1)
+            want = quant_route_counts(passes)
+            held = vs = None
+            if mode and not own_generate:
+                references = references_int8
+            elif mode:  # each input through generate alone, after the engine's requests
+                refs: list = []
+                with (torch.no_grad(), generate_calls(dv_mod, refs),
+                      quant_routes_seen(model, k4_shapes)):
+                    for ids, imgs in prepared:
+                        dv_mod.generate(model.vlm, cfg.vlm, torch.from_numpy(ids)[None].cuda(),
+                                        torch.ones(1, len(ids), dtype=torch.int32, device="cuda"),
+                                        torch.from_numpy(imgs)[None].cuda(), cfg.max_new_tokens,
+                                        eos)
+                references = references_int8 = {k: (t, lg) for k, _, _, _, t, lg in refs}
+            quant_route_checks(label, seen.routes(), dict(calls), want, k4_shapes, launches, checks)
+            if mode:  # the retry request: a greedy and a sampled generate, no parse
+                greedy = [c for c in gens if c[3] == 0.0]
+                checks += [([c[3] for c in gens] == ([0.0, 1.0] if own_generate else [])
+                            and server.unparsed == int(own_generate)
+                            and server.parsed == DISCRETE_CLIENTS,
+                            f"{label}: the retry request made generate calls at temperatures "
+                            f"{[c[3] for c in gens]}; parsed {server.parsed}, unparsed "
+                            f"{server.unparsed}"),
+                           (all(c[4] == references[c[0]][0] for c in greedy),
+                            f"{label}: the greedy retry's tokens differ from generate alone's on "
+                            f"the same input")]
+                if own_generate:
+                    checks.append((len(retry["actions"]) == cfg.action_dim
+                                   and all(math.isfinite(a) for a in retry["actions"]),
+                                   f"{label}: the retry request's reply {retry}"))
+                # the quantized model against itself: generate alone, K4 off, fp32
+                held = hold_decode_step(label, model, model.vlm, cfg.vlm, ids_b, checks,
+                                        images=imgs_b)
+                vs = hold_engine_tokens(label, probe.tokens, references, held["near_tie_bound"],
+                                        eos, checks)
+            unchecked = sorted(shapes - K1_DISCRETE_CHECKED)
+            row = {**_latency(lat), "wall_s": wall, "generated_tokens_per_s": n_tok / wall,
+                   "launches": launches, "routes_seen": seen.routes(), "routes_rule": want,
+                   "generate_calls": len(gens), "parsed": server.parsed,
+                   "unparsed": server.unparsed, "k1_shapes": sorted(shapes),
+                   "k4_shapes": sorted((M, K, N, str(dt)) for M, K, N, dt in k4_shapes),
+                   "peak_gib": peak, "decode_weight_bytes": decode_weight_bytes(model.vlm.llm),
+                   "tick_trace": tick, **summary, "decode_step": held, "vs_generate": vs}
+            tokens[mode or "bf16"] = probe.tokens
+            if mode:
+                row["vs_bf16_tokens"] = token_agreement(probe.tokens, tokens["bf16"])
+            routes[mode or "bf16"] = row
+            checks += [(not unchecked and shapes, f"{label}: K1 took shapes phase 3 does not hold: "
+                                                  f"{unchecked}"),
+                       (row["batched_steps"] > 0, f"{label}: no tick served two slots"),
+                       (len(replies) == DISCRETE_CLIENTS and all(
+                           len(r["actions"]) == cfg.action_dim
+                           and all(math.isfinite(a) for a in r["actions"]) for r in replies),
+                        f"{label}: a reply without {cfg.action_dim} finite actions")]
+            print(f"  {label}: {row['requests']} requests p50 {row['p50_ms']:.1f} ms, p90 "
+                  f"{row['p90_ms']:.1f} ms; {row['generated_tokens_per_s']:.1f} generated tokens/s; "
+                  f"ms a full tick {row['ms_a_tick_full']}; routes {seen.routes()} (rule {want}); "
+                  f"launches {launches}; {len(gens)} generate calls; peak {peak:.2f} GiB; decode "
+                  f"weights {row['decode_weight_bytes'] / 2 ** 30:.3f} GiB a step; traced tick "
+                  f"{tick['tick_ms']:.1f} ms, idle {tick['idle_share']:.1%}, device by part "
+                  f"{ {k: round(v, 3) for k, v in tick['device_ms_by_part'].items()} }"
+                  + (f"; tokens vs bf16 {row['vs_bf16_tokens']}" if mode else ""))
+            free_memory()
+    finally:
+        qm.W8A8_MIN_ROWS = None  # a process-wide global: no later int8 route runs under it
+    failures.extend(msg for ok, msg in checks if not ok)
+    del model
+    free_memory()
+    return {"prompt_tokens": DISCRETE_PROMPT_TOKENS, "routes": routes}
+
+
+def phase_muvla_quant(failures: list, bf16_tokens: dict) -> dict:
+    """Phase 14f: MUVLA-7B with 14d's seeded weights built by
+    MUVLAExp.load_for_inference() with inference_quantize="int8", served by
+    MUVLAServer through the engine (4 slots, the embeds route), 4 clients x
+    1 request, then quantize_inference_model with "w8a8" (the same q and s;
+    W8A8_MIN_ROWS = 2048, restored after) and the same again.  14e's checks
+    and readings per route; each request's engine tokens against
+    muvla_generate alone on the same input ("w8a8" takes "int8"'s, and its
+    traced tick, as in 14e); agreement with 14d's bf16 engine tokens."""
+    from dexbotic_tpu_torch.exp.serve import MUVLAServer
+    from dexbotic_tpu_torch.models.muvla import fuse_obs_with_history, muvla_generate
+    from dexbotic_tpu_torch.models.vlm import splice_image_embeds
+    from dexbotic_tpu_torch.ops import quant_matmul as qm
+    from dexbotic_tpu_torch.playground.example_muvla_exp import MyMUVLAExp
+
+    exp = MyMUVLAExp(device="cuda", inference_quantize="int8")
+    t0 = time.perf_counter()
+    cfg, model, _ = exp.load_for_inference()
+    torch.cuda.synchronize()
+    tok = exp.tokenizer.build_tokenizer()
+    eos = tok.eos_token_id
+    print(f"phase 14f: MUVLA-7B ({sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params "
+          f"with int8 q, built and quantized in {time.perf_counter() - t0:.1f} s) through the "
+          f"engine ({MUVLA_SLOTS} slots), {MUVLA_SLOTS} clients x 1 request: int8, w8a8")
+    pngs = [_frame_png(300 + i) for i in range((1 + MUVLA_VIEWS) * MUVLA_SLOTS)]
+    views = [pngs[i * (1 + MUVLA_VIEWS): (i + 1) * (1 + MUVLA_VIEWS)] for i in range(MUVLA_SLOTS)]
+    checks, routes = [], {}
+    try:
+        for mode in ("int8", "w8a8"):
+            label = f"14f {mode}"
+            if mode == "w8a8":
+                dataclasses.replace(exp, inference_quantize=mode).quantize_inference_model(model)
+            checks.append((qm.W8A8_MIN_ROWS == (2048 if mode == "w8a8" else None),
+                           f"{label}: W8A8_MIN_ROWS is {qm.W8A8_MIN_ROWS}"))
+            server = MUVLAServer(exp, cfg, model, tok, host="127.0.0.1", port=0,
+                                 max_new_tokens=MUVLA_NEW, continuous_batching=MUVLA_SLOTS)
+            eng = server.engine
+            probe = EngineProbe(eng, lambda ids, images, embeds: tuple(np.asarray(ids)))
+            httpd = server.serve_background()
+            port = httpd.server_address[1]
+            inputs = [server._prepare({"text": MUVLA_INSTRUCTIONS[i]}, [("f", p) for p in views[i]])
+                      for i in range(MUVLA_SLOTS)]
+            shapes, k4_shapes, replies = set(), set(), []
+
+            def post(i):
+                out, dt = _post(port, MUVLA_INSTRUCTIONS[i], views[i])
+                replies.append(out)
+                return dt
+
+            try:
+                n_ticks, n_adm = len(probe.ticks), len(eng.admit_log)
+                _zero_counts()
+                torch.cuda.reset_peak_memory_stats()
+                with (k1_calls(shapes), quant_routes_seen(model, k4_shapes) as seen,
+                      quant_calls() as calls):
+                    lat, wall = _clients(post, [[i] for i in range(MUVLA_SLOTS)])
+                launches = _launch_counts()
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                ticks = len(probe.ticks) - n_ticks
+                one_tick = engine_passes(model, cfg.vlm, eng, [], 1, MUVLA_PROMPT_TOKENS, 0)
+                if mode == "w8a8" and quant_route_counts(one_tick)["w8a8"] == 0:
+                    tick = routes["int8"]["tick_trace"]  # a tick runs int8's kernels
+                else:
+                    tick = tick_parts(eng, MUVLA_PROMPT_TOKENS)
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                server.close()
+            passes = engine_passes(model, cfg.vlm, eng, eng.admit_log[n_adm:], ticks,
+                                   MUVLA_PROMPT_TOKENS, 0)
+            passes += muvla_fuse_passes(model, cfg, MUVLA_VIEWS) * MUVLA_SLOTS
+            want = quant_route_counts(passes)
+            quant_route_checks(label, seen.routes(), dict(calls), want, k4_shapes, launches, checks)
+            ref_shapes = set()
+            alone = (muvla_fuse_passes(model, cfg, MUVLA_VIEWS)
+                     + generate_passes(model, cfg.vlm, MUVLA_PROMPT_TOKENS, MUVLA_NEW, 0))
+            if mode == "w8a8" and quant_route_counts(alone)["w8a8"] == 0:
+                references = references_int8  # no product of generate alone reaches W8A8's rows
+            else:  # each input through muvla_generate alone, after the engine's requests
+                references = {}
+                with torch.no_grad(), quant_routes_seen(model, ref_shapes):
+                    for ids, m, o in inputs:
+                        logits: list = []
+                        with decode_logits(logits):
+                            toks, _ = muvla_generate(model, cfg, ids, torch.ones_like(ids), m, o,
+                                                     MUVLA_NEW, eos)
+                        references[tuple(ids[0].tolist())] = (toks[0].tolist(), torch.cat(logits))
+            references_int8 = references
+            ids_b = torch.cat([i for i, _, _ in inputs])
+            maps, obs = torch.cat([m for _, m, _ in inputs]), torch.cat([o for _, _, o in inputs])
+            held = hold_decode_step(
+                label, model, model, cfg.vlm, ids_b, checks,
+                embeds_fn=lambda: splice_image_embeds(model, cfg.vlm, ids_b,
+                                                      fuse_obs_with_history(model, cfg, maps, obs)))
+            vs = hold_engine_tokens(label, probe.tokens, references, held["near_tie_bound"], eos,
+                                    checks)
+            unchecked = sorted(shapes - K1_MUVLA_CHECKED)
+            unheld = sorted((M, K, N, str(dt)) for M, K, N, dt in ref_shapes - K4_CHECKED)
+            row = {**_latency(lat), "wall_s": wall, "launches": launches,
+                   "routes_seen": seen.routes(), "routes_rule": want, "k1_shapes": sorted(shapes),
+                   "k4_shapes": sorted((M, K, N, str(dt)) for M, K, N, dt in k4_shapes),
+                   "peak_gib": peak, "decode_weight_bytes": decode_weight_bytes(model.llm),
+                   "tick_trace": tick, **probe.summary(), "decode_step": held, "vs_generate": vs,
+                   "vs_bf16_tokens": token_agreement(probe.tokens, bf16_tokens)}
+            routes[mode] = row
+            checks += [(not unchecked and shapes, f"{label}: K1 took shapes phase 3 does not hold: "
+                                                  f"{unchecked}"),
+                       (not unheld, f"{label}: generate alone gave K4 shapes phase 4c does not "
+                                    f"hold: {unheld}"),
+                       (row["batched_steps"] > 0, f"{label}: no tick served two slots"),
+                       (len(replies) == MUVLA_SLOTS, f"{label}: {len(replies)} replies")]
+            print(f"  {label}: {row['requests']} requests p50 {row['p50_ms']:.1f} ms, p90 "
+                  f"{row['p90_ms']:.1f} ms; ms a full tick {row['ms_a_tick_full']}; routes "
+                  f"{seen.routes()} (rule {want}); launches {launches}; peak {peak:.2f} GiB; decode "
+                  f"weights {row['decode_weight_bytes'] / 2 ** 30:.3f} GiB a step; traced tick "
+                  f"{tick['tick_ms']:.1f} ms, idle {tick['idle_share']:.1%}, device by part "
+                  f"{ {k: round(v, 3) for k, v in tick['device_ms_by_part'].items()} }; tokens vs "
+                  f"bf16 {row['vs_bf16_tokens']}")
+            free_memory()
+    finally:
+        qm.W8A8_MIN_ROWS = None  # a process-wide global: no later int8 route runs under it
+    failures.extend(msg for ok, msg in checks if not ok)
+    del model
+    free_memory()
+    return {"prompt_tokens": MUVLA_PROMPT_TOKENS, "routes": routes}
 
 
 # ---------------------------------------------------------------------------
@@ -5860,7 +6566,7 @@ def flow_attn_inputs(variant: str, B: int, text: int, n_valid: int, part: str, g
     return name, q, k, v, (grp[:, S - Sq:].contiguous(), grp, valid), None
 
 
-FLOW_REQUESTS = 6  # 15a's and 15b's timed single requests, after one not timed
+FLOW_REQUESTS = 3  # 15a's and 15b's timed single requests, after one not timed
 DM0_PROG_TOL = 0.05  # |end-progress, kernel path - plain path|, stated before the first run
 
 
@@ -6025,8 +6731,9 @@ def phase_flow_serve(failures: list, variant: str) -> dict:
         failures.append(f"{label}: chunk cosine {cos} / velocity cosine {vcos} < 0.99")
     calls = part_calls(model, cfg, *args, noise)
     parts = {f"{part}_ms": ms for part, (ms,) in
-             split_parts({name: (wall_ms(fn),) for name, fn in calls.items()}).items()}
-    print(f"  device path (CUDA-synchronised wall clock, medians of 5): ViT + projector (and the "
+             split_parts({name: (wall_ms(fn, reps=PART_REPS),)
+                          for name, fn in calls.items()}).items()}
+    print(f"  device path (CUDA-synchronised wall clock, medians of {PART_REPS}): ViT + projector (and the "
           f"text embedding) {parts['vit_projector_ms']:.2f} ms, prefill {parts['prefill_ms']:.2f} ms "
           f"({cfg.llm.num_layers} layers), {cfg.num_flow_steps} Euler steps "
           f"{parts['euler_steps_ms']:.2f} ms, whole call {parts['device_call_ms']:.2f} ms")
@@ -6578,7 +7285,8 @@ def group_of_one():
 
 def attn_rows(q, k, v, ints, seg, dout, reps: int = 10) -> dict:
     """K1 and K3 at one shape: {"flash_fwd": row, "flash_bwd": row}, each with
-    the kernel's time (CUDA events, median), its plain version's (3 calls),
+    the kernel's time (CUDA events, median), its own device time
+    (``device_ms``), its plain version's (3 calls),
     the bound, SDPA's time (the first backend that takes the mask; the
     backward by autograd through it) and the error against the fp32 plain
     version."""
@@ -6611,15 +7319,17 @@ def attn_rows(q, k, v, ints, seg, dout, reps: int = 10) -> dict:
              max((a.float() - r).abs().max().item() for a, r in zip(grads, ref_g)))):
         bound_ms, bound_by = bound(io, ops)
         rows[name] = {"ms": median_ms(call, reps), "plain_ms": median_ms(plain, 3),
+                      "device_ms": device_ms(call, K1_KERNELS if name == "flash_fwd"
+                                             else K3_KERNELS),
                       "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
                       "B_Sq_Skv": [q.shape[0], q.shape[1], k.shape[1]]}
     backend, leaves, call = sdpa(q, k, v, _allowed(*ints, *sq), backward=True)
     with torch.no_grad():
-        rows["flash_fwd"]["library_ms"] = median_ms(call, reps)
+        rows["flash_fwd"]["library_ms"] = median_ms(call, LIB_REPS)
     lib_out = call()
     dout_t = dout.transpose(1, 2)
     rows["flash_bwd"]["library_ms"] = median_ms(
-        lambda: torch.autograd.grad(lib_out, leaves, dout_t, retain_graph=True), reps)
+        lambda: torch.autograd.grad(lib_out, leaves, dout_t, retain_graph=True), LIB_REPS)
     for r in rows.values():
         r["sdpa_backend"] = backend
     del lib_out, leaves, ref_g, ref_out, grads
@@ -7208,18 +7918,34 @@ def build_report(log: str, failures: list) -> tuple[dict, dict, dict, dict]:
 K2_INSTANCES = [f"dit_sample_kernel<{t}, {q}>" for t in ("bf16", "f32") for q in ("dense", "int8")]
 
 
-def k2_sass_report(so: str, k2: dict, failures: list) -> None:
-    """The HGMMA instructions of every K2 instance in the built library's
-    SASS (cuobjdump), into ``k2``; a bf16 instance without one fails."""
-    import re
+def start_sass_dump(so: str):
+    """``cuobjdump -sass`` of the built library, started beside the phase
+    that follows: (the process, the file it writes) or None where the
+    toolkit has no cuobjdump."""
     import shutil
 
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
     if tool is None:
+        return None
+    out = tempfile.TemporaryFile(mode="w+")
+    return subprocess.Popen([tool, "-sass", so], stdout=out, stderr=subprocess.DEVNULL, text=True), out
+
+
+def k2_sass_report(dump, k2: dict, failures: list) -> None:
+    """The HGMMA instructions of every K2 instance in the built library's
+    SASS (``start_sass_dump``'s), into ``k2``; a bf16 instance without one
+    fails."""
+    import re
+
+    if dump is None:
         failures.append("no cuobjdump: K2's SASS cannot be checked for HGMMA")
         return
-    sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True, timeout=600).stdout
+    proc, out = dump
+    proc.wait(timeout=600)
+    out.seek(0)
+    sass = out.read()
+    out.close()
     for chunk in sass.split("Function : ")[1:]:
         m = re.match(r"\S*dit_sample_kernelI(13__nv_bfloat16|f)Lb([01])E", chunk)
         if m:
@@ -7267,7 +7993,6 @@ def main() -> int:
         with open(os.path.join(build.BUILD_DIR, "build.log")) as f:
             log = f.read()
     k1_build, k3_build, k4_build, k2_build = build_report(log, failures)
-    k2_sass_report(build.LIBRARY.path, k2_build, failures)
     k1 = phase_flash(failures)
     lap("phase_flash")
     k1_flow = phase_flash_flow(failures)
@@ -7311,8 +8036,12 @@ def main() -> int:
     free_memory()
     k3 = phase_flash_bwd(failures)
     lap("phase_flash_bwd")
+    # K2's SASS is read beside phase 7, whose steps take seconds: beside no
+    # timing of a kernel
+    sass = start_sass_dump(build.LIBRARY.path)
     train = phase_train(failures)
     lap("phase_train")
+    k2_sass_report(sass, k2_build, failures)
     free_memory()
     pi0_train = phase_pi0_train(failures)
     lap("phase_pi0_train")
@@ -7345,8 +8074,14 @@ def main() -> int:
     discrete = phase_discrete(failures)
     lap("phase_discrete")
     free_memory()
+    discrete_q = phase_discrete_quant(failures)
+    lap("phase_discrete_quant")
+    free_memory()
     muvla = phase_muvla(failures)
     lap("phase_muvla")
+    free_memory()
+    muvla_q = phase_muvla_quant(failures, muvla.pop("engine_tokens"))
+    lap("phase_muvla_quant")
     free_memory()
     par = phase_parallel(failures)
     lap("phase_parallel")
@@ -7367,22 +8102,30 @@ def main() -> int:
         "5h_oft_int8": oft_q, "7c_mesh_train": train["7c_mesh"], "9_oft_train": oft_train,
         "10_rl": rl, "11a_memvla": mem,
         "11b_memvla_int8": mem_q, "12_memvla_train": mem_train, "13_navila": nav,
-        "14_discrete": discrete, "14d_muvla": muvla, "15a_pi05": pi05, "15b_dm0": dm0,
+        "14_discrete": discrete, "14d_muvla": muvla, "14e_discrete_quant": discrete_q,
+        "14f_muvla_quant": muvla_q, "15a_pi05": pi05, "15b_dm0": dm0,
         "15c_flow_train": flow_train, "15d_hybrid": hybrid, "15e_harness": harness,
         "16_parallel": par}}, default=float))
     fleet = nav["13a_serve"]["14c_fleet"]
     d_routes, m_routes = discrete["14a_serve"]["routes"], muvla["routes"]
-    engine_keys = {  # each kernel's launches on the decode engine's paths (14a-14d), measured
-        "flash_fwd": {"discrete_launches": d_routes["sequential"]["launches"]["flash_fwd"],
-                      "discrete_engine_launches": sum(d_routes[r]["launches"]["flash_fwd"]
-                                                      for r in ("engine", "engine_chunked")),
+    dq_routes, mq_routes = discrete_q["routes"], muvla_q["routes"]
+    engine_keys = {  # each kernel's launches on the decode engine's paths (14a-14f), measured
+        "flash_fwd": {"discrete_engine_launches": d_routes["engine"]["launches"]["flash_fwd"],
+                      **{f"discrete_32_layers_{r}_launches": dq_routes[r]["launches"]["flash_fwd"]
+                         for r in dq_routes},
+                      **{f"muvla_{r}_launches": mq_routes[r]["launches"]["flash_fwd"]
+                         for r in mq_routes},
                       "discrete_train_launches": discrete["14b_train"]["launches"]["flash_fwd"],
                       "navila_fleet_launches": fleet["launches"]["flash_fwd"],
                       "muvla_launches": m_routes["sequential"]["launches"]["flash_fwd"],
                       "muvla_engine_launches": m_routes["engine"]["launches"]["flash_fwd"],
                       "muvla_train_launches": muvla["train"]["launches"]["flash_fwd"]},
         "flash_bwd": {"discrete_train_launches": discrete["14b_train"]["launches"]["flash_bwd"],
-                      "muvla_train_launches": muvla["train"]["launches"]["flash_bwd"]}}
+                      "muvla_train_launches": muvla["train"]["launches"]["flash_bwd"]},
+        "quant_matmul": {**{f"discrete_{r}_launches": dq_routes[r]["launches"]["quant_matmul"]
+                            for r in ("int8", "w8a8")},
+                         **{f"muvla_{r}_launches": mq_routes[r]["launches"]["quant_matmul"]
+                            for r in ("int8", "w8a8")}}}
     rl_train = rl["10b_train_rl"]
     rl_keys = {  # each kernel's launches on the GRPO paths (10b's runs, 10c's rollout call),
         # MemVLA's (11a, 11b, 12b) and NaVILA's (13a's requests, 13c's steps)
@@ -7470,7 +8213,7 @@ def main() -> int:
          "single_request_launches": serve_q["k4_single_request"],
          "pi0_int8_launches": pi0_q["launches"]["quant_matmul"],
          "pi0_int8_request_launches": pi0_q["k4_per_request"], **oft_keys["quant_matmul"],
-         **rl_keys["quant_matmul"], **k4, "build": k4_build},
+         **rl_keys["quant_matmul"], **engine_keys["quant_matmul"], **k4, "build": k4_build},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

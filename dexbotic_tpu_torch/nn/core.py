@@ -17,7 +17,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from dexbotic_tpu_torch.ops import norms
-from dexbotic_tpu_torch.ops.quant import quantize_weight
+from dexbotic_tpu_torch.ops.quant import jax_stack, quantize_weight
 from dexbotic_tpu_torch.ops.quant_matmul import quant_linear
 
 
@@ -85,12 +85,25 @@ def weight_dtype(mod: nn.Module) -> torch.dtype:
 
 
 def cast_matrices_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """The JAX dtype rule for served and trained weights: fp32 parameters
+    """The JAX dtype rule for trained weights, per layer: fp32 parameters
     with ndim >= 2 -> ``dtype``; 1-D parameters stay fp32."""
     for p in module.parameters():
         if p.dtype == torch.float32 and p.ndim >= 2:
             p.data = p.data.to(dtype)
     return module
+
+
+def cast_served_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """The JAX serving dtype rule (``BaseExp.prepare_inference_params``) on
+    the JAX tree: fp32 leaves with ndim >= 2 -> ``dtype``.  A layer of a list
+    the JAX tree stacks on a leading axis (``ops/quant.jax_stack``) has one
+    dim more there, so its norm scales and biases are cast as JAX casts their
+    [L, D] stacks; every other 1-D parameter stays fp32."""
+    for name, p in model.named_parameters():
+        ndim = p.ndim + (jax_stack(model, name) is not None)
+        if p.dtype == torch.float32 and ndim >= 2:
+            p.data = p.data.to(dtype)
+    return model
 
 
 # the matmul outputs a "dots" remat keeps (jax.checkpoint_policies.dots_saveable)

@@ -62,16 +62,23 @@ def quantized_bytes(model: nn.Module) -> int:
                for t in (*model.parameters(), *model.buffers()))
 
 
-def _stack_depth(model: nn.Module, name: str) -> int:
-    """Layers stacked with the module ``name`` in the JAX tree: the length of
-    the first ``layers``/``blocks`` ModuleList on its path, else 1 (also for
-    a list the JAX tree holds as a Python list: ``jax_stacked = False``)."""
+def jax_stack(model: nn.Module, name: str) -> nn.Module | None:
+    """The list the JAX tree stacks on a leading axis with the module or
+    parameter ``name``: the first ``layers``/``blocks`` ModuleList on its
+    path, unless the JAX tree holds it as a Python list (``jax_stacked =
+    False``); else None."""
     parts = name.split(".")
     for i, part in enumerate(parts[:-1]):
         if part in STACKED and parts[i + 1].isdigit():
             stack = model.get_submodule(".".join(parts[: i + 1]))
-            return len(stack) if getattr(stack, "jax_stacked", True) else 1
-    return 1
+            return stack if getattr(stack, "jax_stacked", True) else None
+    return None
+
+
+def _stack_depth(model: nn.Module, name: str) -> int:
+    """Layers stacked with the module ``name`` in the JAX tree (1 where none)."""
+    stack = jax_stack(model, name)
+    return 1 if stack is None else len(stack)
 
 
 def _is_norm_name(name: str) -> bool:

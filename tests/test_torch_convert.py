@@ -41,6 +41,7 @@ from dexbotic_tpu_torch.models import presets as tpresets
 from dexbotic_tpu_torch.models import vlm as tvlm
 from dexbotic_tpu_torch.nn import transformer as ttransformer
 from dexbotic_tpu_torch.nn import vit as tvit
+from dexbotic_tpu_torch.ops.quant import jax_stack
 from dexbotic_tpu_torch.utils import convert as tconvert
 from dexbotic_tpu_torch.utils.bridge import load_jax_params
 
@@ -468,9 +469,11 @@ def _tiny_exp(policy, path):
 @pytest.mark.parametrize("policy", ["cogact", "pi0"])
 def test_exp_serves_a_release_checkpoint_in_the_serving_dtypes(policy, tmp_path):
     """``model_name_or_path`` naming a released checkpoint: load_for_inference
-    converts it into the serving build's own dtypes (matrices bf16, vectors
-    fp32: JAX's replay casts leaves of >= 2 dims to bf16 and keeps 1-D ones
-    as loaded), holding the file's values, and reads its norm_stats.json."""
+    converts it into the serving build's own dtypes (JAX's serving rule casts
+    leaves of >= 2 dims to bf16 and keeps 1-D ones as loaded: matrices and
+    the vectors of a layer the JAX tree stacks, whose leaves are [L, D], in
+    bf16, every other vector fp32), holding the file's values, and reads its
+    norm_stats.json."""
     seeded = _tiny_exp(policy, None)
     cfg, want, _ = seeded.load_for_inference()
     for p in want.parameters():  # new values, so that a load that did nothing would show
@@ -483,8 +486,10 @@ def test_exp_serves_a_release_checkpoint_in_the_serving_dtypes(policy, tmp_path)
     _, got, got_norms = _tiny_exp(policy, str(tmp_path)).load_for_inference()
     dtypes = {n: p.dtype for n, p in got.named_parameters()}
     assert dtypes == {n: p.dtype for n, p in want.named_parameters()}
-    assert {d for n, d in dtypes.items() if got.get_parameter(n).ndim >= 2} == {torch.bfloat16}
-    assert {d for n, d in dtypes.items() if got.get_parameter(n).ndim < 2} == {torch.float32}
+    jax_ndim = {n: got.get_parameter(n).ndim + (jax_stack(got, n) is not None) for n in dtypes}
+    assert {d for n, d in dtypes.items() if jax_ndim[n] >= 2} == {torch.bfloat16}
+    assert {d for n, d in dtypes.items() if jax_ndim[n] < 2} == {torch.float32}
+    assert any(got.get_parameter(n).ndim < 2 and jax_ndim[n] >= 2 for n in dtypes)
     for (n, p), (_, q) in zip(got.named_parameters(), want.named_parameters()):
         assert torch.equal(p, q), n
     assert got_norms == (norms if policy == "cogact" else {"default": norms})

@@ -37,6 +37,8 @@ from dexbotic_tpu_torch.models import vlm as tvlm
 from dexbotic_tpu_torch.nn import transformer as ttf
 from dexbotic_tpu_torch.utils.bridge import load_jax_params
 
+from _engine import hold_admissions
+
 torch.set_num_threads(2)
 JCFG = jvlm.VLMConfig(llm=jpresets.LLM_TEST, vit=jpresets.VIT_TEST)
 TCFG = tvlm.VLMConfig(llm=tpresets.LLM_TEST, vit=tpresets.VIT_TEST)
@@ -209,9 +211,9 @@ def _jax_engine_tokens(params, prompts, T, **kw):
 
 @pytest.mark.parametrize("mode", ["one_shot", "chunked"])
 def test_engine_matches_jax_engine_and_generate(pair, mode):
-    """Three concurrent prompts through two slots (a slot reused), greedy:
-    the port's tokens equal JAX's engine and the port's generate; ticks
-    served two slots at once."""
+    """Three concurrent prompts through two slots (admitted once all three
+    are queued; a slot reused), greedy: the port's tokens equal JAX's engine
+    and the port's generate; ticks served two slots at once."""
     params, model = pair
     rs = np.random.RandomState(2 if mode == "one_shot" else 7)
     prompts = [_prompt(rs, t) for t in ((4, 6, 9) if mode == "one_shot" else (23, 4, 11))]
@@ -219,6 +221,7 @@ def test_engine_matches_jax_engine_and_generate(pair, mode):
     kw = (dict(slots=2, max_prompt=64, steps_per_tick=2) if mode == "one_shot"
           else dict(slots=2, max_prompt=64, steps_per_tick=1, prefill_chunk=16))
     eng = tengine.ContinuousBatchingEngine(model, TCFG, max_new=T, eos_token_id=-1, **kw)
+    hold_admissions(eng, len(prompts))
     try:
         got = _serve(eng, prompts)
         assert eng.batched_steps > 0

@@ -44,6 +44,8 @@ from dexbotic_tpu_torch.exp.trainer import TrainerConfig
 from dexbotic_tpu_torch.models import discrete_vla as tdv
 from dexbotic_tpu_torch.utils.bridge import load_jax_params, port_arrays
 
+from _engine import hold_admissions
+
 torch.set_num_threads(2)
 TOL = 1e-3
 PROMPT = "pick up the cube"
@@ -231,7 +233,8 @@ def test_server_engine_and_fallback_match_jax(pair):
     """Both packages' servers, with and without the engine, on a digit
     tokenizer (the greedy text parses): equal texts and actions
     (denormalised by min/max); 4 concurrent HTTP clients through the port's
-    engine (2 slots) coalesce and get the direct replies; a tokenizer whose
+    engine (2 slots; admitted once all four are queued) coalesce and get the
+    direct replies; a tokenizer whose
     text never parses takes the fused retries (zeros, denormalised)."""
     jx, tx, jcfg, tcfg, params, model = pair
     jtok = DigitTokenizer(jx.tokenizer.build_tokenizer())
@@ -264,6 +267,7 @@ def test_server_engine_and_fallback_match_jax(pair):
 
         threads = [threading.Thread(target=run, args=(i,)) for i in range(len(frames))]
         steps = tcb.engine.batched_steps
+        hold_admissions(tcb.engine, len(frames))
         for t in threads:
             t.start()
         for t in threads:

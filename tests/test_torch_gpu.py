@@ -848,6 +848,78 @@ def test_w8a8_int_mm_matches_the_int32_product(cuda):
         qm.w8a8_matmul(x[:16], q, s[:, 0])
 
 
+@pytest.mark.parametrize("M", range(1, 9))
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)])
+def test_quant_matmul_kernel_at_engine_decode_rows(cuda, M, K, N):
+    """K4 at the decode engine's rows (M = its slots, 1 to 8) at LLaMA-2-7B's
+    widths and its lm_head, through quant_linear (one launch) with bf16
+    activations, against its plain version by the bf16 rule."""
+    x, q, s = _quant_case(cuda, torch.bfloat16, M, K, N, seed=M)
+    n0 = qm.quant_matmul.launches
+    out = qm.quant_linear(x, q, s)
+    torch.cuda.synchronize()
+    assert qm.quant_matmul.launches == n0 + 1
+    _check_quant(out, x, q, s)
+
+
+def test_quantized_engine_tick_matches_plain(cuda):
+    """One tick of the decode engine (4 slots, 2 steps) over a small
+    quantized decoder (hidden 256, FFN 512, 4 heads of 64, untied lm_head;
+    every linear int8): K4 launches once a product (7 a layer and the
+    lm_head a step), and the tick's logits through K4 against the same tick
+    with the dequantize formulation from the same engine state, cosine
+    >= 0.999 a row (bf16 activations; the two differ by summation order)."""
+    from dexbotic_tpu_torch.exp import decode_engine as de
+    from dexbotic_tpu_torch.models.discrete_vla import DiscreteVLAConfig, build_discrete_vla
+    from dexbotic_tpu_torch.models.presets import VIT_TEST
+    from dexbotic_tpu_torch.models.vlm import VLMConfig
+    from dexbotic_tpu_torch.nn.transformer import TransformerConfig
+
+    llm = TransformerConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
+                            num_kv_heads=4, head_dim=64, intermediate_size=512,
+                            tie_embeddings=False)
+    cfg = DiscreteVLAConfig(vlm=VLMConfig(llm=llm, vit=VIT_TEST))
+    model = build_discrete_vla(cfg, cuda, seed=0, prepare=lambda m: cast_matrices_(m, torch.bfloat16))
+    quantize_model_(model, min_size=0)
+    eng = de.ContinuousBatchingEngine(model.vlm, cfg.vlm, slots=4, max_prompt=64, max_new=8,
+                                      eos_token_id=-1, steps_per_tick=2)
+    eng.close()  # the loop thread: the test admits and ticks by hand
+    g = torch.Generator(device=cuda).manual_seed(0)
+    try:
+        lens = torch.tensor([40, 33, 17], device=cuda)  # three live slots, one empty
+        ids = torch.randint(3, 500, (3, 64), generator=g, device=cuda, dtype=torch.int32)
+        valid = (torch.arange(64, device=cuda)[None] < lens[:, None]).to(torch.int32)
+        with torch.no_grad():
+            eng._install(*eng._prefill(ids, valid, None, None), torch.arange(3, device=cuda))
+        live = torch.tensor([True, True, True, False], device=cuda)
+        args = (torch.tensor([40, 33, 17, 0], dtype=torch.int32, device=cuda),
+                torch.zeros(4, dtype=torch.int32, device=cuda), ~live,
+                torch.full((4,), 8, dtype=torch.int32, device=cuda), 2)
+        state = (copy.deepcopy(eng.cache), eng.last_hidden.clone())
+        logits = {}
+        real = de.lm_logits
+        for path in ("kernel", "plain"):
+            eng.cache, eng.last_hidden = copy.deepcopy(state[0]), state[1].clone()
+            seen = []
+            de.lm_logits = lambda *a, seen=seen: seen.append(real(*a).float()) or seen[-1]
+            n0 = qm.quant_matmul.launches
+            try:
+                with _plain_int8() if path == "plain" else contextlib.nullcontext():
+                    eng._step(*args)
+                torch.cuda.synchronize()
+            finally:
+                de.lm_logits = real
+            launches = qm.quant_matmul.launches - n0
+            assert launches == (0 if path == "plain" else 2 * (7 * llm.num_layers + 1))
+            logits[path] = torch.stack(seen)  # [steps, slots, V]
+    finally:
+        eng.close()
+    k, p = logits["kernel"][:, :3], logits["plain"][:, :3]
+    assert torch.isfinite(k).all()
+    cos = torch.nn.functional.cosine_similarity(k.double(), p.double(), dim=-1)
+    assert cos.min().item() >= 0.999
+
+
 @pytest.mark.parametrize("min_size,B,depth", [(1 << 16, 2, 2), (0, 2, 2), (1 << 16, 8, 2),
                                               (1 << 16, 1, 12), (1 << 16, 8, 12)])
 def test_dit_kernel_int8_matches_plain(cuda, min_size, B, depth):

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import chip_smoke
+from _engine import hold_admissions
 from dexbotic_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from dexbotic_tpu.exp import base_exp as jbase
 from dexbotic_tpu.exp import muvla_exp as jexp
@@ -157,7 +158,8 @@ def test_server_with_and_without_the_engine_matches_jax(pair):
     """The same requests (a map view + 2 or 3 observation views) through
     the JAX server and the port's, each with and without the engine: equal
     texts; three concurrent requests through the port's 2-slot engine
-    coalesce and give the sequential texts."""
+    coalesce (the engine admits nothing until all three are queued) and
+    give the sequential texts."""
     jx, tx, jcfg, tcfg, params, model = pair
     jtok, ttok = jx.tokenizer.build_tokenizer(), tx.tokenizer.build_tokenizer()
     rs = np.random.RandomState(7)
@@ -173,6 +175,7 @@ def test_server_with_and_without_the_engine_matches_jax(pair):
         assert [jcb.get_response(*r) for r in reqs] == want
         assert [tplain.get_response(*r) for r in reqs] == want
         out = [None] * len(reqs)
+        hold_admissions(tcb.engine, len(reqs))
 
         def run(i):
             out[i] = tcb.get_response(*reqs[i])
