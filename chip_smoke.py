@@ -179,8 +179,9 @@ Phases, any failure exits non-zero without a result line:
      (LLaMA-2-7B and CLIP-L/336 widths, chunk 8 x 7 bins, temperature 1.6)
      on 8 mock envs: (a) one GRPOUpdater micro-step at RL_LAYERS of 32
      decoder layers in fp32 on a rollout batch, kernel path vs plain bf16
-     path vs an fp32 witness (loss, pg_loss, entropy, grad_norm, gradient
-     cosine; the update must move the fp32 weights); (b) train_rl() end to
+     path vs an fp32 witness, each on the rollout's log-probs recomputed on
+     the path (loss, pg_loss, entropy, grad_norm, gradient cosine; the
+     update must move the fp32 weights); (b) train_rl() end to
      end at that depth, one step of schedule "random" and one of "epoch",
      with each step's gen / filter / update seconds, rollouts, chunks and
      peak, K1/K3 launches and shapes around it and the metrics' keys held
@@ -202,7 +203,7 @@ Phases, any failure exits non-zero without a result line:
      on a synthetic suite of 8 episodes of 17 frames): (a) one step at
      micro-batch 2 in fp32 on the bank the first two batches filled: the
      kernel path, the plain path (K1's plain version on the same bf16 q, k,
-     v) and bf16 matrices against an fp32 witness (loss, grad_norm, the
+     v) and bf16 weights against an fp32 witness (loss, grad_norm, the
      gradient 1-cosine of the projector, the DiT and the bank's modules),
      10a's rule; then one 'stream' step against the single shared bank;
      (b) two steps of MemVLAExp.train() at the recipe's micro-batch 8:
@@ -221,7 +222,7 @@ Phases, any failure exits non-zero without a result line:
      on the same samples unpacked; (c) two packed steps of
      NaVILAExp.train() at 4 rows of 4096 (remat, the LLM frozen): step
      time, tokens/s, pack fill, dead-tile share, peak, K1/K3 launches;
-     (e) one step of (c)'s recipe on (b)'s weights (bf16 matrices) through
+     (e) one step of (c)'s recipe on (b)'s weights (bf16) through
      navila_packed_loss_cp on a ('data', 'model', 'seq') = (1, 1, 1) mesh
      over a process group of one (NCCL): the ring code, one K1 hop a layer
      call, held to navila_packed_loss on the same batch (loss and grad norm
@@ -280,7 +281,7 @@ Phases, any failure exits non-zero without a result line:
      projections) through flow_vla_inference_action(progress=...), its
      chunk and end-progress held likewise; (c) the LIBERO pi0.5 and DM0
      twins trained in full: one step at micro-batch 4 in fp32, kernel path
-     vs plain path vs bf16 matrices against an fp32 witness (10a's rule),
+     vs plain path vs bf16 weights against an fp32 witness (10a's rule),
      then two steps at 4 x 4 through exp.train() (K3 layers x 4 a step, K1
      twice that, the shapes 3b and 6 hold, the peak); (d) one
      HybridCogActExp step on a mixed batch (a robot row, a VQA row), fp32,
@@ -975,7 +976,7 @@ def _dit_head(seed: int):
     """DiT-B (token 4096, chunk 16, action 7) with seeded weights, final redrawn;
     returns (cfg, bf16 head, its fp32 copy)."""
     from dexbotic_tpu_torch.models.dit import DiT, DiTConfig, init_dit_
-    from dexbotic_tpu_torch.nn.core import cast_matrices_
+    from dexbotic_tpu_torch.nn.core import cast_like_jax_
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     cfg = DiTConfig()
@@ -984,7 +985,7 @@ def _dit_head(seed: int):
     init_dit_(head, g)
     redraw_final_(head, g)
     head32 = copy.deepcopy(head)
-    cast_matrices_(head, torch.bfloat16)
+    cast_like_jax_(head, torch.bfloat16)
     return cfg, head, head32, g
 
 
@@ -3361,10 +3362,10 @@ def phase_oft_train(failures: list) -> dict:
 # LLaMA-2-7B layer holds 202.4M parameters; the embedding, lm_head,
 # CLIP-L/336 and the projector 0.59B; so N layers take (0.59 + 0.2024 N) x 16
 # GB before activations: 4 layers 22.4 GB, 8 layers 35.3 GB, 16 layers 61.3
-# GB (57.1 GiB), all 32 would take 113 GB, more than one card.  4 keep the
-# whole script within its time with phases 14e and 14f (8 took ~15 s more;
-# at 2, 10a's loss_abs rule failed: PERF.md §7).
-RL_LAYERS = 4
+# GB (57.1 GiB), all 32 would take 113 GB, more than one card.  2 layers
+# (15.9 GB) keep the whole script within its time; 10a holds each path on its
+# own old log-probs there and at 4 (script/witness_rl_step_torch.py).
+RL_LAYERS = 2
 RL_EPISODE_STEPS = 64  # the mock envs' episode and the rollout budget: 8 chunks of 8 steps
 # the metrics of one step of train_rl(), as the JAX package's loop reports them
 RL_METRICS = {"pg_loss", "clip_frac", "approx_kl", "entropy", "loss", "grad_norm",
@@ -3448,7 +3449,7 @@ def decoder_plain_on_bf16():
         transformer.attention = call
 
 
-STEP_PATHS = ("kernel", "plain", "bf16_matrices")
+STEP_PATHS = ("kernel", "plain", "bf16")
 
 
 def hold_step(label: str, paths: dict, ref: tuple, scalars: dict, checks: list) -> tuple[dict, dict]:
@@ -3457,8 +3458,9 @@ def hold_step(label: str, paths: dict, ref: tuple, scalars: dict, checks: list) 
     Each path's distance from the witness: every metric of ``scalars``
     ("abs" or "rel" difference) and the 1-cosine of the worst watched
     gradient.  The kernel path's distance must be <= 2x the plain path's (its
-    plain version on the same rounded q, k, v) + 0.25x the bf16 matrices' (a
-    reading of the same step: the margin for the one draw each scalar is).
+    plain version on the same rounded q, k, v) + 0.25x that of bf16 weights
+    (a copy under the Trainer's bf16 rule, nn/core.cast_like_jax_: a reading
+    of the same step, the margin for the one draw each scalar is).
     Appends a check for each to ``checks``; returns (distances, bounds)."""
     w32, g32 = ref
 
@@ -3476,12 +3478,12 @@ def hold_step(label: str, paths: dict, ref: tuple, scalars: dict, checks: list) 
         if what == "grad_cosine":
             dk, dp, db = (1 - min(d.values()) for d in (dk, dp, db))
         bounds[what] = 2.0 * dp + 0.25 * db
-        print(f"  {what}: kernel {dk:.4g}  plain {dp:.4g}  bf16 matrices {db:.4g}  bound "
+        print(f"  {what}: kernel {dk:.4g}  plain {dp:.4g}  bf16 {db:.4g}  bound "
               f"{bounds[what]:.4g} (margin 0.25 x {db:.4g})  "
               f"{'ok' if dk <= bounds[what] else 'FAIL'}")
         checks.append((dk <= bounds[what], f"{label}: the kernel path's {what} from the fp32 "
                                            f"witness {dk} > 2 x the plain path's {dp} + 0.25 x "
-                                           f"the bf16 matrices' {db}"))
+                                           f"the bf16 copy's {db}"))
     return witness, bounds
 
 
@@ -3601,17 +3603,66 @@ def rl_micro_step(model, cfg, exp, mb: dict, watched: dict) -> tuple[dict, dict]
     return out, g
 
 
-def rl_bf16_copy(model, cfg, cast):
-    """A copy of the fp32 actor ``model`` on the card with the dtype rule
-    ``cast(module, torch.bfloat16)`` (nn/core.cast_matrices_ or
-    cast_served_) applied before the values are copied in."""
-    from dexbotic_tpu_torch.models.oft import build_oft
+def print_bf16_rule(label: str, model) -> dict:
+    """Print and return the count and elements of the 1-D and 0-d bf16
+    parameters of ``model``: what the Trainer's bf16 rule
+    (nn/core.cast_like_jax_, JAX's on its tree) casts beyond the matrices, a
+    stacked layer's norm scales and biases."""
+    ps = [p for p in model.parameters() if p.dtype == torch.bfloat16 and p.ndim < 2]
+    n, elems = len(ps), sum(p.numel() for p in ps)
+    print(f"  {label}: the bf16 rule (nn/core.cast_like_jax_) casts {n} vectors of "
+          f"{elems} elements beyond the matrices")
+    return {"bf16_vectors": n, "bf16_vector_elements": elems}
 
-    bf = build_oft(cfg, "cuda", prepare=lambda m: cast(m, torch.bfloat16))
+
+@contextlib.contextmanager
+def trainer_rule_printed():
+    """Inside, every Trainer made with ``bf16=True`` prints what its dtype
+    rule cast beyond the matrices (print_bf16_rule): phases 7-15's steps
+    through a Trainer or an exp's train()."""
+    from dexbotic_tpu_torch.exp.trainer import Trainer
+
+    init = Trainer.__init__
+
+    def printed(self, loss_fn, model, trainer_config, *args, **kwargs):
+        init(self, loss_fn, model, trainer_config, *args, **kwargs)
+        if trainer_config.bf16:
+            print_bf16_rule("Trainer(bf16=True)", model)
+
+    Trainer.__init__ = printed
+    try:
+        yield
+    finally:
+        Trainer.__init__ = init
+
+
+def trainer_rule_copy(build, cfg, model, label: str) -> tuple:
+    """A copy of the fp32 ``model`` on the card, ``build(cfg, "cuda",
+    prepare=...)`` under the Trainer's bf16 rule (nn/core.cast_like_jax_,
+    applied before the values are copied in), and the rule's reading
+    (print_bf16_rule, printed under ``label``)."""
+    from dexbotic_tpu_torch.nn.core import cast_like_jax_
+
+    bf = build(cfg, "cuda", prepare=lambda m: cast_like_jax_(m, torch.bfloat16))
     with torch.no_grad():
         for p, q in zip(bf.parameters(), model.parameters()):
             p.copy_(q)
-    return bf
+    return bf, print_bf16_rule(label, bf)
+
+
+def rl_own_old_logp(model, cfg, exp, mb: dict) -> tuple[dict, float]:
+    """``mb`` with its old log-probs recomputed by ``model`` under ``cfg``
+    (the path's own, no gradient), and their largest gap from the rollout's
+    on the valid tokens."""
+    from dexbotic_tpu_torch.models.oft import oft_action_log_probs
+
+    with torch.no_grad():
+        logp, _ = oft_action_log_probs(model, cfg, mb["input_ids"], mb["prompt_valid"],
+                                       mb["images"], mb.get("states"), mb["bins"],
+                                       temperature=exp.rollout.temperature)
+    logp = logp.float()
+    gap = float((logp - mb["old_logp"]).abs()[mb["token_mask"] > 0].max())
+    return dict(mb, old_logp=logp), gap
 
 
 def phase_rl_update_compare(failures: list) -> dict:
@@ -3623,18 +3674,30 @@ def phase_rl_update_compare(failures: list) -> dict:
     gradient cosine of the projector, the tower's last layer, lm_head and
     the decoder's last layer.  The kernel path's distance from the witness
     is held to 2x the plain path's + a quarter of the distance that bf16
-    matrices cost the same step (a bf16 copy of the weights on the plain
-    attention, a reading).  Then the update, which must move the fp32
-    weights."""
+    weights cost the same step (a copy under the Trainer's bf16 rule on the
+    plain attention, a reading).  Then the update, which must move the fp32
+    weights.
+
+    Every path takes its own old log-probs: the rollout batch's are
+    recomputed on the path (rl_own_old_logp) before its micro-step, as the
+    update's first micro-step sees them when the rollout and the update run
+    the same weights.  Each path's ratio is then 1, its pg_loss the same,
+    and its loss and gradient its own.  With the rollout's log-probs (the
+    kernel path's) the kernel path's ratio was exactly 1 and every other
+    path's pg_loss was its log-prob gap from the kernel path times the
+    advantages: the loss term held the kernel path to the witness's own
+    gap.  Holding ``loss - pg_loss`` and pg_loss apart would keep that gap
+    in the pg_loss reading; recomputing removes it from every path alike."""
     from dexbotic_tpu_torch.exp.rl.rl_trainer import GRPOUpdater
-    from dexbotic_tpu_torch.nn.core import cast_matrices_
+    from dexbotic_tpu_torch.models.oft import build_oft
     from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
 
     exp = rl_exp(RL_LAYERS)
     cfg = exp.model.build_config()
     print(f"phase 10a: one GRPO micro-step of the LIBERO OFT-Discrete actor at full width, "
           f"{cfg.vlm.llm.num_layers} of 32 decoder layers, fp32 weights: kernel path vs plain "
-          f"path (both on bf16 q, k, v) vs fp32 witness; bf16 matrices as a reading")
+          f"path (both on bf16 q, k, v) vs fp32 witness, each on its own old log-probs; bf16 "
+          f"weights as a reading")
     free_memory()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() / 2 ** 30  # left by earlier phases
@@ -3644,24 +3707,27 @@ def phase_rl_update_compare(failures: list) -> dict:
     mb = rl_rollout_batch(exp, cfg, model, tok)
     L = cfg.vlm.llm.num_layers
     watched = rl_watched(cfg)
+    gaps = {}
 
-    def run(m, c):
-        return rl_micro_step(m, c, exp, mb, watched)
+    def run(m, c, label):
+        own, gaps[label] = rl_own_old_logp(m, c, exp, mb)
+        return rl_micro_step(m, c, exp, own, watched)
 
     plain = plain_config(cfg)
-    w32, g32 = run(model, plain)
+    w32, g32 = run(model, plain, "fp32 witness")
     with decoder_plain_on_bf16():
-        wpl, gpl = run(model, plain)
-    bf = rl_bf16_copy(model, plain, cast_matrices_)
-    wbf, gbf = run(bf, plain)
+        wpl, gpl = run(model, plain, "plain")
+    bf, rule = trainer_rule_copy(build_oft, plain, model, "10a's bf16 copy")
+    wbf, gbf = run(bf, plain, "bf16")
     del bf
     free_memory()
     updater = GRPOUpdater(cfg, exp.grpo, model, learning_rate=exp.rl_learning_rate,
                           temperature=exp.rollout.temperature)
     before = {n: p.detach().clone() for n, p in model.named_parameters()
               if n.startswith(tuple(watched.values()))}
+    mbk, gaps["kernel"] = rl_own_old_logp(model, cfg, exp, mb)
     n0 = (flash_attention.launches, flash_attention_bwd.launches)
-    metrics, grads = updater.grads(model, mb)
+    metrics, grads = updater.grads(model, mbk)
     wk = {k: float(v) for k, v in metrics.items()}
     wk["launches"] = (flash_attention.launches - n0[0], flash_attention_bwd.launches - n0[1])
     gk = rl_watched_grads(grads.items(), watched)
@@ -3671,11 +3737,11 @@ def phase_rl_update_compare(failures: list) -> dict:
         moved = max(float((p - before[n]).abs().max()) for n, p in model.named_parameters()
                     if n in before)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    for label, w in (("kernel", wk), ("plain", wpl), ("bf16 matrices", wbf),
-                     ("fp32 witness", w32)):
+    for label, w in (("kernel", wk), ("plain", wpl), ("bf16", wbf), ("fp32 witness", w32)):
         print(f"  {label}: loss {w['loss']:.6g} pg_loss {w['pg_loss']:.6g} entropy "
               f"{w['entropy']:.6g} grad_norm {w['grad_norm']:.6g} clip_frac {w['clip_frac']:.4g} "
-              f"approx_kl {w['approx_kl']:.4g}; K1/K3 launches {w['launches']}")
+              f"approx_kl {w['approx_kl']:.4g}; K1/K3 launches {w['launches']}; own old "
+              f"log-probs at most {gaps[label]:.4g} from the rollout's")
     print(f"  {n_params / 1e9:.3f}B parameters; the update moved the watched fp32 weights by "
           f"{moved:.3g} at most (lr {exp.rl_learning_rate}); peak memory allocated {peak:.2f} GiB "
           f"({held:.2f} GiB of it allocated before the phase)")
@@ -3686,14 +3752,15 @@ def phase_rl_update_compare(failures: list) -> dict:
                == wbf["launches"], f"10a: K1/K3 launches kernel path {wk['launches']}, plain "
                                    f"paths {wpl['launches']} {w32['launches']} {wbf['launches']}")]
     witness, bounds = hold_step("10a", {"kernel": (wk, gk), "plain": (wpl, gpl),
-                                        "bf16_matrices": (wbf, gbf)}, (w32, g32),
+                                        "bf16": (wbf, gbf)}, (w32, g32),
                                 {"loss": "abs", "entropy": "rel", "grad_norm": "rel"}, checks)
     failures.extend(msg for ok, msg in checks if not ok)
-    del model, updater, before, g32, gpl, gbf, gk, mb
+    del model, updater, before, g32, gpl, gbf, gk, mb, mbk
     free_memory()
     return {"layers": L, "params": n_params, "peak_gib": peak, "held_before_gib": held,
-            "max_weight_change": moved, "kernel": wk, "plain": wpl, "bf16_matrices": wbf,
-            "fp32_witness": w32, "vs_fp32": witness, "bounds": bounds}
+            "max_weight_change": moved, "kernel": wk, "plain": wpl, "bf16": wbf,
+            "fp32_witness": w32, "vs_fp32": witness, "bounds": bounds, "old_logp_gap": gaps,
+            **rule}
 
 
 def phase_rl_train(failures: list) -> dict:
@@ -4242,17 +4309,16 @@ def phase_memvla_train_compare(failures: list, dataset: str) -> dict:
     width and depth in fp32, the LLM frozen (it takes no gradient), the
     diffusion draws injected: the kernel path (K1, K3 on q, k, v rounded to
     bf16), the plain path (K1's plain version with autograd on the same
-    rounded q, k, v: decoder_plain_on_bf16) and bf16 matrices (a bf16 copy
-    of the weights on the plain attention, a reading), each against an fp32
+    rounded q, k, v: decoder_plain_on_bf16) and bf16 weights (a copy under
+    the Trainer's bf16 rule on the plain attention, a reading), each against an fp32
     witness (the plain attention in fp32): loss, grad_norm and the gradient
     1-cosine of the projector, the DiT and the bank's modules (the SE
     bottleneck, retrieval, gates, timestep embedders).  10a's rule: the
     kernel path's distance <= 2 x the plain path's + 0.25 x the bf16
-    matrices' (the margin, a reading of the same step).  Then one step in
+    copy's (the margin, a reading of the same step).  Then one step in
     'stream' mode (the sequential single bank) on the kernel path."""
     from dexbotic_tpu_torch.exp.optim import global_norm, is_frozen
     from dexbotic_tpu_torch.models.memvla import build_memvla, init_mem_state, memvla_loss
-    from dexbotic_tpu_torch.nn.core import cast_matrices_
     from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
 
     import random
@@ -4269,7 +4335,7 @@ def phase_memvla_train_compare(failures: list, dataset: str) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     print(f"phase 12a: one MemVLA-7B training step ({n_params / 1e9:.3f}B parameters, fp32, "
           f"LLM frozen, micro-batch {B}, parallel_stream): kernel path vs plain path (both on "
-          f"bf16 q, k, v) vs fp32 witness; bf16 matrices as a reading")
+          f"bf16 q, k, v) vs fp32 witness; bf16 weights as a reading")
     batches, n_tok = _memvla_batches(exp, tok, 3, B)
     if n_tok != MEMVLA_TRAIN_TOKENS or exp.tokenizer.model_max_length != TRAIN_SEQ_LEN:
         failures.append(f"12a: samples of {n_tok} tokens padded to "
@@ -4312,14 +4378,11 @@ def phase_memvla_train_compare(failures: list, dataset: str) -> dict:
     with decoder_plain_on_bf16():
         wpl, gpl = run(model, plain)
     wk, gk = run(model, cfg)
-    bf = build_memvla(plain, "cuda", prepare=lambda m: cast_matrices_(m, torch.bfloat16))
-    with torch.no_grad():
-        for p, q in zip(bf.parameters(), model.parameters()):
-            p.copy_(q)
+    bf, rule = trainer_rule_copy(build_memvla, plain, model, "12a's bf16 copy")
     wbf, gbf = run(bf, plain)
     del bf
     free_memory()
-    for label, w in (("kernel", wk), ("plain", wpl), ("bf16 matrices", wbf),
+    for label, w in (("kernel", wk), ("plain", wpl), ("bf16", wbf),
                      ("fp32 witness", w32)):
         print(f"  {label}: loss {w['loss']:.6g} grad_norm {w['grad_norm']:.6g}; K1/K3 launches "
               f"{w['launches']}; bank counts after {w['counts']}")
@@ -4331,7 +4394,7 @@ def phase_memvla_train_compare(failures: list, dataset: str) -> dict:
                f"{wpl['launches']} {w32['launches']} {wbf['launches']}"),
               (wk["counts"] == [3] * B, f"12a: bank counts {wk['counts']} after the third frame")]
     witness, bounds = hold_step("12a", {"kernel": (wk, gk), "plain": (wpl, gpl),
-                                        "bf16_matrices": (wbf, gbf)}, (w32, g32),
+                                        "bf16": (wbf, gbf)}, (w32, g32),
                                 {"loss": "rel", "grad_norm": "rel"}, checks)
     # one step in 'stream' mode: two consecutive frames of one episode against one bank
     stream = memvla_train_exp(dataset, "out_mem_stream", B, 1, mode="stream")
@@ -4351,8 +4414,8 @@ def phase_memvla_train_compare(failures: list, dataset: str) -> dict:
     del model, g32, gpl, gk, gbf, gs, batches, batch, state
     free_memory()
     return {"params": n_params, "prompt_tokens": n_tok, "peak_gib": peak, "kernel": wk,
-            "plain": wpl, "bf16_matrices": wbf, "fp32_witness": w32, "vs_fp32": witness,
-            "bounds": bounds, "stream_step": ws}
+            "plain": wpl, "bf16": wbf, "fp32_witness": w32, "vs_fp32": witness,
+            "bounds": bounds, "stream_step": ws, **rule}
 
 
 def phase_memvla_train_steps(failures: list, dataset: str) -> dict:
@@ -4749,8 +4812,8 @@ def phase_navila_train_compare(failures: list, dataset: str, model, cfg) -> dict
     """Phase 13b: one packed NaVILA-7B training step (4 samples in 2 rows of
     4096, the soft CE over the digit ids) on 13a's weights in fp32, the LLM
     frozen: kernel path, plain path (K1's plain version with autograd on the
-    same bf16-rounded q, k, v) and bf16 matrices (the weights cast to bf16
-    in place: the fp32 values are bf16 values), each against the fp32
+    same bf16-rounded q, k, v) and bf16 weights (cast in place by the
+    Trainer's bf16 rule: the fp32 values are bf16 values), each against the fp32
     witness: loss, grad_norm and the gradient 1-cosine of the projector,
     the tower and lm_head, held by 12a's rule.  The packed loss (kernel
     path) against navila_loss on the same 4 samples unpacked, a forward:
@@ -4758,7 +4821,7 @@ def phase_navila_train_compare(failures: list, dataset: str, model, cfg) -> dict
     from dexbotic_tpu_torch.data.collator import Collator
     from dexbotic_tpu_torch.exp.optim import global_norm, is_frozen
     from dexbotic_tpu_torch.models.navila import navila_loss, navila_packed_loss
-    from dexbotic_tpu_torch.nn.core import cast_matrices_
+    from dexbotic_tpu_torch.nn.core import cast_like_jax_
     from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
 
     R = NAVILA_COMPARE_ROWS
@@ -4774,7 +4837,7 @@ def phase_navila_train_compare(failures: list, dataset: str, model, cfg) -> dict
     print(f"phase 13b: one packed NaVILA-7B training step ({len(host['images'])} samples in {R} "
           f"rows of {host['input_ids'].shape[1]}: {segs} segments a row; samples of "
           f"{lens[0]}-{lens[-1]} tokens), fp32 weights, LLM frozen: kernel path vs plain path vs "
-          f"fp32 witness; bf16 matrices as a reading")
+          f"fp32 witness; bf16 weights as a reading")
     soft = exp._digit_ids(tok)
     watched = {"projector": ("vlm.projector.",), "vit": ("vlm.vit.",),
                "lm_head": ("vlm.llm.lm_head.",)}
@@ -4810,10 +4873,11 @@ def phase_navila_train_compare(failures: list, dataset: str, model, cfg) -> dict
               if k in ("input_ids", "labels", "attention_mask", "images")}
         lu = float(navila_loss(model, cfg, ub, soft)[0])
     del ub
-    cast_matrices_(model, torch.bfloat16)
+    cast_like_jax_(model, torch.bfloat16)
+    rule = print_bf16_rule("13b's bf16 weights", model)
     wbf, gbf = run(plain)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    for label, w in (("kernel", wk), ("plain", wpl), ("bf16 matrices", wbf),
+    for label, w in (("kernel", wk), ("plain", wpl), ("bf16", wbf),
                      ("fp32 witness", w32)):
         print(f"  {label}: loss {w['loss']:.6g} grad_norm {w['grad_norm']:.6g}; K1/K3 launches "
               f"{w['launches']}")
@@ -4826,7 +4890,7 @@ def phase_navila_train_compare(failures: list, dataset: str, model, cfg) -> dict
                f"13b: K1/K3 launches kernel path {wk['launches']}, plain paths "
                f"{wpl['launches']} {w32['launches']} {wbf['launches']}")]
     witness, bounds = hold_step("13b", {"kernel": (wk, gk), "plain": (wpl, gpl),
-                                        "bf16_matrices": (wbf, gbf)}, (w32, g32),
+                                        "bf16": (wbf, gbf)}, (w32, g32),
                                 {"loss": "rel", "grad_norm": "rel"}, checks)
     kp_rel = abs(wk["loss"] - wpl["loss"]) / abs(wpl["loss"])
     pu_rel = abs(wk["loss"] - lu) / abs(lu)
@@ -4836,9 +4900,9 @@ def phase_navila_train_compare(failures: list, dataset: str, model, cfg) -> dict
     checks.append((pu_rel <= pu_bound, f"13b: packed vs unpacked loss rel {pu_rel} > {pu_bound}"))
     failures.extend(msg for ok, msg in checks if not ok)
     return {"rows": R, "samples": len(host["images"]), "segments": segs, "sample_tokens": lens,
-            "peak_gib": peak, "kernel": wk, "plain": wpl, "bf16_matrices": wbf,
+            "peak_gib": peak, "kernel": wk, "plain": wpl, "bf16": wbf,
             "fp32_witness": w32, "vs_fp32": witness, "bounds": bounds, "unpacked_loss": lu,
-            "packed_vs_unpacked_rel": pu_rel}
+            "packed_vs_unpacked_rel": pu_rel, **rule}
 
 
 def first_pack_indices(exp, ds) -> list:
@@ -4907,7 +4971,7 @@ def phase_navila_train_steps(failures: list, dataset: str) -> dict:
 
 def phase_navila(failures: list) -> dict:
     """Phase 13: serving (13a) builds the bf16 model, whose weights 13b
-    trains in fp32 and 13e (bf16 matrices after 13b) runs through the
+    trains in fp32 and 13e (bf16 weights after 13b) runs through the
     context-parallel loss; 13f times the ring's hops; 13c runs the exp's own
     train().  In a temp dir (the suite, checkpoints), removed after."""
     serve = phase_navila_serve(failures)
@@ -5481,12 +5545,11 @@ def phase_discrete_train_compare(failures: list, dataset: str, model, cfg) -> di
     write_suite's suite, the LLM frozen): one step at micro-batch 2 on 14a's
     weights (its DISCRETE_SERVE_LAYERS layers) in fp32: the kernel path (K1, K3 on q, k, v rounded to bf16), the
     plain path (K1's plain version on the same rounded q, k, v) and bf16
-    matrices against the fp32 witness (loss, grad_norm, the gradient
-    1-cosine of the projector and the tower), 10a's rule."""
+    weights (the Trainer's rule) against the fp32 witness (loss, grad_norm,
+    the gradient 1-cosine of the projector and the tower), 10a's rule."""
     from dexbotic_tpu_torch.data.collator import Collator
     from dexbotic_tpu_torch.exp.optim import global_norm, is_frozen
     from dexbotic_tpu_torch.models.discrete_vla import build_discrete_vla, discrete_vla_loss
-    from dexbotic_tpu_torch.nn.core import cast_matrices_
     from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
 
     exp = discrete_exp(dataset, "out_discrete_compare", 2, 1)
@@ -5499,7 +5562,7 @@ def phase_discrete_train_compare(failures: list, dataset: str, model, cfg) -> di
     batch = {k: torch.from_numpy(np.asarray(v)).cuda() for k, v in host.items()}
     print(f"phase 14b: one Discrete VLA-7B training step (micro-batch 2, fp32, LLM frozen, "
           f"samples of up to {n_tok} tokens padded to {batch['input_ids'].shape[1]}): kernel "
-          f"path vs plain path vs fp32 witness; bf16 matrices as a reading")
+          f"path vs plain path vs fp32 witness; bf16 weights as a reading")
     checks = [(n_tok == DISCRETE_TRAIN_TOKENS and batch["input_ids"].shape[1] == TRAIN_SEQ_LEN,
                f"14b: samples of {n_tok} tokens padded to {batch['input_ids'].shape[1]}: phases "
                f"3 and 6 hold K1 and K3 at {DISCRETE_TRAIN_TOKENS} of {TRAIN_SEQ_LEN}")]
@@ -5533,15 +5596,12 @@ def phase_discrete_train_compare(failures: list, dataset: str, model, cfg) -> di
     with decoder_plain_on_bf16():
         wpl, gpl = run(model, plain)
     wk, gk = run(model, cfg)
-    bf = build_discrete_vla(plain, "cuda", prepare=lambda m: cast_matrices_(m, torch.bfloat16))
-    with torch.no_grad():
-        for p, q in zip(bf.parameters(), model.parameters()):
-            p.copy_(q)
+    bf, rule = trainer_rule_copy(build_discrete_vla, plain, model, "14b's bf16 copy")
     wbf, gbf = run(bf, plain)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del bf
     free_memory()
-    for label, w in (("kernel", wk), ("plain", wpl), ("bf16 matrices", wbf), ("fp32 witness", w32)):
+    for label, w in (("kernel", wk), ("plain", wpl), ("bf16", wbf), ("fp32 witness", w32)):
         print(f"  {label}: loss {w['loss']:.6g} grad_norm {w['grad_norm']:.6g}; K1/K3 launches "
               f"{w['launches']}; {w['s']:.2f} s")
     checks += [(all(math.isfinite(wk[k]) for k in ("loss", "grad_norm")),
@@ -5551,12 +5611,12 @@ def phase_discrete_train_compare(failures: list, dataset: str, model, cfg) -> di
                 f"14b: K1/K3 launches kernel path {wk['launches']}, plain paths "
                 f"{wpl['launches']} {w32['launches']} {wbf['launches']}")]
     witness, bounds = hold_step("14b", {"kernel": (wk, gk), "plain": (wpl, gpl),
-                                        "bf16_matrices": (wbf, gbf)}, (w32, g32),
+                                        "bf16": (wbf, gbf)}, (w32, g32),
                                 {"loss": "rel", "grad_norm": "rel"}, checks)
     failures.extend(msg for ok, msg in checks if not ok)
     del g32, gpl, gk, gbf, batch
-    return {"prompt_tokens": n_tok, "kernel": wk, "plain": wpl, "bf16_matrices": wbf,
-            "fp32_witness": w32, "vs_fp32": witness, "bounds": bounds, "peak_gib": peak}
+    return {"prompt_tokens": n_tok, "kernel": wk, "plain": wpl, "bf16": wbf,
+            "fp32_witness": w32, "vs_fp32": witness, "bounds": bounds, "peak_gib": peak, **rule}
 
 
 def phase_discrete_train_steps(failures: list, dataset: str, cfg) -> dict:
@@ -5750,14 +5810,13 @@ def phase_muvla(failures: list) -> dict:
     generate alone by 13a's near-tie rule; p50/p90, the fuse time (towers +
     QFormer + fuser).  Then one muvla_loss step with a reward at
     micro-batch 2 on the weights in fp32, the LLM frozen: kernel path vs
-    plain path vs bf16 matrices against the fp32 witness (10a's rule; the
+    plain path vs bf16 weights (the Trainer's rule) against the fp32 witness (10a's rule; the
     gradient 1-cosine of the projector, the fuser, the QFormer, the
     observation tower and the reward head), the step's s and peak."""
     from dexbotic_tpu_torch.exp.optim import OptimizerConfig, global_norm, is_frozen
     from dexbotic_tpu_torch.exp.serve import MUVLAServer
     from dexbotic_tpu_torch.models.muvla import build_muvla, fuse_obs_with_history, muvla_generate, muvla_loss
     from dexbotic_tpu_torch.models.vlm import splice_image_embeds, vlm_forward
-    from dexbotic_tpu_torch.nn.core import cast_matrices_
     from dexbotic_tpu_torch.nn.transformer import embed_tokens
     from dexbotic_tpu_torch.ops.attention import flash_attention, flash_attention_bwd
     from dexbotic_tpu_torch.playground.example_muvla_exp import MyMUVLAExp
@@ -5894,14 +5953,11 @@ def phase_muvla(failures: list) -> dict:
     with decoder_plain_on_bf16():
         wpl, gpl = run(model, plain)
     wk, gk = run(model, cfg)
-    bf = build_muvla(plain, "cuda", prepare=lambda mod: cast_matrices_(mod, torch.bfloat16))
-    with torch.no_grad():
-        for p, q in zip(bf.parameters(), model.parameters()):
-            p.copy_(q)
+    bf, rule = trainer_rule_copy(build_muvla, plain, model, "14d's bf16 copy")
     wbf, gbf = run(bf, plain)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del bf
-    for label, w in (("kernel", wk), ("plain", wpl), ("bf16 matrices", wbf), ("fp32 witness", w32)):
+    for label, w in (("kernel", wk), ("plain", wpl), ("bf16", wbf), ("fp32 witness", w32)):
         print(f"  step {label}: loss {w['loss']:.6g} (reward {w['reward_loss']:.4g}) grad_norm "
               f"{w['grad_norm']:.6g}; K1/K3 launches {w['launches']}; {w['s']:.2f} s")
     print(f"  step peak {peak:.2f} GiB")
@@ -5912,15 +5968,15 @@ def phase_muvla(failures: list) -> dict:
                 f"14d: K1/K3 launches kernel path {wk['launches']}, plain paths "
                 f"{wpl['launches']} {w32['launches']} {wbf['launches']}")]
     vs, bounds = hold_step("14d", {"kernel": (wk, gk), "plain": (wpl, gpl),
-                                   "bf16_matrices": (wbf, gbf)}, (w32, g32),
+                                   "bf16": (wbf, gbf)}, (w32, g32),
                            {"loss": "rel", "grad_norm": "rel"}, checks)
     failures.extend(msg for ok, msg in checks if not ok)
     del model, server, g32, gpl, gk, gbf, batch
     free_memory()
     return {"params": n_params, "prompt_tokens": n_prompt, "routes": routes,
             "fuse_ms": fuse_ms, **witness, "engine_tokens": engine_tokens,
-            "train": {"kernel": wk, "plain": wpl, "bf16_matrices": wbf, "fp32_witness": w32,
-                      "vs_fp32": vs, "bounds": bounds, "peak_gib": peak,
+            "train": {"kernel": wk, "plain": wpl, "bf16": wbf, "fp32_witness": w32,
+                      "vs_fp32": vs, "bounds": bounds, "peak_gib": peak, **rule,
                       "launches": {"flash_fwd": wk["launches"][0], "flash_bwd": wk["launches"][1]}}}
 
 
@@ -6756,7 +6812,7 @@ def dm0_prog_call(failures: list, model, cfg, args: tuple, noise) -> dict:
     the same noise and progress input: chunk cosine >= 0.99 and the
     end-progress within DM0_PROG_TOL."""
     from dexbotic_tpu_torch.models import flow_vla as fv
-    from dexbotic_tpu_torch.nn.core import Linear, cast_matrices_, torch_linear_init_
+    from dexbotic_tpu_torch.nn.core import Linear, cast_like_jax_, torch_linear_init_
 
     pcfg = fv.dm0_prog_config(cfg.llm, cfg.expert, cfg.vit, projector_type=cfg.projector_type,
                               action_dim=cfg.action_dim, chunk_size=cfg.chunk_size,
@@ -6767,7 +6823,7 @@ def dm0_prog_call(failures: list, model, cfg, args: tuple, noise) -> dict:
         for name, (i, o) in (("progress_in_proj", (1, eh)), ("progress_out_proj", (eh, 1))):
             lin = Linear(i, o, device="cuda")
             torch_linear_init_(lin, gen)
-            setattr(model, name, cast_matrices_(lin, torch.bfloat16).requires_grad_(False))
+            setattr(model, name, cast_like_jax_(lin, torch.bfloat16).requires_grad_(False))
     plain = dataclasses.replace(pcfg, llm=dataclasses.replace(pcfg.llm, attn_impl="xla"),
                                 expert=dataclasses.replace(pcfg.expert, attn_impl="xla"))
     progress = torch.full((1, 1, 1), 0.35, device="cuda")
@@ -6835,13 +6891,15 @@ def backward_reading(m, loss_fn, watched: dict, trainable=None) -> tuple[dict, d
     return out, grads
 
 
-def step_paths(model, cfg, plain, loss_fn, watched: dict, bf16_copy, trainable=None) -> dict:
+def step_paths(model, cfg, plain, loss_fn, watched: dict, build, label: str,
+               trainable=None) -> dict:
     """10a's readings of one step of the fp32 ``model``: the fp32 witness
     (``plain``, the plain attention in fp32), the plain path (its plain
     version on q, k, v rounded to bf16: decoder_plain_on_bf16), the kernel
-    path (``cfg``: K1, K3) and bf16 matrices (``bf16_copy()``, a bf16 copy
-    of the weights on the plain attention, freed after); each a
-    :func:`backward_reading` of ``loss_fn(model, config)``."""
+    path (``cfg``: K1, K3) and bf16 weights (a copy ``build`` makes under
+    the Trainer's rule, trainer_rule_copy, on the plain attention, freed
+    after); each a :func:`backward_reading` of ``loss_fn(model, config)``;
+    "rule" holds the copy's reading."""
     def read(m, c):
         return backward_reading(m, lambda m: loss_fn(m, c), watched, trainable)
 
@@ -6849,11 +6907,8 @@ def step_paths(model, cfg, plain, loss_fn, watched: dict, bf16_copy, trainable=N
     with decoder_plain_on_bf16():
         paths["plain"] = read(model, plain)
     paths["kernel"] = read(model, cfg)
-    bf = bf16_copy()
-    with torch.no_grad():
-        for p, q in zip(bf.parameters(), model.parameters()):
-            p.copy_(q)
-    paths["bf16_matrices"] = read(bf, plain)
+    bf, paths["rule"] = trainer_rule_copy(build, plain, model, label)
+    paths["bf16"] = read(bf, plain)
     del bf
     free_memory()
     return paths
@@ -6891,15 +6946,14 @@ def phase_flow_train_compare(failures: list, variant: str, dataset: str, stats: 
     four samples spread over the suite) in fp32, full fine-tune, the flow
     noise and times injected: the kernel path (K1, K3 on q, k, v rounded to
     bf16), the plain path (their plain version on the same rounded q, k, v:
-    decoder_plain_on_bf16) and bf16 matrices (a bf16 copy of the weights on
-    the plain attention, a reading), each against an fp32 witness (the plain
+    decoder_plain_on_bf16) and bf16 weights (a copy under the Trainer's rule
+    on the plain attention, a reading), each against an fp32 witness (the plain
     attention in fp32): loss, grad_norm and the gradient 1-cosine of the
     LLM's and the expert's first layers (each gradient there has passed
     through every layer's attention backward) and of the action projections;
     10a's rule (hold_step).  pi0.5's adaRMS projections are redrawn."""
     from dexbotic_tpu_torch.data.collator import Collator
     from dexbotic_tpu_torch.models import flow_vla as fv
-    from dexbotic_tpu_torch.nn.core import cast_matrices_
 
     B = PI0_TRAIN_MICRO
     exp = flow_train_exp(variant, dataset, stats, f"out_{variant}_compare", B, 1, 1)
@@ -6911,7 +6965,7 @@ def phase_flow_train_compare(failures: list, variant: str, dataset: str, stats: 
     n_params = sum(p.numel() for p in model.parameters())
     print(f"phase 15c: one {exp.exp_name} training step ({n_params / 1e9:.3f}B parameters, fp32, "
           f"full fine-tune, micro-batch {B}): kernel path vs plain path (both on bf16 q, k, v) vs "
-          f"fp32 witness; bf16 matrices as a reading")
+          f"fp32 witness; bf16 weights as a reading")
     ds = exp.data.build_data(exp.build_tokenization(tok), exp.action.build_action_process_func())
     seed_rows_(ds, exp.trainer.seed)
     host = Collator(pad_token_id=tok.pad_token_id, max_length=exp.tokenizer.model_max_length)(
@@ -6935,11 +6989,11 @@ def phase_flow_train_compare(failures: list, variant: str, dataset: str, stats: 
     paths = step_paths(
         model, cfg, plain,
         lambda m, c: fv.flow_vla_loss(m, c, batch, remat=True, noise=noise, time=time_),
-        watched, lambda: fv.build_flow_vla(plain, "cuda",
-                                           prepare=lambda m: cast_matrices_(m, torch.bfloat16)))
+        watched, fv.build_flow_vla, f"15c {variant}'s bf16 copy")
     (w32, g32), (wpl, gpl), (wk, gk), (wbf, gbf) = (
-        paths[p] for p in ("fp32_witness", "plain", "kernel", "bf16_matrices"))
-    for lab, w in (("kernel", wk), ("plain", wpl), ("bf16 matrices", wbf), ("fp32 witness", w32)):
+        paths[p] for p in ("fp32_witness", "plain", "kernel", "bf16"))
+    rule = paths["rule"]
+    for lab, w in (("kernel", wk), ("plain", wpl), ("bf16", wbf), ("fp32 witness", w32)):
         print(f"  {lab}: loss {w['loss']:.6g} grad_norm {w['grad_norm']:.6g}; K1/K3 launches "
               f"{w['launches']}; forward {w['forward_s']:.2f} s, backward {w['backward_s']:.2f} s")
     L = cfg.llm.num_layers
@@ -6950,7 +7004,7 @@ def phase_flow_train_compare(failures: list, variant: str, dataset: str, stats: 
                f"15c {variant}: K1/K3 launches kernel path {wk['launches']}, plain paths "
                f"{wpl['launches']} {w32['launches']} {wbf['launches']}")]
     witness, bounds = hold_step(f"15c {variant}", {"kernel": (wk, gk), "plain": (wpl, gpl),
-                                                   "bf16_matrices": (wbf, gbf)}, (w32, g32),
+                                                   "bf16": (wbf, gbf)}, (w32, g32),
                                 {"loss": "rel", "grad_norm": "rel"}, checks)
     failures.extend(msg for ok, msg in checks if not ok)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -6958,8 +7012,8 @@ def phase_flow_train_compare(failures: list, variant: str, dataset: str, stats: 
     del model, paths, g32, gpl, gk, gbf, batch
     free_memory()
     return {"params": n_params, "rows": [B, FLOW_VIEWS + text + chunk], "peak_gib": peak,
-            "kernel": wk, "plain": wpl, "bf16_matrices": wbf, "fp32_witness": w32,
-            "vs_fp32": witness, "bounds": bounds}
+            "kernel": wk, "plain": wpl, "bf16": wbf, "fp32_witness": w32,
+            "vs_fp32": witness, "bounds": bounds, **rule}
 
 
 def phase_flow_train_steps(failures: list, variant: str, dataset: str, stats: str) -> dict:
@@ -7114,13 +7168,12 @@ def phase_hybrid(failures: list) -> dict:
     draws injected: the text loss (causal LM over the 32000 logits of every
     row) and the action loss, the kernel path (K1, K3 on bf16 q, k, v: the
     text loss's gradient reaches the projector through the frozen LLM's K3),
-    the plain path on the same rounded q, k, v and bf16 matrices (a reading)
+    the plain path on the same rounded q, k, v and bf16 weights (a reading)
     against an fp32 witness: 10a's rule on the loss, grad_norm and the
     gradient 1-cosine of the projector, the DiT and lm_head (which
     ``freeze_llm`` leaves trainable); each path's text and action loss."""
     from dexbotic_tpu_torch.exp.optim import is_frozen
     from dexbotic_tpu_torch.models.cogact import build_cogact, cogact_loss
-    from dexbotic_tpu_torch.nn.core import cast_matrices_
 
     B = 2
     with tempfile.TemporaryDirectory() as tmp, working_dir(tmp):
@@ -7141,7 +7194,7 @@ def phase_hybrid(failures: list) -> dict:
     print(f"phase 15d: one HybridCogActExp step ({n_params / 1e9:.3f}B parameters, fp32, LLM and "
           f"tower frozen) on a mixed batch: has_action {flags[0]}, has_text {flags[1]}, "
           f"{rows} valid tokens of {batch['input_ids'].shape[1]}; kernel path vs plain path "
-          f"(both on bf16 q, k, v) vs fp32 witness; bf16 matrices as a reading")
+          f"(both on bf16 q, k, v) vs fp32 witness; bf16 weights as a reading")
     checks = [(flags == ([1, 0], [0, 1]), f"15d: has_action / has_text {flags}"),
               ((rows, batch["input_ids"].shape[1]) == (HYBRID_ROWS, TRAIN_SEQ_LEN),
                f"15d: rows of {rows} tokens padded to {batch['input_ids'].shape[1]}; phases 3 "
@@ -7159,13 +7212,12 @@ def phase_hybrid(failures: list) -> dict:
         paths = step_paths(
             model, cfg, plain, lambda m, c: cogact_loss(m, c, batch, remat=True, with_text_loss=True,
                                                         diffusion_t=t, diffusion_noise=noise),
-            watched, lambda: build_cogact(plain, "cuda",
-                                          prepare=lambda m: cast_matrices_(m, torch.bfloat16)),
-            trainable)
+            watched, build_cogact, "15d's bf16 copy", trainable)
     (w32, g32), (wpl, gpl), (wk, gk), (wbf, gbf) = (
-        paths[p] for p in ("fp32_witness", "plain", "kernel", "bf16_matrices"))
+        paths[p] for p in ("fp32_witness", "plain", "kernel", "bf16"))
+    rule = paths["rule"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    for lab, w in (("kernel", wk), ("plain", wpl), ("bf16 matrices", wbf), ("fp32 witness", w32)):
+    for lab, w in (("kernel", wk), ("plain", wpl), ("bf16", wbf), ("fp32 witness", w32)):
         print(f"  {lab}: loss {w['loss']:.6g} = text {w['text_loss']:.6g} + action "
               f"{w['action_loss']:.6g}; grad_norm {w['grad_norm']:.6g}; K1/K3 launches "
               f"{w['launches']}; forward {w['forward_s']:.2f} s, backward {w['backward_s']:.2f} s")
@@ -7182,18 +7234,18 @@ def phase_hybrid(failures: list) -> dict:
                (shapes == held, f"15d: K1/K3 shapes {sorted(shapes)}, phases 3 and 6 hold {held}"),
                (peak < 80, f"15d: peak {peak:.2f} GiB >= 80")]
     witness, bounds = hold_step("15d", {"kernel": (wk, gk), "plain": (wpl, gpl),
-                                        "bf16_matrices": (wbf, gbf)}, (w32, g32),
+                                        "bf16": (wbf, gbf)}, (w32, g32),
                                 {"loss": "rel", "grad_norm": "rel"}, checks)
     text_dist = {p: {k: abs(w[k] - w32[k]) / abs(w32[k]) for k in ("text_loss", "action_loss")}
-                 for p, w in (("kernel", wk), ("plain", wpl), ("bf16_matrices", wbf))}
+                 for p, w in (("kernel", wk), ("plain", wpl), ("bf16", wbf))}
     print(f"  text and action loss, relative distance from the witness: {text_dist}; peak "
           f"memory allocated {peak:.2f} GiB")
     failures.extend(msg for ok, msg in checks if not ok)
     del model, paths, g32, gpl, gk, gbf, batch
     free_memory()
     return {"params": n_params, "rows": list(rows), "peak_gib": peak, "kernel": wk, "plain": wpl,
-            "bf16_matrices": wbf, "fp32_witness": w32, "vs_fp32": witness, "bounds": bounds,
-            "loss_parts_vs_fp32": text_dist, "launches": {"flash_fwd": wk["launches"][0],
+            "bf16": wbf, "fp32_witness": w32, "vs_fp32": witness, "bounds": bounds,
+            **rule, "loss_parts_vs_fp32": text_dist, "launches": {"flash_fwd": wk["launches"][0],
                                                           "flash_bwd": wk["launches"][1]}}
 
 
@@ -7338,7 +7390,7 @@ def attn_rows(q, k, v, ints, seg, dout, reps: int = 10) -> dict:
 
 def phase_navila_cp(failures: list, dataset: str, model, cfg) -> dict:
     """Phase 13e: one step of 13c's recipe (NaVILA-7B, 4 rows of 4096, the
-    LLM frozen, remat, 13b's weights: bf16 matrices, fp32 vectors) through
+    LLM frozen, remat, 13b's weights under the Trainer's bf16 rule) through
     navila_packed_loss_cp on a ('data', 'model', 'seq') = (1, 1, 1) mesh over
     a process group of one (NCCL): the ring code with one hop a layer call,
     held to navila_packed_loss on the same batch, loss and grad norm within
@@ -7364,7 +7416,7 @@ def phase_navila_cp(failures: list, dataset: str, model, cfg) -> dict:
     group_of_one()
     mesh = make_mesh(data=1, model=1, seq=1)
     print(f"phase 13e: one packed NaVILA-7B step ({R} rows of {host['input_ids'].shape[1]}, "
-          f"LLM frozen, remat, bf16 matrices) through navila_packed_loss_cp on a "
+          f"LLM frozen, remat, bf16 weights) through navila_packed_loss_cp on a "
           f"{mesh_shape(mesh)} mesh over a process group of one ({dist.get_backend()}), against "
           f"navila_packed_loss on the same batch")
 
@@ -7525,7 +7577,7 @@ def phase_ring_hops(failures: list) -> dict:
 
 def phase_moe(failures: list) -> dict:
     """Phase 16a: an MoE decoder at LLaMA-2-7B's layer width (MOE_CFG: 2
-    layers, 8 experts, top-2, capacity 2.0, bf16 matrices) on MOE_ROWS x
+    layers, 8 experts, top-2, capacity 2.0, bf16 under the Trainer's rule) on MOE_ROWS x
     MOE_TOKENS causal rows: mot_forward(want_aux=True) forward and backward
     through K1 and K3 (counted), held against the same model on the plain
     attention path (outputs, the input's and the router's, experts' and
@@ -7533,7 +7585,7 @@ def phase_moe(failures: list) -> dict:
     1e-3 relative); the dropped share, and one layer's expert FFN time
     against its attention's (K1 and K3, with the kernel table's row)."""
     from dexbotic_tpu_torch.nn import moe
-    from dexbotic_tpu_torch.nn.core import cast_matrices_
+    from dexbotic_tpu_torch.nn.core import cast_like_jax_
     from dexbotic_tpu_torch.nn.transformer import (
         Stream,
         Transformer,
@@ -7547,7 +7599,8 @@ def phase_moe(failures: list) -> dict:
         model = Transformer(cfg)
     model = model.to_empty(device="cuda")
     init_transformer_(model, torch.Generator(device="cuda").manual_seed(16))
-    cast_matrices_(model, torch.bfloat16)
+    cast_like_jax_(model, torch.bfloat16)
+    rule = print_bf16_rule("16a's decoder", model)
     g = torch.Generator(device="cuda").manual_seed(17)
     B, T, H = MOE_ROWS, MOE_TOKENS, cfg.hidden_size
     x = torch.randn(B, T, H, generator=g, device="cuda").bfloat16()
@@ -7639,7 +7692,7 @@ def phase_moe(failures: list) -> dict:
     del model, layer, xs
     free_memory()
     return {"kernel": kern, "plain": plain, "cosine": cos, "aux_rel": aux_rel,
-            "expert_ffn_ms": ffn_ms, "rows": rows}
+            "expert_ffn_ms": ffn_ms, "rows": rows, **rule}
 
 
 def kernel_batch_invariance(cfg, pos, valid, g) -> dict:
@@ -8039,6 +8092,8 @@ def main() -> int:
     # K2's SASS is read beside phase 7, whose steps take seconds: beside no
     # timing of a kernel
     sass = start_sass_dump(build.LIBRARY.path)
+    rule_printed = contextlib.ExitStack()
+    rule_printed.enter_context(trainer_rule_printed())
     train = phase_train(failures)
     lap("phase_train")
     k2_sass_report(sass, k2_build, failures)
@@ -8085,6 +8140,7 @@ def main() -> int:
     free_memory()
     par = phase_parallel(failures)
     lap("phase_parallel")
+    rule_printed.close()
     free_memory()
     if failures:
         print("FAILED:\n  " + "\n  ".join(failures), file=sys.stderr)

@@ -44,7 +44,7 @@ from dexbotic_tpu_torch.data.transforms import DEFAULT_PROMPT_TEMPLATE
 from dexbotic_tpu_torch.tokenization.tokenize import DummyTokenization, LLMTokenization, SimpleTokenizer
 from dexbotic_tpu_torch.exp.optim import OptimizerConfig
 from dexbotic_tpu_torch.exp.trainer import Trainer, TrainerConfig, load_checkpoint_params
-from dexbotic_tpu_torch.nn.core import cast_served_
+from dexbotic_tpu_torch.nn.core import cast_like_jax_
 from dexbotic_tpu_torch.ops import quant_matmul
 from dexbotic_tpu_torch.ops.quant import quantize_model_
 from dexbotic_tpu_torch.parallel import multihost
@@ -294,15 +294,15 @@ class BaseExp:
 
     def prepare_inference_params(self, model: nn.Module) -> nn.Module:
         """Serving dtype policy: fp32 leaves of the JAX tree with ndim >= 2 ->
-        bf16, 1-D stay fp32 (``nn/core.cast_served_``: a stacked layer's norm
-        scales and biases are [L, D] leaves there).
+        bf16, 1-D stay fp32 (``nn/core.cast_like_jax_``, the Trainer's rule too:
+        a stacked layer's norm scales and biases are [L, D] leaves there).
 
         Applied to the module while it is laid out on the meta device, before
         its weights are materialised (quantization needs the values: see
         :meth:`quantize_inference_model`)."""
         if self.inference_quantize not in ("", "int8", "w8a8"):
             raise ValueError(f"unknown inference_quantize={self.inference_quantize!r}")
-        return cast_served_(model, torch.bfloat16)
+        return cast_like_jax_(model, torch.bfloat16)
 
     def quantize_inference_model(self, model: nn.Module) -> nn.Module:
         """Optional weight-only int8 quantization of the materialised serving

@@ -268,7 +268,8 @@ class GRPOUpdater:
     optax's defaults (weight decay 1e-4 on every parameter, eps 1e-8, betas
     0.9 / 0.999, a fixed learning rate with no warmup), moments in fp32.
     ``model`` is trained in place; its parameters keep their dtype (the JAX
-    init's fp32: bf16 weights would round an update of lr 1e-6 away).
+    init's fp32: bf16 weights would round an update of lr 1e-6 away), so the
+    Trainer's bf16 rule (``nn/core.cast_like_jax_``) does not apply here.
 
     With a ``mesh`` the update is sharded: the actor is laid out by
     ``parallel/mesh.shard_model`` (call :meth:`gathered` around anything

@@ -181,7 +181,10 @@ class SimpleVLARLExp(base_exp.BaseExp):
                 multihost.process_count(), model_size, self.micro_batch_size)
             mesh = make_mesh(data, model_size, device_type=torch.device(self.device).type)
         cfg = self.model.build_config()
-        model = self.model.build_params(cfg, self.device)  # fp32, as the JAX init
+        # fp32, as the JAX init and the JAX loop: the update never goes
+        # through the Trainer, so its bf16 rule (nn/core.cast_like_jax_) is
+        # not applied, and an update of lr 1e-6 is not rounded away
+        model = self.model.build_params(cfg, self.device)
         tokenizer = self.tokenizer.build_tokenizer()
         updater = GRPOUpdater(cfg, self.grpo, model, learning_rate=self.rl_learning_rate,
                               temperature=self.rollout.temperature, mesh=mesh)

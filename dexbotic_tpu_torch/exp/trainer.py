@@ -2,10 +2,12 @@
 or over a mesh of processes.
 
 Port of dexbotic_tpu/exp/trainer.py.  The dtype rules are the JAX trainer's:
-``bf16`` casts every fp32 parameter with ndim >= 2 to bf16 with no fp32
-master copy, gradients come back in the parameters' dtype (summed there over
-micro-batches) and are cast to fp32 for the update, and the moments are fp32
-(``exp/optim.py``).  A frozen vision tower (``freeze_mm_vision``) takes no
+``bf16`` casts every fp32 leaf of the JAX tree with ndim >= 2 to bf16 with
+no fp32 master copy (``nn/core.cast_like_jax_``: a stacked layer's norm
+scales and biases are [L, D] leaves there, so they train in bf16),
+gradients come back in the parameters' dtype (summed there over
+micro-batches) and are cast to fp32 for the update, and the moments are
+fp32 (``exp/optim.py``).  A frozen vision tower (``freeze_mm_vision``) takes no
 gradient at all; any other frozen parameter keeps ``requires_grad`` so that
 its gradient counts in the clip norm, as in the JAX package, and is dropped
 after it.
@@ -63,7 +65,7 @@ from torch import nn
 
 from dexbotic_tpu_torch.exp.optim import Optimizer, OptimizerConfig, stopgrad_subtrees
 from dexbotic_tpu_torch.models import losses
-from dexbotic_tpu_torch.nn.core import cast_matrices_, local
+from dexbotic_tpu_torch.nn.core import cast_like_jax_, local
 from dexbotic_tpu_torch.parallel import multihost
 from dexbotic_tpu_torch.parallel.mesh import make_mesh, mesh_requested, shard_model
 
@@ -162,7 +164,7 @@ class Trainer:
         if optimizer_config.freeze_mm_vision:
             stopgrad_subtrees(model.named_parameters(), ("vit", "mm_vision"))
         if trainer_config.bf16:
-            cast_matrices_(model, torch.bfloat16)
+            cast_like_jax_(model, torch.bfloat16)
         self.mesh = self.sharded = None
         self.data_rank, self.data_size = 0, 1
         if mesh is not None or mesh_requested(trainer_config.mesh_data, trainer_config.mesh_model):

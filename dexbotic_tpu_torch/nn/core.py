@@ -84,21 +84,15 @@ def weight_dtype(mod: nn.Module) -> torch.dtype:
     return mod.s.dtype if isinstance(mod, (QuantLinear, QuantEmbedding)) else mod.weight.dtype
 
 
-def cast_matrices_(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """The JAX dtype rule for trained weights, per layer: fp32 parameters
-    with ndim >= 2 -> ``dtype``; 1-D parameters stay fp32."""
-    for p in module.parameters():
-        if p.dtype == torch.float32 and p.ndim >= 2:
-            p.data = p.data.to(dtype)
-    return module
-
-
-def cast_served_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """The JAX serving dtype rule (``BaseExp.prepare_inference_params``) on
-    the JAX tree: fp32 leaves with ndim >= 2 -> ``dtype``.  A layer of a list
-    the JAX tree stacks on a leading axis (``ops/quant.jax_stack``) has one
-    dim more there, so its norm scales and biases are cast as JAX casts their
-    [L, D] stacks; every other 1-D parameter stays fp32."""
+def cast_like_jax_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """The JAX package's bf16 dtype rule, on the JAX tree: fp32 leaves with
+    ndim >= 2 -> ``dtype``.  One predicate serves both of its sites, the
+    Trainer's ``bf16`` (``dexbotic_tpu/exp/trainer.py:99-105``) and serving
+    (``BaseExp.prepare_inference_params``).  A layer of a list the JAX tree
+    stacks on a leading axis (``ops/quant.jax_stack``) has one dim more
+    there, so its norm scales and biases are cast as JAX casts their [L, D]
+    stacks; a list JAX keeps as a Python list (``jax_stacked = False``) and
+    every other 1-D or 0-d parameter stay fp32."""
     for name, p in model.named_parameters():
         ndim = p.ndim + (jax_stack(model, name) is not None)
         if p.dtype == torch.float32 and ndim >= 2:

@@ -41,17 +41,18 @@ gradients are reduce-scattered once complete.  So a rank holds its shards of
 the weights, gradients and moments, and one layer's whole weights and
 gradients at a time (a neighbour's too while FSDP2 prefetches it), as the
 JAX package's gather-on-use does.  FSDP2 refuses a group that mixes
-parameter dtypes, and the trainer's dtype rule (bf16 matrices, fp32
-vectors, no fp32 master copy) gives exactly that mix: a layer's group takes
-the dtype of most of its sharded elements, and the rest of the model
-(embeddings, heads, towers, which the model's code also reaches outside
-module calls) forms one group a dtype around the whole loss call
-(:class:`ShardedModel`), gathered for the step.  A leaf the rule replicates
-(below ``min_size``, with no axis divisible by the data size, or any leaf at
-data size 1), a layer's sharded leaf of the other dtype and an expert stack
-under expert parallelism stay outside every group, and their gradients are
-averaged over the data ranks by :meth:`ShardedModel.reduce_grads` (one
-collective a dtype), which also sums every gradient over 'seq'.
+parameter dtypes.  A layer's leaves share one dtype under the trainer's
+rule (``nn/core.cast_like_jax_``: the JAX tree stacks the layers, so their
+norm scales and biases are bf16 beside the matrices), so a layer's sharded
+leaves form its group whole.  The rest of the model (embeddings, heads,
+towers, which the model's code also reaches outside module calls) keeps fp32
+vectors beside bf16 matrices and forms one group a dtype around the whole
+loss call (:class:`ShardedModel`), gathered for the step.  A leaf the rule
+replicates (below ``min_size``, with no axis divisible by the data size, or
+any leaf at data size 1) and an expert stack under expert parallelism stay
+outside every group, and their gradients are averaged over the data ranks
+by :meth:`ShardedModel.reduce_grads` (one collective a dtype), which also
+sums every gradient over 'seq'.
 """
 
 from __future__ import annotations
@@ -430,13 +431,11 @@ def shard_model(model: nn.Module, mesh) -> ShardedModel:
     again in the backward, where its gradients are reduce-scattered as soon
     as they are complete: a rank holds its shards and one layer's whole
     weights and gradients at a time.  A group takes one dtype (FSDP2 refuses
-    a mix), so a layer's group holds the dtype of most of its sharded
-    elements (the bf16 matrices under the trainer's dtype rule), and a
-    sharded leaf of another dtype in the layer is replicated instead.  The
-    rest of the model (embeddings, heads, towers) forms one group a dtype
-    around the whole loss call, since it reaches parameters outside module
-    calls.  At data size 1 every leaf is replicated, as the JAX rule says,
-    and no group is made.  On a mesh with an 'expert' axis the MoE expert
+    a mix), and a layer's leaves share one under the trainer's rule
+    (``nn/core.cast_like_jax_``).  The rest of the model (embeddings, heads,
+    towers) forms one group a dtype around the whole loss call, since it
+    reaches parameters outside module calls.  At data size 1 every leaf is
+    replicated, as the JAX rule says, and no group is made.  On a mesh with an 'expert' axis the MoE expert
     stacks are placed first (:func:`place_experts`) and stay outside every
     FSDP2 group."""
     from dexbotic_tpu_torch.nn.transformer import DecoderLayer
@@ -457,16 +456,12 @@ def shard_model(model: nn.Module, mesh) -> ShardedModel:
         if not isinstance(mod, DecoderLayer):
             continue
         mine = {f"{prefix}.{n}": p for n, p in mod.named_parameters()}
-        size: dict = {}
-        for n in sorted(sharded & set(mine)):
-            size[mine[n].dtype] = size.get(mine[n].dtype, 0) + mine[n].numel()
-        if not size:
+        keep = {p: n for n, p in mine.items() if n in sharded}
+        if not keep:
             continue
-        dtype = max(size, key=size.get)
-        keep = {p: n for n, p in mine.items() if n in sharded and p.dtype == dtype}
         _fully_shard(mod, dp_mesh, keep, axes, reshard=True)
         layers[prefix] = sorted(keep.values())
-        sharded -= set(mine)  # the layer's other leaves are replicated
+        sharded -= set(mine)
 
     groups: dict = {}
     for name, p in named.items():  # in the model's order, the same on every rank

@@ -1,14 +1,14 @@
 """chip_smoke phase 10a's GRPO micro-step taken apart, at given decoder
-depths, on an H100: which part of the step puts the kernel path's metrics
-further from the fp32 witness than 10a's rule allows.
+depths, on an H100: each path's distance from the fp32 witness under two
+rules for the old log-probs, and 10a's rule under each.
 
     python script/witness_rl_step_torch.py [--layers 2 4] [--out DIR]
 
 At each depth, chip_smoke's seeded actor (``rl_exp``: the LIBERO
 SimpleVLA-RL twin, fp32 weights) and its rollout batch of 8 mock envs
-(``rl_rollout_batch``) go through one micro-step (``rl_micro_step``: the
-metrics, the gradients' global norm, the watched groups' gradients) on
-these paths:
+(``rl_rollout_batch``, drawn on the kernel path) go through one micro-step
+(``rl_micro_step``: the metrics, the gradients' global norm, the watched
+groups' gradients) on these paths:
 
 * ``fp32_witness``: the plain attention in fp32;
 * ``plain``: K1's and K3's plain versions on q, k, v rounded to bf16
@@ -16,22 +16,23 @@ these paths:
 * ``kernel_policy_loss``: K1 and K3, through ``rl_policy_loss`` as the
   paths above;
 * ``kernel_updater``: K1 and K3 through ``GRPOUpdater.grads`` (remat on),
-  the path 10a holds, its norm from ``GRPOUpdater.apply`` as 10a reads it;
-* ``bf16_matrices``: a bf16 copy made by ``nn/core.cast_matrices_`` (10a's
-  margin: the Trainer's rule, which keeps a stacked layer's norm scales and
-  biases fp32);
-* ``bf16_served``: a bf16 copy made by ``nn/core.cast_served_`` (JAX's
-  rule on its tree, which casts them too).
+  the path 10a holds (no update is applied);
+* ``bf16``: a copy under the Trainer's bf16 rule (``trainer_rule_copy``,
+  ``nn/core.cast_like_jax_``), 10a's margin.
 
-Each path's distance from the witness (loss abs, entropy and grad_norm rel,
-1 - the worst watched gradient cosine), then 10a's rule (``hold_step``)
-with each kernel path against each bf16 copy.  K1 and K3 alone: every K3
-launch of the ``kernel_updater`` step is held against the plain versions
-on its own inputs, K1's saved output against ``flash_attention_ref`` on the
-same q, k, v and K3's dq, dk, dv against ``flash_attention_bwd_ref`` on the
-same q, k, v, output, LSE and dO: per launch the largest error over the
-largest |plain| value of each tensor.  Prints one JSON line last; ``--out
-DIR`` also writes it to ``DIR/witness_rl_step.json``.
+The old log-probs are either the rollout's (``rollout``: the kernel path's,
+so its ratio is exactly 1 and every other path's pg_loss is its log-prob gap
+from the kernel path) or each path's own (``own``: recomputed on the path by
+``rl_own_old_logp``, 10a's rule).  Each path's distance from the witness
+(loss abs, entropy and grad_norm rel, 1 - the worst watched gradient
+cosine), then 10a's rule (``hold_step``) with each kernel path, under each
+rule.  K1 and K3 alone: every K3 launch of the ``kernel_updater`` step (own
+log-probs) is held against the plain versions on its own inputs, K1's saved
+output against ``flash_attention_ref`` on the same q, k, v and K3's dq, dk,
+dv against ``flash_attention_bwd_ref`` on the same q, k, v, output, LSE and
+dO: per launch the largest error over the largest |plain| value of each
+tensor.  Prints one JSON line last; ``--out DIR`` also writes it to
+``DIR/witness_rl_step.json``.
 """
 
 from __future__ import annotations
@@ -93,8 +94,9 @@ def distance(path: tuple, ref: tuple) -> dict:
 
 
 def at_depth(layers: int) -> dict:
+    from dexbotic_tpu_torch.exp.optim import global_norm
     from dexbotic_tpu_torch.exp.rl.rl_trainer import GRPOUpdater
-    from dexbotic_tpu_torch.nn.core import cast_matrices_, cast_served_
+    from dexbotic_tpu_torch.models.oft import build_oft
 
     cs.free_memory()
     exp = cs.rl_exp(layers)
@@ -102,43 +104,54 @@ def at_depth(layers: int) -> dict:
     model = exp.model.build_params(cfg, "cuda")
     mb = cs.rl_rollout_batch(exp, cfg, model, exp.tokenizer.build_tokenizer())
     watched, plain = cs.rl_watched(cfg), cs.plain_config(cfg)
-    paths = {"fp32_witness": cs.rl_micro_step(model, plain, exp, mb, watched)}
-    with cs.decoder_plain_on_bf16():
-        paths["plain"] = cs.rl_micro_step(model, plain, exp, mb, watched)
-    paths["kernel_policy_loss"] = cs.rl_micro_step(model, cfg, exp, mb, watched)
-    for name, cast in (("bf16_matrices", cast_matrices_), ("bf16_served", cast_served_)):
-        bf = cs.rl_bf16_copy(model, plain, cast)
-        paths[name] = cs.rl_micro_step(bf, plain, exp, mb, watched)
-        del bf
-        cs.free_memory()
+    bf, reading = cs.trainer_rule_copy(build_oft, plain, model, f"{layers} layers' bf16 copy")
     updater = GRPOUpdater(cfg, exp.grpo, model, learning_rate=exp.rl_learning_rate,
                           temperature=exp.rollout.temperature)
-    with kernels_alone([]) as alone:
-        metrics, grads = updater.grads(model, mb)
-    wk = {k: float(v) for k, v in metrics.items()}
-    gk = cs.rl_watched_grads(grads.items(), watched)
-    wk["grad_norm"] = float(updater.apply(model, grads))
-    paths["kernel_updater"] = (wk, gk)
-    ref = paths["fp32_witness"]
-    rules = {}
-    for kernel in ("kernel_updater", "kernel_policy_loss"):
-        for bf in ("bf16_matrices", "bf16_served"):
+    out = {"layers": layers, "bf16_rule": reading, "old_logp_gap": {}}
+    alone: list = []
+    for old in ("rollout", "own"):
+        def step(m, c, label, updater_path=False):
+            b = mb
+            if old == "own":
+                b, out["old_logp_gap"][label] = cs.rl_own_old_logp(m, c, exp, mb)
+            if not updater_path:
+                return cs.rl_micro_step(m, c, exp, b, watched)
+            m.requires_grad_(True)
+            with kernels_alone(alone) if old == "own" else contextlib.nullcontext():
+                metrics, grads = updater.grads(m, b)
+            wk = {k: float(v) for k, v in metrics.items()}
+            wk["grad_norm"] = float(global_norm([g for g in grads.values() if g is not None]))
+            gk = cs.rl_watched_grads(grads.items(), watched)
+            for p in m.parameters():
+                p.grad = None
+            m.requires_grad_(False)
+            return wk, gk
+
+        paths = {"fp32_witness": step(model, plain, "fp32_witness")}
+        with cs.decoder_plain_on_bf16():
+            paths["plain"] = step(model, plain, "plain")
+        paths["kernel_policy_loss"] = step(model, cfg, "kernel_policy_loss")
+        paths["bf16"] = step(bf, plain, "bf16")
+        paths["kernel_updater"] = step(model, cfg, "kernel_updater", updater_path=True)
+        ref = paths["fp32_witness"]
+        rules = {}
+        for kernel in ("kernel_updater", "kernel_policy_loss"):
             checks: list = []
-            _, bounds = cs.hold_step(f"{layers} layers, {kernel} with {bf}",
+            _, bounds = cs.hold_step(f"{layers} layers, {old} old log-probs, {kernel}",
                                      {"kernel": paths[kernel], "plain": paths["plain"],
-                                      "bf16_matrices": paths[bf]}, ref, SCALARS, checks)
-            rules[f"{kernel} with {bf}"] = {"holds": all(ok for ok, _ in checks),
-                                            "bounds": bounds,
-                                            "failed": [m for ok, m in checks if not ok]}
-    out = {"layers": layers,
-           "metrics": {p: {k: w[k] for k in ("loss", "pg_loss", "entropy", "grad_norm")}
-                       for p, (w, _) in paths.items()},
-           "vs_fp32": {p: distance(v, ref) for p, v in paths.items() if p != "fp32_witness"},
-           "rule": rules,
-           "kernels_alone": alone,
-           "kernels_alone_max": {k: max(r[k] for r in alone) for k in
-                                 ("k1_out", "k3_dq", "k3_dk", "k3_dv")} if alone else None}
-    del model, updater, grads, mb, paths
+                                      "bf16": paths["bf16"]}, ref, SCALARS, checks)
+            rules[kernel] = {"holds": all(ok for ok, _ in checks), "bounds": bounds,
+                             "failed": [m for ok, m in checks if not ok]}
+        out[old] = {"metrics": {p: {k: w[k] for k in ("loss", "pg_loss", "entropy", "grad_norm")}
+                                for p, (w, _) in paths.items()},
+                    "vs_fp32": {p: distance(v, ref) for p, v in paths.items()
+                                if p != "fp32_witness"},
+                    "rule": rules}
+        del paths, ref
+    out["kernels_alone"] = alone
+    out["kernels_alone_max"] = {k: max(r[k] for r in alone) for k in
+                                ("k1_out", "k3_dq", "k3_dk", "k3_dv")} if alone else None
+    del model, bf, updater, mb
     cs.free_memory()
     return out
 

@@ -125,8 +125,13 @@ def test_bf16_weights_compute_in_fp32_as_jax(kind):
     params = jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)),
                           params)
     load_jax_params(model, params)
-    core.cast_matrices_(model, torch.bfloat16)
+    core.cast_like_jax_(model, torch.bfloat16)
     assert model.expert.layers[0].attn.q.weight.dtype == torch.bfloat16
+    # a stacked layer's norm scales (π0.5's adaRMS: its dense bias) are [L, D]
+    # leaves in JAX's tree, which casts them too
+    assert model.vlm.llm.layers[0].ln1.weight.dtype == torch.bfloat16
+    vectors = [p for p in model.expert.layers[0].parameters() if p.ndim == 1]
+    assert vectors and all(p.dtype == torch.bfloat16 for p in vectors)
     jparams = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16) if a.ndim >= 2 else jnp.asarray(a),
                            params)
     images, masks, ids, tmask, states, noise, _ = _inputs(jcfg)

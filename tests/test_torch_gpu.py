@@ -20,7 +20,7 @@ import dataclasses
 import pytest
 import torch
 
-from dexbotic_tpu_torch.nn.core import cast_matrices_
+from dexbotic_tpu_torch.nn.core import cast_like_jax_
 from dexbotic_tpu_torch.models.dit import DiT, DiTConfig, init_dit_
 from dexbotic_tpu_torch.ops.attention import (
     _flash_cuda,
@@ -643,7 +643,7 @@ def test_dit_kernel_matches_plain(cuda, dtype, hidden, heads, depth, B):
     ref_head = head
     if dtype == torch.bfloat16:
         ref_head = copy.deepcopy(head)
-        cast_matrices_(head, dtype)
+        cast_like_jax_(head, dtype)
     z = torch.randn(B, 1, cfg.token_size, generator=g, device=cuda)
     noise = torch.randn(B, cfg.chunk_size, cfg.in_channels, generator=g, device=cuda)
     sched = DiffusionSchedule.create(100)
@@ -675,7 +675,7 @@ def test_dit_kernel_every_plan(cuda, int8, B, cfg_scale, chunks):
     extremes: one chunk a product (a block walks up to 16 k steps of fc1,
     past the ring's 6 stages) and one k step a chunk."""
     cfg, head, g = _dit_head(cuda, 256, 4, 2, 3)
-    cast_matrices_(head, torch.bfloat16)
+    cast_like_jax_(head, torch.bfloat16)
     if int8:
         quantize_model_(head)
     ref_head = copy.deepcopy(head)
@@ -707,7 +707,7 @@ def test_dit_kernel_is_deterministic(cuda, int8):
     """Two calls give the same chunk bit for bit: the partials are summed in
     chunk order, whichever block finishes first."""
     cfg, head, g = _dit_head(cuda, 256, 4, 2, 5)
-    cast_matrices_(head, torch.bfloat16)
+    cast_like_jax_(head, torch.bfloat16)
     if int8:
         quantize_model_(head)
     z = torch.randn(8, 1, cfg.token_size, generator=g, device=cuda)
@@ -721,7 +721,7 @@ def test_dit_kernel_is_deterministic(cuda, int8):
 
 def test_dit_kernel_refuses_what_it_does_not_serve(cuda):
     cfg, head, g = _dit_head(cuda, 256, 4, 1, 6)
-    cast_matrices_(head, torch.bfloat16)
+    cast_like_jax_(head, torch.bfloat16)
     z = torch.randn(9, 1, cfg.token_size, generator=g, device=cuda)
     noise = torch.randn(9, cfg.chunk_size, cfg.in_channels, generator=g, device=cuda)
     with pytest.raises(ValueError):  # 18 rows of 17 tokens: past k2_serves
@@ -879,7 +879,8 @@ def test_quantized_engine_tick_matches_plain(cuda):
                             num_kv_heads=4, head_dim=64, intermediate_size=512,
                             tie_embeddings=False)
     cfg = DiscreteVLAConfig(vlm=VLMConfig(llm=llm, vit=VIT_TEST))
-    model = build_discrete_vla(cfg, cuda, seed=0, prepare=lambda m: cast_matrices_(m, torch.bfloat16))
+    model = build_discrete_vla(cfg, cuda, seed=0,
+                               prepare=lambda m: cast_like_jax_(m, torch.bfloat16))
     quantize_model_(model, min_size=0)
     eng = de.ContinuousBatchingEngine(model.vlm, cfg.vlm, slots=4, max_prompt=64, max_new=8,
                                       eos_token_id=-1, steps_per_tick=2)
@@ -926,7 +927,7 @@ def test_dit_kernel_int8_matches_plain(cuda, min_size, B, depth):
     """K2 on int8 block weights (min_size 0: x_embed and final too) against the
     plain sampler on the same int8 head, bf16, and on its fp32 copy."""
     cfg, head, g = _dit_head(cuda, 256, 4, depth, 7)
-    cast_matrices_(head, torch.bfloat16)
+    cast_like_jax_(head, torch.bfloat16)
     quantize_model_(head, min_size=min_size)
     assert head.blocks[0].attn.qkv.q.dtype == torch.int8
     ref_head = copy.deepcopy(head)

@@ -10,8 +10,9 @@ processes must train as the same batch in one process:
   model=2 (tensor parallelism) and data=2 x model=2: loss, grad_norm and
   every parameter and moment after two steps equal one process at 1e-5,
   and the data=2 run equals the JAX Trainer at the repo's 1e-3;
-* the same step in bf16, whose sharded leaves form two FSDP2 groups (bf16
-  matrices, fp32 vectors), at bf16's tolerances (below);
+* the same step in bf16 at data=2 and 4 under the trainer's dtype rule
+  (JAX's on its tree): each decoder layer one bf16 FSDP2 group, the rest of
+  the model one group a dtype, at bf16's tolerances (below);
 * a token-mean loss (CogACT's text loss) whose two ranks hold different
   numbers of labels, against one process and JAX;
 * gradient accumulation 2 at 2 processes; MemVLA's aux step, each rank
@@ -245,6 +246,15 @@ WORKER = textwrap.dedent('''
         return dict(np.load(os.path.join(INP, name + ".npz")))
 
 
+    def dump_groups(name, tr):
+        """The FSDP2 groups a Trainer's shard_model made: the dtypes of the
+        whole-model groups, of the decoder layers' leaves, and the layers."""
+        dump(name, {"whole": sorted(str(d) for d in tr.sharded.groups),
+                    "layers": sorted({str(tr.params[n].dtype) for names in
+                                      tr.sharded.layers.values() for n in names}),
+                    "units": sorted(tr.sharded.layers)})
+
+
     def case_env():
         again = multihost.maybe_initialize(device="cpu")  # idempotent
         mesh = pmesh.make_mesh()
@@ -270,6 +280,8 @@ WORKER = textwrap.dedent('''
         batches = [cogact_batch(100 + s) for s in range(2)]
         if WORLD == 4:
             train_cogact(os.path.join(OUT, "tp_dp"), w, batches, data=2, model=2)
+            dump_groups("bf16_groups4", train_cogact(os.path.join(OUT, "bf16_4"), w, batches,
+                                                     data=4, bf16=True))
             return
         from torch.distributed.tensor import DTensor
 
@@ -301,12 +313,8 @@ WORKER = textwrap.dedent('''
         for remat in (True, "dots"):
             train_cogact(os.path.join(OUT, f"remat_{remat}"), w, batches, data=2, remat=remat)
         train_cogact(os.path.join(OUT, "tp"), w, batches, data=1, model=2)
-        tr = train_cogact(os.path.join(OUT, "bf16"), w, batches, data=2, bf16=True)
-        params = tr.params
-        dump("bf16_groups", {
-            "whole": sorted(str(d) for d in tr.sharded.groups),
-            "layers": sorted({str(params[n].dtype) for names in tr.sharded.layers.values()
-                              for n in names})})
+        dump_groups("bf16_groups", train_cogact(os.path.join(OUT, "bf16"), w, batches, data=2,
+                                                bf16=True))
         train_cogact(os.path.join(OUT, "accum"), w, [cogact_batch(200 + s, B=8) for s in range(2)],
                      data=2, accum=2)
         text = [cogact_batch(300 + s, labels=[6, 5, 1, 0]) for s in range(2)]
@@ -726,15 +734,17 @@ def test_cogact_steps_over_processes_match_jax(runs, tmp_path):
         np.testing.assert_allclose(params[name].numpy(), val, rtol=TOL, atol=TOL, err_msg=name)
 
 
-def test_bf16_step_shards_each_dtype_in_its_own_group(runs):
-    """The trainer's dtype rule (bf16 matrices, fp32 vectors) gives FSDP2 one
-    group a dtype; two steps at data=2 equal one process at bf16's
-    tolerance, and every parameter keeps its dtype."""
-    for rank in range(2):
-        with open(runs["out"] / f"bf16_groups-{rank}.json") as f:
-            assert json.load(f) == {"whole": ["torch.bfloat16", "torch.float32"],
-                                    "layers": ["torch.bfloat16"]}
-    (glog, gp, go), (wlog, wp, wo) = _read(runs["out"] / "bf16"), _read(runs["ref"] / "bf16")
+# under the trainer's dtype rule (JAX's on its tree) a decoder layer's leaves
+# are all bf16, one group each; the rest of the model keeps fp32 vectors (the
+# biases of the DiT's embedders and timestep MLP) beside bf16 matrices
+BF16_GROUPS = {"whole": ["torch.bfloat16", "torch.float32"], "layers": ["torch.bfloat16"],
+               "units": ["vlm.llm.layers.0", "vlm.llm.layers.1"]}
+
+
+def _assert_bf16_run(got, want):
+    """Two bf16 steps against one process's at bf16's tolerance, every
+    parameter in the reference's dtype."""
+    (glog, gp, go), (wlog, wp, wo) = _read(got), _read(want)
     for g, w in zip(glog, wlog):
         for k in ("loss", "grad_norm", "action_loss"):
             np.testing.assert_allclose(g[k], w[k], rtol=BF16_REL, err_msg=k)
@@ -745,6 +755,26 @@ def test_bf16_step_shards_each_dtype_in_its_own_group(runs):
         step = 2.0 ** -7 * w.abs() + 2 * 2 * BF16_LR  # two steps
         assert ((gp[name].float() - w).abs() <= step).all(), name
     assert go["count"] == wo["count"] == 2
+
+
+def test_bf16_step_shards_each_dtype_in_its_own_group(runs):
+    """The trainer's dtype rule gives FSDP2 one group a dtype: each decoder
+    layer one bf16 group, the rest one group a dtype; two steps at data=2
+    equal one process at bf16's tolerance, and every parameter keeps its
+    dtype."""
+    for rank in range(2):
+        with open(runs["out"] / f"bf16_groups-{rank}.json") as f:
+            assert json.load(f) == BF16_GROUPS
+    _assert_bf16_run(runs["out"] / "bf16", runs["ref"] / "bf16")
+
+
+def test_bf16_step_at_data_4_forms_data_2s_groups(runs):
+    """At data=4 (a row a rank) the rule forms data=2's groups, and two steps
+    equal one process at bf16's tolerance."""
+    for rank in range(4):
+        with open(runs["out"] / f"bf16_groups4-{rank}.json") as f:
+            assert json.load(f) == BF16_GROUPS
+    _assert_bf16_run(runs["out"] / "bf16_4", runs["ref"] / "bf16")
 
 
 def test_decoder_layers_are_gathered_one_at_a_time(runs):

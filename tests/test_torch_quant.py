@@ -105,8 +105,10 @@ def test_quantization_bit_exact_vs_jax(jparams, min_size, dtype):
     want = _leaves(jax.device_get(jquant.quantize_params(params, min_size=min_size,
                                                          pad_cols=False)))
     model = _port_model(jparams)
-    if dtype == "bfloat16":  # the serving cast: matrices to bf16, as the JAX tree above
-        tcore.cast_matrices_(model, torch.bfloat16)
+    if dtype == "bfloat16":  # the serving cast, JAX's rule on JAX's tree, as above
+        tcore.cast_like_jax_(model, torch.bfloat16)
+    # a stacked norm scale is an [L, D] leaf of the JAX tree: cast with the matrices
+    assert model.vlm.llm.layers[0].ln1.weight.dtype == getattr(torch, dtype)
     tquant.quantize_model_(model, min_size=min_size)
     got = dict(model.named_parameters())
     assert set(got) == set(want)
@@ -117,13 +119,11 @@ def test_quantization_bit_exact_vs_jax(jparams, min_size, dtype):
     if min_size == tquant.DEFAULT_MIN_SIZE:  # DiT-S blocks quantize, the tiny VLM does not
         assert "action_head.blocks.0.attn.qkv.q" in got and "vlm.llm.embed.weight" in got
     for name, t in got.items():
-        if dtype == "bfloat16" and not name.endswith((".q", ".s")):
-            continue  # JAX's tree also casts its stacked 2-D biases; compare what quantized
         w = np.asarray(want[name])
+        assert str(t.dtype).removeprefix("torch.") == str(w.dtype), name
         if t.dtype == torch.bfloat16:
             w = np.asarray(jnp.asarray(w).astype(jnp.float32))
             t = t.float()
-        assert t.dtype == {"int8": torch.int8}.get(str(w.dtype), t.dtype), name
         np.testing.assert_array_equal(t.numpy(), w, err_msg=name)
     if dtype == "float32":
         jtree = jax.device_get(jquant.quantize_params(params, min_size=min_size, pad_cols=False))

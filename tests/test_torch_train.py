@@ -1,4 +1,4 @@
-"""The port's CogACT training slice against the JAX package, on the CPU in fp32.
+"""The port's CogACT training slice against the JAX package, on the CPU.
 
 * ``cogact_loss`` and every parameter's gradient against
   ``jax.value_and_grad(cogact_loss)``, timesteps and noise injected on both
@@ -8,16 +8,20 @@
   same batches and injected loss closure: loss and grad_norm per step, then
   every parameter through utils/bridge.py's mapping; with gradient
   accumulation, with frozen groups (unchanged, no moments) and with weight
-  decay.  The optimizer's schedules, group labels and freeze masks against
+  decay; and in bf16 under JAX's rule on both sides (the stacked norm scales
+  within one bf16 spacing of JAX's, and at lr 2e-5 exactly where they
+  started).  The optimizer's schedules, group labels and freeze masks against
   ``dexbotic_tpu.exp.optim``; the experiment layer's norm statistics and
   batches against ``dexbotic_tpu.exp.base_exp``.
 * The port's own contracts: a step's randomness depends on (seed, step) only,
-  so a resumed run equals an uninterrupted one; adapter-only checkpoints; and
+  so a resumed run equals an uninterrupted one, in fp32 and in bf16 (whose
+  checkpoint keeps JAX's dtypes and serves unchanged); adapter-only
+  checkpoints; and
   ``CogActExp.train()`` -> ``checkpoint-3`` -> ``load_for_inference`` -> one
   ``/process_frame`` request.
 
 Weights come from the JAX init (the DiT's zero final layer redrawn so that
-the loss sees the model); tolerance 1e-3, the repo's parity pin.
+the loss sees the model); tolerance 1e-3, the repo's parity pin (bf16: 2e-2).
 """
 
 import dataclasses
@@ -53,6 +57,9 @@ from dexbotic_tpu_torch.utils.bridge import load_jax_params, port_arrays
 
 torch.set_num_threads(2)
 TOL = 1e-3
+# bf16 weights on both sides, rounded at every update and multiplied in
+# another order: losses and grad norms to 2 %
+BF16_TOL = 2e-2
 
 LLM = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4, num_kv_heads=2,
            head_dim=8, intermediate_size=64, attn_impl="xla")
@@ -164,18 +171,52 @@ def test_cogact_loss_and_grads_match_jax(text, gate, remat):
     _assert_tree_close(model, jax.device_get(jgrads), "grad")
 
 
+def _stacked_norm_scales(model) -> list:
+    """The port names of the JAX tree's stacked norm scales ([L, D] leaves
+    there): every norm's ``weight`` in a ``layers``/``blocks`` list."""
+    from dexbotic_tpu_torch.ops.norms import LayerNorm, RMSNorm
+    from dexbotic_tpu_torch.ops.quant import jax_stack
+
+    return [f"{m}.weight" for m, mod in model.named_modules()
+            if isinstance(mod, (LayerNorm, RMSNorm))
+            and jax_stack(model, f"{m}.weight") is not None]
+
+
+def _bf16_spacing(x: np.ndarray) -> np.ndarray:
+    """The distance between bf16 neighbours at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 1e-30))) - 7)
+
+
 # max_grad_norm 1e-6 makes the clip visible through AdamW's eps (the update is
-# otherwise nearly invariant to the gradient's scale)
-@pytest.mark.parametrize("accum,freeze,clip,wd", [(2, False, 1.0, 0.0), (1, True, 1e-6, 0.0),
-                                                 (1, False, 1.0, 0.1)])
-def test_trainer_three_steps_match_jax(tmp_path, accum, freeze, clip, wd):
+# otherwise nearly invariant to the gradient's scale).  bf16 runs JAX's rule on
+# both sides (the stacked norm scales and biases train in bf16): "scales"
+# draws the stacked norm scales around 1 and takes lr 1e-2, so that a step
+# moves them; "lr2e-5" keeps the init's scales of 1.0 at the LIBERO recipes'
+# lr (playground/benchmarks/libero/libero_cogact.py), where a step is below
+# half a bf16 spacing of 1.0 and rounds away.
+@pytest.mark.parametrize("accum,freeze,clip,wd,bf16", [
+    pytest.param(2, False, 1.0, 0.0, None, id="2-False-1.0-0.0"),
+    pytest.param(1, True, 1e-6, 0.0, None, id="1-True-1e-06-0.0"),
+    pytest.param(1, False, 1.0, 0.1, None, id="1-False-1.0-0.1"),
+    pytest.param(2, False, 1.0, 0.1, "scales", id="bf16-scales"),
+    pytest.param(1, False, 1.0, 0.0, "lr2e-5", id="bf16-lr2e-5"),
+])
+def test_trainer_three_steps_match_jax(tmp_path, accum, freeze, clip, wd, bf16):
     params = _jax_params()
     batches = [_batch(10 + i) for i in range(3)]
-    lr = 1e-3
+    lr = {None: 1e-3, "scales": 1e-2, "lr2e-5": 2e-5}[bf16]
+    scales = _stacked_norm_scales(_port_model(params))
+    if bf16 == "scales":
+        rng = np.random.default_rng(5)
+        for path in {tuple(p) for n, _, p in port_arrays(params) if n in scales}:
+            leaf = params
+            for k in path[:-1]:
+                leaf = leaf[k]
+            leaf[path[-1]] = rng.normal(1.0, 0.2, leaf[path[-1]].shape).astype(np.float32)
     ocfg = dict(learning_rate=lr, freeze_llm=freeze, freeze_mm_vision=freeze, max_grad_norm=clip,
                 weight_decay=wd)
     tcfg = dict(max_steps=3, gradient_accumulation_steps=accum, logging_steps=1, save_steps=100,
-                bf16=False, resume=False)
+                bf16=bf16 is not None, resume=False)
     jt = jtrainer.Trainer(_jax_loss(False), params,
                           jtrainer.TrainerConfig(output_dir=str(tmp_path / "jax"), mesh_data=1,
                                                  **tcfg), joptim.OptimizerConfig(**ocfg))
@@ -192,19 +233,37 @@ def test_trainer_three_steps_match_jax(tmp_path, accum, freeze, clip, wd):
         with open(tmp_path / side / "metrics.jsonl") as f:
             logs[side] = [json.loads(line) for line in f]
     assert [r["step"] for r in logs["port"]] == [1, 2, 3]
+    tol = TOL if bf16 is None else BF16_TOL
     for j, t in zip(logs["jax"], logs["port"]):
         for key in ("loss", "grad_norm", "action_loss"):
-            np.testing.assert_allclose(t[key], j[key], rtol=TOL, atol=TOL, err_msg=key)
-    _assert_tree_close(model, jax.device_get(jt.params), "param")
-    # the updates themselves, to 1 % of one step's size
+            np.testing.assert_allclose(t[key], j[key], rtol=tol, atol=tol, err_msg=key)
     init = {n: v for n, v, _ in port_arrays(params)}
     got = dict(model.named_parameters())
-    for name, val, _ in port_arrays(jax.device_get(jt.params)):
-        np.testing.assert_allclose(got[name].detach().numpy() - init[name], val - init[name],
-                                   rtol=0, atol=1e-2 * lr, err_msg=name)
+    final = {n: v for n, v, _ in port_arrays(jax.device_get(jt.params))}
+    if bf16 is None:
+        _assert_tree_close(model, jax.device_get(jt.params), "param")
+        # the updates themselves, to 1 % of one step's size
+        for name, val in final.items():
+            np.testing.assert_allclose(got[name].detach().numpy() - init[name], val - init[name],
+                                       rtol=0, atol=1e-2 * lr, err_msg=name)
+    else:
+        assert {n: str(p.dtype).removeprefix("torch.") for n, p in got.items()} == \
+            {n: str(v.dtype) for n, v in final.items()}
+        assert scales and all(got[n].dtype == torch.bfloat16 for n in scales)
+        # AdamW keeps their moments in fp32 and rounds each update once
+        assert all(tt.optimizer.mu[n].dtype == tt.optimizer.nu[n].dtype == torch.float32
+                   for n in scales)
+        for name in scales:
+            want = final[name].astype(np.float32)
+            off = np.abs(got[name].detach().float().numpy() - want)
+            assert (off <= _bf16_spacing(want)).all(), (name, off.max())
+            if bf16 == "lr2e-5":  # a step rounds away: the scales stay exactly 1.0
+                assert (want == 1.0).all() and (got[name] == 1.0).all(), name
+            else:
+                assert not np.array_equal(want, init[name]), name
 
     before = dict(_port_model(params).named_parameters())
-    moved = {n for n, p in model.named_parameters() if not torch.equal(p, before[n])}
+    moved = {n for n, p in model.named_parameters() if not torch.equal(p.float(), before[n])}
     frozen = {n for n in before if n.startswith(("vlm.llm.layers", "vlm.llm.embed", "vlm.vit"))}
     assert "action_head.final.weight" in moved and "vlm.projector.fc0.weight" in moved
     if freeze:
@@ -240,30 +299,65 @@ def test_group_labels_and_freezing_match_jax(flags):
     assert groups == {"base", "mm_projector", "mm_vision", "action_head"}
 
 
-def _tiny_port_trainer(out, max_steps, seed_model=0, **kw):
+def _tiny_port_trainer(out, max_steps, seed_model=0, bf16=False, **kw):
     model = _port_model(_jax_params(seed_model))
 
     def loss_fn(model, batch, generator):  # draws t, noise and dropout from the generator
         return tcogact.cogact_loss(model, TCFG, batch, generator)
 
     cfg = ttrainer.TrainerConfig(output_dir=str(out), max_steps=max_steps, logging_steps=1,
-                                 bf16=False, **kw)
+                                 bf16=bf16, **kw)
     return ttrainer.Trainer(loss_fn, model, cfg, toptim.OptimizerConfig(learning_rate=1e-3))
 
 
-def test_step_randomness_is_resume_invariant(tmp_path):
+def _resumed_equals_straight(tmp_path, bf16: bool):
+    """4 steps straight, and 2 + 2 resumed from checkpoint-2 into a model of
+    other weights: the same parameters bit for bit.  Returns the resumed
+    trainer and checkpoint-2's directory."""
     batches = [_batch(20 + i) for i in range(4)]
-    straight = _tiny_port_trainer(tmp_path / "a", 4, save_steps=100, resume=False)
+    straight = _tiny_port_trainer(tmp_path / "a", 4, bf16=bf16, save_steps=100, resume=False)
     straight.train(iter(batches))
-    first = _tiny_port_trainer(tmp_path / "b", 2, save_steps=2, resume=False)
+    first = _tiny_port_trainer(tmp_path / "b", 2, bf16=bf16, save_steps=2, resume=False)
     first.train(iter(batches[:2]))
-    resumed = _tiny_port_trainer(tmp_path / "b", 4, seed_model=1, save_steps=100, resume=True)
+    resumed = _tiny_port_trainer(tmp_path / "b", 4, seed_model=1, bf16=bf16, save_steps=100,
+                                 resume=True)
     resumed.train(iter(batches[2:]))
     assert resumed.step == 4
     for (name, a), b in zip(straight.model.named_parameters(), resumed.model.parameters()):
+        assert a.dtype == b.dtype, name
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
     for t in (straight, first, resumed):
         t.close()
+    return resumed, str(tmp_path / "b" / "checkpoint-2")
+
+
+def test_step_randomness_is_resume_invariant(tmp_path):
+    _resumed_equals_straight(tmp_path, bf16=False)
+
+
+def test_bf16_checkpoint_resumes_and_serves_in_jax_dtypes(tmp_path):
+    """At ``bf16=True`` the checkpoint holds JAX's dtypes (the stacked norm
+    scales and biases bf16, the other vectors fp32), resume restores them
+    and equals the uninterrupted run, and the serving rule loads the trained
+    tree unchanged."""
+    from dexbotic_tpu_torch.exp.base_exp import BaseExp, fill_weights_
+
+    resumed, ckpt = _resumed_equals_straight(tmp_path, bf16=True)
+    scales = _stacked_norm_scales(resumed.model)
+    jt = jtrainer.Trainer(_jax_loss(False), _jax_params(),
+                          jtrainer.TrainerConfig(output_dir=str(tmp_path / "jax"), mesh_data=1,
+                                                 bf16=True, resume=False),
+                          joptim.OptimizerConfig())
+    want = {n: str(v.dtype) for n, v, _ in port_arrays(jax.device_get(jt.params))}
+    saved = ttrainer.load_checkpoint_params(ckpt)
+    assert {n: str(v.dtype).removeprefix("torch.") for n, v in saved.items()} == want
+    assert scales and all(saved[n].dtype == torch.bfloat16 for n in scales)
+    trained = ttrainer.load_checkpoint_params(resumed.latest_checkpoint())
+    served = tcogact.build_cogact(TCFG, "cpu", prepare=BaseExp().prepare_inference_params)
+    fill_weights_(served, resumed.latest_checkpoint(), None, TCFG)
+    for name, p in served.named_parameters():
+        assert p.dtype == trained[name].dtype, name
+        torch.testing.assert_close(p, trained[name], rtol=0, atol=0, msg=name)
 
 
 def test_adapter_checkpoint_round_trip(tmp_path):
