@@ -88,7 +88,11 @@ Phases, any failure exits non-zero without a result line:
      the model (and seen by forward hooks); then the kernel-vs-plain cosine
      on the int8 weights, the int8 chunk's cosine to phase 5's bf16 chunk
      (both >= 0.99) and the device path by part (tower + projector, prefill,
-     sampler) beside phase 5's;
+     sampler) beside phase 5's; after its timed single frames (so that their
+     p50 and p90 hold no dump) the server dumps every request it answers
+     (``save_image_dir``, a temp dir): one resp_*.json and one frame file a
+     posted frame each, the bytes as posted and the result as answered, the
+     dumps' host time printed beside the card;
   5c. pi0 at full width (SigLIP so400m/224 + Gemma-2B + the Gemma-300M
      expert, seeded random bf16 weights, fp32 activations and KV cache as
      in the JAX package, K1 fed bf16) served over HTTP by the port's
@@ -117,7 +121,8 @@ Phases, any failure exits non-zero without a result line:
      vocab slots), each served through OFTServer's /process_frame: 8 single
      frames after a warm-up and a batch_size=2 request (L1: also 4
      concurrent frames, micro-batched), K1 launching 32 times a request (352
-     for Diffusion) and no attention call taking the plain path on CUDA; the
+     for Diffusion) and no attention call taking the plain path on CUDA (the
+     micro-batched server dumps the requests it coalesced, held as 5b's); the
      chunk through the kernel path and the plain path on the same weights
      and noise (cosine >= 0.99; Discrete: the bins agree on >= 99 %); p50,
      p90 and the device call by part (tower, decoder, head or DDIM) with the
@@ -1278,6 +1283,63 @@ def _post(port: int, prompt: str, frames: list, batch_size: int = 1, states: str
 PROMPT = "pick up the moka pot"
 
 
+def timed_dumps(server) -> list:
+    """Time each of ``server``'s request dumps on the host (seconds, appended
+    to the list returned), through an instance attribute that the HTTP
+    handler and the micro-batch worker both call."""
+    seconds = []
+    dump = server._maybe_dump
+
+    def timed(fields, files, result):
+        t0 = time.perf_counter()
+        try:
+            dump(fields, files, result)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    server._maybe_dump = timed
+    return seconds
+
+
+def check_dumps(label: str, dump_dir: str, answered: list, seconds: list, failures: list) -> dict:
+    """Hold a server's request dumps (``save_image_dir``) to the requests it
+    answered, [(posted frames, response)]: one resp_*.json and one
+    frame_*_0.png a request, a frame file a posted frame with its bytes as
+    posted, each dump's result the response's body (matched as a multiset:
+    concurrent requests are numbered in the order the server answered them);
+    prints the dumps' host time beside the card's name and power limit."""
+    names = sorted(os.listdir(dump_dir))
+    resps = [n for n in names if n.startswith("resp_")]
+    dumped = []
+    for name in resps:
+        i = name[len("resp_"):-len(".json")]
+        with open(os.path.join(dump_dir, name)) as f:
+            result = json.load(f)["result"]
+        frames, j = [], 0
+        while os.path.exists(os.path.join(dump_dir, f"frame_{i}_{j}.png")):
+            with open(os.path.join(dump_dir, f"frame_{i}_{j}.png"), "rb") as f:
+                frames.append(f.read())
+            j += 1
+        dumped.append((tuple(frames), json.dumps(np.asarray(result).tolist())))
+    posted = [(tuple(frames), json.dumps(np.asarray(out).tolist())) for frames, out in answered]
+    firsts = sum(n.startswith("frame_") and n.endswith("_0.png") for n in names)
+    n_frames = sum(n.startswith("frame_") for n in names)
+    nbytes = sum(os.path.getsize(os.path.join(dump_dir, n)) for n in names)
+    ok = (len(resps) == firsts == len(answered) and n_frames == sum(len(f) for f, _ in answered)
+          and sorted(dumped) == sorted(posted))
+    print(f"  {label} request dumps: {len(resps)} resp_*.json and {n_frames} frame files "
+          f"({nbytes / 1e6:.2f} MB) for {len(answered)} answered requests, bytes and results as "
+          f"posted: {ok}; host time {sum(seconds) * 1e3:.3f} ms in {len(seconds)} dumps "
+          f"({statistics.median(seconds) * 1e3 if seconds else 0.0:.3f} ms median, "
+          f"{max(seconds, default=0.0) * 1e3:.3f} max) on {card_line()}")
+    if not ok:
+        failures.append(f"{label}: {len(resps)} dumps ({firsts} first frames, {n_frames} frame "
+                        f"files) for {len(answered)} answered requests, frames and results as "
+                        f"posted: {sorted(dumped) == sorted(posted)}")
+    return {"requests": len(answered), "resp_files": len(resps), "frame_files": n_frames,
+            "bytes": nbytes, "host_ms": sum(seconds) * 1e3, "as_posted": ok}
+
+
 # ---------------------------------------------------------------------------
 # Reference checkpoints: the port's model under the reference's key names
 # (phases 5e and 5f; tests/test_torch_convert.py).  This inverts
@@ -1701,6 +1763,9 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
             out, dt = _post(port, prompt, [png])
             singles.append(out)
             latencies.append(dt)
+        if quantize:  # 5b dumps the requests after its timed singles (the reference's debug dumps)
+            server.save_image_dir = dump_dir = tempfile.mkdtemp(prefix="dumps_5b_")
+            dump_s = timed_dumps(server)
         batch, batch_dt = _post(port, f"{prompt};{prompt}", [png, png], batch_size=2)
         # 8 x 832 = 6656 rows (int8: W8A8 in the prefill); 16 sampler rows: K2, once
         k2_before = fused_dit_sample.launches
@@ -1711,11 +1776,15 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
         if quantize:  # one more single frame: K4's launches against the rule's products
             with quant_routes_seen(model) as seen:
                 qm.quant_matmul.launches = 0
-                _post(port, prompt, [png])
+                k4_out, _ = _post(port, prompt, [png])
                 k4_single = qm.quant_matmul.launches
     finally:
         httpd.shutdown()
         httpd.server_close()
+    if quantize:
+        answered = [([png, png], batch), ([png] * 8, batch8), ([png], k4_out)]
+        dumps = check_dumps("5b", dump_dir, answered, dump_s, failures)
+        shutil.rmtree(dump_dir)
     print(f"  launches during serving: {launches}; plain attention calls on CUDA {plain_calls}")
     if plain_calls:
         failures.append(f"{plain_calls} attention calls of the served LLM took the plain path")
@@ -1789,6 +1858,7 @@ def phase_slice(failures: list, quantize: str = "", bf16: dict | None = None) ->
                             f"dispatch rule gives it {sum(want.values())} products {want}, "
                             f"the hooks saw {seen.routes()['k4']}")
         result["k4_single_request"] = k4_single
+        result["dumps"] = dumps
         qm.W8A8_MIN_ROWS = None  # "w8a8" set it for this process
         cos_bf16 = _cosine(a, bf16["chunk"])
         print(f"  int8 vs bf16 (phase 5, same seed, frame and noise): weights "
@@ -2524,6 +2594,8 @@ def phase_oft(failures: list) -> dict:
         # four concurrent single frames, micro-batched into one padded device call
         mb = OFTServer(exp, rcfg, model, tokenizer, None, host="127.0.0.1", port=0,
                        micro_batch=4, micro_batch_window_ms=50.0)
+        mb.save_image_dir = dump_dir = tempfile.mkdtemp(prefix=f"dumps_5g_{route}_")
+        dump_s = timed_dumps(mb)
         httpd = mb.serve_background()
         try:
             attention.plain_cuda_calls = 0
@@ -2536,6 +2608,9 @@ def phase_oft(failures: list) -> dict:
             mb.close()  # its worker holds the model
         row["micro_batched_calls"] = mb.batched_calls
         row["micro_batch_ms"] = [dt * 1e3 for _, dt in mb_outs]
+        row["dumps"] = check_dumps(f"5g {route} micro-batched", dump_dir,
+                                   [([png], o) for o, _ in mb_outs], dump_s, failures)
+        shutil.rmtree(dump_dir)
         if (mb.batched_calls < 1 or attention.plain_cuda_calls
                 or not all(o.shape == shape and np.isfinite(o).all() for o, _ in mb_outs)):
             failures.append(f"5g {route}: micro-batching: {mb.batched_calls} coalesced calls, "
@@ -8155,7 +8230,8 @@ def main() -> int:
         "5g_oft": {**{k: v for k, v in oft.items() if k in ("prompt_tokens", "bf16_weight_bytes",
                                                             "head_params", "launches")},
                    **oft_routes},
-        "5h_oft_int8": oft_q, "7c_mesh_train": train["7c_mesh"], "9_oft_train": oft_train,
+        "5b_dumps": serve_q["dumps"], "5h_oft_int8": oft_q, "7c_mesh_train": train["7c_mesh"],
+        "9_oft_train": oft_train,
         "10_rl": rl, "11a_memvla": mem,
         "11b_memvla_int8": mem_q, "12_memvla_train": mem_train, "13_navila": nav,
         "14_discrete": discrete, "14d_muvla": muvla, "14e_discrete_quant": discrete_q,

@@ -72,6 +72,10 @@ class DataLoader:
         self.process_id = process_id
         self.process_count = process_count
 
+    def __len__(self) -> int:
+        """Global batches an epoch."""
+        return len(self.dataset) // self.batch_size
+
     def _index_stream(self) -> Iterator[list[int]]:
         """This process's rows of each global batch."""
         rng = random.Random(self.seed)

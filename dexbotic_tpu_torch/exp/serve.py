@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import queue
 import re
 import threading
@@ -192,6 +193,12 @@ def prepare_cogact_inputs(exp, cfg, tokenizer, images, prompt: str, device):
 class ActionServer:
     """Generic one-model action server; a subclass provides get_response().
 
+    ``save_image_dir``, when set, receives each answered request's frames as
+    ``frame_{i:06d}_{j}.png`` (the payload bytes as posted) and its fields and
+    result as ``resp_{i:06d}.json``, numbered in the order the requests are
+    answered (the reference's debug episode dumps); a failed request dumps
+    nothing.  The subclasses do not take it: set ``server.save_image_dir``.
+
     micro_batch > 1 coalesces concurrent single-frame requests that arrive
     within ``micro_batch_window_ms`` of each other into one padded device
     call; every client still gets its own chunk.  A server that synchronises
@@ -201,10 +208,13 @@ class ActionServer:
     concurrent = False
     engine = None  # a continuous-batching decode engine the server owns, closed by close()
 
-    def __init__(self, host: str = "0.0.0.0", port: int = 7891, micro_batch: int = 0,
+    def __init__(self, host: str = "0.0.0.0", port: int = 7891,
+                 save_image_dir: Optional[str] = None, micro_batch: int = 0,
                  micro_batch_window_ms: float = 5.0, micro_batch_timeout_s: float = 900.0):
         self.host, self.port = host, port
-        self._lock = threading.Lock()  # model state (the generator) is mutable
+        self.save_image_dir = save_image_dir
+        self._dump_idx = 0
+        self._lock = threading.Lock()  # model state (the generator, _dump_idx) is mutable
         self.micro_batch = int(micro_batch)
         self.micro_batch_window_ms = float(micro_batch_window_ms)
         self.micro_batch_timeout_s = float(micro_batch_timeout_s)
@@ -258,6 +268,7 @@ class ActionServer:
                         self.batched_calls += 1
                     results = self.get_batched_response([(b["fields"], b["files"]) for b in batch])
                     for b, r in zip(batch, results):
+                        self._maybe_dump(b["fields"], b["files"], r)
                         b["result"] = r
                 except Exception as e:  # noqa: BLE001 (reported to the waiting clients)
                     if len(batch) == 1:
@@ -265,7 +276,9 @@ class ActionServer:
                     else:  # retry one by one so only a malformed request errors
                         for b in batch:
                             try:
-                                b["result"] = self.get_response(b["fields"], b["files"])
+                                r = self.get_response(b["fields"], b["files"])
+                                self._maybe_dump(b["fields"], b["files"], r)
+                                b["result"] = r
                             except Exception as e_one:  # noqa: BLE001
                                 b["error"] = e_one
             for b in batch:
@@ -279,6 +292,19 @@ class ActionServer:
         if "error" in box:
             raise box["error"]
         return box["result"]
+
+    def _maybe_dump(self, fields, files, result):
+        """Write one answered request to ``save_image_dir``; the caller holds the lock."""
+        if not self.save_image_dir:
+            return
+        os.makedirs(self.save_image_dir, exist_ok=True)
+        i = self._dump_idx
+        self._dump_idx += 1
+        for j, (_, payload) in enumerate(files):
+            with open(f"{self.save_image_dir}/frame_{i:06d}_{j}.png", "wb") as f:
+                f.write(payload)
+        with open(f"{self.save_image_dir}/resp_{i:06d}.json", "w") as f:
+            json.dump({"fields": fields, "result": result}, f)
 
     def make_handler(server_self):
         class Handler(BaseHTTPRequestHandler):
@@ -298,9 +324,12 @@ class ActionServer:
                         # decode engine): requests must reach it together for
                         # their decode steps to coalesce
                         result = server_self.get_response(fields, files)
+                        with server_self._lock:
+                            server_self._maybe_dump(fields, files, result)
                     else:
                         with server_self._lock:
                             result = server_self.get_response(fields, files)
+                            server_self._maybe_dump(fields, files, result)
                     payload = json.dumps(result).encode()
                     self.send_response(200)
                 except Exception as e:  # noqa: BLE001 (the client gets the error)

@@ -5,8 +5,13 @@ the Trainer's wandb hook, against the JAX package and the in-line path.
   ``DataLoader`` and of the port's in-line ``data_iterator`` on the same
   seed, in the same order, across an epoch boundary; the per-process slice
   of every global batch; a worker's error is raised in the consumer.
+* ``_index_stream`` and ``__len__`` equal JAX's at its defaults under
+  shuffle and ``process_count``; ``PREFETCH_BATCHES`` sets the depth in
+  flight as JAX's default does; the ``BaseExp`` feed is bit for bit the
+  in-line path's.
 * ``device_prefetch`` on the CPU device: tensors equal to the arrays, an
-  error passed on, the source closed when the consumer stops.
+  error passed on, the source closed when the consumer stops, a fixed depth
+  staged ahead.
 * ``CogActExp.train()`` with ``num_workers=2`` (both modes) gives the
   in-line run's losses (augmentation off; the first batches hold no
   episode's last frame, which the dataset redraws from the process-global
@@ -220,6 +225,140 @@ def test_device_prefetch_on_the_cpu():
     next(it)
     it.close()  # stops the producer, which closes its source
     assert closed == [True]
+
+
+# ---------------------------------------------------------------------------
+# The index stream, the length, the depth in flight, the Trainer's feed
+# ---------------------------------------------------------------------------
+
+
+def _wait_for(count, want, timeout=10.0):
+    """Poll ``count()`` until it reaches ``want`` (or the time is up), then
+    give the producer a moment to overshoot; returns the final count."""
+    t0 = time.monotonic()
+    while count() < want and time.monotonic() - t0 < timeout:
+        time.sleep(0.01)
+    time.sleep(0.3)
+    return count()
+
+
+@pytest.mark.parametrize("n", [11, 12])
+@pytest.mark.parametrize("process_count", [1, 2])
+@pytest.mark.parametrize("shuffle", [True, False])
+def test_index_stream_and_len_match_jax(shuffle, process_count, n):
+    """Global batches of 4 over ``n`` items: each process's index lists over
+    the first 3 epochs, the partial batch dropped, and the per-epoch length
+    are JAX's at its defaults (``drop_last=True``, ``epochs=None``)."""
+    ds = _Items(n)
+    kw = dict(batch_size=4, shuffle=shuffle, seed=5, process_count=process_count)
+    for p in range(process_count):
+        port = tloader.DataLoader(ds, None, process_id=p, **kw)
+        ref = jloader.DataLoader(ds, None, process_id=p, **kw)
+        assert len(port) == len(ref) == n // 4
+        assert _take(port._index_stream(), 3 * len(ref)) == _take(ref._index_stream(), 3 * len(ref))
+
+
+class _CountedItems(_Items):
+    """Items that append a line to ``log`` when fetched, from any process."""
+
+    def __init__(self, n, log):
+        super().__init__(n)
+        self.log = log
+
+    def __getitem__(self, i):
+        with open(self.log, "a") as f:
+            f.write(f"{i}\n")
+        return super().__getitem__(i)
+
+
+@pytest.mark.parametrize("mode", ["thread", "process"])
+def test_loader_depth_in_flight(mode, tmp_path):
+    """While the consumer holds the first batch, the thread mode has fetched
+    ``PREFETCH_BATCHES`` + 1 batches and the process mode ``num_workers`` +
+    ``PREFETCH_BATCHES``, as JAX's loader does at its default depth."""
+    log = str(tmp_path / "fetched")
+    open(log, "w").close()
+    it = iter(tloader.DataLoader(_CountedItems(40, log), TCollator(0, 12), 2, num_workers=2,
+                                 seed=1, worker_mode=mode))
+
+    def fetched():
+        with open(log) as f:
+            return len(f.read().split())
+
+    next(it)
+    depth = tloader.PREFETCH_BATCHES
+    want = 2 * (depth + 1 if mode == "thread" else 2 + depth)
+    try:
+        assert _wait_for(fetched, want) == want
+    finally:
+        it.close()
+
+
+def test_device_prefetch_depth():
+    """The producer stages ``PREFETCH_BATCHES`` batches in its queue and holds
+    one more ready to put, and takes the next from its source only as the
+    consumer takes one."""
+    pulled = []
+
+    def source():
+        for i in range(20):
+            pulled.append(i)
+            yield {"a": np.full(3, i)}
+
+    it = tloader.device_prefetch(source(), "cpu")
+    ahead = tloader.PREFETCH_BATCHES + 1
+    try:
+        for taken in (1, 2):
+            assert int(next(it)["a"][0]) == taken - 1
+            assert _wait_for(lambda: len(pulled), taken + ahead) == taken + ahead
+    finally:
+        it.close()
+
+
+class _FeedTrainer:
+    """Stands in for the Trainer: takes the feed's first batches."""
+
+    taken: list = []
+
+    def __init__(self, *args, **kwargs):
+        self.data_rank, self.data_size, self.device = 0, 1, torch.device("cpu")
+
+    def train(self, batches):
+        _FeedTrainer.taken = [next(batches) for _ in range(7)]
+        return {}
+
+    def close(self):
+        pass
+
+
+@pytest.mark.parametrize("mode", ["thread", "process"])
+def test_base_exp_feed_is_unchanged(mode, tmp_path, monkeypatch):
+    """``BaseExp.train``'s loader feed (``DataLoader`` through
+    ``device_prefetch``) yields bit for bit, across two epoch boundaries, the
+    batches of the in-line ``data_iterator``: endless seeded epochs, the
+    partial batch dropped."""
+    from dexbotic_tpu_torch.exp import base_exp
+
+    stats = tmp_path / "norm_stats.json"
+    stats.write_text("{}")
+    monkeypatch.setattr(base_exp, "Trainer", _FeedTrainer)
+    exp = base_exp.BaseExp(data=base_exp.DataConfig(num_workers=2, worker_mode=mode),
+                           action=base_exp.ActionConfig(statistic_mapping=str(stats)),
+                           trainer=TrainerConfig(per_device_batch_size=3, seed=11),
+                           device="cpu")
+    ds = _Items(10)
+    exp.build_model = lambda tokenizer: (None, None, None)
+    exp.data.build_data = lambda tokenization, action_fn: ds
+    exp.action.build_action_process_func = lambda: None
+    exp.train()
+    tok = exp.tokenizer.build_tokenizer()
+    collator = TCollator(pad_token_id=tok.pad_token_id, max_length=exp.tokenizer.model_max_length)
+    want = _take(data_iterator(ds, collator, 3, seed=11), 7)
+    assert len(_FeedTrainer.taken) == 7
+    for got, w in zip(_FeedTrainer.taken, want):
+        assert set(got) == {k for k, v in w.items() if isinstance(v, np.ndarray)}
+        for k, t in got.items():
+            assert torch.equal(t, torch.from_numpy(w[k])), k
 
 
 # ---------------------------------------------------------------------------

@@ -5,12 +5,16 @@ cogact_inference_action returns from the same generator state; batched and
 micro-batched requests and ``--task inference_single`` must run.  On-device
 preprocessing (``fuse_preprocess``, ops/image_ops.py) against the JAX
 functions and the host path; the robot client against the JAX client.
+Request dumps (``save_image_dir``) against JAX's files on every route: the
+sequential and concurrent ones, the micro-batch worker's batched and retry
+ones; a dump that cannot be written is the request's error.
 """
 
 import concurrent.futures
 import io
 import json
 import sys
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -42,7 +46,8 @@ def _png(color) -> bytes:
     return buf.getvalue()
 
 
-def _post(port, prompt, pngs, batch_size=1):
+def _post_status(port, prompt, pngs, batch_size=1):
+    """(HTTP status, the JSON body) of one multipart request."""
     b = "XBX"
     body = (f"--{b}\r\nContent-Disposition: form-data; name=\"text\"\r\n\r\n{prompt}\r\n"
             f"--{b}\r\nContent-Disposition: form-data; name=\"batch_size\"\r\n\r\n"
@@ -53,8 +58,17 @@ def _post(port, prompt, pngs, batch_size=1):
     body += f"--{b}--\r\n".encode()
     req = urllib.request.Request(f"http://127.0.0.1:{port}/process_frame", data=body,
                                  headers={"Content-Type": f"multipart/form-data; boundary={b}"})
-    with urllib.request.urlopen(req, timeout=120) as r:
-        return np.asarray(json.loads(r.read()))
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _post(port, prompt, pngs, batch_size=1):
+    status, body = _post_status(port, prompt, pngs, batch_size)
+    assert status == 200, body
+    return np.asarray(body)
 
 
 @pytest.fixture(scope="module")
@@ -164,6 +178,148 @@ def test_norm_stats_denormalise_served_chunks(served):
     want = -2.0 + (np.clip(raw[:, :6], -1, 1) + 1.0) * 0.5 * 5.0
     np.testing.assert_allclose(got[:, :6], want, rtol=1e-6)
     np.testing.assert_array_equal(got[:, 6], raw[:, 6])
+
+
+# ---------------------------------------------------------------------------
+# Request dumps (ActionServer.save_image_dir)
+# ---------------------------------------------------------------------------
+
+
+def _dumped(path) -> dict:
+    return {f.name: f.read_bytes() for f in sorted(path.iterdir())}
+
+
+@pytest.mark.parametrize("case", ["one-frame", "three-frames", "no-frames"])
+def test_maybe_dump_writes_the_jax_files(case, tmp_path):
+    """The port's ``_maybe_dump`` and JAX's write the same files, byte for
+    byte, for the same fields, payloads and results, numbered alike."""
+    from dexbotic_tpu.exp.serve import ActionServer as JaxServer
+    from dexbotic_tpu_torch.exp.serve import ActionServer
+
+    frames = {"one-frame": [("image", _png((1, 2, 3)))],
+              "three-frames": [("a", _png((9, 9, 9))), ("b", b"not a png\x00\xff"),
+                               ("c", _frame_png((30, 50), 1))],
+              "no-frames": []}[case]
+    requests = [({"text": "pick up the cube", "batch_size": "1"}, frames,
+                 [[0.125, -1.5], [2.0, 1e-7]]),
+                ({"text": "go", "states": "[[0.1, 0.2]]"}, frames[::-1],
+                 {"text": "<a>", "actions": [[1, 2]]})]
+    for cls, name in ((JaxServer, "jax"), (ActionServer, "port")):
+        server = cls(host="127.0.0.1", port=0, save_image_dir=str(tmp_path / name / "dump"))
+        for fields, files, result in requests:
+            server._maybe_dump(fields, files, result)
+    port, jax_files = _dumped(tmp_path / "port" / "dump"), _dumped(tmp_path / "jax" / "dump")
+    assert port == jax_files
+    assert len(port) == 2 * (len(frames) + 1)
+    assert json.loads(port["resp_000001.json"]) == {"fields": requests[1][0],
+                                                    "result": requests[1][2]}
+    if frames:
+        assert port[f"frame_000000_{len(frames) - 1}.png"] == frames[-1][1]
+
+
+def _stub_server(base, route: str, dump_dir):
+    """A server of ``base`` answering a request with its text and payload
+    sizes, raising on the text 'bad'; its micro-batches are served by a stub
+    ``get_batched_response`` that fails the whole batch on one bad request."""
+
+    class Stub(base):
+        concurrent = route == "concurrent"
+
+        def get_response(self, fields, files):
+            if fields["text"] == "bad":
+                raise ValueError("bad request")
+            return {"echo": fields["text"], "sizes": [len(p) for _, p in files]}
+
+        def get_batched_response(self, requests):
+            self.stub_batches = getattr(self, "stub_batches", 0) + 1
+            return [self.get_response(f, fl) for f, fl in requests]
+
+    micro = route.startswith("micro-batched")
+    server = Stub(host="127.0.0.1", port=0, micro_batch=3 if micro else 0,
+                  micro_batch_window_ms=5000.0)
+    server.save_image_dir = dump_dir  # the subclasses take it as an attribute, as in JAX
+    return server
+
+
+def _serve_stub(base, route, dump_dir, requests):
+    """Post ``requests`` [(text, pngs)] to a stub server (concurrently on the
+    micro-batched routes); returns ({text: (status, body)}, server)."""
+    server = _stub_server(base, route, dump_dir)
+    httpd = server.serve_background()
+    port = httpd.server_address[1]
+    try:
+        if route.startswith("micro-batched"):
+            with concurrent.futures.ThreadPoolExecutor(max_workers=len(requests)) as ex:
+                outs = list(ex.map(lambda r: _post_status(port, *r), requests))
+        else:
+            outs = [_post_status(port, *r) for r in requests]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        if hasattr(server, "close"):  # the port's server stops its micro-batch worker
+            server.close()
+    return {text: out for (text, _), out in zip(requests, outs)}, server
+
+
+@pytest.mark.parametrize("route", ["sequential", "concurrent", "micro-batched",
+                                   "micro-batched-retry"])
+def test_every_route_dumps_each_answered_request(route, tmp_path):
+    """The sequential and concurrent routes and the micro-batch worker's
+    batched and one-by-one retry routes dump each answered request once (its
+    payloads as posted, its result as answered) and a failed one not at all,
+    in both packages alike."""
+    from dexbotic_tpu.exp.serve import ActionServer as JaxServer
+    from dexbotic_tpu_torch.exp.serve import ActionServer
+
+    pngs = {"a": [_png((1, 2, 3))], "b": [_png((9, 90, 9)), _frame_png((30, 50), 2)],
+            "c": [_png((200, 9, 9))], "bad": [_png((5, 5, 5))]}
+    texts = ["a", "b", "c"] if route == "micro-batched" else ["a", "bad", "b"]
+    requests = [(t, pngs[t]) for t in texts]
+    dumps = {}
+    for base, name in ((JaxServer, "jax"), (ActionServer, "port")):
+        dump_dir = tmp_path / name
+        answers, server = _serve_stub(base, route, str(dump_dir), requests)
+        if route.startswith("micro-batched"):
+            assert server.batched_calls == 1 and server.stub_batches == 1
+        by_text = {}
+        for resp in sorted(dump_dir.glob("resp_*.json")):
+            i = resp.name[len("resp_"):-len(".json")]
+            dumped = json.loads(resp.read_text())
+            frames = [f.read_bytes() for f in sorted(dump_dir.glob(f"frame_{i}_*.png"))]
+            text = dumped["fields"]["text"]
+            assert text not in by_text, f"{name}: {text} dumped twice"
+            by_text[text] = (dumped, frames)
+        good = [t for t in texts if t != "bad"]
+        assert sorted(by_text) == sorted(good), name
+        for t in good:
+            status, body = answers[t]
+            dumped, frames = by_text[t]
+            assert status == 200 and dumped["result"] == body, (name, t)
+            assert frames == pngs[t], (name, t)
+        if "bad" in texts:
+            assert answers["bad"][0] == 500
+        dumps[name] = {t: (d["result"], f) for t, (d, f) in by_text.items()}
+        if route in ("sequential", "concurrent"):  # answered in order: numbered alike
+            dumps[name + " files"] = _dumped(dump_dir)
+    assert dumps["port"] == dumps["jax"]
+    if route in ("sequential", "concurrent"):
+        assert dumps["port files"] == dumps["jax files"]
+
+
+@pytest.mark.parametrize("route", ["sequential", "concurrent", "micro-batched"])
+def test_a_failed_dump_is_the_requests_error(route, tmp_path):
+    """A dump that cannot be written fails its request with a 500 in both
+    packages (in the micro-batch worker after the one-by-one retry): it is
+    never passed over."""
+    from dexbotic_tpu.exp.serve import ActionServer as JaxServer
+    from dexbotic_tpu_torch.exp.serve import ActionServer
+
+    blocker = tmp_path / "a-file"
+    blocker.write_text("")
+    requests = [(t, [_png((i, 0, 0))]) for i, t in enumerate(["a", "b", "c"])]
+    for base in (JaxServer, ActionServer):
+        answers, _ = _serve_stub(base, route, str(blocker / "dump"), requests)
+        assert sorted(status for status, _ in answers.values()) == [500] * 3
 
 
 # ---------------------------------------------------------------------------
