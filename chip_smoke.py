@@ -530,12 +530,14 @@ def times_ms(fn, reps: int = REPS, flush=None) -> list:
     return times
 
 
-def device_ms(fn, kernels: tuple, reps: int = 10, sessions: int = 3) -> float:
+def device_ms(fn, kernels: tuple, reps: int = 10, sessions: int = 3,
+              parts: dict | None = None) -> float:
     """The named kernels' own device time per call (``torch.profiler``,
-    ``self_device_time_total``): the call's time without its host wrapper.
-    A profiling session can come back with no kernel record (CUPTI, once in
-    4c on an H100 after dozens of sessions in the process): it is run again,
-    and after ``sessions`` empty ones the time is :func:`queued_ms`'s."""
+    ``self_device_time_total``): the call's time without its host wrapper;
+    ``parts`` receives each named kernel's share.  A profiling session can
+    come back with no kernel record (CUPTI, once in 4c on an H100 after
+    dozens of sessions in the process): it is run again, and after
+    ``sessions`` empty ones the time is :func:`queued_ms`'s."""
     fn()
     torch.cuda.synchronize()
     for _ in range(sessions):
@@ -543,9 +545,16 @@ def device_ms(fn, kernels: tuple, reps: int = 10, sessions: int = 3) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-                    for e in prof.key_averages() if any(k in e.key for k in kernels))
+        times = dict.fromkeys(kernels, 0.0)
+        for e in prof.key_averages():
+            hit = next((k for k in kernels if k in e.key), None)
+            if hit is not None:
+                t = getattr(e, "self_device_time_total", None)
+                times[hit] += e.self_cuda_time_total if t is None else t
+        total = sum(times.values())
         if total > 0:
+            if parts is not None:
+                parts.update({k: t / reps / 1e3 for k, t in times.items() if t})
             return total / reps / 1e3
     ms = queued_ms(fn, reps)
     print(f"    the profiler saw no device time of {kernels} in {sessions} sessions; "
@@ -574,7 +583,8 @@ def queued_ms(fn, reps: int = 10) -> float:
 
 
 K1_KERNELS = ("flash_fwd_kernel", "tile_class_kernel")
-K3_KERNELS = ("pre_kernel", "tile_class_kernel", "dkv_kernel", "dq_kernel")
+K3_KERNELS = ("pre_kernel", "tile_class_kernel", "dkv_kernel", "dkv256_kernel", "dkv_sum_kernel",
+              "dq_kernel", "dq256_kernel")
 K2_KERNELS = ("dit_sample_kernel",)
 K4_KERNELS = ("qm_kernel", "reduce_kernel", "split_kernel")
 
@@ -865,6 +875,13 @@ def pi0_train_attn_inputs(B: int, gen):
     return f"pi0 training B={B} S={S} H=8/1 D=256", q, k, v, (grp.clone(), grp, valid), None
 
 
+# phase 6's rows of K3 at head_dim 256 (pi0's and pi0.5's training calls): SDPA's
+# backward timed over REPS calls, K3's device time printed by kernel (pre,
+# tile classes, dK/dV, the partials' sum, dQ) and, beside the profiler's,
+# by CUDA events of 10 queued calls (queued_ms)
+K3_D256_ROWS = ("pi0_train", "pi05_train")
+
+
 def phase_flash_bwd(failures: list) -> dict:
     from dexbotic_tpu_torch.ops.attention import (
         _allowed,
@@ -933,14 +950,23 @@ def phase_flash_bwd(failures: list) -> dict:
             backend, leaves, call = sdpa(q, k, v, _allowed(*ints, seg, seg), backward=True)
             lib_out = call()
             dout_t = dout.transpose(1, 2)
+            # K3 at head_dim 256 against SDPA: the median of as many calls as K3's
             library_ms = median_ms(lambda: torch.autograd.grad(lib_out, leaves, dout_t,
-                                                               retain_graph=True), LIB_REPS)
-            dev_ms = device_ms(lambda: flash_attention_bwd(*bwd_args), K3_KERNELS)
+                                                               retain_graph=True),
+                                   REPS if key in K3_D256_ROWS else LIB_REPS)
+            by_kernel = {}
+            dev_ms = device_ms(lambda: flash_attention_bwd(*bwd_args), K3_KERNELS, parts=by_kernel)
             line += f"  kernels alone {dev_ms:.4f} ms  SDPA backward ({backend}) {library_ms:.4f} ms"
+            if key in K3_D256_ROWS:  # and CUDA events of queued calls beside the profiler
+                queued = queued_ms(lambda: flash_attention_bwd(*bwd_args))
+                line += (f"  queued {queued:.4f} ms\n      by kernel: "
+                         + "  ".join(f"{n} {t:.4f} ms" for n, t in by_kernel.items()))
             del lib_out, leaves
             rows[key] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                          "sdpa_backend": backend}
+            if key in K3_D256_ROWS:
+                rows[key].update(device_ms_by_kernel=by_kernel, queued_ms=queued)
             if key in ("pi0_train", "pi05_train", "dm0_train"):
                 rows[key]["B_S_Hq_Hkv_D"] = [q.shape[0], q.shape[1], q.shape[2], k.shape[2],
                                              q.shape[3]]
@@ -7991,12 +8017,13 @@ def phase_parallel(failures: list) -> dict:
 
 def build_report(log: str, failures: list) -> tuple[dict, dict, dict, dict]:
     """Registers and spills of every K1 instance ("flash_fwd_kernel<D, NWG,
-    BK>"), every K3 instance ("dkv_kernel<D, NWG, stages, split>",
-    "dq_kernel<D, NWG, stages>"), every K4 instance ("qm_kernel<x dtype,
-    rows, NWG>") and every K2 instance ("dit_sample_kernel<weight dtype,
-    int8 blocks>") from nvcc's ``-Xptxas -v`` output, as (K1's, K3's, K4's,
-    K2's); a spilling instance fails, and so do a kernel with no instance at
-    head_dim 256 and a missing K4 or K2 instance."""
+    BK>"), every K3 instance ("dkv_kernel<D, NWG, stages>" at head dims 64
+    and 128, "dkv256_kernel", "dkv_sum_kernel" and "dq256_kernel" at 256,
+    "dq_kernel<D, NWG, stages>"), every K4 instance ("qm_kernel<x dtype, rows, NWG>") and every
+    K2 instance ("dit_sample_kernel<weight dtype, int8 blocks>") from nvcc's
+    ``-Xptxas -v`` output, as (K1's, K3's, K4's, K2's); a spilling instance
+    fails, and so do a missing head_dim-256 K1 or K3 kernel and a missing K4
+    or K2 instance."""
     import re
 
     report, name = {}, None
@@ -8006,8 +8033,11 @@ def build_report(log: str, failures: list) -> tuple[dict, dict, dict, dict]:
             k = re.search(r"(flash_fwd_kernel|dkv_kernel|dq_kernel)I((?:Li\d+E)+)E", m.group(1))
             qk = re.search(r"qm_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", m.group(1))
             dk = re.search(r"dit_sample_kernelI(13__nv_bfloat16|f)Lb([01])E", m.group(1))
+            k3_256 = re.search(r"\d(dkv256_kernel|dkv_sum_kernel|dq256_kernel)E", m.group(1))
             name = None
-            if k:
+            if k3_256:  # K3's head_dim-256 kernels (no template)
+                name = k3_256.group(1)
+            elif k:
                 args = ", ".join(re.findall(r"Li(\d+)E", k.group(2)))
                 name = f"{k.group(1)}<{args}>"
             elif qk:
@@ -8026,12 +8056,14 @@ def build_report(log: str, failures: list) -> tuple[dict, dict, dict, dict]:
         if r["spill_bytes"]:
             failures.append(f"{n} spills {r['spill_bytes']} bytes")
     k1 = {n: r for n, r in report.items() if n.startswith("flash_fwd_kernel")}
-    k3 = {n: r for n, r in report.items() if n.startswith(("dkv_kernel", "dq_kernel"))}
+    k3 = {n: r for n, r in report.items() if n.startswith(("dkv", "dq"))}
     k4 = {n: r for n, r in report.items() if n.startswith("qm_kernel")}
     k2 = {n: r for n, r in report.items() if n.startswith("dit_sample_kernel")}
-    for kernel, found in (("flash_fwd_kernel", k1), ("dkv_kernel", k3), ("dq_kernel", k3)):
-        if not any(n.startswith(f"{kernel}<256,") for n in found):
-            failures.append(f"nvcc's output lists no {kernel} instance at head_dim 256")
+    if not any(n.startswith("flash_fwd_kernel<256,") for n in k1):
+        failures.append("nvcc's output lists no flash_fwd_kernel instance at head_dim 256")
+    for kernel in ("dkv256_kernel", "dkv_sum_kernel", "dq256_kernel"):
+        if kernel not in k3:
+            failures.append(f"nvcc's output lists no {kernel}")
     for t, r, nwg in K4_INSTANCES:
         if f"qm_kernel<{t}, {r}, {nwg}>" not in k4:
             failures.append(f"nvcc's output lists no qm_kernel<{t}, {r}, {nwg}>")

@@ -50,9 +50,9 @@ _SIGNATURES = {
     # the k chunks of qkv, o, fc0, fc1, probe, stream
     "dbx_dit_sample": [_I, _I] + [_P] * 29 + [_I] * 10 + [_F, _I] + [_I] * 6 + [_P, _P],
     # q, k, v, out, dout, lse, q_grp, kv_grp, kv_valid, q_seg, kv_seg, dq, dk,
-    # dv, q~ (scratch), delta (scratch), cls (scratch), B, Sq, Skv, Hq, Hkv, D,
-    # scale, dout's element strides (b, s, h), stream
-    "dbx_flash_bwd": [_P] * 17 + [_I] * 6 + [_F] + [_L] * 3 + [_P],
+    # dv, q~ (scratch), delta (scratch), cls (scratch), part (scratch), B, Sq,
+    # Skv, Hq, Hkv, D, splits, scale, dout's element strides (b, s, h), stream
+    "dbx_flash_bwd": [_P] * 18 + [_I] * 7 + [_F] + [_L] * 3 + [_P],
     # bf16?, x, q, s, out, part (fp32 partials), xs (bf16 parts of fp32 x),
     # M, N, K, rows (x rows a block), splits, stream
     "dbx_quant_matmul": [_I] + [_P] * 6 + [_I] * 5 + [_P],

@@ -255,7 +255,33 @@ def flash_attention_bwd_ref(q, k, v, q_grp, kv_grp, kv_valid, out, lse, g, scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _flash_bwd_cuda(q, k, v, q_grp, kv_grp, kv_valid, out, lse, g, scale, q_seg, kv_seg):
+BWD_MAX_SPLITS = 16  # csrc/flash_bwd.cu's bound on splits
+BWD_BLOCK_ITEMS = 2  # a dK/dV block's fixed cost, in items: K/V in, the ring filled, partials out
+
+
+def bwd_splits(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, sms: int) -> int:
+    """Blocks that share one 64-row kv tile's work list in K3's head_dim-256
+    dK/dV launch (``dkv256_kernel``) on a card of ``sms`` SMs.
+
+    A work list holds ceil(Sq/64) x Hq/Hkv items (a 64-row q tile of one
+    query head of the group); the launch has ceil(Skv/64) x Hkv x B lists
+    and runs one block an SM.  With G blocks a list, a block walks
+    ceil(items / G) items and the launch takes ceil(G x lists / sms) waves;
+    the rule takes the G <= 16 with the fewest waves x (ceil(items / G) +
+    BWD_BLOCK_ITEMS), the smallest on a tie.  G = 1 writes bf16 dK/dV from
+    the blocks; a larger G writes fp32 partials that a second pass adds up."""
+    items, lists = -(-Sq // TILE) * (Hq // Hkv), -(-Skv // TILE) * Hkv * B
+
+    def cost(G):
+        return -(-G * lists // sms) * (-(-items // G) + BWD_BLOCK_ITEMS)
+
+    return min(range(1, min(BWD_MAX_SPLITS, items) + 1), key=cost)
+
+
+def _flash_bwd_cuda(q, k, v, q_grp, kv_grp, kv_valid, out, lse, g, scale, q_seg, kv_seg,
+                    splits=None):
+    """K3's launch; ``splits`` overrides :func:`bwd_splits` at head_dim 256
+    (tests, measurements)."""
     from dexbotic_tpu_torch.kernels import build
 
     B, Sq, Hq, D = q.shape
@@ -287,11 +313,18 @@ def _flash_bwd_cuda(q, k, v, q_grp, kv_grp, kv_valid, out, lse, g, scale, q_seg,
     dq, dk, dv, qs = (torch.empty_like(t) for t in (q, k, v, q))
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     cls = _classes_buffer(B, Sq, Skv, q.device)
+    if D != 256:
+        splits = 1
+    elif splits is None:
+        splits = bwd_splits(B, Sq, Skv, Hq, Hkv, _sm_count(q.device.index))
+    # the shares' fp32 partial dK and dV, [splits, 2, B, Skv, Hkv, D]
+    part = (torch.empty(splits * 2 * k.numel(), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     code = build.load().dbx_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
         *ptr, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), qs.data_ptr(), delta.data_ptr(),
-        cls.data_ptr(), B, Sq, Skv, Hq, Hkv, D, float(scale), *do.stride()[:3],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        cls.data_ptr(), None if part is None else part.data_ptr(), B, Sq, Skv, Hq, Hkv, D, splits,
+        float(scale), *do.stride()[:3], torch.cuda.current_stream(q.device).cuda_stream)
     build.check(code, "dbx_flash_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv

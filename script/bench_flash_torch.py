@@ -1,12 +1,12 @@
 """K1 and K3 of dexbotic_tpu_torch on an H100: an A/B against the build of
 an earlier tree's sources (the mma.sync kernels before the wgmma redesign),
-K1's block-shape rule, the sweep behind K3's lo parts, and K3's designs at
-head_dim 256.
+K1's block-shape rule, the sweep behind K3's lo parts, and K3's head_dim-256
+design against the parent's.
 
     python script/bench_flash_torch.py ab --baseline DIR
     python script/bench_flash_torch.py rows
     python script/bench_flash_torch.py sweep --draws 100
-    python script/bench_flash_torch.py d256
+    python script/bench_flash_torch.py d256 --baseline DIR
 
 ``ab``: DIR holds an earlier tree's ``dexbotic_tpu_torch/csrc`` whose
 ``dbx_flash_fwd``/``dbx_flash_bwd`` take the signatures of the mma.sync
@@ -24,17 +24,24 @@ and serving's (S=832, 773 live) at B=1, at batch_size=2 and for an 8-frame
 request; ``rows`` adds serving at B=4, training's micro-batch of 2 and pi0's
 head_dim-256 calls (8 query heads on 1 kv head: the prefix, 816 tokens in
 ``inference_single`` and 832 served, and the 51-token suffix against it, at
-B=1 and batch_size=2).  ``d256``: K3 at pi0's training shape (the LIBERO
-recipe's micro-batch, B=4, 867 tokens, 8 query heads on 1 kv head of 256)
-built four ways (dK and dV in separate one-warpgroup blocks, as the source
-builds them, or in the two warpgroups of one block; 64-row dq tiles on one
-warpgroup and a two-stage ring, as built, or 128 rows on two and one stage),
-the three alternatives as edits of a copy of the sources (``D256_EDITS``):
-each build's head_dim-256 spills, its gradients against the plain version
-in fp32 (as a ratio to chip_smoke's bound), its time a call in the order
-1 2 3 4 4 3 2 1, and its kernels' own device time.  Each
-mode prints one JSON line; ``--out DIR`` also writes it to
-``DIR/bench_flash_<mode>.json``.
+B=1 and batch_size=2).  ``d256``: K3 at pi0's and pi0.5's training calls
+(the LIBERO recipes' micro-batch, B=4, 867 and 978 tokens, 8 query heads on
+1 kv head of 256), this tree's build against the parent's (DIR: the parent
+tree's ``dexbotic_tpu_torch/csrc``, its entry point behind ``ParentK3``, at
+dK and dV in separate one-warpgroup blocks): each build's spills and
+registers, whether the head_dim-64/128 instances' SASS is the parent's, the
+gradients against the plain version in fp32 (as a ratio to chip_smoke's
+bound), two calls bitwise equal, which gradients equal the parent's bit for
+bit, the time a call in the order parent, new,
+new, parent, the kernels' own device time in all and by kernel (pre, tile
+classes, dK/dV, the partials' sum, dq), and this tree's dK/dV device time
+at every split count (the data behind ``ops/attention.py:bwd_splits``).
+Before the head_dim-256 redesign ``d256`` built the old design's
+alternatives as text edits of a copy of the source (dK and dV in one
+block's two warpgroups, each recomputing S^T; 128-row dq tiles): the
+redesign replaced the first, the second spilled, and both went with their
+edits.  Each mode prints one JSON
+line; ``--out DIR`` also writes it to ``DIR/bench_flash_<mode>.json``.
 """
 
 from __future__ import annotations
@@ -44,7 +51,6 @@ import ctypes
 import json
 import os
 import re
-import shutil
 import statistics
 import subprocess
 import sys
@@ -68,7 +74,8 @@ PI0 = [("pi0_prefix", 1, 816, 816), ("pi0_prefix_served", 1, 832, 832),
        ("pi0_suffix", 1, 51, 867), ("pi0_suffix_served", 1, 51, 883),
        ("pi0_prefix_b2", 2, 832, 832), ("pi0_suffix_b2", 2, 51, 883)]  # label, B, Sq, Skv
 K1_KERNELS = ("flash_fwd_kernel", "tile_class_kernel")
-K3_KERNELS = ("dkv_kernel", "dq_kernel", "pre_kernel", "tile_class_kernel")
+K3_KERNELS = ("pre_kernel", "tile_class_kernel", "dkv_kernel", "dkv256_kernel", "dkv_sum_kernel",
+              "dq_kernel", "dq256_kernel")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 OLD_SIGNATURES = {"dbx_flash_fwd": [_P] * 10 + [_I] * 6 + [_F, _P],
                   "dbx_flash_bwd": [_P] * 14 + [_I] * 6 + [_F, _P]}
@@ -151,8 +158,8 @@ def host_ms(fn, reps: int = 50) -> float:
     return (t1 - t0) / reps * 1e3
 
 
-def device_ms(fn, names, reps: int = 10, breakdown: bool = True) -> float:
-    """The named kernels' own device time per call, from the profiler."""
+def device_parts(fn, names, reps: int = 10) -> dict:
+    """Each named kernel's own device time per call, from the profiler."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -165,6 +172,12 @@ def device_ms(fn, names, reps: int = 10, breakdown: bool = True) -> float:
             if n in e.key:
                 t = getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
                 parts[n] = parts.get(n, 0.0) + t / reps / 1e3
+    return parts
+
+
+def device_ms(fn, names, reps: int = 10, breakdown: bool = True) -> float:
+    """The named kernels' own device time per call, from the profiler."""
+    parts = device_parts(fn, names, reps)
     if breakdown:
         print(f"  device ms per call by kernel: {parts}", flush=True)
     return sum(parts.values())
@@ -317,103 +330,155 @@ def sweep(args) -> dict:
                                               for lo in libs}}
 
 
-D256_VARIANTS = {  # (dkv warpgroups a block, dq rows): what the build does
-    (1, 64): "dK, dV in separate blocks of one warpgroup (112 dkv blocks); dq 64 rows on one "
-             "warpgroup, 2 stages (448 blocks) -- as flash_bwd.cu builds it",
-    (2, 64): "dK, dV in the two warpgroups of one block (56 dkv blocks); dq 64 rows, 2 stages",
-    (1, 128): "dK, dV in separate blocks; dq 128 rows on two warpgroups, 1 stage (224 blocks)",
-    (2, 128): "dK, dV in one block's two warpgroups; dq 128 rows, 1 stage",
-}
-D256_LAUNCH = "launch<256, 1, 2, 1, 1, 2>("  # flash_bwd.cu's head_dim-256 instance
-# dkv_kernel's split kv tile taken by the two warpgroups of one block, the
-# first dV, the second dK, where the source gives them to a pair of blocks:
-# (text of flash_bwd.cu, what replaces it)
-D256_EDITS = [
-    ('static_assert(SPLIT == 0 || (SPLIT == 1 && NWG == 1), "SPLIT 1 takes one warpgroup");', ""),
-    ("NR = SPLIT ? 2 : 1;", "NR = SPLIT && NWG == 1 ? 2 : 1;"),
-    ("need_v = !(SPLIT && role == 0);", "need_v = !(SPLIT && NWG == 1 && role == 0);"),
-    ("} else if (role == 1) {", "} else if ((NWG == 1 ? role : wg) == 1) {"),
-    ("NR = SPLIT ? 2 : 1, BQ", "NR = SPLIT && KV_NWG == 1 ? 2 : 1, BQ"),
-]
+class ParentK3:
+    """An earlier tree's library behind this tree's ``dbx_flash_bwd``
+    signature: the entry point before the head_dim-256 split took no
+    ``part`` (the 18th argument) and no ``splits`` (after D), both dropped."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def dbx_flash_bwd(self, *a):
+        return self.lib.dbx_flash_bwd(*a[:17], *a[18:24], *a[25:])
 
 
-def d256_sources(variant) -> str:
-    """A csrc directory that builds K3's head_dim-256 ``variant``: this
-    tree's own for the design it builds, else an edited copy."""
-    dkv, rows = variant
-    if variant == (1, 64):
-        return build.SRC_DIR
-    csrc = os.path.join(build.BUILD_DIR, f"d256_{dkv}_{rows}_src")
-    shutil.rmtree(csrc, ignore_errors=True)
-    shutil.copytree(build.SRC_DIR, csrc)
-    path = os.path.join(csrc, "flash_bwd.cu")
-    with open(path) as f:
-        src = f.read()
-    edits = D256_EDITS if dkv == 2 else []
-    q_nwg = rows // 64
-    edits = [*edits, (D256_LAUNCH, f"launch<256, {dkv}, 2, 1, {q_nwg}, {3 - q_nwg}>(")]
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"flash_bwd.cu no longer holds {old!r} once: update D256_EDITS")
-        src = src.replace(old, new)
-    with open(path, "w") as f:
-        f.write(src)
-    return csrc
+PARENT_BWD = {"dbx_flash_bwd": [_P] * 17 + [_I] * 6 + [_F] + [ctypes.c_longlong] * 3 + [_P]}
+# pi0's and pi0.5's training calls (the LIBERO recipes' micro-batch of 4):
+# label, text slots, valid text, suffix (pi0: the state token, then 50 actions)
+D256_SHAPES = [("pi0_train", 48, 22, 51), ("pi05_train", 200, 200, 10)]
 
 
-def d256_spills(name: str) -> dict:
-    """Spill bytes of each head_dim-256 K3 instance in a build's nvcc output."""
+def d256_inputs(B: int, text: int, n_valid: int, suffix: int, seed: int):
+    """A flow VLA's training call at head_dim 256, 8 query heads on 1 kv
+    head: 3 views x 256 image tokens and ``text`` slots (the first
+    ``n_valid`` valid), bidirectional, then the suffix (pi0: the state token
+    in group 1 and the actions in group 2; pi0.5: the actions in group 1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    prefix = 768 + text
+    S = prefix + suffix
+    q, dout = (torch.randn(B, S, 8, 256, generator=g, device="cuda").bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, S, 1, 256, generator=g, device="cuda").bfloat16() for _ in range(2))
+    valid = torch.ones(B, S, dtype=torch.int32, device="cuda")
+    valid[:, 768 + n_valid: prefix] = 0
+    grp = torch.zeros(B, S, dtype=torch.int32, device="cuda")
+    grp[:, prefix:] = 1
+    if suffix == 51:
+        grp[:, prefix + 1:] = 2
+    return q, k, v, dout, (grp.clone(), grp, valid)
+
+
+def build_spills(name: str, pattern: str) -> dict:
+    """Registers and spill bytes of each kernel whose mangled name matches
+    ``pattern`` in a build's nvcc output (``-Xptxas -v``)."""
     with open(os.path.join(build.BUILD_DIR, name, "build.log")) as f:
         log = f.read()
-    spills, entry = {}, None
+    out, entry = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(dkv_kernel|dq_kernel)I((?:Li\d+E)+)E", line)
+        m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            args = re.findall(r"Li(\d+)E", m.group(2))
-            entry = f"{m.group(1)}<{', '.join(args)}>" if args[0] == "256" else None
-        elif entry and "spill stores" in line:
-            spills[entry] = sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+            k = re.search(pattern, m.group(1))
             entry = None
-    return spills
+            if k:
+                args = re.findall(r"Li(\d+)E", m.group(1))
+                entry = k.group(1) + (f"<{', '.join(args)}>" if args else "")
+        elif entry and "spill stores" in line:
+            out[entry] = {"spill_bytes": sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))}
+        elif entry and "Used" in line and "registers" in line:
+            out[entry]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            entry = None
+    return out
+
+
+def sass_by_instance(so: str) -> dict:
+    """``cuobjdump -sass`` of a library, per K3 kernel at head dims 64 and
+    128 (keyed by name, D, warpgroups, stages), the instructions with their
+    addresses and encodings dropped."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool if os.path.exists(tool) else "cuobjdump", "-sass", so],
+                          capture_output=True, text=True, check=True).stdout
+    out, key = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : \S*?(dkv_kernel|dq_kernel)I((?:Li\d+E)+)E", line)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(2))[:3]
+            key = f"{m.group(1)}<{', '.join(args)}>" if args[0] in ("64", "128") else None
+            if key:
+                out[key] = []
+        elif "Function :" in line:
+            key = None
+        elif key:
+            ins = re.sub(r"/\*[0-9a-fx]+\*/", "", line).split(";")[0].strip()
+            if ins:
+                out[key].append(ins)
+    return out
 
 
 def d256(args) -> dict:
+    """K3 at head_dim 256: this tree's design against the parent's (built
+    from ``--baseline DIR``, its ``csrc``) at pi0's and pi0.5's training
+    calls, then this tree's dK/dV time at every split count."""
     from concurrent.futures import ThreadPoolExecutor
 
-    def make(variant):
-        name = "d256_{}_{}".format(*variant)
-        return variant, build_variant(d256_sources(variant), name)
-
-    with ThreadPoolExecutor(len(D256_VARIANTS)) as pool:  # one nvcc per source and build
-        libs = dict(pool.map(make, D256_VARIANTS))
-    q, k, v, dout, ints = pi0_train_inputs(4, 5)
-    out, lse = A.flash_attention_fwd(q, k, v, *ints)
+    if not args.baseline:
+        raise SystemExit("d256 needs --baseline DIR (the parent tree's dexbotic_tpu_torch/csrc)")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source and build
+        new, old = pool.map(lambda a: build_variant(*a), [
+            (build.SRC_DIR, "d256_new"), (args.baseline, "d256_parent", (), {
+                **{n: build._SIGNATURES[n] for n in ("dbx_flash_fwd", "dbx_flash_tile_classes")},
+                **PARENT_BWD})])
+    libs = {"parent": ParentK3(old), "new": new}
+    kernels = r"(dkv_kernel|dkv256_kernel|dkv_sum_kernel|dq_kernel|dq256_kernel)"
+    res = {"spills": {label: build_spills(f"d256_{label}", kernels) for label in libs}}
+    sass = {label: sass_by_instance(lib._name if label == "new" else lib.lib._name)
+            for label, lib in libs.items()}
+    res["d64_d128_sass_equal"] = {k: sass["new"].get(k) == v for k, v in sass["parent"].items()}
+    print("spills", json.dumps(res["spills"]), "sass equal", res["d64_d128_sass_equal"], flush=True)
     scale = 256 ** -0.5
-    with torch.no_grad():
-        ref = A.flash_attention_bwd_ref(q.float(), k.float(), v.float(), *ints, out.float(), lse,
-                                        dout.float())
-        plain = A.flash_attention_bwd_ref(q, k, v, *ints, out, lse, dout)
-        bounds = [2 * (p.float() - r).abs().max().item() + 1e-3 for p, r in zip(plain, ref)]
-    del plain
+    sms = A._sm_count(torch.cuda.current_device())
+    for label, text, n_valid, suffix in D256_SHAPES:
+        q, k, v, dout, ints = d256_inputs(4, text, n_valid, suffix, 5)
+        out, lse = A.flash_attention_fwd(q, k, v, *ints)
+        with torch.no_grad():
+            ref = A.flash_attention_bwd_ref(q.float(), k.float(), v.float(), *ints, out.float(),
+                                            lse, dout.float())
+            plain = A.flash_attention_bwd_ref(q, k, v, *ints, out, lse, dout)
+            bounds = [2 * (p.float() - r).abs().max().item() + 1e-3 for p, r in zip(plain, ref)]
+        del plain
 
-    def call(lib):
-        with mock.patch.object(build, "load", return_value=lib):  # this build's K3
-            return A._flash_bwd_cuda(q, k, v, *ints, out, lse, dout, scale, None, None)
+        def call(which, splits=None):
+            with mock.patch.object(build, "load", return_value=libs[which]):  # this build's K3
+                return A._flash_bwd_cuda(q, k, v, *ints, out, lse, dout, scale, None, None,
+                                         splits=1 if which == "parent" else splits)
 
-    res = {}
-    for variant, lib in libs.items():
-        got = call(lib)
-        ratios = [(a.float() - r).abs().max().item() / b for a, r, b in zip(got, ref, bounds)]
-        res[variant] = {"what": D256_VARIANTS[variant], "err_over_bound_dq_dk_dv": ratios,
-                        "spill_bytes": d256_spills("d256_{}_{}".format(*variant)),
-                        "deterministic": all(torch.equal(a, b) for a, b in zip(got, call(lib))),
-                        "device_ms": device_ms(lambda lib=lib: call(lib), K3_KERNELS), "ms": []}
-        print(variant, json.dumps(res[variant]), flush=True)
-    order = list(libs) + list(libs)[::-1]
-    for variant in order:
-        res[variant]["ms"].append(median_ms(lambda lib=libs[variant]: call(lib)))
-    return {"shape_B_S_Hq_Hkv_D": [4, 867, 8, 1, 256], "order": [list(v) for v in order],
-            "variants": {f"dkv={v[0]} dq_rows={v[1]}": r for v, r in res.items()}}
+        row = {"B_S_Hq_Hkv_D": [4, q.shape[1], 8, 1, 256],
+               "splits_rule": A.bwd_splits(4, q.shape[1], q.shape[1], 8, 1, sms)}
+        for which in libs:
+            got = call(which)
+            row[which] = {
+                "err_over_bound_dq_dk_dv": [(a.float() - r).abs().max().item() / b
+                                            for a, r, b in zip(got, ref, bounds)],
+                "deterministic": all(torch.equal(a, b) for a, b in zip(got, call(which))),
+                "ms": []}
+            parts = device_parts(lambda w=which: call(w), K3_KERNELS)
+            row[which]["device_ms"] = sum(parts.values())
+            row[which]["device_ms_by_kernel"] = parts  # pre, classes, dK/dV, the sum, dq
+        for which in ("parent", "new", "new", "parent"):
+            row[which]["ms"].append(median_ms(lambda w=which: call(w)))
+        parent = call("parent")  # (dq, dk, dv) bit for bit: at the rule's split count and at 1
+        row["equal_to_parent_dq_dk_dv"] = {
+            str(G): [torch.equal(a, b) for a, b in zip(call("new", G), parent)]
+            for G in (row["splits_rule"], 1)}
+        row["splits_device_ms"] = {  # this tree's dK/dV and its sum at each split count
+            G: device_ms(lambda G=G: call("new", G), ("dkv256_kernel", "dkv_sum_kernel"),
+                         breakdown=False) for G in range(1, A.BWD_MAX_SPLITS + 1)}
+        res[label] = row
+        print(label, json.dumps(row), flush=True)
+        del q, k, v, dout, out, lse, ref
+        torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:

@@ -44,7 +44,8 @@ from script.profile_pi0_torch import card_line, trace  # noqa: E402
 MICRO, ACCUM, SEQ, VALID = 8, 2, 2048, 1304  # the recipe's rows (phase 7's samples)
 # (label, substrings of the kernel names), first match wins
 KINDS = [("K1 flash_fwd", ("flash_fwd_kernel",)),
-         ("K3 flash_bwd", ("dkv_kernel", "dq_kernel", "pre_kernel")),
+         ("K3 flash_bwd", ("dkv_kernel", "dkv256_kernel", "dkv_sum_kernel", "dq_kernel",
+                           "dq256_kernel", "pre_kernel")),
          ("class map of K1/K3", ("tile_class_kernel",)),
          ("NCCL", ("nccl",)),
          ("FSDP2 copies (gather out, reduce-scatter in)", ("split_with_sizes", "chunk_cat",

@@ -38,7 +38,8 @@ from script.profile_pi0_torch import card_line, trace  # noqa: E402
 MICRO, ACCUM = 4, 4  # the recipe's per_device_batch_size and gradient_accumulation_steps
 # (label, substrings of the kernel names), first match wins
 KINDS = [("K1 flash_fwd", ("flash_fwd_kernel",)),
-         ("K3 flash_bwd", ("dkv_kernel", "dq_kernel", "pre_kernel")),
+         ("K3 flash_bwd", ("dkv_kernel", "dkv256_kernel", "dkv_sum_kernel", "dq_kernel",
+                           "dq256_kernel", "pre_kernel")),
          ("class map of K1/K3", ("tile_class_kernel",)),
          ("GEMMs", ("gemm", "xmma", "cutlass", "cublas", "Kernel2", "splitK")),
          ("elementwise and reductions", ("elementwise", "reduce", "Reduce", "softmax", "norm",

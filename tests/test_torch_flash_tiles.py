@@ -151,3 +151,38 @@ def test_fwd_rows_rule_head_dim_256(B, Sq, rows):
     """At head_dim 256 (pi0: 8 query heads) K1 takes 128-row blocks once its
     64-row blocks would need more than one wave of the H100's 132 SMs."""
     assert ta.fwd_rows(B, Sq, 8, 132, 256) == rows
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,splits", [
+    (4, 867, 867, 8, 1, 7),  # pi0's training call: 56 kv-tile lists of 112 items
+    (4, 978, 978, 8, 1, 2),  # pi0.5's: 64 lists of 128 items
+    (2, 867, 867, 8, 1, 4),
+    (1, 51, 867, 8, 1, 8),  # a suffix against a long prefix: one q tile a head
+    (8, 2048, 2048, 8, 1, 1),  # 256 lists: the card is full without splitting
+    (1, 64, 64, 1, 1, 1),  # one item
+])
+def test_bwd_splits_rule(B, Sq, Skv, Hq, Hkv, splits):
+    """K3's head_dim-256 dK/dV launch splits each kv tile's work list over
+    the blocks that make the fewest waves x (items a block + its fixed cost)
+    on the H100's 132 SMs."""
+    assert ta.bwd_splits(B, Sq, Skv, Hq, Hkv, 132) == splits
+
+
+def test_bwd_splits_rule_minimises_its_cost():
+    """Over a grid of shapes the rule's pick costs no more than any other
+    split count, is the smallest such count, and never exceeds the work
+    list's items or the kernel's bound."""
+    for B in (1, 2, 4, 8):
+        for S in (1, 63, 64, 65, 300, 867, 2048):
+            for Hq, Hkv in ((8, 1), (8, 2), (8, 8), (16, 8)):
+                items = -(-S // 64) * (Hq // Hkv)
+                lists = -(-S // 64) * Hkv * B
+
+                def cost(G):
+                    return -(-G * lists // 132) * (-(-items // G) + ta.BWD_BLOCK_ITEMS)
+
+                G = ta.bwd_splits(B, S, S, Hq, Hkv, 132)
+                assert 1 <= G <= min(items, ta.BWD_MAX_SPLITS)
+                others = range(1, min(items, ta.BWD_MAX_SPLITS) + 1)
+                assert cost(G) == min(cost(g) for g in others)
+                assert all(cost(g) > cost(G) for g in others if g < G)

@@ -23,6 +23,7 @@ import torch
 from dexbotic_tpu_torch.nn.core import cast_like_jax_
 from dexbotic_tpu_torch.models.dit import DiT, DiTConfig, init_dit_
 from dexbotic_tpu_torch.ops.attention import (
+    _flash_bwd_cuda,
     _flash_cuda,
     attention,
     attention_xla,
@@ -577,6 +578,49 @@ def test_flash_backward_d256_is_deterministic(cuda):
     g1 = flash_attention_bwd(q, k, v, *ints, out, lse, dout)
     g2 = flash_attention_bwd(q, k, v, *ints, out, lse, dout)
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+def _check_k3_splits(cuda, case, splits):
+    """K3 with a head_dim-256 kv tile's work list split over ``splits``
+    blocks (None: ``bwd_splits``'s count) against the plain version, a row
+    that sees no key given no gradient, and two calls bitwise equal."""
+    q, k, v, dout, ints, q_seg, kv_seg = case
+    out, lse = flash_attention_fwd(q, k, v, *ints, None, q_seg, kv_seg)
+    args = (q, k, v, *ints, out, lse, dout, q.shape[-1] ** -0.5, q_seg, kv_seg)
+    got = _flash_bwd_cuda(*args, splits=splits)
+    again = _flash_bwd_cuda(*args, splits=splits)
+    torch.cuda.synchronize()
+    ref = flash_attention_bwd_ref(q.float(), k.float(), v.float(), *ints, out.float(), lse,
+                                  dout.float(), None, q_seg, kv_seg)
+    plain = flash_attention_bwd_ref(q, k, v, *ints, out, lse, dout, None, q_seg, kv_seg)
+    for a, p, r in zip(got, plain, ref):
+        assert torch.isfinite(a).all()
+        assert (a.float() - r).abs().max().item() <= _bound(p, r)
+    if q_seg is not None and q.shape[1] > 3:
+        assert torch.all(got[0][0, 2] == 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("Hq,Hkv,Sq,Skv,splits", [
+    (8, 1, 129, 129, 1), (8, 1, 129, 129, 5),  # pi0's group of 8: 24 items a list, 5 shares
+    (8, 2, 65, 200, 3), (8, 2, 65, 200, None),  # a group of 4, Sq != Skv
+    (4, 2, 128, 192, 7), (4, 2, 63, 127, None),  # a group of 2 at tile edges: 4 items, 7 shares
+    (2, 2, 64, 64, 1), (2, 2, 64, 64, 16),  # a group of 1: one item, 15 empty shares
+])
+def test_flash_backward_d256_splits(cuda, Hq, Hkv, Sq, Skv, splits):
+    """K3 at head_dim 256 for every GQA group of pi0's 8 heads, each kv
+    tile's work list split over blocks that do and do not divide it;
+    segments and a row that sees no key."""
+    _check_k3_splits(cuda, _attn_case(cuda, 2, Sq, Skv, Hq, Hkv, 256, seed=Sq * Skv + Hkv,
+                                      segments=True), splits)
+
+
+@pytest.mark.parametrize("splits", [1, 5])
+def test_flash_backward_d256_at_pi0_training_shape_split(cuda, splits):
+    """pi0's training call with its kv tiles' work lists whole (dK and dV
+    written in bf16 by their blocks) and in 5 shares (fp32 partials added
+    by the second pass)."""
+    _check_k3_splits(cuda, _pi0_train_case(cuda, 4, 23), splits)
 
 
 def test_auto_dispatch_counts_plain_cuda_calls(cuda):

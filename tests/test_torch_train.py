@@ -9,8 +9,8 @@
   every parameter through utils/bridge.py's mapping; with gradient
   accumulation, with frozen groups (unchanged, no moments) and with weight
   decay; and in bf16 under JAX's rule on both sides (the stacked norm scales
-  within one bf16 spacing of JAX's, and at lr 2e-5 exactly where they
-  started).  The optimizer's schedules, group labels and freeze masks against
+  within two bf16 spacings of JAX's at every order of drawing them, and at
+  lr 2e-5 exactly where they started).  The optimizer's schedules, group labels and freeze masks against
   ``dexbotic_tpu.exp.optim``; the experiment layer's norm statistics and
   batches against ``dexbotic_tpu.exp.base_exp``.
 * The port's own contracts: a step's randomness depends on (seed, step) only,
@@ -26,9 +26,11 @@ the loss sees the model); tolerance 1e-3, the repo's parity pin (bf16: 2e-2).
 
 import dataclasses
 import io
+import itertools
 import json
 import os
 import random
+import shutil
 import urllib.request
 
 import jax
@@ -187,6 +189,28 @@ def _bf16_spacing(x: np.ndarray) -> np.ndarray:
     return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 1e-30))) - 7)
 
 
+def _draw_stacked_scales(params, scales, order) -> None:
+    """Draw the stacked norm scales around 1 (in ``params``, in place): the
+    JAX tree's leaves of ``scales`` in sorted path order, or permuted by
+    ``order``, one rng (seed 5) for all."""
+    paths = sorted({tuple(p) for n, _, p in port_arrays(params) if n in scales})
+    rng = np.random.default_rng(5)
+    for i in order or range(len(paths)):
+        leaf = params
+        for k in paths[i][:-1]:
+            leaf = leaf[k]
+        leaf[paths[i][-1]] = rng.normal(1.0, 0.2, leaf[paths[i][-1]].shape).astype(np.float32)
+
+
+# The stacked norm scales of a bf16 run against JAX's after three steps, in
+# bf16 spacings at JAX's value.  Each side rounds three updates; over the 24
+# orders of drawing the scales (SCALE_DRAW_ORDERS) they part by 2 spacings at
+# two elements, and there an fp64 run of the same three AdamW steps
+# (script/witness_bf16_scales.py) sits between them, 0.85-1.15 spacings from
+# each: neither side is the one off.
+BF16_SPACINGS = 2
+
+
 # max_grad_norm 1e-6 makes the clip visible through AdamW's eps (the update is
 # otherwise nearly invariant to the gradient's scale).  bf16 runs JAX's rule on
 # both sides (the stacked norm scales and biases train in bf16): "scales"
@@ -202,17 +226,29 @@ def _bf16_spacing(x: np.ndarray) -> np.ndarray:
     pytest.param(1, False, 1.0, 0.0, "lr2e-5", id="bf16-lr2e-5"),
 ])
 def test_trainer_three_steps_match_jax(tmp_path, accum, freeze, clip, wd, bf16):
+    _three_steps_match_jax(tmp_path, accum, freeze, clip, wd, bf16)
+
+
+# every order of drawing the four stacked norm scales; a set of their paths
+# gave (2, 1, 3, 0) under PYTHONHASHSEED 8 and 15, which put the port two
+# spacings from JAX
+SCALE_DRAW_ORDERS = list(itertools.permutations(range(4)))
+
+
+@pytest.mark.parametrize("order", SCALE_DRAW_ORDERS, ids=lambda o: "".join(map(str, o)))
+def test_trainer_bf16_scale_draws_match_jax(tmp_path, order):
+    """The bf16-scales case of the three-step comparison at each order of
+    drawing the stacked norm scales."""
+    _three_steps_match_jax(tmp_path, 2, False, 1.0, 0.1, "scales", order)
+
+
+def _three_steps_match_jax(tmp_path, accum, freeze, clip, wd, bf16, order=None):
     params = _jax_params()
     batches = [_batch(10 + i) for i in range(3)]
     lr = {None: 1e-3, "scales": 1e-2, "lr2e-5": 2e-5}[bf16]
     scales = _stacked_norm_scales(_port_model(params))
     if bf16 == "scales":
-        rng = np.random.default_rng(5)
-        for path in {tuple(p) for n, _, p in port_arrays(params) if n in scales}:
-            leaf = params
-            for k in path[:-1]:
-                leaf = leaf[k]
-            leaf[path[-1]] = rng.normal(1.0, 0.2, leaf[path[-1]].shape).astype(np.float32)
+        _draw_stacked_scales(params, scales, order)
     ocfg = dict(learning_rate=lr, freeze_llm=freeze, freeze_mm_vision=freeze, max_grad_norm=clip,
                 weight_decay=wd)
     tcfg = dict(max_steps=3, gradient_accumulation_steps=accum, logging_steps=1, save_steps=100,
@@ -232,6 +268,7 @@ def test_trainer_three_steps_match_jax(tmp_path, accum, freeze, clip, wd, bf16):
     for side in ("jax", "port"):
         with open(tmp_path / side / "metrics.jsonl") as f:
             logs[side] = [json.loads(line) for line in f]
+        shutil.rmtree(tmp_path / side / "checkpoint-3")  # ~100 MB a side, read by no check
     assert [r["step"] for r in logs["port"]] == [1, 2, 3]
     tol = TOL if bf16 is None else BF16_TOL
     for j, t in zip(logs["jax"], logs["port"]):
@@ -256,7 +293,7 @@ def test_trainer_three_steps_match_jax(tmp_path, accum, freeze, clip, wd, bf16):
         for name in scales:
             want = final[name].astype(np.float32)
             off = np.abs(got[name].detach().float().numpy() - want)
-            assert (off <= _bf16_spacing(want)).all(), (name, off.max())
+            assert (off <= BF16_SPACINGS * _bf16_spacing(want)).all(), (name, off.max())
             if bf16 == "lr2e-5":  # a step rounds away: the scales stay exactly 1.0
                 assert (want == 1.0).all() and (got[name] == 1.0).all(), name
             else:
